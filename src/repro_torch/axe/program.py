@@ -1,0 +1,383 @@
+"""``axe.program`` — the multi-granularity kernel DSL (paper §3.2,
+Fig. 8), ported to PyTorch and CUDA.
+
+A :class:`Program` is a named graph of scope-tagged stages
+(:mod:`repro_torch.axe.stages`): GRID stages launch one hand-written
+CUDA kernel through :meth:`StageContext.launch`, BLOCK stages are plain
+torch bodies on whole tensors. A kernel is written once as such a graph;
+which stage runs comes from the current execution scope and the
+program's dispatch table, as in the JAX package (``repro/axe/program.py``).
+
+The device rule takes the place of the JAX package's ``interpret`` flag:
+
+* a GRID stage given CPU tensors runs its plain torch body (that is how
+  the CPU tests compare the port against the JAX package);
+* a GRID stage given CUDA tensors launches its kernel, or raises —
+  nothing on the card falls back to the plain body, and a BLOCK (plain)
+  stage refuses CUDA tensors (:func:`require_host`).
+
+Schedules attach per stage under ``program_name/stage_name``. In this
+slice a stage resolves to an explicit pin (``schedule=`` / ``schedules=``
+/ ``blocks=`` / ``impl=``) or else to its declared default; the planner
+and autotuner come with the tune slice (``ROADMAP.md``). MESH
+``shard_map`` lowering and the fused ``Epilogue`` come with the
+multi-GPU and fusion slices.
+
+Minimal program::
+
+    from repro_torch.axe.program import program, require_host
+    from repro_torch.core.scopes import Scope
+
+    scale = program("scale_rows")
+
+    @scale.stage("rows", scope=Scope.GRID, entry=True, variants=("kernel",))
+    def _rows(ctx, x):
+        if not ctx.on_card(x):
+            return ctx.run("scale", x)
+        y = torch.empty_like(x)
+        ctx.launch("scale", "scale_rows", "ppip", x.data_ptr(), y.data_ptr(),
+                   x.numel(), stream_of(x))
+        return y
+
+    @scale.stage("scale", scope=Scope.BLOCK)
+    def _scale(ctx, x):
+        require_host(ctx.op, x)
+        return x * 2
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.axe.stages import Stage, StageError, normalize_blocks
+from repro_torch.core.scopes import Scope, current_scope, scope
+from repro_torch.tune import schedule as tsched
+
+ScheduleLike = Union[str, "tsched.Schedule"]
+
+
+class ProgramError(StageError):
+    pass
+
+
+class DeviceError(ValueError):
+    """Operands a stage cannot take on their device: a plain body handed
+    CUDA tensors, or operands split between the CPU and the card."""
+
+
+#: process-wide registry: program name → Program (latest definition wins,
+#: so module reloads in tests do not error)
+PROGRAMS: Dict[str, "Program"] = {}
+
+
+def get_program(name: str) -> "Program":
+    try:
+        return PROGRAMS[name]
+    except KeyError:
+        raise ProgramError(
+            f"no program named {name!r} (registered: {sorted(PROGRAMS)})"
+        ) from None
+
+
+def require_host(op: str, *tensors: torch.Tensor) -> None:
+    """Refuse CUDA tensors in a plain torch body: on the card every
+    program stage reaches its hand-written kernel or raises."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            raise DeviceError(
+                f"{op}: the plain torch body runs only on CPU tensors; CUDA "
+                f"tensors go through the stage's CUDA kernel (got {t.device})"
+            )
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
+    card — every kernel launches there and does not synchronise."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@dataclasses.dataclass(frozen=True)
+class _CallOptions:
+    """Per-invocation options threaded through the stage graph."""
+
+    schedules: Tuple[Tuple[str, ScheduleLike], ...] = ()  # stage name → override
+    # entry-stage-only overrides: (stage_name, schedule, blocks, impl)
+    entry: Optional[Tuple[str, Optional[Any], Optional[Dict[str, int]], Optional[str]]] = None
+
+    def schedule_override(self, stage_name: str):
+        return dict(self.schedules).get(stage_name)
+
+    def child(self) -> "_CallOptions":
+        """Options for stages invoked via ``ctx.run`` — entry overrides
+        do not cascade."""
+        return dataclasses.replace(self, entry=None)
+
+
+class StageContext:
+    """Handed to every stage body as its first argument: the resolved
+    schedule surface plus the helpers a stage lowers through."""
+
+    def __init__(self, program: "Program", stage: Stage, opts: _CallOptions):
+        self.program = program
+        self.stage = stage
+        self._opts = opts
+        self._schedule: Optional[tsched.Schedule] = None
+        self._resolved = False
+
+    # -- schedule surface ----------------------------------------------
+    @property
+    def op(self) -> str:
+        """This stage's schedule key, ``program_name/stage_name``."""
+        return self.program.stage_key(self.stage.name)
+
+    @property
+    def schedule(self) -> Optional[tsched.Schedule]:
+        """The stage's resolved :class:`~repro_torch.tune.schedule.Schedule`."""
+        if not self._resolved:
+            self._schedule = self.program._resolve_schedule(self.stage, self._opts)
+            self._resolved = True
+        return self._schedule
+
+    @property
+    def impl(self) -> Optional[str]:
+        s = self.schedule
+        return s.impl if s is not None else None
+
+    @property
+    def pinned(self) -> bool:
+        """True when this stage's schedule was explicitly supplied by
+        the caller (``schedule=`` / ``schedules=`` / ``blocks=`` /
+        ``impl=``) rather than taken from the stage's declared default.
+        A pinned schedule the kernel cannot run raises; an unpinned one
+        is always the kernel's own default."""
+        if self._opts.schedule_override(self.stage.name) is not None:
+            return True
+        e = self._opts.entry
+        return bool(
+            e and e[0] == self.stage.name
+            and (e[1] is not None or e[2] or e[3] is not None)
+        )
+
+    def block(self, name: str, default: Optional[int] = None) -> Optional[int]:
+        """Resolved block size for one tunable parameter (falls back to
+        the stage's declared default, then ``default``)."""
+        declared = self.stage.default_blocks().get(name, default)
+        s = self.schedule
+        return s.block(name, declared) if s is not None else declared
+
+    # -- composition ----------------------------------------------------
+    def run(self, stage_name: str, *args, **kw):
+        """Invoke another stage of this program (scope-validated; only
+        same-or-finer scopes are reachable)."""
+        return self.program._run(stage_name, args, kw, self._opts.child())
+
+    # -- the device rule and the launcher --------------------------------
+    def on_card(self, *tensors: torch.Tensor) -> bool:
+        """True when every operand is a CUDA tensor (launch the kernel),
+        False when every one is on the CPU (run the plain body); mixed
+        placements raise."""
+        cuda = {t.is_cuda for t in tensors if isinstance(t, torch.Tensor)}
+        if len(cuda) > 1:
+            raise DeviceError(
+                f"{self.op}: operands are split between the CPU and the card "
+                f"({[str(t.device) for t in tensors if isinstance(t, torch.Tensor)]})"
+            )
+        if cuda == {True}:
+            devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
+            if len(devices) > 1:
+                raise DeviceError(f"{self.op}: operands on several cards {devices}")
+            return True
+        return False
+
+    def launch(self, source: str, symbol: str, signature: str, *args) -> None:
+        """Call ``symbol`` of the kernel library built from
+        ``csrc/<source>.cu`` (built at first use, :mod:`repro_torch.kernels._build`).
+        ``signature`` gives one ctypes code per argument (``p`` pointer
+        or stream, ``i`` int32, ``l`` int64, ``f`` float). The C entry
+        returns ``cudaGetLastError()`` after its launch; a non-zero
+        code raises here, so a launch the card refused never passes
+        silently."""
+        from repro_torch.kernels import _build
+
+        fn = self.program._launcher(source, symbol, signature)
+        rc = fn(*args)
+        if rc != 0:
+            raise _build.KernelError(
+                f"{self.op}: {symbol} failed with CUDA error {rc} "
+                f"({_build.error_string(source, rc)})"
+            )
+
+
+class Program:
+    """A named, callable graph of scope-tagged stages.
+
+    Calling the program dispatches on ``current_scope()`` through the
+    program's dispatch table (finer scopes pick finer stages) and runs
+    the chosen stage; stages invoke other stages with ``ctx.run``.
+    """
+
+    def __init__(self, name: str, doc: Optional[str] = None):
+        self.name = name
+        self.doc = doc
+        self.stages: Dict[str, Stage] = {}
+        self._entry: Optional[str] = None
+        self._dispatch: Dict[Scope, str] = {}
+        self._launchers: Dict[Tuple[str, str], Callable] = {}
+        PROGRAMS[name] = self
+
+    # -- declaration ----------------------------------------------------
+    def stage(
+        self,
+        name: str,
+        *,
+        scope: Union[Scope, str],
+        blocks: Sequence[Tuple[str, int]] = (),
+        variants: Sequence[str] = (),
+        entry: bool = False,
+        dispatch: Sequence[Union[Scope, str]] = (),
+    ) -> Callable:
+        """Decorator registering one stage. ``entry=True`` marks the
+        default stage (else: first registered). ``dispatch`` lists the
+        execution scopes that select this stage when the *program* is
+        called. Tunable stages (blocks or variants) are registered with
+        the schedule registry under ``program_name/stage_name``. (The
+        JAX package's ``key=``/``flops=`` hooks feed its planner and
+        come with the tune slice.)"""
+        scope_ = Scope(scope) if isinstance(scope, str) else scope
+        blocks_ = normalize_blocks(blocks)
+        variants_ = tuple(variants)
+
+        def deco(fn: Callable) -> Callable:
+            st = Stage(name, scope_, fn, blocks_, variants_)
+            self.stages[name] = st
+            if entry or self._entry is None:
+                self._entry = name
+            for s in dispatch:
+                self._dispatch[Scope(s) if isinstance(s, str) else s] = name
+            if st.tunable:
+                tsched.register_stage_op(
+                    self.stage_key(name), variants_ or ("kernel",), blocks_
+                )
+            return fn
+
+        return deco
+
+    def stage_key(self, stage_name: str) -> str:
+        """The schedule key prefix for one stage."""
+        return f"{self.name}/{stage_name}"
+
+    @property
+    def entry_stage(self) -> str:
+        if self._entry is None:
+            raise ProgramError(f"program {self.name!r} has no stages")
+        return self._entry
+
+    def dispatch_stage(self, scope_: Optional[Scope] = None) -> str:
+        scope_ = scope_ or current_scope()
+        return self._dispatch.get(scope_, self.entry_stage)
+
+    # -- execution ------------------------------------------------------
+    def __call__(
+        self,
+        *args,
+        stage: Optional[str] = None,
+        schedule: Optional[ScheduleLike] = None,
+        schedules: Optional[Mapping[str, ScheduleLike]] = None,
+        blocks: Optional[Mapping[str, int]] = None,
+        impl: Optional[str] = None,
+        **kw,
+    ):
+        """Run the program on ``args``.
+
+        ``schedule`` pins the dispatched stage's schedule; ``schedules``
+        pins per stage by name; ``blocks`` overrides individual block
+        sizes (forcing the kernel variant); ``impl`` restricts the
+        dispatched stage to one variant.
+        """
+        name = stage or self.dispatch_stage()
+        opts = _CallOptions(
+            schedules=tuple((schedules or {}).items()),
+            entry=(name, schedule, dict(blocks) if blocks else None, impl),
+        )
+        return self._run(name, args, kw, opts)
+
+    def _run(self, name: str, args, kw, opts: _CallOptions):
+        st = self.stages.get(name)
+        if st is None:
+            raise ProgramError(
+                f"program {self.name!r} has no stage {name!r} "
+                f"(stages: {sorted(self.stages)})"
+            )
+        st.validate_entry(current_scope(), self.name)
+        ctx = StageContext(self, st, opts)
+        with scope(st.scope):
+            return st.body(ctx, *args, **kw)
+
+    # -- schedule resolution --------------------------------------------
+    def _resolve_schedule(self, st: Stage, opts: _CallOptions):
+        """An explicit pin, else the stage's declared default (the JAX
+        package's ``program.py:370-415`` with the tune layer's planner
+        and cache left to the tune slice)."""
+        if not st.tunable:
+            return None
+        op = self.stage_key(st.name)
+
+        def as_schedule(spec):
+            return tsched.Schedule.parse(spec, op=op) if isinstance(spec, str) else spec
+
+        override = opts.schedule_override(st.name)
+        sched, blocks, impl = None, None, None
+        if opts.entry is not None and opts.entry[0] == st.name:
+            _, sched, blocks, impl = opts.entry
+        if sched is not None:
+            return as_schedule(sched)
+        if override is not None:
+            return as_schedule(override)
+        default = tsched.default_schedule(op)
+        if blocks:
+            # explicit block sizes force the kernel variant; the rest of
+            # the blocks keep the stage's declared defaults
+            impl = impl or ("kernel" if "kernel" in st.variants or not st.variants
+                            else st.variants[0])
+            merged = st.default_blocks()
+            merged.update(blocks)
+            return tsched.Schedule(op, impl, tuple(merged.items()))
+        if impl is not None:
+            return tsched.Schedule(op, impl, default.blocks)
+        return default
+
+    # -- kernel launchers -------------------------------------------------
+    def _launcher(self, source: str, symbol: str, signature: str) -> Callable:
+        """Memoized ctypes entry for one kernel symbol (the port's twin
+        of the JAX package's per-stage ``jax.jit`` memo)."""
+        fn = self._launchers.get((source, symbol))
+        if fn is None:
+            from repro_torch.kernels import _build
+
+            fn = _build.function(source, symbol, signature)
+            self._launchers[(source, symbol)] = fn
+        return fn
+
+    # -- introspection ---------------------------------------------------
+    def describe(self) -> str:
+        lines = [f"program {self.name} (entry: {self.entry_stage})"]
+        order = sorted(self.stages.values(), key=lambda s: s.scope.rank)
+        for st in order:
+            extras = []
+            if st.blocks:
+                extras.append("blocks " + ",".join(f"{k}={v}" for k, v in st.blocks))
+            if st.variants:
+                extras.append("variants " + "|".join(st.variants))
+            suffix = f"  [{'; '.join(extras)}]" if extras else ""
+            lines.append(f"  {st.scope.value:>6}  {self.stage_key(st.name)}{suffix}")
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return f"Program({self.name!r}, stages={sorted(self.stages)})"
+
+
+def program(name: str, doc: Optional[str] = None) -> Program:
+    """Create (and register) a new empty :class:`Program`."""
+    return Program(name, doc)

@@ -1,0 +1,84 @@
+"""Move parameters and KV caches between the JAX package's pytrees (as
+numpy arrays) and the port's tensors, so both packages compute on the
+same weights. The port imports nothing of JAX: the caller turns a JAX
+pytree into numpy first (``jax.tree.map(np.asarray, tree)``).
+
+Parameters: the JAX dense LM keeps ``blocks/l{slot}`` stacked over
+super-blocks (layer ``i`` is super-block ``i // per``, slot ``i % per``),
+and so does the port. Only the attention projections change shape: the
+port's are 2-D with head-major columns — ``wq [d, H, hd] -> [d, H·hd]``,
+``wo [H, hd, d] -> [H·hd, d]`` — the products kernel B1 runs.
+Caches keep their layout, ``l{slot}/k`` ``[n_super, B, W, KV, hd]``.
+
+bf16 arrays from JAX are ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` rejects: they cross as their uint16 bits, which is
+exact.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_ATTN_2D = ("wq", "wk", "wv")
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy torch may own
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the JAX side's bf16 numpy type
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _attn_from_jax(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, a in p.items():
+        t = to_torch(a, device)
+        if name in _ATTN_2D:   # [n_super, d, N, hd] -> [n_super, d, N*hd]
+            t = t.reshape(*t.shape[:-2], -1)
+        elif name == "wo":     # [n_super, H, hd, d] -> [n_super, H*hd, d]
+            t = t.reshape(t.shape[0], -1, t.shape[-1])
+        out[name] = t
+    return out
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str, Any]:
+    """The JAX dense LM's params (numpy leaves) as the port's params."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"params_from_jax: family {cfg.family!r} is not ported")
+    blocks = {}
+    for slot, lp in np_params["blocks"].items():
+        blocks[slot] = {
+            name: (_attn_from_jax(sub, device) if name == "attn"
+                   else {k: to_torch(v, device) for k, v in sub.items()}
+                   if isinstance(sub, dict) else to_torch(sub, device))
+            for name, sub in lp.items()
+        }
+    out = {
+        "embed": to_torch(np_params["embed"], device),
+        "blocks": blocks,
+        "final_norm": to_torch(np_params["final_norm"], device),
+    }
+    if "lm_head" in np_params:
+        out["lm_head"] = to_torch(np_params["lm_head"], device)
+    return out
+
+
+def cache_from_jax(np_cache: Dict[str, Any], *, device="cpu") -> Dict[str, Any]:
+    """``{l{slot}: {k, v}}`` numpy caches as the port's tensors."""
+    return {slot: {k: to_torch(a, device) for k, a in c.items()} for slot, c in np_cache.items()}
+
+
+def cache_to_jax(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's caches as numpy arrays in the JAX package's layout."""
+    return {slot: {k: to_numpy(t) for k, t in c.items()} for slot, c in cache.items()}

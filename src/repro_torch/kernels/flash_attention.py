@@ -1,0 +1,234 @@
+"""Blocked online-softmax attention as an ``axe.program`` stage graph
+(kernels B3 and B4).
+
+* ``flash_attention/attend``      (GRID)  — full-sequence attention
+  ``softmax(Q Kᵀ · scale) V`` on ``[B, H, S, D]`` with causal and
+  sliding-window masks from positions (queries right-aligned against the
+  keys). On CUDA tensors, one launch of ``flash_attend`` in
+  ``csrc/flash_attention.cu`` (kernel B3); on CPU tensors, the plain
+  body. ``k``/``v`` may carry fewer (GQA) heads than ``q``: the kernel
+  reads kv head ``h // (H // KV)`` by index instead of materialising
+  the repeat. Every operand is taken through its strides (unit stride on
+  D), so the model passes ``[B, S, H, D]`` projections as transposed
+  views, and the output is returned as a ``[B, H, S, D]`` view of
+  ``[B, S, H, D]`` memory — ready for the output projection with no copy.
+  Schedule key ``flash_attention/attend`` (blocks bq/bkv); the CUDA
+  kernel is built for bq = bkv = 32 and refuses any other pin.
+* ``flash_attention/decode``      (GRID)  — grouped single-token queries
+  ``q [B, KV, G, D]`` over the cache ``k/v [B, KV, W, D]`` at per-slot
+  positions ``pos [B]``: ``flash_decode`` (kernel B4). The cache is read
+  through strides, so a ``[B, W, KV, D]`` cache is passed as its
+  ``transpose(1, 2)`` view, never copied head-major. Untunable, as in
+  the JAX package.
+* ``flash_attention/softmax_mac`` and ``flash_attention/decode_mac``
+  (BLOCK) — the plain torch bodies, :func:`attention_plain` and
+  :func:`decode_plain`, run only on CPU tensors.
+
+Replaces ``repro/kernels/flash_attention.py:_attend`` (TPU launch at
+:148, body ``_softmax_mac`` at :49) and ``_decode`` (launch at :268,
+body ``_decode_mac`` at :174). The kernels' source says what bounds each
+on the H100 and how the design meets it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.core.scopes import Scope
+from repro_torch.kernels._build import DTYPE_CODES
+from repro_torch.kernels.ref import attention_ref
+
+#: launches of the CUDA kernels since the last reset (kernels.programs)
+attend_launches = 0
+decode_launches = 0
+
+#: head dims the CUDA kernels are built for
+HEAD_DIMS = (64, 128, 256)
+#: the blocks ``flash_attend`` is compiled for: 32 query rows (four warps
+#: of eight) over 32-key tiles (one key per lane)
+ATTEND_BLOCKS = {"bq": 32, "bkv": 32}
+#: grouped query rows per kv head the decode kernel takes
+DECODE_MAX_G = 16
+#: ctypes argument codes of the C entries in csrc/flash_attention.cu
+SIGNATURES = {
+    "flash_attend": "ppppiiiiii" + "l" * 12 + "iifip",
+    "flash_decode": "pppppiiiii" + "l" * 12 + "ifip",
+}
+
+flash_attention_program = program(
+    "flash_attention",
+    doc="softmax(Q Kᵀ / √d) V with online softmax, causal/window masking",
+)
+
+
+def attention_plain(q, k, v, *, causal: bool = False, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """The plain torch version of kernel B3."""
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_plain(q, k, v, pos, *, ring: bool = False,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """The plain torch version of kernel B4: ``q [B, KV, G, D]`` over
+    ``k/v [B, KV, W, D]``; slot ``w`` of row ``b`` is live iff
+    ``w <= pos[b]``, or always once a ring cache has wrapped."""
+    d, w = q.shape[-1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logits = torch.einsum("bkgd,bkwd->bkgw", q.float(), k.float()) * scale
+    pos = pos.to(torch.int64)
+    valid = torch.arange(w, device=q.device)[None, :] <= pos[:, None]
+    if ring:
+        valid = valid | (pos + 1 >= w)[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    return torch.einsum("bkgw,bkwd->bkgd", p, v.float()).to(q.dtype)
+
+
+@flash_attention_program.stage("softmax_mac", scope=Scope.BLOCK)
+def _softmax_mac(ctx, q, k, v, *, causal=False, window=None, scale=None):
+    require_host(ctx.op, q, k, v)
+    return attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+
+
+@flash_attention_program.stage("decode_mac", scope=Scope.BLOCK)
+def _decode_mac(ctx, q, k, v, pos, *, ring=False, scale=None):
+    require_host(ctx.op, q, k, v, pos)
+    return decode_plain(q, k, v, pos, ring=ring, scale=scale)
+
+
+def _check_common(op: str, q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise DeviceError(f"{op}: q, k and v must be 4-D")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
+        raise DeviceError(f"{op}: q, k, v must share f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    d = q.shape[-1]
+    if d not in HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
+        raise DeviceError(f"{op}: head dim must be one of {HEAD_DIMS} on all of q, k, v")
+    if k.shape != v.shape or k.shape[0] != q.shape[0]:
+        raise DeviceError(f"{op}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise DeviceError(f"{op}: q, k, v need a unit stride on the head dim")
+
+
+def check_attend(q, k, v, window, blocks) -> None:
+    """Raise on anything kernel B3 does not take."""
+    _check_common("flash_attention/attend", q, k, v)
+    if q.shape[1] % k.shape[1]:
+        raise DeviceError(f"flash_attention/attend: {q.shape[1]} query heads over {k.shape[1]} kv heads")
+    if window is not None and window < 1:
+        raise DeviceError(f"flash_attention/attend: window={window} must be >= 1")
+    if blocks != ATTEND_BLOCKS:
+        raise DeviceError(
+            f"flash_attention/attend: the CUDA kernel is built for {ATTEND_BLOCKS}, "
+            f"pinned {blocks}"
+        )
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise DeviceError("flash_attention/attend: empty sequence")
+
+
+@flash_attention_program.stage(
+    "attend", scope=Scope.GRID, entry=True,
+    blocks=tuple(ATTEND_BLOCKS.items()),
+    variants=("kernel",),
+)
+def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
+            scale: Optional[float] = None):
+    global attend_launches
+    if not ctx.on_card(q, k, v):
+        return ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale)
+    check_attend(q, k, v, window, {name: ctx.block(name) for name in ATTEND_BLOCKS})
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    ctx.launch(
+        "flash_attention", "flash_attend", SIGNATURES["flash_attend"],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kvh, sq, skv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(causal), window if window is not None else -1, float(scale),
+        DTYPE_CODES[q.dtype], stream_of(q),
+    )
+    attend_launches += 1
+    return o
+
+
+def check_decode(q, k, v, pos) -> None:
+    """Raise on anything kernel B4 does not take."""
+    _check_common("flash_attention/decode", q, k, v)
+    b, kvh, g, _ = q.shape
+    if k.shape[1] != kvh:
+        raise DeviceError(f"flash_attention/decode: q has {kvh} kv heads, the cache {k.shape[1]}")
+    if g > DECODE_MAX_G:
+        raise DeviceError(f"flash_attention/decode: {g} grouped rows > {DECODE_MAX_G}")
+    if pos.shape != (b,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise DeviceError(f"flash_attention/decode: pos must be [{b}] int32, got {tuple(pos.shape)} {pos.dtype}")
+
+
+@flash_attention_program.stage("decode", scope=Scope.GRID)
+def _decode(ctx, q, k, v, pos, *, ring: bool = False, scale: Optional[float] = None):
+    """Flash decode: grouped single-token queries ``q [B, KV, G, d]``
+    attend over the cache ``k/v [B, KV, W, d]`` at per-slot positions
+    ``pos [B]``."""
+    global decode_launches
+    if not ctx.on_card(q, k, v, pos):
+        return ctx.run("decode_mac", q, k, v, pos, ring=ring, scale=scale)
+    check_decode(q, k, v, pos)
+    b, kvh, g, d = q.shape
+    w = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    o = torch.empty((b, kvh, g, d), dtype=q.dtype, device=q.device)
+    ctx.launch(
+        "flash_attention", "flash_decode", SIGNATURES["flash_decode"],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), o.data_ptr(),
+        b, kvh, g, w, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(ring), float(scale), DTYPE_CODES[q.dtype], stream_of(q),
+    )
+    decode_launches += 1
+    return o
+
+
+def flash_decode(
+    q: torch.Tensor,    # [B, KV, G, D] grouped single-token queries
+    k: torch.Tensor,    # [B, KV, W, D] cache (any strides, unit on D)
+    v: torch.Tensor,    # [B, KV, W, D]
+    pos: torch.Tensor,  # [B] int32 per-slot positions
+    *,
+    ring: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Raw launcher for the ``flash_attention/decode`` stage."""
+    return flash_attention_program(q, k, v, pos, stage="decode", ring=ring, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# trainable flash attention: kernel forward + recompute backward
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return flash_attention_program(q, k, v, causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.opts
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_ref(*leaves, causal=causal, window=window, scale=scale)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None)
+
+
+def flash_attention_trainable(q, k, v, causal: bool = False, window=None, scale=None):
+    """Differentiable flash attention: the ``flash_attention`` program
+    runs the forward; the backward recomputes attention through the
+    oracle (as ``repro/kernels/flash_attention.py:357-360`` does), so
+    only q/k/v are saved and no backward kernel is owed."""
+    return _FlashAttentionTrainable.apply(q, k, v, causal, window, scale)

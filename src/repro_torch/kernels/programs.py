@@ -1,0 +1,60 @@
+"""The port's kernel entry points, as ``axe.program`` stage graphs —
+the canonical import surface, as ``repro/kernels/programs.py`` is for
+the JAX package::
+
+    from repro_torch.kernels import programs
+
+    y = programs.matmul(a, b)                       # scope-dispatched
+    y = programs.flash_attention(q, k, v, causal=True)
+    y = programs.rmsnorm(x, w, eps=1e-6)
+    o = programs.flash_decode(q, k_cache, v_cache, pos, ring=False)
+
+On CUDA tensors each program launches its hand-written Hopper kernel
+(``repro_torch/csrc``) or raises; on CPU tensors it runs the kernel's
+plain torch version. :func:`launch_counts` reads, and
+:func:`reset_launch_counts` zeroes, the per-kernel launch counters the
+wrappers keep, so a run can show which kernels it went through.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels.flash_attention import (
+    flash_attention_program as flash_attention,
+)
+from repro_torch.kernels.flash_attention import flash_decode as flash_decode
+from repro_torch.kernels.matmul import matmul_program as matmul
+from repro_torch.kernels.rmsnorm import rmsnorm_program as rmsnorm
+
+ALL_PROGRAMS = (matmul, flash_attention, rmsnorm)
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA launches per kernel (``program/stage``) since the last reset."""
+    return {
+        "matmul/tile": _mm.launches,
+        "rmsnorm/rows": _rn.launches,
+        "flash_attention/attend": _fa.attend_launches,
+        "flash_attention/decode": _fa.decode_launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    _mm.launches = 0
+    _rn.launches = 0
+    _fa.attend_launches = 0
+    _fa.decode_launches = 0
+
+
+__all__ = [
+    "ALL_PROGRAMS",
+    "flash_attention",
+    "flash_decode",
+    "launch_counts",
+    "matmul",
+    "reset_launch_counts",
+    "rmsnorm",
+]

@@ -1,0 +1,94 @@
+"""Shared model building blocks (plain functions on tensors; params are
+nested dicts of tensors), the twins of ``repro/models/common.py``.
+
+Norms dispatch to ``programs.rmsnorm`` (kernel B2) and every matmul to
+``programs.matmul`` (kernel B1); the elementwise glue between them —
+rope, silu/gelu, residual adds — is plain torch, as it is plain XLA in
+the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import programs
+
+Params = Dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def tree_to(tree: Params, device) -> Params:
+    """A nested dict of tensors moved to ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def dense_init(gen: torch.Generator, shape, in_dim: int, dtype) -> torch.Tensor:
+    """N(0, 1/in_dim) weights drawn in f32 on the generator's device."""
+    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (w * in_dim ** -0.5).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+    return dense_init(gen, (vocab, d), d, dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return programs.rmsnorm(x, w, eps=eps)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` as one 2-D product through kernel B1."""
+    lead = x.shape[:-1]
+    return programs.matmul(x.reshape(-1, x.shape[-1]), w).view(*lead, w.shape[-1])
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding on split halves (not interleaved pairs), angles
+    in f32. x: [B, S, H, D]; positions: [B, S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freqs  # [B, S, half]
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh form
+    return linear(F.gelu(linear(x, p["wi"]), approximate="tanh"), p["wo"])
+
+
+def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return linear(F.silu(linear(x, p["wg"])) * linear(x, p["wu"]), p["wo"])
+
+
+def mlp_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+    """MLP weights; ``lead`` prepends stacking dims (super-blocks)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {
+            "wg": dense_init(gen, (*lead, d, ff), d, dtype),
+            "wu": dense_init(gen, (*lead, d, ff), d, dtype),
+            "wo": dense_init(gen, (*lead, ff, d), ff, dtype),
+        }
+    return {
+        "wi": dense_init(gen, (*lead, d, ff), d, dtype),
+        "wo": dense_init(gen, (*lead, ff, d), ff, dtype),
+    }
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        return swiglu_apply(p, x)
+    return gelu_mlp_apply(p, x)

@@ -1,0 +1,171 @@
+"""Decoder-only LM assembly for the dense family — the serving half of
+``repro/models/transformer.py``.
+
+Parameters keep the JAX package's super-block structure: a leaf under
+``blocks/l{slot}`` is stacked over super-blocks on its first axis, and
+layer ``i`` is super-block ``i // per``, slot ``i % per`` (gemma3:
+5 local + 1 global layers per super-block, the local ones with ring
+caches). The JAX package's ``lax.scan`` over stacked params becomes a
+Python loop over super-blocks. Prefill and decode run under
+``Scope.DEVICE``, so every matmul dispatches to the ``matmul/tile``
+GRID stage — the binding the JAX package's compiled graph makes
+(``axe/compile.py:165-186``). The MoE, SSM, hybrid, enc-dec and VLM
+families raise ``NotImplementedError`` until their slices land
+(``ROADMAP.md``, queue A12-A13).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.scopes import Scope, scope
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (
+    Params,
+    dense_init,
+    dtype_of,
+    embed_init,
+    linear,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+)
+
+
+def check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
+            f"serves the dense family (ROADMAP.md, queue A12-A13)"
+        )
+
+
+def _superblock_shape(cfg) -> Tuple[int, int]:
+    """(n_super, layers_per_super)."""
+    per = cfg.local_global_ratio + 1 if cfg.local_global_ratio else 1
+    if cfg.num_layers % per:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers not a multiple of {per}")
+    return cfg.num_layers // per, per
+
+
+def _layer_window(cfg, i: int, per: int) -> Optional[int]:
+    if cfg.local_global_ratio:
+        return cfg.sliding_window if i < cfg.local_global_ratio else None
+    return cfg.sliding_window
+
+
+def _index(tree: Params, i: int) -> Params:
+    """One super-block's slice of a stacked param or cache tree (views)."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> Params:
+    """Random weights from a seeded ``torch.Generator`` on ``device``,
+    each drawn directly in its stacked ``[n_super, ...]`` shape."""
+    check_family(cfg)
+    dtype = dtype_of(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_super, per = _superblock_shape(cfg)
+    lead = (n_super,)
+    d = cfg.d_model
+    blocks = {}
+    for i in range(per):
+        blocks[f"l{i}"] = {
+            "norm1": torch.ones((n_super, d), dtype=dtype, device=gen.device),
+            "attn": attn.attn_init(gen, cfg, dtype, lead),
+            "norm2": torch.ones((n_super, d), dtype=dtype, device=gen.device),
+            "mlp": mlp_init(gen, cfg, dtype, lead),
+        }
+    p: Params = {
+        "embed": embed_init(gen, cfg.vocab_size, d, dtype),
+        "blocks": blocks,
+        "final_norm": torch.ones((d,), dtype=dtype, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dtype)
+    return p
+
+
+def _head(params: Params, cfg) -> torch.Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]), cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def cache_init(cfg, batch: int, max_seq: int, *,
+               device: Union[str, torch.device] = "cpu") -> Params:
+    """Per-slot caches stacked over super-blocks, as the JAX package's
+    ``cache_init`` lays them out: ``l{i}/k`` is ``[n_super, B, W, KV, hd]``."""
+    check_family(cfg)
+    n_super, per = _superblock_shape(cfg)
+    return {
+        f"l{i}": attn.cache_init(cfg, batch, max_seq, dtype_of(cfg), device,
+                                 window=_layer_window(cfg, i, per), lead=(n_super,))
+        for i in range(per)
+    }
+
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
+            cfg) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt, fill the caches (in place), return the last
+    position's logits ``[B, 1, V]``."""
+    check_family(cfg)
+    x = params["embed"][batch["tokens"]]
+    n_super, per = _superblock_shape(cfg)
+    with scope(Scope.DEVICE):
+        for sb in range(n_super):
+            sp, sc = _index(params["blocks"], sb), _index(cache, sb)
+            for i in range(per):
+                p = sp[f"l{i}"]
+                y, _ = attn.attn_prefill(p["attn"], rmsnorm(x, p["norm1"]), cfg, sc[f"l{i}"],
+                                         window=_layer_window(cfg, i, per))
+                x = _ffn(p, x + y, cfg)
+        x = rmsnorm(x[:, -1:].contiguous(), params["final_norm"])
+        return linear(x, _head(params, cfg)), cache
+
+
+def slot_positions(pos: Union[int, torch.Tensor], batch: int, device) -> torch.Tensor:
+    """``pos`` as ``[B]`` int32 per-slot positions on ``device`` (a
+    scalar applies to every slot)."""
+    pos = torch.as_tensor(pos, device=device)
+    if pos.ndim == 0:
+        pos = pos.expand(batch)
+    if pos.shape != (batch,):
+        raise ValueError(f"pos must be a scalar or [{batch}], got {tuple(pos.shape)}")
+    return pos.to(torch.int32).contiguous()
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
+                pos: Union[int, torch.Tensor], cfg) -> Tuple[torch.Tensor, Params]:
+    """One new token for the whole batch: ``tokens [B, 1]`` at per-slot
+    positions ``pos`` (a scalar, or ``[B]`` — slots may sit at different
+    depths). Returns logits ``[B, 1, V]`` and the cache (updated in
+    place)."""
+    check_family(cfg)
+    b = tokens.shape[0]
+    pos = slot_positions(pos, b, tokens.device)
+    x = params["embed"][tokens]
+    n_super, per = _superblock_shape(cfg)
+    with scope(Scope.DEVICE):
+        for sb in range(n_super):
+            sp, sc = _index(params["blocks"], sb), _index(cache, sb)
+            for i in range(per):
+                p = sp[f"l{i}"]
+                y, _ = attn.attn_decode(p["attn"], rmsnorm(x, p["norm1"]), cfg, sc[f"l{i}"],
+                                        pos, window=_layer_window(cfg, i, per))
+                x = _ffn(p, x + y, cfg)
+        x = rmsnorm(x, params["final_norm"])
+        return linear(x, _head(params, cfg)), cache

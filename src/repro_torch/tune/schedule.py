@@ -1,0 +1,115 @@
+"""Schedule objects: the unit of choice a stage is executed under.
+
+A *schedule* names one concrete way to execute an operator dispatch
+(paper §3.2): which implementation to use (the hand-written CUDA kernel
+or the plain torch body) and the block sizes that parameterize it.
+Schedules are immutable, hashable, and have a compact string form (``"kernel:bm=128,bn=128,bk=32"``).
+
+This slice ports the schedule objects and the stage registry only; the
+planner, the schedule cache and the autotuner come with the tune slice
+(``ROADMAP.md``, queue A11), so a stage resolves to an explicit pin or
+to its declared default.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+#: ``program_name/stage_name`` → allowed impls, populated by
+#: ``repro_torch.axe.program`` when a tunable stage is registered.
+STAGE_IMPLS: Dict[str, Tuple[str, ...]] = {}
+
+#: ``program_name/stage_name`` → the stage's declared default schedule
+#: (first variant + declared block defaults) — what an unpinned stage
+#: runs under in this slice.
+STAGE_DEFAULTS: Dict[str, "Schedule"] = {}
+
+
+def allowed_impls(op: str) -> Optional[Tuple[str, ...]]:
+    """Valid impls for a ``program/stage`` key; None when the op is
+    unknown (validation is skipped for unknown ops)."""
+    return STAGE_IMPLS.get(op)
+
+
+def register_stage_op(
+    op: str,
+    impls: Sequence[str],
+    default_blocks: Sequence[Tuple[str, int]] = (),
+) -> None:
+    """Register a tunable ``program/stage`` schedule key: its impl
+    variants and its default schedule. Called by ``repro_torch.axe.program``
+    at stage-declaration time; idempotent."""
+    impls = tuple(impls)
+    if not impls:
+        raise ValueError(f"stage op {op!r} registered with no impls")
+    STAGE_IMPLS[op] = impls
+    STAGE_DEFAULTS[op] = Schedule(op, impls[0], tuple(default_blocks))
+
+
+def default_schedule(op: str) -> Optional["Schedule"]:
+    """The declared default for ``op``; None for unregistered ops."""
+    return STAGE_DEFAULTS.get(op)
+
+
+class InvalidImplError(ValueError):
+    """The named impl exists but is not valid for this op — e.g. an
+    ``"xla"`` spec reaching a flash_attention dispatch. Distinct from a
+    malformed spec."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """One executable schedule for an operator.
+
+    ``blocks`` is a sorted tuple of (name, size) pairs — e.g.
+    (("bk", 512), ("bm", 256), ("bn", 256)) for a tiled GEMM.
+    """
+
+    op: str
+    impl: str
+    blocks: Tuple[Tuple[str, int], ...] = ()
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "blocks", tuple(sorted(self.blocks)))
+        allowed = allowed_impls(self.op)
+        if allowed is not None and self.impl not in allowed:
+            raise InvalidImplError(
+                f"impl {self.impl!r} invalid for op {self.op!r} (allowed {allowed})")
+
+    @property
+    def blocks_dict(self) -> Dict[str, int]:
+        return dict(self.blocks)
+
+    def block(self, name: str, default: Optional[int] = None) -> Optional[int]:
+        return self.blocks_dict.get(name, default)
+
+    # -- string form: "kernel:bm=256,bn=256,bk=512" / "xla" -------------
+    def describe(self) -> str:
+        if not self.blocks:
+            return self.impl
+        kv = ",".join(f"{k}={v}" for k, v in self.blocks)
+        return f"{self.impl}:{kv}"
+
+    @staticmethod
+    def parse(spec: str, *, op: str) -> "Schedule":
+        """Inverse of ``describe`` (the force-schedule syntax)."""
+        try:
+            spec = spec.strip()
+            if ":" not in spec:
+                return Schedule(op, spec)
+            impl, _, kv = spec.partition(":")
+            blocks = []
+            for part in kv.split(","):
+                if not part:
+                    continue
+                name, _, val = part.partition("=")
+                blocks.append((name.strip(), int(val)))
+            return Schedule(op, impl.strip(), tuple(blocks))
+        except InvalidImplError:
+            raise
+        except ValueError as e:
+            raise ValueError(
+                f"bad schedule spec {spec!r} for op {op!r} "
+                f"(expected 'impl' or 'impl:name=int,...', e.g. "
+                f"'kernel:bm=128,bn=128,bk=256'): {e}"
+            ) from e

@@ -1,0 +1,132 @@
+"""Card-only tests of the port (marked ``gpu``; run them on a machine
+with an NVIDIA card as ``pytest -m gpu tests/test_torch_gpu.py``): each
+hand-written CUDA kernel against its plain torch version on the same
+CUDA tensors, at main-path and ragged shapes, and the serving path on
+the card against the same model on the CPU. Without a card every test
+skips. This file imports no JAX, which the card's machine does not have.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import cuda, tol  # noqa: F401
+from repro_torch.axe.program import DeviceError
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import programs
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.models.common import tree_to
+from repro_torch.models.model_zoo import build_model
+from repro_torch.serve.engine import ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _randn(dev, shape, dtype, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.allclose(got.float(), want.float(), **tol(dtype)), f"max |diff| {err}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 1024), (8, 96, 136), (6, 100, 40), (37, 83, 45),
+                                   (256, 512, 384), (128, 520, 264), (512, 2560, 4096)])
+def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n):
+    a, b = _randn(cuda, (m, k), dtype, 1), _randn(cuda, (k, n), dtype, 2, k ** -0.5)
+    before = mm.launches
+    got = programs.matmul(a, b)
+    assert mm.launches == before + 1
+    _close(got, mm.matmul_plain(a, b), dtype)
+
+
+def test_matmul_kernel_takes_leading_strides(cuda):
+    big = _randn(cuda, (64, 300), torch.bfloat16, 3)
+    a, b = big[:, 8:264], _randn(cuda, (256, 128), torch.bfloat16, 4, 1 / 16)
+    _close(programs.matmul(a, b), mm.matmul_plain(a, b), torch.bfloat16)
+    _close(programs.matmul(a[:4], b), mm.matmul_plain(a[:4], b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(512, 2560), (4096, 128), (3, 100), (2, 5, 64)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
+    x, w = _randn(cuda, shape, dtype, 5), 1 + _randn(cuda, shape[-1:], dtype, 6, 0.1)
+    _close(programs.rmsnorm(x, w), rn.rmsnorm_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,h,kvh,sq,skv,d",
+                         [(True, None, 8, 2, 128, 128, 128), (False, None, 2, 2, 50, 70, 64),
+                          (True, 40, 4, 4, 100, 100, 64), (True, None, 2, 1, 33, 97, 256),
+                          (False, 16, 4, 2, 64, 64, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, window, h, kvh, sq, skv, d):
+    q = _randn(cuda, (2, sq, h, d), dtype, 7).transpose(1, 2)  # strided, as the model passes it
+    k, v = _randn(cuda, (2, kvh, skv, d), dtype, 8), _randn(cuda, (2, kvh, skv, d), dtype, 9)
+    _close(programs.flash_attention(q, k, v, causal=causal, window=window),
+           fa.attention_plain(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ring,g,w,d,pos", [(False, 4, 256, 128, (128, 3, 255, 0)),
+                                            (True, 2, 48, 64, (100, 7, 47, 48)),
+                                            (False, 9, 64, 128, (10, 20, 30, 63)),
+                                            (False, 8, 100, 64, (99, 0, 31, 64)),
+                                            (True, 16, 64, 256, (70, 5, 63, 64))])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, ring, g, w, d, pos):
+    b, kvh = 4, 2
+    q = _randn(cuda, (b, kvh, g, d), dtype, 10)
+    kc, vc = _randn(cuda, (b, w, kvh, d), dtype, 11), _randn(cuda, (b, w, kvh, d), dtype, 12)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    args = (q, kc.transpose(1, 2), vc.transpose(1, 2), p)
+    _close(programs.flash_decode(*args, ring=ring), fa.decode_plain(*args, ring=ring), dtype)
+
+
+def test_plain_bodies_and_split_operands_raise_on_the_card(cuda):
+    a = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(DeviceError, match="CPU tensors"):
+        programs.matmul(a, a, impl="xla")
+    with pytest.raises(DeviceError, match="split"):
+        programs.matmul(a, a.cpu())
+    with pytest.raises(DeviceError, match="built for"):
+        programs.matmul(a, a, blocks={"bm": 128})
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    for pin in ({"bq": 64}, {"bkv": 16}):
+        with pytest.raises(DeviceError, match="built for"):
+            programs.flash_attention(q, q, q, blocks=pin)
+    with pytest.raises(DeviceError, match="built for"):
+        programs.rmsnorm(a, a[0], blocks={"brows": 16})
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-12b", "starcoder2-7b"])
+def test_generate_on_card_matches_cpu_and_launches_every_kernel(cuda, arch):
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
+    cpu_api = build_model(cfg, device="cpu")
+    params = cpu_api.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    ref = ServeEngine(cpu_api, batch_size=2, max_seq=32, device="cpu")
+    ref.load(params)
+    want = ref.generate(prompts, 6)
+    eng = ServeEngine(build_model(cfg, device=cuda), batch_size=2, max_seq=32, device=cuda)
+    eng.load(tree_to(params, cuda))
+    programs.reset_launch_counts()
+    got = eng.generate(prompts, 6)
+    np.testing.assert_array_equal(got, want)
+    assert all(n > 0 for n in programs.launch_counts().values()), programs.launch_counts()
+
+
+def test_launch_serve_cli_runs_on_the_card(cuda, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "qwen3-4b", "--smoke", "--batch", "2", "--prompt-len", "8",
+                "--new-tokens", "3", "--max-seq", "16"])
+    out = capsys.readouterr().out
+    assert "2x3 tokens" in out and "on cuda" in out and "'matmul/tile': 0" not in out

@@ -1,0 +1,243 @@
+"""Kernel programs of the port against the JAX package's Pallas programs.
+
+On the CPU each port program runs its kernel's plain torch version; the
+JAX side runs the Pallas kernel in interpret mode, as
+``tests/test_kernels.py`` does. Inputs are drawn once in numpy and fed
+to both. The card-only tests that hold each hand-written CUDA kernel
+against its plain version live in
+``tests/test_torch_gpu.py``, which imports no JAX.
+"""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, draw, t, tol
+from repro.kernels import programs as jprog
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_trainable as jax_trainable
+from repro.kernels.flash_attention import flash_decode_pallas
+from repro_torch.axe.program import DeviceError
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import programs
+from repro_torch.kernels import rmsnorm as rn
+
+DTYPES = ["float32", "bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# B1 matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "m,k,n,bm,bn,bk",
+    [(128, 256, 128, 128, 128, 128), (256, 128, 384, 128, 128, 128), (4, 256, 384, 4, 128, 128)],
+)
+def test_matmul_matches_pallas(dtype, m, k, n, bm, bn, bk):
+    a, b = draw(0, (m, k), dtype), draw(1, (k, n), dtype)
+    want = jprog.matmul(jnp.asarray(a), jnp.asarray(b), stage="tile", impl="kernel",
+                        blocks={"bm": bm, "bn": bn, "bk": bk})
+    got = programs.matmul(t(a), t(b))
+    assert got.dtype == t(a).dtype
+    assert_close(got, want, **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_ragged_matches_oracle(dtype):
+    # widths no tile divides: the port masks edges in M, N and K
+    a, b = draw(2, (37, 83), dtype), draw(3, (83, 45), dtype)
+    want = jref.matmul_ref(jnp.asarray(a), jnp.asarray(b))
+    assert_close(programs.matmul(t(a), t(b)), want, **tol(dtype))
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(4, 2560, 4096), (4, 2560, 1024), (4, 9728, 2560), (4, 2560, 151936), (8, 3, 8)],
+)
+def test_skinny_plan_covers_k_and_fits_shared_memory(m, k, n):
+    for itemsize in (2, 4):
+        splits, kchunk = mm.skinny_plan(m, k, n, itemsize, n_sm=132)
+        rows = 4 if m <= 4 else 8
+        assert rows * kchunk <= mm.SKINNY_SMEM_FLOATS
+        assert (splits - 1) * kchunk < k <= splits * kchunk  # every split non-empty
+        assert splits == 1 or kchunk >= 32  # no split thinner than the 64-row floor allows
+
+
+def test_matmul_operand_checks():
+    f32 = torch.zeros(4, 8)
+    with pytest.raises(DeviceError, match="2-D"):
+        mm.check_operands(torch.zeros(2, 4, 8), torch.zeros(8, 8), None)
+    with pytest.raises(DeviceError, match="share"):
+        mm.check_operands(f32, torch.zeros(8, 8, dtype=torch.bfloat16), None)
+    with pytest.raises(DeviceError, match="unit last stride"):
+        mm.check_operands(f32, torch.zeros(8, 8).t(), None)
+    with pytest.raises(DeviceError, match="writes"):
+        mm.check_operands(f32, torch.zeros(8, 8), torch.bfloat16)
+    mm.check_operands(f32, torch.zeros(8, 8), None)
+
+
+# ---------------------------------------------------------------------------
+# B2 rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 24, 256), (3, 128)])
+def test_rmsnorm_matches_pallas(dtype, shape):
+    x, w = draw(4, shape, dtype), draw(5, shape[-1:], dtype)
+    want = jprog.rmsnorm(jnp.asarray(x), jnp.asarray(w), stage="rows", impl="kernel")
+    got = programs.rmsnorm(t(x), t(w))
+    assert got.dtype == t(x).dtype and got.shape == shape
+    assert_close(got, want, **tol(dtype))
+
+
+def test_rmsnorm_operand_checks():
+    x = torch.zeros(4, 128)
+    with pytest.raises(DeviceError, match="weight"):
+        rn.check_operands(x, torch.zeros(64), 8)
+    with pytest.raises(DeviceError, match="contiguous"):
+        rn.check_operands(torch.zeros(128, 4).t(), torch.zeros(128), 8)
+    for brows in (4, 16):
+        with pytest.raises(DeviceError, match="brows"):
+            rn.check_operands(x, torch.zeros(128), brows)
+    rn.check_operands(x, torch.zeros(128), rn.BROWS)
+
+
+# ---------------------------------------------------------------------------
+# B3 flash attention
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, b, h, kvh, sq, skv, d, dtype):
+    return (draw(seed, (b, h, sq, d), dtype), draw(seed + 1, (b, kvh, skv, d), dtype),
+            draw(seed + 2, (b, kvh, skv, d), dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "causal,window,sq,skv,blk",
+    [
+        (False, None, 128, 128, 128),   # full
+        (True, None, 128, 128, 128),    # causal
+        (True, 48, 128, 128, 64),       # sliding window
+        (True, None, 64, 192, 64),      # right-aligned queries
+    ],
+)
+def test_flash_attention_matches_pallas(dtype, causal, window, sq, skv, blk):
+    q, k, v = _qkv(6, 1, 2, 2, sq, skv, 64, dtype)
+    want = jprog.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                                 window=window, blocks={"bq": blk, "bkv": blk})
+    got = programs.flash_attention(t(q), t(k), t(v), causal=causal, window=window)
+    assert_close(got, want, **tol(dtype))
+
+
+def test_flash_attention_gqa_reads_kv_heads_by_index():
+    # 4 query heads over 2 kv heads: the port takes the kv heads as they
+    # are; the JAX program takes them repeated (compile.py:261)
+    q, k, v = _qkv(9, 2, 4, 2, 64, 64, 64, "float32")
+    rep = lambda a: jnp.repeat(jnp.asarray(a), 2, axis=1)
+    want = jprog.flash_attention(jnp.asarray(q), rep(k), rep(v), causal=True,
+                                 blocks={"bq": 64, "bkv": 64})
+    got = programs.flash_attention(t(q), t(k), t(v), causal=True)
+    assert_close(got, want, **tol("float32"))
+
+
+def test_flash_attention_trainable_grads_match_jax():
+    q, k, v = _qkv(12, 1, 2, 2, 64, 64, 64, "float32")
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jgrads = jax.grad(lambda q_, k_, v_: jnp.sum(jax_trainable(q_, k_, v_, True) ** 2),
+                      argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t(a).requires_grad_() for a in (q, k, v))
+    (fa.flash_attention_trainable(tq, tk, tv, True) ** 2).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_flash_attention_operand_checks():
+    q, BLK = torch.zeros(1, 4, 8, 64), fa.ATTEND_BLOCKS
+    with pytest.raises(DeviceError, match="kv heads"):
+        fa.check_attend(q, torch.zeros(1, 3, 8, 64), torch.zeros(1, 3, 8, 64), None, BLK)
+    with pytest.raises(DeviceError, match="head dim"):
+        fa.check_attend(torch.zeros(1, 4, 8, 48), *(torch.zeros(1, 4, 8, 48),) * 2, None, BLK)
+    with pytest.raises(DeviceError, match="window"):
+        fa.check_attend(q, q, q, 0, BLK)
+    for pin in ({"bq": 64, "bkv": 32}, {"bq": 32, "bkv": 64}):
+        with pytest.raises(DeviceError, match="built for"):
+            fa.check_attend(q, q, q, None, pin)
+    fa.check_attend(q, torch.zeros(1, 2, 8, 64), torch.zeros(1, 2, 8, 64), 4, BLK)
+
+
+# ---------------------------------------------------------------------------
+# B4 flash decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "ring,pos",
+    [(False, (5, 100)),       # linear cache, slots at mixed depths
+     (True, (200, 30))],      # ring: slot 0 has wrapped, slot 1 has not
+)
+def test_flash_decode_matches_pallas(dtype, ring, pos):
+    b, kvh, g, w, d = 2, 2, 2, 128, 64
+    q = draw(20, (b, kvh, g, d), dtype)
+    kc, vc = draw(21, (b, w, kvh, d), dtype), draw(22, (b, w, kvh, d), dtype)  # [B, W, KV, hd]
+    pos = np.asarray(pos, np.int32)
+    head_major = lambda c: jnp.asarray(c).transpose(0, 2, 1, 3)
+    want = flash_decode_pallas(jnp.asarray(q), head_major(kc), head_major(vc), jnp.asarray(pos),
+                               ring=ring, interpret=True)
+    # the port reads the [B, W, KV, hd] cache through strides
+    got = programs.flash_decode(t(q), t(kc).transpose(1, 2), t(vc).transpose(1, 2),
+                                torch.from_numpy(pos), ring=ring)
+    assert_close(got, want, **tol(dtype))
+
+
+def test_flash_decode_operand_checks():
+    q, c = torch.zeros(2, 2, 4, 64), torch.zeros(2, 2, 16, 64)
+    with pytest.raises(DeviceError, match="int32"):
+        fa.check_decode(q, c, c, torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(DeviceError, match="grouped rows"):
+        fa.check_decode(torch.zeros(2, 2, 17, 64), c, c, torch.zeros(2, dtype=torch.int32))
+    fa.check_decode(q, c, c, torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the C interface: the wrappers' ctypes codes match the sources
+# ---------------------------------------------------------------------------
+
+_C_TYPES = {"const void*": "p", "void*": "p", "int": "i", "long long": "l", "float": "f"}
+
+
+def _c_signature(src: str, symbol: str) -> str:
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", src, re.S)
+    assert m, symbol
+    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    return "".join(_C_TYPES[p] for p in params)
+
+
+def _csrc(source: str) -> str:
+    return (Path(mm.__file__).parents[1] / "csrc" / f"{source}.cu").read_text()
+
+
+@pytest.mark.parametrize("module,source", [(mm, "matmul"), (rn, "rmsnorm"),
+                                           (fa, "flash_attention")])
+def test_ctypes_signatures_match_c_entries(module, source):
+    src = _csrc(source)
+    for symbol, sig in module.SIGNATURES.items():
+        assert _c_signature(src, symbol) == sig, symbol
+
+
+def test_wrapper_constants_match_the_kernels():
+    """The shapes the wrappers check against are the ones compiled in."""
+    const = lambda src, name: int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
+    src = _csrc("matmul")
+    assert mm.TILE_BLOCKS == {"bm": const(src, "TBM"), "bn": const(src, "TBN"),
+                              "bk": const(src, "TBK")}
+    assert mm.SKINNY_SMEM_FLOATS == const(src, "SK_SMEM")
+    src = _csrc("flash_attention")
+    assert sorted(int(d) for d in re.findall(r"case (\d+): return launch_attend", src)) == \
+        list(fa.HEAD_DIMS)
+    assert max(int(g) for g in re.findall(r"if \(G <= (\d+)\)", src)) == fa.DECODE_MAX_G

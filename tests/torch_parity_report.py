@@ -1,0 +1,59 @@
+"""Print PERF.md's parity table: run the CPU parity tests of the port
+and report, per test and tolerance, the largest |port - JAX reference|
+that its comparisons saw.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_report.py
+"""
+import re
+import sys
+from pathlib import Path
+
+import pytest
+
+HERE = Path(__file__).resolve().parent
+FILES = ("test_torch_kernels.py", "test_torch_serve.py")
+
+#: test -> (port module, reference function it is held to)
+TARGETS = {
+    "test_matmul_matches_pallas": ("kernels/matmul.py", "programs.matmul, Pallas tile"),
+    "test_matmul_ragged_matches_oracle": ("kernels/matmul.py", "ref.matmul_ref"),
+    "test_rmsnorm_matches_pallas": ("kernels/rmsnorm.py", "programs.rmsnorm, Pallas rows"),
+    "test_flash_attention_matches_pallas": ("kernels/flash_attention.py",
+                                            "programs.flash_attention, Pallas attend"),
+    "test_flash_attention_gqa_reads_kv_heads_by_index": ("kernels/flash_attention.py",
+                                                         "Pallas attend, kv repeated"),
+    "test_flash_attention_trainable_grads_match_jax": ("kernels/flash_attention.py",
+                                                       "grad of flash_attention_trainable"),
+    "test_flash_decode_matches_pallas": ("kernels/flash_attention.py",
+                                         "flash_decode_pallas (interpret)"),
+    "test_prefill_logits_and_cache_match_jax": ("models/transformer.py", "transformer.prefill"),
+    "test_decode_step_mid_sequence_matches_jax": ("models/transformer.py",
+                                                  "transformer.decode_step"),
+    "test_decode_step_per_slot_positions": ("models/transformer.py",
+                                            "decode_step, batch-1 per slot"),
+    "test_prefill_and_decode_bf16": ("models/transformer.py", "prefill + decode_step, bf16"),
+}
+
+
+def main() -> int:
+    sys.path.insert(0, str(HERE))
+    import _torch_parity
+
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", *(str(HERE / f) for f in FILES)])
+    worst = {}
+    for test, err, rtol, atol in _torch_parity.RECORDS:
+        name = re.sub(r" \(call\)$", "", test.split("::")[-1])
+        key = (name.split("[")[0], rtol, atol)
+        if err > worst.get(key, ("", -1.0))[1]:
+            worst[key] = (name, err)
+    print("| port module | reference function | worst case | rtol / atol | max abs diff | device |")
+    print("| --- | --- | --- | --- | --- | --- |")
+    for (test, rtol, atol), (case, err) in sorted(worst.items()):
+        module, reference = TARGETS.get(test, (test, "?"))
+        case = case.partition("[")[2].rstrip("]") or "-"
+        print(f"| `{module}` | `{reference}` | {case} | {rtol} / {atol} | {err:.3g} | cpu |")
+    return int(rc)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
