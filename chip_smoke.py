@@ -8,18 +8,37 @@ Phases, in order; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (fails without a card);
 2. build   — every kernel library from ``src/repro_torch/csrc``, one
    ``nvcc`` per source, all started together;
-3. kernels — each hand-written kernel (B1 matmul, B2 rmsnorm, B3 flash
-   attention, B4 flash decode) once at every shape qwen3-4b's serving
-   path gives it, held against its plain torch version on the same CUDA
-   tensors, then timed beside the plain version and a one-call PyTorch
-   yardstick (CUDA events, L2 flushed before every launch);
+
+the dense path, qwen3-4b:
+
+3. kernels — each hand-written kernel of the path (B1 matmul, B2
+   rmsnorm, B3 flash attention, B4 flash decode) once at every shape
+   qwen3-4b's serving path gives it, held against its plain torch
+   version on the same CUDA tensors, then timed beside the plain
+   version and a one-call PyTorch yardstick (CUDA events, L2 flushed
+   before every launch);
 4. depth 2 — qwen3-4b at full width with 2 layers, bf16, weights from a
    seed on the CPU: prefill + 3 decode steps on the CPU (plain
    versions) and on the card (kernels), logits compared;
 5. full    — qwen3-4b at full width and depth (36 layers, bf16, random
    weights from a seed on the card) through ``ServeEngine.generate``:
    4 requests x 128-token prompts x 32 new tokens, greedy, max_seq 256,
-   with every kernel's launch counter read around that one run.
+   with every kernel's launch counter read around that one run;
+
+the MoE path, qwen3-moe-235b-a22b at full width:
+
+6. kernels — B5 (moe_gemm) at the four expert-GEMM shapes of the path
+   in bf16 and one in f32, and B1-B4 at the path's own shapes (d 4096,
+   q 8192 wide, 4 kv heads, 16 query rows per kv head), held and timed
+   as in phase 3 (B5's yardstick: one ``torch.bmm``);
+7. depth 2 — 2 layers, bf16, weights from a seed drawn on the card and
+   copied to the CPU: prefill + 3 decode steps on both, logits
+   compared, the share of (token, choice) expert routings on which card
+   and CPU agree, and the logits of the CPU routed to the card's expert
+   choices compared (``phase_depth2`` says why);
+8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
+   for the run) through ``ServeEngine.generate`` with the same traffic
+   as phase 5, launch counters read around that one run.
 
 It then prints the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -28,7 +47,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -37,6 +58,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 ARCH = "qwen3-4b"
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 SEED = 0
@@ -52,12 +74,14 @@ REPLACES = {
     "rmsnorm/rows": "src/repro/kernels/rmsnorm.py:45",
     "flash_attention/attend": "src/repro/kernels/flash_attention.py:109",
     "flash_attention/decode": "src/repro/kernels/flash_attention.py:224",
+    "moe_gemm/expert_gemm": "src/repro/kernels/moe_gemm.py:70",
 }
 SOURCES = {
     "matmul/tile": "src/repro_torch/csrc/matmul.cu",
     "rmsnorm/rows": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention/attend": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention/decode": "src/repro_torch/csrc/flash_attention.cu",
+    "moe_gemm/expert_gemm": "src/repro_torch/csrc/moe_gemm.cu",
 }
 
 
@@ -124,11 +148,15 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def kernel_cases(cfg, torch, F, device):
     """One case per (kernel, main-path shape, dtype): the wrapper call,
     its plain version, the library yardstick, and bytes/flops of the
-    work these inputs need."""
+    work these inputs need. An MoE config's FFN is B5's expert GEMMs
+    (its dense-FFN matmul shapes do not occur); a dense one's f32 cases
+    are B1's and B2's, an MoE one's is B5's."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_gemm as moe_k
     from repro_torch.kernels import programs
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import moe
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     d, h, kv, hd, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
@@ -157,18 +185,41 @@ def kernel_cases(cfg, torch, F, device):
             library=lambda: F.rms_norm(x, (width,), w, 1e-6),
             nbytes=(2 * rows * width + width) * x.element_size(), flops=4.0 * rows * width))
 
+    weights = {}
+
+    def moe_case(label, c, k, n, dtype):
+        """B5 on a full [E, c, k] capacity buffer against the [E, k, n]
+        expert weights (drawn once per shape and dtype)."""
+        e = cfg.num_experts
+        key = (k, n, dtype)
+        if key not in weights:
+            weights[key] = randn((e, k, n), dtype, k ** -0.5)
+        x, w = randn((e, c, k), dtype), weights[key]
+        cases.append(dict(
+            kernel="moe_gemm/expert_gemm", label=f"{label} {e}x{c}x{k}x{n}", dtype=dtype,
+            run=lambda: programs.moe_gemm(x, w), plain=lambda: moe_k.moe_gemm_plain(x, w),
+            library=lambda: torch.bmm(x, w),
+            nbytes=e * (c * k + k * n + c * n) * x.element_size(), flops=2.0 * e * c * k * n))
+
     bf16, f32 = torch.bfloat16, torch.float32
+    ffn = [] if cfg.is_moe else [("gate|up", d, ff), ("down", ff, d)]
     for label, m, k, n in [
         ("prefill q", t, d, h * hd), ("prefill k|v", t, d, kv * hd),
-        ("prefill o", t, h * hd, d), ("prefill gate|up", t, d, ff), ("prefill down", t, ff, d),
+        ("prefill o", t, h * hd, d), *((f"prefill {lb}", t, a, b) for lb, a, b in ffn),
         ("lm_head", BATCH, d, v),
         ("decode q", BATCH, d, h * hd), ("decode k|v", BATCH, d, kv * hd),
-        ("decode o", BATCH, h * hd, d), ("decode gate|up", BATCH, d, ff),
-        ("decode down", BATCH, ff, d),
+        ("decode o", BATCH, h * hd, d), *((f"decode {lb}", BATCH, a, b) for lb, a, b in ffn),
     ]:
         matmul_case(label, m, k, n, bf16)
-    matmul_case("prefill q", t, d, h * hd, f32)
-    matmul_case("decode gate|up", BATCH, d, ff, f32)
+    if cfg.is_moe:
+        eff, c_prefill, c_decode = cfg.moe_d_ff, moe.capacity(t, cfg), moe.capacity(BATCH, cfg)
+        for label, c in (("prefill", c_prefill), ("decode", c_decode)):
+            moe_case(f"{label} gate|up", c, d, eff, bf16)
+            moe_case(f"{label} down", c, eff, d, bf16)
+        moe_case("decode gate|up", c_decode, d, eff, f32)
+    else:
+        matmul_case("prefill q", t, d, h * hd, f32)
+        matmul_case("decode gate|up", BATCH, d, ff, f32)
 
     for label, rows, width in [
         ("prefill norm", t, d), ("prefill q-norm", t * h, hd), ("prefill k-norm", t * kv, hd),
@@ -176,8 +227,9 @@ def kernel_cases(cfg, torch, F, device):
         ("decode k-norm", BATCH * kv, hd),
     ]:
         rmsnorm_case(label, rows, width, bf16)
-    rmsnorm_case("prefill norm", t, d, f32)
-    rmsnorm_case("prefill q-norm", t * h, hd, f32)
+    if not cfg.is_moe:
+        rmsnorm_case("prefill norm", t, d, f32)
+        rmsnorm_case("prefill q-norm", t * h, hd, f32)
 
     # B3: [B, S, H, hd] projections as [B, H, S, hd] views, causal
     q = randn((BATCH, PROMPT, h, hd), bf16).transpose(1, 2)
@@ -252,7 +304,7 @@ def host_us(torch, fn, calls=50) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the main path
+# phases 4-5 and 7-8: the main path
 # ---------------------------------------------------------------------------
 
 def run_steps(api, params, prompts, tokens):
@@ -272,28 +324,99 @@ def run_steps(api, params, prompts, tokens):
     return torch.stack(out), fed
 
 
-def phase_depth2(cfg, torch, device):
+def phase_depth2(cfg, torch, device, *, init_on="cpu"):
+    """``cfg`` cut to 2 layers, prefill + decode steps on the CPU (plain
+    versions) and the card (kernels) from the same weights (drawn on
+    ``init_on``), logits compared within ``LOGIT_TOL``.
+
+    An MoE config's top-k routing can flip where two experts' router
+    probabilities are within the card/CPU rounding difference of the
+    hidden state, and a flipped expert changes that token's FFN output
+    by far more than rounding. So for MoE the CPU also runs once routed
+    to the card's expert choices (its own gates for them): those logits
+    must hold ``LOGIT_TOL``, and the freely routed ones must too unless
+    some routing differed. Both comparisons and the share of
+    (token, choice) routings on which card and CPU agree are logged."""
+    from repro_torch.models import moe
     from repro_torch.models.common import tree_to
     from repro_torch.models.model_zoo import build_model
 
     cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
-    cpu = build_model(cfg2, device="cpu")
-    params = cpu.init(SEED)
+    cpu, card = build_model(cfg2, device="cpu"), build_model(cfg2, device=device)
+    t0 = time.perf_counter()
+    if init_on == "cpu":
+        cpu_params = cpu.init(SEED)
+        card_params = tree_to(cpu_params, device)
+    else:
+        card_params = card.init(SEED)
+        cpu_params = tree_to(card_params, "cpu")
+    log(f"  init on {init_on}, copied across: {time.perf_counter() - t0:.2f} s")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(SEED + 1))
-    want, fed = run_steps(cpu, params, prompts, None)
-    card = build_model(cfg2, device=device)
-    got, _ = run_steps(card, tree_to(params, device), prompts, fed)
+    routes = {"cpu": [], "card": []}
+    route = moe.route
+
+    def recording(side):
+        def rec(xf, router, k):
+            gates, experts = route(xf, router, k)
+            routes[side].append(experts.cpu())
+            return gates, experts
+        return rec
+
+    def forced(choices):
+        it = iter(choices)
+
+        def rec(xf, router, k):
+            experts = next(it).to(xf.device)
+            gates = torch.softmax(xf.float() @ router, dim=-1).gather(1, experts)
+            return gates / gates.sum(dim=-1, keepdim=True), experts
+        return rec
+
+    try:
+        t0 = time.perf_counter()
+        moe.route = recording("cpu")
+        want, fed = run_steps(cpu, cpu_params, prompts, None)
+        cpu_s = time.perf_counter() - t0
+        moe.route = recording("card")
+        got, _ = run_steps(card, card_params, prompts, fed)
+        if cfg.is_moe:
+            moe.route = forced(routes["card"])
+            matched, _ = run_steps(cpu, cpu_params, prompts, fed)
+    finally:
+        moe.route = route
     err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, **LOGIT_TOL)) and bool(torch.isfinite(got).all())
-    check(ok, f"depth-2 logits: card vs CPU max |diff| {err} outside {LOGIT_TOL}")
+    ok = bool(torch.allclose(got, want, **LOGIT_TOL))
     log(f"  depth-2 logits, card (kernels) vs CPU (plain), prefill + {DEPTH2_DECODE} decode "
-        f"steps: max |diff| {err:.4g} (tolerance {LOGIT_TOL}); logit scale "
-        f"{float(want.abs().max()):.3g}")
+        f"steps: max |diff| {err:.4g} (tolerance {LOGIT_TOL}{'' if ok else ': outside'}); "
+        f"logit scale {float(want.abs().max()):.3g}; CPU side {cpu_s:.1f} s, host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f} GiB")
+    check(bool(torch.isfinite(got).all()), "depth-2 logits: non-finite on the card")
+    if not cfg.is_moe:
+        check(ok, f"depth-2 logits: card vs CPU max |diff| {err} outside {LOGIT_TOL}")
+        return err
+    same = total = 0
+    for a, b in zip(routes["cpu"], routes["card"], strict=True):
+        for ra, rb in zip(a.tolist(), b.tolist()):
+            same += len(set(ra) & set(rb))
+            total += len(ra)
+    err_matched = float((got - matched).abs().max())
+    ok_matched = bool(torch.allclose(got, matched, **LOGIT_TOL))
+    log(f"  expert routings (token, choice) on which card and CPU agree: {same} of {total} "
+        f"({same / total:.6f}) over {len(routes['cpu'])} MoE layer calls; CPU routed as "
+        f"the card: max |diff| {err_matched:.4g} (tolerance {LOGIT_TOL}"
+        f"{'' if ok_matched else ': outside'})")
+    check(ok_matched, f"depth-2 logits, CPU routed as the card: max |diff| {err_matched} "
+                      f"outside {LOGIT_TOL}")
+    check(ok or same < total, f"depth-2 logits: card vs CPU max |diff| {err} outside "
+                              f"{LOGIT_TOL} with every routing equal")
     return err
 
 
 def phase_full(cfg, torch, device):
+    """``cfg`` through ``ServeEngine.generate`` on the card, launch
+    counters zeroed just before the one measured run and read just
+    after: every kernel of the path must have launched (B5, on an MoE
+    path, exactly three times per layer and step)."""
     from repro_torch.kernels import programs
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -320,7 +443,13 @@ def phase_full(cfg, torch, device):
     check(out.shape == (BATCH, NEW), f"tokens {out.shape} != {(BATCH, NEW)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        if cfg.is_moe or name != "moe_gemm/expert_gemm":
+            check(n > 0, f"kernel {name} was not launched on the main path")
+    if cfg.is_moe:
+        want = 3 * cfg.num_layers * NEW
+        check(counts["moe_gemm/expert_gemm"] == want,
+              f"B5 launched {counts['moe_gemm/expert_gemm']} times, not 3 x "
+              f"{cfg.num_layers} layers x {NEW} steps = {want}")
     logits, _ = api.prefill(params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(bool((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).all()),
@@ -397,33 +526,44 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/5] device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/8] device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     secs = _build.build_all()
-    log(f"[2/5] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
+    log(f"[2/8] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
     for src, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  ptxas {src}: {line.strip()}", file=sys.stderr)
 
-    cfg = get_config(ARCH)
-    log(f"[3/5] kernels at the main path's shapes ({ARCH}):")
-    rows = phase_kernels(cfg, torch, F, device)
+    kernels, stats = [], {}
 
-    log(f"[4/5] main path, depth {DEPTH2_LAYERS}, card vs CPU:")
-    phase_depth2(cfg, torch, device)
+    def path(step, cfg, *, init_on):
+        """Phases ``step`` .. ``step + 2`` on ``cfg``: its kernels, depth
+        2 card vs CPU, then ``generate`` at ``cfg``'s depth."""
+        log(f"[{step}/8] kernels at the main path's shapes ({cfg.name}):")
+        rows = phase_kernels(cfg, torch, F, device)
+        log(f"[{step + 1}/8] main path ({cfg.name}), depth {DEPTH2_LAYERS}, card vs CPU:")
+        phase_depth2(cfg, torch, device, init_on=init_on)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{step + 2}/8] main path ({cfg.name}), {cfg.num_layers} layers:")
+        counts, stats[cfg.name] = phase_full(cfg, torch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.extend(
+            {"name": f"{r['kernel']} [{cfg.name} {r['shape']}, {r['dtype']}]", "route": "cuda",
+             "source": SOURCES[r["kernel"]], "replaces": REPLACES[r["kernel"]],
+             "launches": counts[r["kernel"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+            for r in rows)
 
-    log(f"[5/5] main path, full depth ({cfg.num_layers} layers):")
-    counts, stats = phase_full(cfg, torch, device)
+    path(3, get_config(ARCH), init_on="cpu")
+    # qwen3-moe-235b-a22b's 94 layers hold ~470 GB of bf16 weights; one
+    # 80 GB card holds ~14, and 8 (~42 GB) leave room for the run. The
+    # depth-2 weights (~10 GB) are drawn on the card, where it is quick.
+    path(6, dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS), init_on="card")
 
-    kernels = [
-        {"name": f"{r['kernel']} [{r['shape']}, {r['dtype']}]", "route": "cuda",
-         "source": SOURCES[r["kernel"]], "replaces": REPLACES[r["kernel"]],
-         "launches": counts[r["kernel"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
-        for r in rows
-    ]
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

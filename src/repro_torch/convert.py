@@ -3,11 +3,15 @@ numpy arrays) and the port's tensors, so both packages compute on the
 same weights. The port imports nothing of JAX: the caller turns a JAX
 pytree into numpy first (``jax.tree.map(np.asarray, tree)``).
 
-Parameters: the JAX dense LM keeps ``blocks/l{slot}`` stacked over
-super-blocks (layer ``i`` is super-block ``i // per``, slot ``i % per``),
-and so does the port. Only the attention projections change shape: the
-port's are 2-D with head-major columns — ``wq [d, H, hd] -> [d, H·hd]``,
-``wo [H, hd, d] -> [H·hd, d]`` — the products kernel B1 runs.
+Parameters: the JAX LM (dense and MoE families) keeps ``blocks/l{slot}``
+stacked over super-blocks (layer ``i`` is super-block ``i // per``, slot
+``i % per``), and so does the port. Only the attention projections
+change shape: the port's are 2-D with head-major columns —
+``wq [d, H, hd] -> [d, H·hd]``, ``wo [H, hd, d] -> [H·hd, d]`` — the
+products kernel B1 runs. Every other leaf crosses as it is, dtype
+included: the MoE layer's ``moe/{router, wg, wu, wo}`` keep their
+stacked ``[n_super, d, E]`` (router, f32) and ``[n_super, E, d, f]`` /
+``[n_super, E, f, d]`` (experts) shapes, which kernel B5 takes.
 Caches keep their layout, ``l{slot}/k`` ``[n_super, B, W, KV, hd]``.
 
 bf16 arrays from JAX are ``ml_dtypes.bfloat16``, which
@@ -20,6 +24,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.models.transformer import FAMILIES
 
 _ATTN_2D = ("wq", "wk", "wv")
 
@@ -53,8 +59,8 @@ def _attn_from_jax(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str, Any]:
-    """The JAX dense LM's params (numpy leaves) as the port's params."""
-    if cfg.family != "dense":
+    """The JAX LM's params (numpy leaves) as the port's params."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"params_from_jax: family {cfg.family!r} is not ported")
     blocks = {}
     for slot, lp in np_params["blocks"].items():

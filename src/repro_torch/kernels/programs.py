@@ -8,6 +8,7 @@ the JAX package::
     y = programs.flash_attention(q, k, v, causal=True)
     y = programs.rmsnorm(x, w, eps=1e-6)
     o = programs.flash_decode(q, k_cache, v_cache, pos, ring=False)
+    h = programs.moe_gemm(buf, w)                   # [E,C,d] @ [E,d,f]
 
 On CUDA tensors each program launches its hand-written Hopper kernel
 (``repro_torch/csrc``) or raises; on CPU tensors it runs the kernel's
@@ -21,15 +22,17 @@ from typing import Dict
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import moe_gemm as _moe
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels.flash_attention import (
     flash_attention_program as flash_attention,
 )
 from repro_torch.kernels.flash_attention import flash_decode as flash_decode
 from repro_torch.kernels.matmul import matmul_program as matmul
+from repro_torch.kernels.moe_gemm import moe_gemm_program as moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_program as rmsnorm
 
-ALL_PROGRAMS = (matmul, flash_attention, rmsnorm)
+ALL_PROGRAMS = (matmul, flash_attention, moe_gemm, rmsnorm)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -39,6 +42,7 @@ def launch_counts() -> Dict[str, int]:
         "rmsnorm/rows": _rn.launches,
         "flash_attention/attend": _fa.attend_launches,
         "flash_attention/decode": _fa.decode_launches,
+        "moe_gemm/expert_gemm": _moe.launches,
     }
 
 
@@ -47,6 +51,7 @@ def reset_launch_counts() -> None:
     _rn.launches = 0
     _fa.attend_launches = 0
     _fa.decode_launches = 0
+    _moe.launches = 0
 
 
 __all__ = [
@@ -55,6 +60,7 @@ __all__ = [
     "flash_decode",
     "launch_counts",
     "matmul",
+    "moe_gemm",
     "reset_launch_counts",
     "rmsnorm",
 ]

@@ -1,16 +1,17 @@
 """Plain torch oracles for the port's kernel programs — the twins of
-``repro/kernels/ref.py``'s ``matmul_ref``, ``rmsnorm_ref`` and
-``attention_ref``. Every hand-written kernel is held to these on the
-card, and the CPU tests hold them to the JAX package.
+``repro/kernels/ref.py``'s ``matmul_ref``, ``rmsnorm_ref``,
+``attention_ref``, ``moe_gemm_ref`` and ``moe_routing_ref``. Every
+hand-written kernel is held to these on the card, and the CPU tests hold
+them to the JAX package.
 
 Their details are the reference's: f32 accumulation and then one cast,
-queries right-aligned against the keys, and fully masked rows coming
-out as 0. The MoE, collective and routing oracles come with their
-slices (``ROADMAP.md``).
+queries right-aligned against the keys, fully masked rows coming out as
+0, and routing slots filled in (token, choice) order. The collective
+oracle comes with its slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -65,3 +66,54 @@ def attention_ref(
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Grouped (per-expert) GEMM oracle: x [E, C, d] @ w [E, d, f], f32
+    accumulation."""
+    _full_f32()
+    return torch.bmm(x.float(), w.float()).to(out_dtype or x.dtype)
+
+
+def moe_routing_ref(
+    x: torch.Tensor,       # [T, d] tokens
+    router: torch.Tensor,  # [d, E] router weights
+    *,
+    experts_per_tok: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
+    """Loop oracle for capacity routing (dispatch -> combine), in f32 and
+    independent of the sort/scatter of ``models.moe``.
+
+    Token t's copies go to the top-k experts of softmax(x_t @ router);
+    within an expert, slots fill in (token, k) order and copies past the
+    capacity are dropped. Returns ``(buf, combine)``: the dense
+    [E, C, d] dispatch buffer, and ``combine(out)`` which gathers an
+    [E, C, d'] expert output back to [T, d'] weighted by the
+    renormalised gates of the kept copies."""
+    _full_f32()
+    x, router = x.float(), router.float()
+    t, d = x.shape
+    e = router.shape[1]
+    probs = torch.softmax(x @ router, dim=-1)
+    buf = torch.zeros((e, capacity, d), dtype=torch.float32, device=x.device)
+    assignments = []  # (token, expert, slot, gate)
+    fill = [0] * e
+    for ti in range(t):
+        order = torch.argsort(-probs[ti], stable=True)[:experts_per_tok]
+        gates = probs[ti][order]
+        gates = gates / gates.sum()
+        for ei, g in zip(order.tolist(), gates.tolist()):
+            if fill[ei] < capacity:
+                buf[ei, fill[ei]] = x[ti]
+                assignments.append((ti, ei, fill[ei], g))
+                fill[ei] += 1
+
+    def combine(out: torch.Tensor) -> torch.Tensor:
+        out = out.float()
+        y = torch.zeros((t, out.shape[-1]), dtype=torch.float32, device=out.device)
+        for ti, ei, slot, g in assignments:
+            y[ti] += g * out[ei, slot]
+        return y
+
+    return buf, combine

@@ -4,10 +4,16 @@ generation through the hand-written kernels.
     python -m repro_torch.launch.serve --arch qwen3-4b --batch 4 \
         --prompt-len 128 --new-tokens 32 --max-seq 256
     python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 8
+    python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --smoke --device cpu
+
+``--layers`` cuts the depth (full width): qwen3-moe-235b-a22b's 94
+layers hold ~470 GB of bf16 weights, one 80 GB card about 14 of them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -22,6 +28,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -33,6 +40,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     api = build_model(cfg, device=args.device)
     params = api.init(0)
     engine = ServeEngine(api, batch_size=args.batch, max_seq=args.max_seq,

@@ -1,4 +1,4 @@
-"""Unified model API of the port — the dense family of
+"""Unified model API of the port — the dense and MoE families of
 ``repro/models/model_zoo.py``."""
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ class ModelAPI:
 def build_model(cfg: ModelConfig, *,
                 device: Optional[Union[str, torch.device]] = None) -> ModelAPI:
     """The model API on ``device`` (default ``cuda``; raises without a
-    card unless ``device="cpu"``). Dense family only in this slice."""
+    card unless ``device="cpu"``). Dense and MoE families
+    (``transformer.FAMILIES``)."""
     tf_mod.check_family(cfg)
     dev = resolve_device(device)
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense family — the serving half of
-``repro/models/transformer.py``.
+"""Decoder-only LM assembly for the dense and MoE families — the serving
+half of ``repro/models/transformer.py``.
 
 Parameters keep the JAX package's super-block structure: a leaf under
 ``blocks/l{slot}`` is stacked over super-blocks on its first axis, and
@@ -9,9 +9,10 @@ caches). The JAX package's ``lax.scan`` over stacked params becomes a
 Python loop over super-blocks. Prefill and decode run under
 ``Scope.DEVICE``, so every matmul dispatches to the ``matmul/tile``
 GRID stage — the binding the JAX package's compiled graph makes
-(``axe/compile.py:165-186``). The MoE, SSM, hybrid, enc-dec and VLM
-families raise ``NotImplementedError`` until their slices land
-(``ROADMAP.md``, queue A12-A13).
+(``axe/compile.py:165-186``); an MoE layer's FFN is ``models/moe.py``,
+whose expert GEMMs dispatch to ``moe_gemm/expert_gemm``. The SSM,
+hybrid, enc-dec and VLM families raise ``NotImplementedError`` until
+their slice lands (``ROADMAP.md``, queue A13).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     Params,
     dense_init,
@@ -33,11 +35,14 @@ from repro_torch.models.common import (
 )
 
 
+FAMILIES = ("dense", "moe")
+
+
 def check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            f"serves the dense family (ROADMAP.md, queue A12-A13)"
+            f"serves the {' and '.join(FAMILIES)} families (ROADMAP.md, queue A13)"
         )
 
 
@@ -67,7 +72,8 @@ def _index(tree: Params, i: int) -> Params:
 
 def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``,
-    each drawn directly in its stacked ``[n_super, ...]`` shape."""
+    each drawn in its stacked ``[n_super, ...]`` shape (expert weights a
+    few experts at a time, ``moe.moe_init``)."""
     check_family(cfg)
     dtype = dtype_of(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -80,8 +86,11 @@ def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> 
             "norm1": torch.ones((n_super, d), dtype=dtype, device=gen.device),
             "attn": attn.attn_init(gen, cfg, dtype, lead),
             "norm2": torch.ones((n_super, d), dtype=dtype, device=gen.device),
-            "mlp": mlp_init(gen, cfg, dtype, lead),
         }
+        if cfg.is_moe:
+            blocks[f"l{i}"]["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+        else:
+            blocks[f"l{i}"]["mlp"] = mlp_init(gen, cfg, dtype, lead)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, d, dtype),
         "blocks": blocks,
@@ -97,7 +106,10 @@ def _head(params: Params, cfg) -> torch.Tensor:
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]), cfg)
+    h = rmsnorm(x, p["norm2"])
+    if cfg.is_moe:
+        return x + moe_mod.moe_apply(p["moe"], h, cfg)
+    return x + mlp_apply(p["mlp"], h, cfg)
 
 
 # ---------------------------------------------------------------------------

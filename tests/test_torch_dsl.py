@@ -103,6 +103,9 @@ def test_dispatch_table_picks_stage_by_scope():
     assert programs.rmsnorm.dispatch_stage(Scope.BLOCK) == "normalize"
     assert programs.rmsnorm.dispatch_stage(Scope.DEVICE) == "rows"
     assert programs.flash_attention.dispatch_stage(Scope.DEVICE) == "attend"
+    for scope_ in (Scope.MESH, Scope.DEVICE, Scope.GRID):
+        assert programs.moe_gemm.dispatch_stage(scope_) == "expert_gemm"
+    assert programs.moe_gemm.dispatch_stage(Scope.BLOCK) == "einsum"
 
 
 def test_block_stage_usable_directly():
@@ -129,6 +132,9 @@ def test_stage_ops_registered_with_schedule_registry():
     assert tsched.allowed_impls("flash_attention/attend") == ("kernel",)
     d = tsched.default_schedule("matmul/tile")
     assert d.impl == "kernel" and d.block("bm") == 64 and d.block("bk") == 32
+    assert tsched.allowed_impls("moe_gemm/expert_gemm") == ("kernel", "xla")
+    d = tsched.default_schedule("moe_gemm/expert_gemm")
+    assert d.impl == "kernel" and d.blocks_dict == {"bc": 64, "bf": 128, "bd": 32}
     with pytest.raises(tsched.InvalidImplError):
         tsched.Schedule("flash_attention/attend", "xla")
 
@@ -196,6 +202,9 @@ def test_cpu_tensors_run_the_plain_body_without_launching():
     programs.reset_launch_counts()
     a = torch.randn(8, 8)
     torch.testing.assert_close(programs.matmul(a, a), a @ a)
+    x, w = torch.randn(2, 8, 16), torch.randn(2, 16, 24)
+    # a pin reaches the plain body, which ignores it
+    torch.testing.assert_close(programs.moe_gemm(x, w, blocks={"bc": 16}), torch.bmm(x, w))
     assert set(programs.launch_counts().values()) == {0}
 
 
@@ -212,6 +221,9 @@ def test_plain_bodies_refuse_cuda_tensors():
         require_host("probe", card)
     with pytest.raises(DeviceError, match="only on CPU tensors"):
         programs.matmul(card, card, impl="xla")
+    card3 = torch.zeros(2, 8, 8).as_subclass(_CardTensor)
+    with pytest.raises(DeviceError, match="only on CPU tensors"):
+        programs.moe_gemm(card3, card3, impl="xla")
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):

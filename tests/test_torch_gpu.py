@@ -16,6 +16,7 @@ from repro_torch.axe.program import DeviceError
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import moe_gemm as moe_k
 from repro_torch.kernels import programs
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models.common import tree_to
@@ -106,7 +107,75 @@ def test_plain_bodies_and_split_operands_raise_on_the_card(cuda):
         programs.rmsnorm(a, a[0], blocks={"brows": 16})
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-12b", "starcoder2-7b"])
+# qwen3-moe-235b-a22b's B5 shapes on the serving path (4 x 128 prefill:
+# capacity 40; 4-slot decode: capacity 8), [E, C, d] @ [E, d, f]
+MOE_SHAPES = [(128, 40, 4096, 1536), (128, 40, 1536, 4096), (128, 8, 4096, 1536),
+              (128, 8, 1536, 4096)]
+
+
+@pytest.mark.parametrize("e,c,d,f", MOE_SHAPES)
+def test_moe_gemm_kernel_matches_plain_at_qwen3_moe_shapes(cuda, e, c, d, f):
+    x, w = _randn(cuda, (e, c, d), torch.bfloat16, 13), _randn(cuda, (e, d, f), torch.bfloat16,
+                                                               14, d ** -0.5)
+    before = moe_k.launches
+    got = programs.moe_gemm(x, w)
+    assert moe_k.launches == before + 1
+    _close(got, moe_k.moe_gemm_plain(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,c,d,f", [(3, 13, 200, 72), (2, 40, 96, 136), (5, 70, 83, 45),
+                                     (1, 129, 64, 257), (4, 8, 4096, 256)])
+def test_moe_gemm_kernel_matches_plain_at_ragged_shapes(cuda, dtype, e, c, d, f):
+    x, w = _randn(cuda, (e, c, d), dtype, 15), _randn(cuda, (e, d, f), dtype, 16, d ** -0.5)
+    _close(programs.moe_gemm(x, w), moe_k.moe_gemm_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gemm_kernel_gives_zeros_for_an_expert_with_no_tokens(cuda, dtype):
+    x, w = _randn(cuda, (4, 40, 256), dtype, 17), _randn(cuda, (4, 256, 384), dtype, 18, 1 / 16)
+    x[2] = 0  # expert 2 received no token: its capacity rows are zeros
+    got = programs.moe_gemm(x, w)
+    _close(got, moe_k.moe_gemm_plain(x, w), dtype)
+    assert torch.count_nonzero(got[2]).item() == 0
+
+
+def test_moe_gemm_kernel_refuses_what_it_does_not_take(cuda):
+    x, w = torch.zeros(2, 8, 64, device=cuda), torch.zeros(2, 64, 32, device=cuda)
+    with pytest.raises(DeviceError, match="contiguous"):
+        programs.moe_gemm(x, torch.zeros(2, 32, 64, device=cuda).transpose(1, 2))
+    with pytest.raises(DeviceError, match="aligned"):
+        programs.moe_gemm(torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(2, 8, 64), w)
+    with pytest.raises(DeviceError, match="share"):
+        programs.moe_gemm(x, w.to(torch.bfloat16))
+    for pin in ({"bc": 128}, {"bf": 256}, {"bd": 512}):
+        with pytest.raises(DeviceError, match="built for"):
+            programs.moe_gemm(x, w, blocks=pin)
+    with pytest.raises(DeviceError, match="CPU tensors"):
+        programs.moe_gemm(x, w, impl="xla")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "dbrx-132b"])
+def test_moe_layer_on_card_is_deterministic_and_matches_cpu(cuda, arch):
+    """Capacity factor 0.5 makes the experts drop copies; the card's
+    dispatch and combine give the same bits on every run (no atomics)
+    and, in f32, the CPU's result."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), capacity_factor=0.5)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = _randn("cpu", (4, 32, cfg.d_model), torch.float32, 19)
+    for dtype in DTYPES:
+        p = {k: v if k == "router" else v.to(dtype) for k, v in params.items()}
+        card = tree_to(p, cuda)
+        got = moe.moe_apply(card, x.to(cuda, dtype), cfg)
+        assert torch.equal(got, moe.moe_apply(card, x.to(cuda, dtype), cfg))
+        if dtype == torch.float32:
+            _close(got, moe.moe_apply(p, x, cfg).to(cuda), dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-12b", "starcoder2-7b",
+                                  "qwen3-moe-235b-a22b", "dbrx-132b"])
 def test_generate_on_card_matches_cpu_and_launches_every_kernel(cuda, arch):
     cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
     cpu_api = build_model(cfg, device="cpu")
@@ -120,7 +189,11 @@ def test_generate_on_card_matches_cpu_and_launches_every_kernel(cuda, arch):
     programs.reset_launch_counts()
     got = eng.generate(prompts, 6)
     np.testing.assert_array_equal(got, want)
-    assert all(n > 0 for n in programs.launch_counts().values()), programs.launch_counts()
+    counts = programs.launch_counts()
+    # the MoE family runs every kernel; the dense family all but B5
+    assert all(n > 0 for name, n in counts.items()
+               if cfg.is_moe or name != "moe_gemm/expert_gemm"), counts
+    assert (counts["moe_gemm/expert_gemm"] > 0) == cfg.is_moe, counts
 
 
 def test_launch_serve_cli_runs_on_the_card(cuda, capsys):

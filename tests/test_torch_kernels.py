@@ -24,6 +24,7 @@ from repro.kernels.flash_attention import flash_decode_pallas
 from repro_torch.axe.program import DeviceError
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import moe_gemm as moe_k
 from repro_torch.kernels import programs
 from repro_torch.kernels import rmsnorm as rn
 
@@ -219,23 +220,36 @@ def _c_signature(src: str, symbol: str) -> str:
 
 
 def _csrc(source: str) -> str:
-    return (Path(mm.__file__).parents[1] / "csrc" / f"{source}.cu").read_text()
+    """A kernel source (``name.cu``) or shared header (``name.cuh``)."""
+    name = source if "." in source else f"{source}.cu"
+    return (Path(mm.__file__).parents[1] / "csrc" / name).read_text()
 
 
 @pytest.mark.parametrize("module,source", [(mm, "matmul"), (rn, "rmsnorm"),
-                                           (fa, "flash_attention")])
+                                           (fa, "flash_attention"), (moe_k, "moe_gemm")])
 def test_ctypes_signatures_match_c_entries(module, source):
     src = _csrc(source)
     for symbol, sig in module.SIGNATURES.items():
         assert _c_signature(src, symbol) == sig, symbol
 
 
+def test_build_all_covers_every_kernel_source():
+    from repro_torch.kernels import _build
+
+    assert set(_build.SOURCES) == {f.stem for f in _build.CSRC.glob("*.cu")}
+
+
 def test_wrapper_constants_match_the_kernels():
     """The shapes the wrappers check against are the ones compiled in."""
     const = lambda src, name: int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
+    tiles = _csrc("gemm_tiles.cuh")  # B1's and B5's tiles
+    assert mm.TILE_BLOCKS == {"bm": const(tiles, "TBM"), "bn": const(tiles, "TBN"),
+                              "bk": const(tiles, "TBK")}
+    assert moe_k.EXPERT_BLOCKS == {"bc": const(tiles, "TBM"), "bf": const(tiles, "TBN"),
+                                   "bd": const(tiles, "TBK")}
+    assert '#include "gemm_tiles.cuh"' in _csrc("matmul")
+    assert '#include "gemm_tiles.cuh"' in _csrc("moe_gemm")
     src = _csrc("matmul")
-    assert mm.TILE_BLOCKS == {"bm": const(src, "TBM"), "bn": const(src, "TBN"),
-                              "bk": const(src, "TBK")}
     assert mm.SKINNY_SMEM_FLOATS == const(src, "SK_SMEM")
     src = _csrc("flash_attention")
     assert sorted(int(d) for d in re.findall(r"case (\d+): return launch_attend", src)) == \

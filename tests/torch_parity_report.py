@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 HERE = Path(__file__).resolve().parent
-FILES = ("test_torch_kernels.py", "test_torch_serve.py")
+FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -32,6 +32,21 @@ TARGETS = {
     "test_decode_step_per_slot_positions": ("models/transformer.py",
                                             "decode_step, batch-1 per slot"),
     "test_prefill_and_decode_bf16": ("models/transformer.py", "prefill + decode_step, bf16"),
+    "test_moe_gemm_matches_pallas": ("kernels/moe_gemm.py",
+                                     "programs.moe_gemm, Pallas expert_gemm; ref.moe_gemm_ref"),
+    "test_local_dispatch_matches_jax_with_dropped_tokens": ("models/moe.py",
+                                                            "moe.local_combine (dropped tokens)"),
+    "test_local_dispatch_matches_the_loop_oracle": ("models/moe.py",
+                                                    "moe_routing_ref combine (JAX, port)"),
+    "test_moe_apply_matches_jax": ("models/moe.py", "moe.moe_apply"),
+    "test_moe_prefill_logits_and_cache_match_jax": ("models/transformer.py",
+                                                    "transformer.prefill, MoE"),
+    "test_moe_decode_step_mid_sequence_matches_jax": ("models/transformer.py",
+                                                      "transformer.decode_step, MoE"),
+    "test_moe_decode_step_per_slot_positions": ("models/transformer.py",
+                                                "MoE decode_step, batch-1 per slot"),
+    "test_moe_prefill_and_decode_bf16": ("models/transformer.py",
+                                         "MoE prefill + decode_step, bf16"),
 }
 
 
