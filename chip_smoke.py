@@ -7,7 +7,10 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (fails without a card);
 2. build   — every kernel library from ``src/repro_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; then the evidence of
+   B1's and B3's design: ``cuobjdump -sass`` counts the ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions of the ``matmul`` and
+   ``flash_attention`` libraries, and none of either fails the run;
 
 the dense path, qwen3-4b:
 
@@ -16,14 +19,17 @@ the dense path, qwen3-4b:
    qwen3-4b's serving path gives it, held against its plain torch
    version on the same CUDA tensors, then timed beside the plain
    version and a one-call PyTorch yardstick (CUDA events, L2 flushed
-   before every launch);
+   before every launch); B3 also at qwen3-4b's heads over one 2048-token
+   sequence, not a path shape, where it is bound by operations;
 4. depth 2 — qwen3-4b at full width with 2 layers, bf16, weights from a
    seed on the CPU: prefill + 3 decode steps on the CPU (plain
    versions) and on the card (kernels), logits compared;
 5. full    — qwen3-4b at full width and depth (36 layers, bf16, random
    weights from a seed on the card) through ``ServeEngine.generate``:
    4 requests x 128-token prompts x 32 new tokens, greedy, max_seq 256,
-   with every kernel's launch counter read around that one run;
+   with every kernel's launch counter read around that one run, and
+   every bf16 matmul of more than 8 rows and every bf16 attend the model
+   issued in it counted by B1's and B3's wgmma counters;
 
 the MoE path, qwen3-moe-235b-a22b at full width:
 
@@ -38,9 +44,10 @@ the MoE path, qwen3-moe-235b-a22b at full width:
    choices compared (``phase_depth2`` says why);
 8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
-   as phase 5, launch counters read around that one run.
+   as phase 5, launch and wgmma counters read around that one run.
 
-It then prints the ``kernels`` JSON line, the card's
+It then prints the ``kernels`` JSON line (each entry also names the
+CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -61,6 +68,7 @@ ARCH = "qwen3-4b"
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
+LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
 # kernel vs plain version: tests/test_program.py:_tol of the reference
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-3, atol=1e-4)}
@@ -141,9 +149,39 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_counts(build, names=("matmul", "flash_attention"), opcodes=("HGMMA", "UTMALDG")):
+    """Count each opcode in the SASS of each built library (cuobjdump
+    ships with the toolkit that provides nvcc)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent / "cuobjdump")
+    counts = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(build._target(name))], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[name] = {op: sum(op in line for line in sass.splitlines()) for op in opcodes}
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def b1_kernel(mm, a, b, n_sm) -> str:
+    """The CUDA kernel(s) B1's wrapper launches for ``a @ b``."""
+    route = mm.tile_route(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if route == "skinny":
+        splits = mm.skinny_plan(m, k, n, a.element_size(), n_sm)[0]
+        name = "matmul_skinny_kernel"
+    elif route == "wgmma":
+        splits, name = mm.tile_plan(m, k, n, n_sm)[0], "matmul_bf16_wgmma"
+    else:
+        splits = 1
+        name = "matmul_bf16_tiled" if a.element_size() == 2 else "matmul_f32_tiled"
+    return name + (f" + splitk_reduce ({splits} splits)" if splits > 1 else "")
+
 
 def kernel_cases(cfg, torch, F, device):
     """One case per (kernel, main-path shape, dtype): the wrapper call,
@@ -159,6 +197,8 @@ def kernel_cases(cfg, torch, F, device):
     from repro_torch.models import moe
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if torch.device(device).type == "cuda" else 132)  # 132: an H100, to rehearse on a CPU
     d, h, kv, hd, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                            cfg.d_ff, cfg.vocab_size)
     t = BATCH * PROMPT
@@ -173,6 +213,7 @@ def kernel_cases(cfg, torch, F, device):
         size = a.element_size()
         cases.append(dict(
             kernel="matmul/tile", label=f"{label} {m}x{k}x{n}", dtype=dtype,
+            cuda_kernel=b1_kernel(mm, a, b, n_sm),
             run=lambda: programs.matmul(a, b), plain=lambda: mm.matmul_plain(a, b),
             library=lambda: torch.matmul(a, b),
             nbytes=(m * k + k * n + m * n) * size, flops=2.0 * m * n * k))
@@ -181,6 +222,7 @@ def kernel_cases(cfg, torch, F, device):
         x, w = randn((rows, width), dtype), 1.0 + randn((width,), dtype, 0.1)
         cases.append(dict(
             kernel="rmsnorm/rows", label=f"{label} {rows}x{width}", dtype=dtype,
+            cuda_kernel="rmsnorm_rows_kernel",
             run=lambda: programs.rmsnorm(x, w), plain=lambda: rn.rmsnorm_plain(x, w),
             library=lambda: F.rms_norm(x, (width,), w, 1e-6),
             nbytes=(2 * rows * width + width) * x.element_size(), flops=4.0 * rows * width))
@@ -197,6 +239,7 @@ def kernel_cases(cfg, torch, F, device):
         x, w = randn((e, c, k), dtype), weights[key]
         cases.append(dict(
             kernel="moe_gemm/expert_gemm", label=f"{label} {e}x{c}x{k}x{n}", dtype=dtype,
+            cuda_kernel="moe_gemm_bf16" if dtype == bf16 else "moe_gemm_f32",
             run=lambda: programs.moe_gemm(x, w), plain=lambda: moe_k.moe_gemm_plain(x, w),
             library=lambda: torch.bmm(x, w),
             nbytes=e * (c * k + k * n + c * n) * x.element_size(), flops=2.0 * e * c * k * n))
@@ -231,18 +274,25 @@ def kernel_cases(cfg, torch, F, device):
         rmsnorm_case("prefill norm", t, d, f32)
         rmsnorm_case("prefill q-norm", t * h, hd, f32)
 
-    # B3: [B, S, H, hd] projections as [B, H, S, hd] views, causal
-    q = randn((BATCH, PROMPT, h, hd), bf16).transpose(1, 2)
-    k = randn((BATCH, PROMPT, kv, hd), bf16).transpose(1, 2)
-    vv = randn((BATCH, PROMPT, kv, hd), bf16).transpose(1, 2)
-    pairs = BATCH * h * PROMPT * (PROMPT + 1) / 2
-    cases.append(dict(
-        kernel="flash_attention/attend", label=f"prefill B{BATCH} H{h}/{kv} S{PROMPT} D{hd} causal",
-        dtype=bf16,
-        run=lambda: programs.flash_attention(q, k, vv, causal=True),
-        plain=lambda: fa.attention_plain(q, k, vv, causal=True),
-        library=lambda: F.scaled_dot_product_attention(q, k, vv, is_causal=True, enable_gqa=True),
-        nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * pairs))
+    # B3: [B, S, H, hd] projections as [B, H, S, hd] views, causal; at the
+    # path's shape and, for the dense config, over one long sequence
+    def attend_case(label, batch, seq):
+        q = randn((batch, seq, h, hd), bf16).transpose(1, 2)
+        k = randn((batch, seq, kv, hd), bf16).transpose(1, 2)
+        vv = randn((batch, seq, kv, hd), bf16).transpose(1, 2)
+        pairs = batch * h * seq * (seq + 1) / 2
+        cases.append(dict(
+            kernel="flash_attention/attend", label=f"{label} B{batch} H{h}/{kv} S{seq} D{hd} causal",
+            dtype=bf16, cuda_kernel="flash_attend_wgmma",
+            run=lambda: programs.flash_attention(q, k, vv, causal=True),
+            plain=lambda: fa.attention_plain(q, k, vv, causal=True),
+            library=lambda: F.scaled_dot_product_attention(q, k, vv, is_causal=True,
+                                                           enable_gqa=True),
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * pairs))
+
+    attend_case("prefill", BATCH, PROMPT)
+    if not cfg.is_moe:
+        attend_case("long sequence (not a path shape)", 1, LONG_SEQ)
 
     # B4: the [B, W, KV, hd] cache through strides, slots at mixed depths
     g = h // kv
@@ -257,7 +307,7 @@ def kernel_cases(cfg, torch, F, device):
     qh = qd.reshape(BATCH, h, 1, hd)
     cases.append(dict(
         kernel="flash_attention/decode", label=f"decode B{BATCH} KV{kv} G{g} W{MAX_SEQ} D{hd}",
-        dtype=bf16,
+        dtype=bf16, cuda_kernel="flash_decode_kernel",
         run=lambda: programs.flash_decode(qd, kt, vt, pos),
         plain=lambda: fa.decode_plain(qd, kt, vt, pos),
         library=lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
@@ -281,10 +331,11 @@ def phase_kernels(cfg, torch, F, device):
         check(ok, f"{c['kernel']} {c['label']} {dtype}: max |diff| {err} outside {tol}")
         ms, plain_ms, lib_ms = timer(c["run"]), timer(c["plain"]), timer(c["library"])
         b_ms, b_by = bound_ms(c["nbytes"], c["flops"], dtype)
-        rows.append(dict(kernel=c["kernel"], shape=c["label"], dtype=dtype, max_abs_err=err,
+        rows.append(dict(kernel=c["kernel"], shape=c["label"], dtype=dtype,
+                         cuda_kernel=c["cuda_kernel"], max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by))
-        log(f"  {c['kernel']:<24} {c['label']:<40} {dtype:<8} max|d| {err:.3g}  "
+        log(f"  {c['kernel']:<24} {c['label']:<40} {dtype:<8} [{c['cuda_kernel']}] max|d| {err:.3g}  "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
             f"bound {b_ms:.4f} ({b_by})  host {host_us(torch, c['run']):.1f} us/call")
     return rows
@@ -412,11 +463,46 @@ def phase_depth2(cfg, torch, device, *, init_on="cpu"):
     return err
 
 
+class RouteProbe:
+    """Counts, around one run, the bf16 products of more than
+    ``SKINNY_MAX_M`` rows that the model hands ``programs.matmul`` and the
+    bf16 attends it hands ``programs.flash_attention``: what B1's and
+    B3's wgmma counters must then show."""
+
+    def __init__(self, torch, programs, mm):
+        self.torch, self.programs, self.mm = torch, programs, mm
+        self.tiles = self.attends = 0
+
+    def __enter__(self):
+        p, bf16 = self.programs, self.torch.bfloat16
+        self.saved = p.matmul, p.flash_attention
+        matmul, attend = self.saved
+
+        def counted_matmul(a, b, **kw):
+            if a.dtype == bf16 and a.shape[0] > self.mm.SKINNY_MAX_M:
+                self.tiles += 1
+            return matmul(a, b, **kw)
+
+        def counted_attend(q, k, v, **kw):
+            if q.dtype == bf16:
+                self.attends += 1
+            return attend(q, k, v, **kw)
+
+        p.matmul, p.flash_attention = counted_matmul, counted_attend
+        return self
+
+    def __exit__(self, *exc):
+        self.programs.matmul, self.programs.flash_attention = self.saved
+
+
 def phase_full(cfg, torch, device):
     """``cfg`` through ``ServeEngine.generate`` on the card, launch
     counters zeroed just before the one measured run and read just
     after: every kernel of the path must have launched (B5, on an MoE
-    path, exactly three times per layer and step)."""
+    path, exactly three times per layer and step), and every bf16 matmul
+    of more than 8 rows and every bf16 attend must have taken B1's and
+    B3's wgmma kernels."""
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import programs
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -436,8 +522,9 @@ def phase_full(cfg, torch, device):
     torch.cuda.reset_peak_memory_stats(device)
 
     programs.reset_launch_counts()
-    out = engine.generate(prompts, NEW)
-    counts = programs.launch_counts()
+    with RouteProbe(torch, programs, mm) as probe:
+        out = engine.generate(prompts, NEW)
+    counts, wgmma = programs.launch_counts(), programs.wgmma_counts()
 
     timing = engine.last_timing
     check(out.shape == (BATCH, NEW), f"tokens {out.shape} != {(BATCH, NEW)}")
@@ -450,6 +537,13 @@ def phase_full(cfg, torch, device):
         check(counts["moe_gemm/expert_gemm"] == want,
               f"B5 launched {counts['moe_gemm/expert_gemm']} times, not 3 x "
               f"{cfg.num_layers} layers x {NEW} steps = {want}")
+    check(probe.tiles > 0 and wgmma["matmul/tile"] == probe.tiles,
+          f"B1: {wgmma['matmul/tile']} wgmma launches for {probe.tiles} bf16 matmuls of more "
+          f"than {mm.SKINNY_MAX_M} rows")
+    check(probe.attends > 0 and wgmma["flash_attention/attend"] == probe.attends ==
+          counts["flash_attention/attend"],
+          f"B3: {wgmma['flash_attention/attend']} wgmma launches, "
+          f"{counts['flash_attention/attend']} launches, for {probe.attends} bf16 attends")
     logits, _ = api.prefill(params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(bool((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).all()),
@@ -465,7 +559,9 @@ def phase_full(cfg, torch, device):
         f"{stats['prefill_ms']:.2f} ms, decode {stats['decode_ms_per_step']:.3f} ms/step, "
         f"{stats['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{stats['max_memory_allocated_gib']:.2f} GiB")
-    log(f"  launches in that run: {counts}")
+    log(f"  launches in that run: {counts}; of them through wgmma: {wgmma} (the model issued "
+        f"{probe.tiles} bf16 matmuls of more than {mm.SKINNY_MAX_M} rows, {probe.attends} "
+        f"bf16 attends)")
     log(f"  first tokens: {out[:, :8].tolist()}")
 
     # where the time goes: device busy time by kernel under the profiler,
@@ -531,9 +627,20 @@ def main() -> int:
     secs = _build.build_all()
     log(f"[2/8] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
     for src, text in _build.BUILD_LOG.items():
+        entry = ""
         for line in text.splitlines():
-            if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif src in ("matmul", "flash_attention") and "wgmma" in entry and (
+                    "Used" in line or "spill" in line):
+                log(f"  ptxas {src} {entry}: {line.strip()}")
+            elif "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 print(f"  ptxas {src}: {line.strip()}", file=sys.stderr)
+    sass = sass_counts(_build)
+    log(f"  SASS instruction counts (cuobjdump -sass): {sass}")
+    for lib, ops in sass.items():
+        for op, n in ops.items():
+            check(n > 0, f"the {lib} library has no {op} instruction: B1/B3 are not on wgmma + TMA")
 
     kernels, stats = [], {}
 
@@ -552,6 +659,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         kernels.extend(
             {"name": f"{r['kernel']} [{cfg.name} {r['shape']}, {r['dtype']}]", "route": "cuda",
+             "cuda_kernel": r["cuda_kernel"],
              "source": SOURCES[r["kernel"]], "replaces": REPLACES[r["kernel"]],
              "launches": counts[r["kernel"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

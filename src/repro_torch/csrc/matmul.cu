@@ -6,18 +6,32 @@
 // `_tile` at :80, launch at :138, body `_mac` at :52). On the TPU the K
 // axis is a sequential "arbitrary" grid axis carrying an f32 VMEM
 // accumulator between steps; here K is a loop inside each thread block
-// and the accumulator lives in registers (tensor-core fragments for
-// bf16, per-thread 4x4 tiles for f32).
+// and the accumulator lives in registers.
 //
-// Bound on the H100, and what the design does about it:
-// * Prefill shapes (M = 512, K = 2560..9728, N = 1024..9728) do 2-5 flops
+// Bound on the H100, and what the design does about it. The wrapper
+// (kernels/matmul.py, `tile_route`) picks one of four kernels by shape:
+// * Prefill shapes (M = 512, K = 2560..9728, N = 512..9728) do 2-5 flops
 //   per byte of A+B+C and more than 100 per byte once tiles are reused:
-//   they are bound by operations. `matmul_bf16_tiled` runs them on the
-//   tensor cores through WMMA 16x16x16 bf16 fragments (f32 accumulate) on
-//   64x128 block tiles with a 32-deep K step, the next K step's tiles
-//   prefetched into registers while the current one multiplies
-//   (gemm_tiles.cuh, shared with B5). No TMA, no wgmma and no
-//   multi-stage ring yet: those are the later PRs that make it fast.
+//   they are bound by operations, so they must reach Hopper's wgmma rate.
+//   `matmul_bf16_wgmma` takes every bf16 product with M > 8 whose
+//   operands TMA can address (K and N multiples of 8, 16-byte-aligned
+//   bases and leading strides): 128x128 output tiles, one producer warp
+//   keeping TMA loads of A [128 x 64] and B [64 x 128] (two 64-wide
+//   128-byte-swizzled boxes) in flight through a 4-stage mbarrier ring
+//   (4 x 32 KB of shared memory, one block per SM), and two consumer
+//   warpgroups of 64 output rows each issuing wgmma m64n128k16 with A
+//   K-major and B MN-major (transpose bit). The accumulators stay in
+//   registers; the epilogue rounds to bf16 and stores straight to C.
+//   A grid under one wave of blocks (qwen3-4b's k|v, 32 tiles; qwen3-moe's
+//   k|v, 16 tiles) splits K in whole 64-deep steps (`tile_plan` in the
+//   wrapper) into an f32 workspace that `splitk_reduce` sums in split
+//   order: deterministic, no atomics. The 80-tile shapes (qwen3-4b's o and
+//   down) are not split: at one block per SM, two splits make 160 blocks,
+//   two waves of half the work each, no faster than one wave of 80, plus
+//   the reduce pass.
+// * Ragged bf16 shapes that TMA cannot take run `matmul_bf16_tiled`: WMMA
+//   16x16x16 fragments (mma.sync) on 64x128x32 tiles with a register
+//   prefetch and masked scalar loads (gemm_tiles.cuh, shared with B5).
 // * Decode shapes (M = batch = 4) are pure weight streaming: every byte
 //   of B is read once for 2*M flops, so they are bound by bytes. A 64-row
 //   tile would waste 60 of its 64 rows and, worse, put only N/128 blocks
@@ -30,20 +44,118 @@
 //   main path) runs `matmul_f32_tiled` on the CUDA cores in full f32 —
 //   never TF32, whose ~3 decimal digits the f32 tolerance does not admit.
 // Ragged M, N and K are masked in every kernel: out-of-range loads read
-// zeros and out-of-range stores are skipped.
+// zeros (TMA fills them) and out-of-range stores are skipped.
 #include "gemm_tiles.cuh"
+#include "hopper.cuh"
 
 using namespace repro;
 
 // ---------------------------------------------------------------------------
-// tiles (M > 8): bf16 on the tensor cores, f32 on the CUDA cores
+// prefill tiles (bf16, M > 8, operands TMA can address): wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
-template <bool VEC>
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64;
+constexpr int WG_STAGES = 4;
+constexpr int WG_CONSUMERS = 2;                      // warpgroups of 64 output rows
+constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;  // + the producer warp
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;        // [128 rows][64 k], 16 KB
+constexpr int WG_B_HALF = WG_BK * 64 * 2;            // [64 k][64 n], 8 KB; two per stage
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + 2 * WG_B_HALF;
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;  // + slack to align to 1024
+
+// Block (blockIdx.x, blockIdx.y) computes output tile (m, n) over K steps
+// [blockIdx.z * ksteps, +ksteps): into C, or with `ws` into its split's
+// f32 slice ws[blockIdx.z][M][N]. M tiles run fastest, so the blocks that
+// share a column tile of B (the weight) are resident together and read it
+// from device memory once.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    matmul_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, bf16* __restrict__ C,
+                      float* __restrict__ ws, int M, int N, int K, long long ldc, int ksteps) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
+  const int kt0 = blockIdx.z * ksteps;
+  const int nk = min((K + WG_BK - 1) / WG_BK, kt0 + ksteps) - kt0;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);                      // the producer's expect-tx
+      hopper::mbar_init(&empty[s], WG_CONSUMERS * 4);      // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WG_CONSUMERS) {  // the producer warp: one thread keeps the ring full
+    if (tid == WG_CONSUMERS * 128) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % WG_STAGES;
+        hopper::mbar_wait(&empty[s], ((i / WG_STAGES) & 1) ^ 1);
+        uint8_t* a = smem + s * WG_STAGE_BYTES;
+        uint8_t* b = a + WG_A_BYTES;
+        const int k0 = (kt0 + i) * WG_BK;
+        hopper::mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+        hopper::tma_load_2d(a, &map_a, &full[s], k0, m0);
+        hopper::tma_load_2d(b, &map_b, &full[s], n0, k0);
+        hopper::tma_load_2d(b + WG_B_HALF, &map_b, &full[s], n0 + 64, k0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg`: output rows m0 + 64 * wg .. + 63
+  const int t = tid & 127, lane = tid & 31;
+  float acc[WG_BN / 2];
+#pragma unroll
+  for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % WG_STAGES;
+    hopper::mbar_wait(&full[s], (i / WG_STAGES) & 1);
+    const uint8_t* a = smem + s * WG_STAGE_BYTES + wg * (64 * WG_BK * 2);
+    const uint8_t* b = smem + s * WG_STAGE_BYTES + WG_A_BYTES;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+      hopper::wgmma_ss_n128<1>(acc, hopper::desc_kmajor(a + kk * 32),
+                               hopper::desc_mnmajor(b + kk * 16 * 128, WG_B_HALF), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // step i - 1's products are done reading their stage
+    hopper::fence_regs(acc);
+    if (i > 0 && lane == 0) hopper::mbar_arrive(&empty[(i - 1) % WG_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  const int row0 = m0 + wg * 64;
+#pragma unroll
+  for (int i = 0; i < WG_BN / 2; i += 2) {
+    const int r = row0 + hopper::acc_row(i, t), c = n0 + hopper::acc_col(i, t);
+    if (r < M && c < N) {  // N % 8 == 0: column c + 1 is inside too
+      if (ws)
+        *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + r) * N + c) =
+            make_float2(acc[i], acc[i + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(C + (long long)r * ldc + c) =
+            hopper::pack_bf16(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ragged tiles (M > 8): bf16 on WMMA, f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// The wrapper sends here only bf16 operands that TMA cannot address, so
+// the rows are not all 16-byte aligned: masked scalar loads (VEC false).
 __global__ void __launch_bounds__(256)
     matmul_bf16_tiled(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
                       int M, int N, int K, long long lda, long long ldb, long long ldc) {
-  bf16_tile<VEC>(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * TBM, blockIdx.x * TBN);
+  bf16_tile<false>(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * TBM, blockIdx.x * TBN);
 }
 
 __global__ void __launch_bounds__(256)
@@ -155,19 +267,42 @@ static void launch_skinny(const void* a, const void* b, void* c, float* ws, int 
 // C entries
 // ---------------------------------------------------------------------------
 
+// `ws` holds splits * M * N floats when splits > 1 (ignored otherwise);
+// `kchunk`, the K depth of one split, is a multiple of WG_BK.
+extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int M, int N, int K,
+                            long long lda, long long ldb, long long ldc, int splits, int kchunk,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map_a, map_b;
+  const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides_a[1] = {(cuuint64_t)lda * 2};
+  const cuuint64_t dims_b[2] = {(cuuint64_t)N, (cuuint64_t)K}, strides_b[1] = {(cuuint64_t)ldb * 2};
+  const cuuint32_t box_a[2] = {WG_BK, WG_BM}, box_b[2] = {64, WG_BK};
+  if (int err = encode_bf16_map(&map_a, 2, a, dims_a, strides_a, box_a)) return err;
+  if (int err = encode_bf16_map(&map_b, 2, b, dims_b, strides_b, box_b)) return err;
+  cudaError_t err = cudaFuncSetAttribute(matmul_bf16_wgmma,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* C = static_cast<bf16*>(c);
+  float* w = static_cast<float*>(ws);
+  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
+  matmul_bf16_wgmma<<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C, splits > 1 ? w : nullptr,
+                                                      M, N, K, ldc, kchunk / WG_BK);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = (long long)M * N;
+  splitk_reduce<bf16><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N, int K,
-                            long long lda, long long ldb, long long ldc, int dtype, int vec,
+                            long long lda, long long ldb, long long ldc, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == BF16) {
     const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    auto* A = static_cast<const bf16*>(a);
-    auto* B = static_cast<const bf16*>(b);
-    auto* C = static_cast<bf16*>(c);
-    if (vec)
-      matmul_bf16_tiled<true><<<grid, 256, 0, s>>>(A, B, C, M, N, K, lda, ldb, ldc);
-    else
-      matmul_bf16_tiled<false><<<grid, 256, 0, s>>>(A, B, C, M, N, K, lda, ldb, ldc);
+    matmul_bf16_tiled<<<grid, 256, 0, s>>>(static_cast<const bf16*>(a),
+                                           static_cast<const bf16*>(b), static_cast<bf16*>(c), M,
+                                           N, K, lda, ldb, ldc);
   } else {
     const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
     matmul_f32_tiled<<<grid, 256, 0, s>>>(static_cast<const float*>(a),
@@ -198,4 +333,4 @@ extern "C" int matmul_skinny(const void* a, const void* b, void* c, void* ws, in
   return static_cast<int>(cudaGetLastError());
 }
 
-REPRO_EXPORT_ERROR_STRING
+REPRO_EXPORT_ERROR_STRING_TMA

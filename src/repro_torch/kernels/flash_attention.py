@@ -12,8 +12,11 @@
   D), so the model passes ``[B, S, H, D]`` projections as transposed
   views, and the output is returned as a ``[B, H, S, D]`` view of
   ``[B, S, H, D]`` memory — ready for the output projection with no copy.
-  Schedule key ``flash_attention/attend`` (blocks bq/bkv); the CUDA
-  kernel is built for bq = bkv = 32 and refuses any other pin.
+  bf16 runs ``flash_attend_wgmma`` (tensor cores, TMA; its operands'
+  bases must be 16-byte aligned and their strides multiples of 8); f32
+  runs ``flash_attend`` (CUDA cores). Schedule key
+  ``flash_attention/attend`` (blocks bq/bkv): the bf16 kernel is built
+  for bq = bkv = 64 (:data:`ATTEND_BLOCKS`) and any other pin raises.
 * ``flash_attention/decode``      (GRID)  — grouped single-token queries
   ``q [B, KV, G, D]`` over the cache ``k/v [B, KV, W, D]`` at per-slot
   positions ``pos [B]``: ``flash_decode`` (kernel B4). The cache is read
@@ -40,20 +43,24 @@ from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.ref import attention_ref
 
-#: launches of the CUDA kernels since the last reset (kernels.programs)
+#: launches of the CUDA kernels since the last reset (kernels.programs);
+#: ``attend_wgmma_launches`` counts the bf16 attends that took the wgmma kernel
 attend_launches = 0
+attend_wgmma_launches = 0
 decode_launches = 0
 
 #: head dims the CUDA kernels are built for
 HEAD_DIMS = (64, 128, 256)
-#: the blocks ``flash_attend`` is compiled for: 32 query rows (four warps
-#: of eight) over 32-key tiles (one key per lane)
-ATTEND_BLOCKS = {"bq": 32, "bkv": 32}
+#: the blocks ``flash_attend_wgmma`` (bf16) is compiled for: 64 query rows
+#: (one warpgroup) over 64-key tiles (FA_BQ / FA_BKV in the source); the
+#: f32 CUDA-core kernel has fixed 32 / 32 tiles of its own
+ATTEND_BLOCKS = {"bq": 64, "bkv": 64}
 #: grouped query rows per kv head the decode kernel takes
 DECODE_MAX_G = 16
 #: ctypes argument codes of the C entries in csrc/flash_attention.cu
 SIGNATURES = {
-    "flash_attend": "ppppiiiiii" + "l" * 12 + "iifip",
+    "flash_attend": "ppppiiiiii" + "l" * 12 + "iifp",
+    "flash_attend_wgmma": "ppppiiiiii" + "l" * 12 + "iifp",
     "flash_decode": "pppppiiiii" + "l" * 12 + "ifip",
 }
 
@@ -127,6 +134,31 @@ def check_attend(q, k, v, window, blocks) -> None:
         )
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise DeviceError("flash_attention/attend: empty sequence")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if not tma_ready(x):
+                raise DeviceError(
+                    f"flash_attention/attend: the bf16 kernel loads {name} by TMA, which needs "
+                    f"a 16-byte-aligned base and strides that are multiples of 8; got strides "
+                    f"{x.stride()}"
+                )
+
+
+def tma_strides(x) -> tuple:
+    """The (batch, head, seq) strides of ``x`` as its tensor map takes
+    them: a dim of extent 1 is never stepped, so its stride is replaced
+    by the packed one (an expanded or sliced dim may carry any)."""
+    out, packed = [], x.shape[3]
+    for dim in (2, 1, 0):
+        out.append(x.stride(dim) if x.shape[dim] > 1 else packed)
+        packed = out[-1] * x.shape[dim]
+    return tuple(reversed(out))
+
+
+def tma_ready(x) -> bool:
+    """TMA can address the 4-D ``x``: 16-byte-aligned base, strides that
+    are multiples of 8 elements (16 bytes in bf16)."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in tma_strides(x))
 
 
 @flash_attention_program.stage(
@@ -136,7 +168,7 @@ def check_attend(q, k, v, window, blocks) -> None:
 )
 def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
             scale: Optional[float] = None):
-    global attend_launches
+    global attend_launches, attend_wgmma_launches
     if not ctx.on_card(q, k, v):
         return ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale)
     check_attend(q, k, v, window, {name: ctx.block(name) for name in ATTEND_BLOCKS})
@@ -144,14 +176,19 @@ def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
     kvh, skv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    wgmma = q.dtype == torch.bfloat16
+    symbol = "flash_attend_wgmma" if wgmma else "flash_attend"
+    strides = (*tma_strides(q), *tma_strides(k), *tma_strides(v)) if wgmma else \
+        (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     ctx.launch(
-        "flash_attention", "flash_attend", SIGNATURES["flash_attend"],
+        "flash_attention", symbol, SIGNATURES[symbol],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kvh, sq, skv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), window if window is not None else -1, float(scale),
-        DTYPE_CODES[q.dtype], stream_of(q),
+        *strides, *o.stride()[:3],
+        int(causal), window if window is not None else -1, float(scale), stream_of(q),
     )
     attend_launches += 1
+    if wgmma:
+        attend_wgmma_launches += 1
     return o
 
 

@@ -10,12 +10,16 @@
   body. Schedule key ``matmul/tile`` (blocks bm/bn/bk, variants
   ``kernel|xla`` — ``xla`` names the plain body).
 
-The CUDA entry is chosen from the shape: products with at most
-:data:`SKINNY_MAX_M` rows (every decode tick, and the prefill's
-last-position lm_head) stream the weight through ``matmul_skinny`` with
-the K split :func:`skinny_plan` picks; larger products run the
-bf16 tensor-core (or f32 CUDA-core) tiles of ``matmul_tiled``. Both are
-B1; the source says why each shape is bound where it is.
+The CUDA entry is chosen from the operands by :func:`tile_route`, a
+rule on shapes, strides and dtypes (never a fallback on failure):
+products with at most :data:`SKINNY_MAX_M` rows (every decode tick, and
+the prefill's last-position lm_head) stream the weight through
+``matmul_skinny`` with the K split :func:`skinny_plan` picks; larger bf16
+products whose operands TMA can address (every prefill matmul) run the
+wgmma kernel ``matmul_wgmma`` with the K split :func:`tile_plan` picks;
+the rest (ragged bf16 shapes, f32) run ``matmul_tiled`` (WMMA bf16 tiles,
+CUDA-core f32 tiles). All are B1; the source says why each shape is
+bound where it is.
 
 Replaces ``repro/kernels/matmul.py:_tile`` (TPU launch at :138, body
 ``_mac`` at :52). The fused ``Epilogue`` comes with the fusion slice.
@@ -29,17 +33,22 @@ from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.ref import matmul_ref
 
-#: launches of the CUDA kernel since the last reset (kernels.programs)
+#: launches of the CUDA kernels since the last reset (kernels.programs):
+#: all routes, and those that took the wgmma kernel
 launches = 0
+wgmma_launches = 0
 
-#: the block tile ``matmul_bf16_tiled`` is compiled for (csrc/matmul.cu)
-TILE_BLOCKS = {"bm": 64, "bn": 128, "bk": 32}
+#: the block tile ``matmul_bf16_wgmma`` is compiled for (csrc/matmul.cu,
+#: WG_BM/WG_BN/WG_BK); the WMMA and f32 tiles of the ragged route and the
+#: skinny kernel have fixed shapes of their own
+TILE_BLOCKS = {"bm": 128, "bn": 128, "bk": 64}
 #: products with at most this many rows take the weight-streaming path
 SKINNY_MAX_M = 8
 #: f32 words of shared memory ``matmul_skinny`` stages A's rows in
 SKINNY_SMEM_FLOATS = 8192
 #: ctypes argument codes of the C entries in csrc/matmul.cu
-SIGNATURES = {"matmul_tiled": "pppiiillliip", "matmul_skinny": "ppppiiillliiip"}
+SIGNATURES = {"matmul_wgmma": "ppppiiillliip", "matmul_tiled": "pppiiilllip",
+              "matmul_skinny": "ppppiiillliiip"}
 
 matmul_program = program(
     "matmul", doc="C[M,N] = A[M,K] @ B[K,N] with f32 accumulation"
@@ -69,6 +78,41 @@ def skinny_plan(m: int, k: int, n: int, itemsize: int, n_sm: int):
     splits = max(-(-k // max_chunk), min(want, max(1, k // 64)))
     kchunk = -(-k // splits)
     return -(-k // kchunk), kchunk
+
+
+def tile_plan(m: int, k: int, n: int, n_sm: int):
+    """(splits, kchunk) for ``matmul_wgmma``: split K only when the grid
+    of 128x128 output tiles is under one wave (``matmul_bf16_wgmma`` runs
+    one block per SM), into the most splits that still fit one wave, each
+    a whole number of 64-deep K steps and at least four of them (enough
+    to fill the 4-stage ring). ``kchunk`` is the K depth of one split;
+    the last split may be shorter."""
+    bm, bn, bk = TILE_BLOCKS["bm"], TILE_BLOCKS["bn"], TILE_BLOCKS["bk"]
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // bk)
+    splits = max(1, min(n_sm // tiles, steps // 4))
+    chunk = -(-steps // splits)
+    return -(-steps // chunk), chunk * bk
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """TMA can address the rows of the 2-D ``t``: 16-byte-aligned base,
+    a leading stride of a multiple of 8 elements and a row width of a
+    multiple of 8 elements (bf16)."""
+    return t.shape[1] % 8 == 0 and _aligned(t, 8)
+
+
+def tile_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The CUDA kernel of B1 that takes ``a @ b`` (operands as
+    :func:`check_operands` admits them): ``"skinny"`` (at most
+    :data:`SKINNY_MAX_M` rows and 16-byte rows of ``b``), ``"wgmma"``
+    (bf16 whose operands TMA can address) or ``"tiled"`` (the rest)."""
+    vec = 16 // a.element_size()
+    if a.shape[0] <= SKINNY_MAX_M and b.shape[1] % vec == 0 and _aligned(b, vec):
+        return "skinny"
+    if a.dtype == torch.bfloat16 and tma_ready(a) and tma_ready(b):
+        return "wgmma"
+    return "tiled"
 
 
 def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> None:
@@ -107,7 +151,7 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
     variants=("kernel", "xla"),
 )
 def _tile(ctx, a, b, *, out_dtype=None):
-    global launches
+    global launches, wgmma_launches
     if ctx.impl != "kernel" or not ctx.on_card(a, b):
         return ctx.run("dot", a, b, out_dtype=out_dtype)
     check_operands(a, b, out_dtype)
@@ -119,24 +163,41 @@ def _tile(ctx, a, b, *, out_dtype=None):
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    code = DTYPE_CODES[a.dtype]
-    vec = 16 // a.element_size()
-    if m <= SKINNY_MAX_M and n % vec == 0 and _aligned(b, vec):
-        n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
-        splits, kchunk = skinny_plan(m, k, n, a.element_size(), n_sm)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-              if splits > 1 else c)
+    ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr())
+    route = tile_route(a, b)
+    if route == "wgmma":
+        splits, kchunk = tile_plan(m, k, n, _sm_count(a.device))
+        ws = _workspace(c, splits)
+        ctx.launch(
+            "matmul", "matmul_wgmma", SIGNATURES["matmul_wgmma"],
+            *ptrs, ws.data_ptr(), m, n, k,
+            a.stride(0), b.stride(0), n, splits, kchunk, stream_of(a),
+        )
+        wgmma_launches += 1
+    elif route == "skinny":
+        splits, kchunk = skinny_plan(m, k, n, a.element_size(), _sm_count(a.device))
+        ws = _workspace(c, splits)
         ctx.launch(
             "matmul", "matmul_skinny", SIGNATURES["matmul_skinny"],
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), ws.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), n, code, splits, kchunk, stream_of(a),
+            *ptrs, ws.data_ptr(), m, n, k,
+            a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype], splits, kchunk, stream_of(a),
         )
     else:
-        vec_loads = k % 8 == 0 and n % 8 == 0 and _aligned(a, 8) and _aligned(b, 8)
         ctx.launch(
             "matmul", "matmul_tiled", SIGNATURES["matmul_tiled"],
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), n, code, int(vec_loads), stream_of(a),
+            *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype], stream_of(a),
         )
     launches += 1
     return c
+
+
+def _workspace(c: torch.Tensor, splits: int) -> torch.Tensor:
+    """The f32 partial sums of a K split (``[splits, M, N]``), or ``c``
+    itself where there is no split (the kernel then ignores it)."""
+    if splits == 1:
+        return c
+    return torch.empty((splits, *c.shape), dtype=torch.float32, device=c.device)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -14,7 +14,9 @@ On CUDA tensors each program launches its hand-written Hopper kernel
 (``repro_torch/csrc``) or raises; on CPU tensors it runs the kernel's
 plain torch version. :func:`launch_counts` reads, and
 :func:`reset_launch_counts` zeroes, the per-kernel launch counters the
-wrappers keep, so a run can show which kernels it went through.
+wrappers keep, so a run can show which kernels it went through;
+:func:`wgmma_counts` reads how many of B1's and B3's launches took their
+wgmma kernels.
 """
 from __future__ import annotations
 
@@ -46,10 +48,21 @@ def launch_counts() -> Dict[str, int]:
     }
 
 
+def wgmma_counts() -> Dict[str, int]:
+    """Launches since the last reset that took the wgmma kernels: B1's
+    ``matmul_bf16_wgmma`` and B3's ``flash_attend_wgmma``."""
+    return {
+        "matmul/tile": _mm.wgmma_launches,
+        "flash_attention/attend": _fa.attend_wgmma_launches,
+    }
+
+
 def reset_launch_counts() -> None:
     _mm.launches = 0
+    _mm.wgmma_launches = 0
     _rn.launches = 0
     _fa.attend_launches = 0
+    _fa.attend_wgmma_launches = 0
     _fa.decode_launches = 0
     _moe.launches = 0
 
@@ -63,4 +76,5 @@ __all__ = [
     "moe_gemm",
     "reset_launch_counts",
     "rmsnorm",
+    "wgmma_counts",
 ]

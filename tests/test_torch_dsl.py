@@ -131,7 +131,7 @@ def test_stage_ops_registered_with_schedule_registry():
     assert tsched.allowed_impls("rmsnorm/rows") == ("kernel", "xla")
     assert tsched.allowed_impls("flash_attention/attend") == ("kernel",)
     d = tsched.default_schedule("matmul/tile")
-    assert d.impl == "kernel" and d.block("bm") == 64 and d.block("bk") == 32
+    assert d.impl == "kernel" and d.block("bm") == 128 and d.block("bk") == 64
     assert tsched.allowed_impls("moe_gemm/expert_gemm") == ("kernel", "xla")
     d = tsched.default_schedule("moe_gemm/expert_gemm")
     assert d.impl == "kernel" and d.blocks_dict == {"bc": 64, "bf": 128, "bd": 32}

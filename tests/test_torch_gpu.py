@@ -50,6 +50,56 @@ def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n):
     _close(got, mm.matmul_plain(a, b), dtype)
 
 
+# the bf16 prefill matmuls of both paths (4 x 128 tokens): qwen3-4b q, k|v,
+# o, gate|up, down; qwen3-moe q, k|v, o
+PREFILL_SHAPES = [(512, 2560, 4096), (512, 2560, 1024), (512, 4096, 2560), (512, 2560, 9728),
+                  (512, 9728, 2560), (512, 4096, 8192), (512, 4096, 512), (512, 8192, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES + [(9, 64, 128), (128, 520, 264)])
+def test_matmul_wgmma_route_matches_plain(cuda, m, k, n):
+    a = _randn(cuda, (m, k), torch.bfloat16, 1)
+    b = _randn(cuda, (k, n), torch.bfloat16, 2, k ** -0.5)
+    assert mm.tile_route(a, b) == "wgmma"
+    before = mm.wgmma_launches
+    got = programs.matmul(a, b)
+    assert mm.wgmma_launches == before + 1
+    _close(got, mm.matmul_plain(a, b), torch.bfloat16)
+
+
+def test_matmul_wgmma_route_takes_a_strided_a(cuda):
+    big = _randn(cuda, (64, 304), torch.bfloat16, 3)
+    a, b = big[:, 8:264], _randn(cuda, (256, 128), torch.bfloat16, 4, 1 / 16)
+    before = mm.wgmma_launches
+    _close(programs.matmul(a, b), mm.matmul_plain(a, b), torch.bfloat16)
+    assert mm.wgmma_launches == before + 1
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 2560, 1024), (512, 4096, 512)])
+def test_matmul_split_k_is_deterministic(cuda, m, k, n):
+    """The 32- and 16-tile prefill grids split K; the splits are summed
+    in order by a second pass, so repeated runs give the same bits."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mm.tile_plan(m, k, n, n_sm)[0] > 1
+    a = _randn(cuda, (m, k), torch.bfloat16, 5)
+    b = _randn(cuda, (k, n), torch.bfloat16, 6, k ** -0.5)
+    first = programs.matmul(a, b)
+    for _ in range(3):
+        assert torch.equal(programs.matmul(a, b), first)
+    _close(first, mm.matmul_plain(a, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,lda", [(37, 83, 45, 83), (64, 100, 64, 100), (64, 64, 60, 64),
+                                       (64, 256, 128, 300)])
+def test_matmul_ragged_bf16_takes_wmma(cuda, m, k, n, lda):
+    a = _randn(cuda, (m, lda), torch.bfloat16, 7)[:, :k]
+    b = _randn(cuda, (k, n), torch.bfloat16, 8, k ** -0.5)
+    assert mm.tile_route(a, b) == "tiled"
+    before, wg = mm.launches, mm.wgmma_launches
+    _close(programs.matmul(a, b), mm.matmul_plain(a, b), torch.bfloat16)
+    assert (mm.launches, mm.wgmma_launches) == (before + 1, wg)
+
+
 def test_matmul_kernel_takes_leading_strides(cuda):
     big = _randn(cuda, (64, 300), torch.bfloat16, 3)
     a, b = big[:, 8:264], _randn(cuda, (256, 128), torch.bfloat16, 4, 1 / 16)
@@ -68,12 +118,18 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("causal,window,h,kvh,sq,skv,d",
                          [(True, None, 8, 2, 128, 128, 128), (False, None, 2, 2, 50, 70, 64),
                           (True, 40, 4, 4, 100, 100, 64), (True, None, 2, 1, 33, 97, 256),
-                          (False, 16, 4, 2, 64, 64, 128)])
+                          (False, 16, 4, 2, 64, 64, 128),
+                          # gemma3's head dim and window; a long qwen3-4b prompt
+                          (True, 1024, 4, 2, 1500, 1500, 256), (True, None, 32, 8, 2048, 2048, 128),
+                          (True, None, 4, 2, 77, 300, 128)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, window, h, kvh, sq, skv, d):
     q = _randn(cuda, (2, sq, h, d), dtype, 7).transpose(1, 2)  # strided, as the model passes it
     k, v = _randn(cuda, (2, kvh, skv, d), dtype, 8), _randn(cuda, (2, kvh, skv, d), dtype, 9)
-    _close(programs.flash_attention(q, k, v, causal=causal, window=window),
-           fa.attention_plain(q, k, v, causal=causal, window=window), dtype)
+    before = fa.attend_wgmma_launches
+    got = programs.flash_attention(q, k, v, causal=causal, window=window)
+    # bf16 takes the wgmma kernel; f32 the CUDA-core one
+    assert fa.attend_wgmma_launches == before + (dtype == torch.bfloat16)
+    _close(got, fa.attention_plain(q, k, v, causal=causal, window=window), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -98,9 +154,9 @@ def test_plain_bodies_and_split_operands_raise_on_the_card(cuda):
     with pytest.raises(DeviceError, match="split"):
         programs.matmul(a, a.cpu())
     with pytest.raises(DeviceError, match="built for"):
-        programs.matmul(a, a, blocks={"bm": 128})
+        programs.matmul(a, a, blocks={"bm": 64})
     q = torch.zeros(1, 2, 8, 64, device=cuda)
-    for pin in ({"bq": 64}, {"bkv": 16}):
+    for pin in ({"bq": 128}, {"bkv": 16}):
         with pytest.raises(DeviceError, match="built for"):
             programs.flash_attention(q, q, q, blocks=pin)
     with pytest.raises(DeviceError, match="built for"):

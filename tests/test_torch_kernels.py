@@ -70,6 +70,65 @@ def test_skinny_plan_covers_k_and_fits_shared_memory(m, k, n):
         assert splits == 1 or kchunk >= 32  # no split thinner than the 64-row floor allows
 
 
+def _bf16(shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+# (a, b) builders and the CUDA kernel of B1 each pair must go to
+ROUTES = {
+    "prefill bf16": (lambda: (_bf16((512, 2560)), _bf16((2560, 9728))), "wgmma"),
+    "nine rows": (lambda: (_bf16((9, 64)), _bf16((64, 128))), "wgmma"),
+    "strided a, lda 304": (lambda: (_bf16((64, 304))[:, 8:264], _bf16((256, 128))), "wgmma"),
+    "decode bf16": (lambda: (_bf16((4, 2560)), _bf16((2560, 1024))), "skinny"),
+    "decode f32": (lambda: (torch.empty(4, 64), torch.empty(64, 36)), "skinny"),
+    "prefill f32": (lambda: (torch.empty(512, 64), torch.empty(64, 64)), "tiled"),
+    "ragged": (lambda: (_bf16((37, 83)), _bf16((83, 45))), "tiled"),
+    "k not a multiple of 8": (lambda: (_bf16((64, 100)), _bf16((100, 64))), "tiled"),
+    "n not a multiple of 8": (lambda: (_bf16((64, 64)), _bf16((64, 60))), "tiled"),
+    "strided a, lda 300": (lambda: (_bf16((64, 300))[:, 8:264], _bf16((256, 128))), "tiled"),
+    "a off 16 bytes": (lambda: (_bf16(64 * 64 + 1)[1:].view(64, 64), _bf16((64, 64))), "tiled"),
+    "decode, b off 16 bytes": (lambda: (_bf16((4, 64)), _bf16(64 * 64 + 1)[1:].view(64, 64)),
+                               "tiled"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_tile_route_picks_the_kernel_from_shapes_strides_and_dtype(case):
+    make, want = ROUTES[case]
+    a, b = make()
+    mm.check_operands(a, b, None)
+    assert mm.tile_route(a, b) == want
+
+
+# the prefill matmuls of both paths (M = 4 x 128 tokens): (k, n) -> splits
+PREFILL_SPLITS = {
+    (2560, 4096): 1,   # qwen3-4b q: 128 tiles
+    (2560, 1024): 4,   # qwen3-4b k|v: 32 tiles
+    (4096, 2560): 1,   # qwen3-4b o: 80 tiles, two splits would be two waves
+    (2560, 9728): 1,   # qwen3-4b gate|up: 304 tiles
+    (9728, 2560): 1,   # qwen3-4b down: 80 tiles
+    (4096, 8192): 1,   # qwen3-moe q: 256 tiles
+    (4096, 512): 8,    # qwen3-moe k|v: 16 tiles
+    (8192, 4096): 1,   # qwen3-moe o: 128 tiles
+}
+
+
+@pytest.mark.parametrize("m,k,n", [(512, k, n) for k, n in PREFILL_SPLITS] +
+                         [(128, 520, 264), (9, 64, 128), (2048, 64, 8)])
+def test_tile_plan_fills_one_wave_in_whole_k_steps(m, k, n):
+    n_sm, bk = 132, mm.TILE_BLOCKS["bk"]
+    splits, kchunk = mm.tile_plan(m, k, n, n_sm)
+    tiles = -(-m // mm.TILE_BLOCKS["bm"]) * -(-n // mm.TILE_BLOCKS["bn"])
+    steps = -(-k // bk)
+    assert kchunk % bk == 0  # whole 64-deep K steps
+    assert (splits - 1) * kchunk < k <= splits * kchunk  # every split non-empty
+    assert splits == 1 or tiles * splits <= n_sm  # a split grid stays within one wave
+    # no further split fits the wave with at least four steps (the ring's depth) each
+    assert tiles * (splits + 1) > n_sm or steps // (splits + 1) < 4
+    if m == 512:
+        assert splits == PREFILL_SPLITS[(k, n)]
+
+
 def test_matmul_operand_checks():
     f32 = torch.zeros(4, 8)
     with pytest.raises(DeviceError, match="2-D"):
@@ -172,6 +231,28 @@ def test_flash_attention_operand_checks():
     fa.check_attend(q, torch.zeros(1, 2, 8, 64), torch.zeros(1, 2, 8, 64), 4, BLK)
 
 
+def test_attend_bf16_operands_must_suit_tma():
+    """bf16 attention loads q, k and v by TMA: strides of multiples of 8
+    elements and 16-byte-aligned bases, or a DeviceError (no fallback)."""
+    BLK = fa.ATTEND_BLOCKS
+    bf = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
+    # the model's [B, S, H, D] projections as [B, H, S, D] views
+    q, kv = bf(2, 16, 4, 64).transpose(1, 2), bf(2, 16, 2, 64).transpose(1, 2)
+    fa.check_attend(q, kv, kv, None, BLK)
+    assert fa.tma_strides(q) == (16 * 4 * 64, 64, 4 * 64)
+    # an extent-1 dim may carry any stride: its packed one is passed
+    one = bf(1, 2, 8, 64).expand(1, 2, 8, 64)[:, :1]
+    assert fa.tma_strides(one) == (8 * 64, 8 * 64, 64)
+    fa.check_attend(bf(1, 1, 8, 64), one, one, None, BLK)
+    for bad in (bf(1, 2, 8, 68)[..., :64],           # seq stride 68
+                bf(2 * 8 * 64 + 1)[1:].view(1, 2, 8, 64)):  # base 2 bytes off
+        with pytest.raises(DeviceError, match="TMA"):
+            fa.check_attend(bad, bad, bad, None, BLK)
+    # f32 takes the CUDA-core kernel, which reads through any strides
+    fa.check_attend(torch.zeros(1, 2, 8, 68)[..., :64], *(torch.zeros(1, 2, 8, 64),) * 2,
+                    None, BLK)
+
+
 # ---------------------------------------------------------------------------
 # B4 flash decode
 # ---------------------------------------------------------------------------
@@ -242,16 +323,20 @@ def test_build_all_covers_every_kernel_source():
 def test_wrapper_constants_match_the_kernels():
     """The shapes the wrappers check against are the ones compiled in."""
     const = lambda src, name: int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
-    tiles = _csrc("gemm_tiles.cuh")  # B1's and B5's tiles
-    assert mm.TILE_BLOCKS == {"bm": const(tiles, "TBM"), "bn": const(tiles, "TBN"),
-                              "bk": const(tiles, "TBK")}
+    src = _csrc("matmul")  # B1's wgmma tile; B5 keeps the WMMA tiles of gemm_tiles.cuh
+    assert mm.TILE_BLOCKS == {"bm": const(src, "WG_BM"), "bn": const(src, "WG_BN"),
+                              "bk": const(src, "WG_BK")}
+    tiles = _csrc("gemm_tiles.cuh")
     assert moe_k.EXPERT_BLOCKS == {"bc": const(tiles, "TBM"), "bf": const(tiles, "TBN"),
                                    "bd": const(tiles, "TBK")}
-    assert '#include "gemm_tiles.cuh"' in _csrc("matmul")
-    assert '#include "gemm_tiles.cuh"' in _csrc("moe_gemm")
-    src = _csrc("matmul")
+    for source in ("matmul", "moe_gemm"):
+        assert '#include "gemm_tiles.cuh"' in _csrc(source)
+    for source in ("matmul", "flash_attention"):
+        assert '#include "hopper.cuh"' in _csrc(source)
     assert mm.SKINNY_SMEM_FLOATS == const(src, "SK_SMEM")
     src = _csrc("flash_attention")
-    assert sorted(int(d) for d in re.findall(r"case (\d+): return launch_attend", src)) == \
-        list(fa.HEAD_DIMS)
+    assert fa.ATTEND_BLOCKS == {"bq": const(src, "FA_BQ"), "bkv": const(src, "FA_BKV")}
+    for launcher in ("launch_attend", "launch_attend_wgmma"):  # f32 and bf16 B3
+        dims = re.findall(r"case (\d+): return " + launcher + "<", src)
+        assert sorted(int(d) for d in dims) == list(fa.HEAD_DIMS), launcher
     assert max(int(g) for g in re.findall(r"if \(G <= (\d+)\)", src)) == fa.DECODE_MAX_G
