@@ -10,7 +10,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``nvcc`` per source, all started together; then the evidence of
    B1's and B3's design: ``cuobjdump -sass`` counts the ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions of the ``matmul`` and
-   ``flash_attention`` libraries, and none of either fails the run;
+   ``flash_attention`` libraries, and none of either fails the run; and,
+   per function, the TMA (``UTMALDG``), bulk-copy (``UBLKCP``),
+   ``cp.async`` (``LDGSTS``), ``mma.sync`` (``HMMA``) and ``ldmatrix``
+   (``LDSM``) instructions of B1's skinny kernel and B4's split-KV kernel
+   (reported, never failing);
 
 the dense path, qwen3-4b:
 
@@ -27,9 +31,12 @@ the dense path, qwen3-4b:
 5. full    — qwen3-4b at full width and depth (36 layers, bf16, random
    weights from a seed on the card) through ``ServeEngine.generate``:
    4 requests x 128-token prompts x 32 new tokens, greedy, max_seq 256,
-   with every kernel's launch counter read around that one run, and
-   every bf16 matmul of more than 8 rows and every bf16 attend the model
-   issued in it counted by B1's and B3's wgmma counters;
+   with every kernel's launch counter read around that one run, every
+   bf16 matmul of more than 8 rows and every bf16 attend the model issued
+   in it counted by B1's and B3's wgmma counters, every matmul of at most
+   8 rows and every bf16 decode attend by B1's skinny and B4's split-KV
+   counters, and the profiler showing one ``matmul_skinny_stream`` launch
+   per skinny product of a decode step (replayed alone);
 
 the MoE path, qwen3-moe-235b-a22b at full width:
 
@@ -44,7 +51,8 @@ the MoE path, qwen3-moe-235b-a22b at full width:
    choices compared (``phase_depth2`` says why);
 8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
-   as phase 5, launch and wgmma counters read around that one run.
+   as phase 5, launch, wgmma and bulk-copy counters read and checked
+   around that one run as in phase 5.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -149,17 +157,47 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sass_counts(build, names=("matmul", "flash_attention"), opcodes=("HGMMA", "UTMALDG")):
-    """Count each opcode in the SASS of each built library (cuobjdump
-    ships with the toolkit that provides nvcc)."""
+def sass_of(build, name) -> str:
+    """The SASS of one built library (cuobjdump ships with the toolkit
+    that provides nvcc)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent / "cuobjdump")
+    return subprocess.run([tool, "-sass", str(build._target(name))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_counts(build, names=("matmul", "flash_attention"), opcodes=("HGMMA", "UTMALDG")):
+    """Count each opcode in the SASS of each built library."""
     counts = {}
     for name in names:
-        sass = subprocess.run([tool, "-sass", str(build._target(name))], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
-        counts[name] = {op: sum(op in line for line in sass.splitlines()) for op in opcodes}
+        lines = sass_of(build, name).splitlines()
+        counts[name] = {op: sum(op in line for line in lines) for op in opcodes}
+    return counts
+
+
+#: the kernels of B1's skinny path and B4's bf16 path, and the opcodes of
+#: their design: TMA and bulk copies, cp.async, mma.sync, ldmatrix
+STREAM_KERNELS = {"matmul": "matmul_skinny_stream", "flash_attention": "flash_decode_split"}
+STREAM_OPCODES = ("UTMALDG", "UBLKCP", "LDGSTS", "HMMA", "LDSM")
+
+
+def sass_counts_per_function(build):
+    """Each opcode of ``STREAM_OPCODES`` counted per compiled instance
+    (``Function :`` section of ``cuobjdump -sass``) of the kernels in
+    ``STREAM_KERNELS``, keyed by the section's (mangled) name."""
+    counts = {}
+    for lib, kernel in STREAM_KERNELS.items():
+        fun = None
+        for line in sass_of(build, lib).splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                fun = name if kernel in name else None
+                if fun:
+                    counts[fun] = dict.fromkeys(STREAM_OPCODES, 0)
+            elif fun:
+                for op in STREAM_OPCODES:
+                    counts[fun][op] += op in line
     return counts
 
 
@@ -174,8 +212,8 @@ def b1_kernel(mm, a, b, n_sm) -> str:
     n = b.shape[1]
     if route == "skinny":
         splits = mm.skinny_plan(m, k, n, a.element_size(), n_sm)[0]
-        name = "matmul_skinny_kernel"
-    elif route == "wgmma":
+        return f"matmul_skinny_stream ({splits} splits, one launch)"
+    if route == "wgmma":
         splits, name = mm.tile_plan(m, k, n, n_sm)[0], "matmul_bf16_wgmma"
     else:
         splits = 1
@@ -305,9 +343,10 @@ def kernel_cases(cfg, torch, F, device):
     mask = live[:, None, None, :]
     slots = int(live.sum())
     qh = qd.reshape(BATCH, h, 1, hd)
+    splits = fa.decode_plan(BATCH * kv, MAX_SEQ, n_sm)[0]
     cases.append(dict(
         kernel="flash_attention/decode", label=f"decode B{BATCH} KV{kv} G{g} W{MAX_SEQ} D{hd}",
-        dtype=bf16, cuda_kernel="flash_decode_kernel",
+        dtype=bf16, cuda_kernel=f"flash_decode_split ({splits} splits, one launch)",
         run=lambda: programs.flash_decode(qd, kt, vt, pos),
         plain=lambda: fa.decode_plain(qd, kt, vt, pos),
         library=lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
@@ -464,23 +503,29 @@ def phase_depth2(cfg, torch, device, *, init_on="cpu"):
 
 
 class RouteProbe:
-    """Counts, around one run, the bf16 products of more than
-    ``SKINNY_MAX_M`` rows that the model hands ``programs.matmul`` and the
-    bf16 attends it hands ``programs.flash_attention``: what B1's and
-    B3's wgmma counters must then show."""
+    """Counts, around one run, what the model hands the kernel programs:
+    bf16 products of more than ``SKINNY_MAX_M`` rows (B1's wgmma counter
+    must then show as many), products ``tile_route`` sends to the skinny
+    kernel (B1's skinny counter), bf16 attends (B3's wgmma counter) and
+    bf16 decode attends (B4's split-KV counter)."""
 
-    def __init__(self, torch, programs, mm):
-        self.torch, self.programs, self.mm = torch, programs, mm
-        self.tiles = self.attends = 0
+    def __init__(self, torch, programs, mm, keep=False):
+        self.torch, self.programs, self.mm, self.keep = torch, programs, mm, keep
+        self.tiles = self.skinny = self.attends = self.decodes = 0
+        self.skinny_operands = []  # with ``keep``: the (a, b) of each skinny product
 
     def __enter__(self):
         p, bf16 = self.programs, self.torch.bfloat16
-        self.saved = p.matmul, p.flash_attention
-        matmul, attend = self.saved
+        self.saved = p.matmul, p.flash_attention, p.flash_decode
+        matmul, attend, decode = self.saved
 
         def counted_matmul(a, b, **kw):
             if a.dtype == bf16 and a.shape[0] > self.mm.SKINNY_MAX_M:
                 self.tiles += 1
+            if self.mm.tile_route(a, b) == "skinny":
+                self.skinny += 1
+                if self.keep:
+                    self.skinny_operands.append((a, b))
             return matmul(a, b, **kw)
 
         def counted_attend(q, k, v, **kw):
@@ -488,11 +533,16 @@ class RouteProbe:
                 self.attends += 1
             return attend(q, k, v, **kw)
 
-        p.matmul, p.flash_attention = counted_matmul, counted_attend
+        def counted_decode(q, k, v, pos, **kw):
+            if q.dtype == bf16:
+                self.decodes += 1
+            return decode(q, k, v, pos, **kw)
+
+        p.matmul, p.flash_attention, p.flash_decode = counted_matmul, counted_attend, counted_decode
         return self
 
     def __exit__(self, *exc):
-        self.programs.matmul, self.programs.flash_attention = self.saved
+        self.programs.matmul, self.programs.flash_attention, self.programs.flash_decode = self.saved
 
 
 def phase_full(cfg, torch, device):
@@ -524,7 +574,7 @@ def phase_full(cfg, torch, device):
     programs.reset_launch_counts()
     with RouteProbe(torch, programs, mm) as probe:
         out = engine.generate(prompts, NEW)
-    counts, wgmma = programs.launch_counts(), programs.wgmma_counts()
+    counts, wgmma, bulk = programs.launch_counts(), programs.wgmma_counts(), programs.bulk_counts()
 
     timing = engine.last_timing
     check(out.shape == (BATCH, NEW), f"tokens {out.shape} != {(BATCH, NEW)}")
@@ -544,6 +594,13 @@ def phase_full(cfg, torch, device):
           counts["flash_attention/attend"],
           f"B3: {wgmma['flash_attention/attend']} wgmma launches, "
           f"{counts['flash_attention/attend']} launches, for {probe.attends} bf16 attends")
+    check(probe.skinny > 0 and bulk["matmul/tile"] == probe.skinny,
+          f"B1: {bulk['matmul/tile']} skinny-stream launches for {probe.skinny} products of at "
+          f"most {mm.SKINNY_MAX_M} rows")
+    check(probe.decodes > 0 and bulk["flash_attention/decode"] == probe.decodes ==
+          counts["flash_attention/decode"],
+          f"B4: {bulk['flash_attention/decode']} split-KV launches, "
+          f"{counts['flash_attention/decode']} launches, for {probe.decodes} bf16 decode attends")
     logits, _ = api.prefill(params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(bool((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).all()),
@@ -559,9 +616,10 @@ def phase_full(cfg, torch, device):
         f"{stats['prefill_ms']:.2f} ms, decode {stats['decode_ms_per_step']:.3f} ms/step, "
         f"{stats['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{stats['max_memory_allocated_gib']:.2f} GiB")
-    log(f"  launches in that run: {counts}; of them through wgmma: {wgmma} (the model issued "
-        f"{probe.tiles} bf16 matmuls of more than {mm.SKINNY_MAX_M} rows, {probe.attends} "
-        f"bf16 attends)")
+    log(f"  launches in that run: {counts}; of them through wgmma: {wgmma}, through the "
+        f"bulk-copy kernels: {bulk} (the model issued {probe.tiles} bf16 matmuls of more than "
+        f"{mm.SKINNY_MAX_M} rows, {probe.skinny} skinny products, {probe.attends} bf16 "
+        f"attends, {probe.decodes} bf16 decode attends)")
     log(f"  first tokens: {out[:, :8].tolist()}")
 
     # where the time goes: device busy time by kernel under the profiler,
@@ -578,6 +636,8 @@ def phase_full(cfg, torch, device):
     stats["decode_device_busy_ms_per_step"] = busy
     log(f"  decode step: device busy {busy:.3f} ms of {stats['decode_ms_per_step']:.3f} ms "
         f"wall (idle share {1 - busy / stats['decode_ms_per_step']:.3f}); by kernel: {top}")
+    log("  " + check_one_launch_per_skinny_product(
+        torch, programs, mm, lambda: engine.decode_step(tok, cache, pos)))
     return counts, stats
 
 
@@ -600,6 +660,51 @@ def device_busy_ms(torch, fn, reps=3):
             by_name[e.name[:48]] += e.time_range.elapsed_us() / 1e3 / reps
     top = {k: round(v, 4) for k, v in by_name.most_common(5)}
     return sum(by_name.values()), top
+
+
+def launches_seen(torch, fn, sessions=3) -> list:
+    """The CUDA kernels, by name and count, that the profiler saw in one
+    call of ``fn``, for each of ``sessions`` profiled calls (after one
+    unprofiled warm-up call). The profiler can drop an event, never add
+    one."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen.append(Counter(e.name for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA))
+    return seen
+
+
+def check_one_launch_per_skinny_product(torch, programs, mm, step) -> str:
+    """Replay the skinny products of one decode step (``step``) alone
+    under the profiler, B1's skinny counter read around each replay: the
+    counter must rise by one per product and the profiler must see
+    ``matmul_skinny_stream`` and no other kernel, never more launches
+    than products. (The profiler may drop a few records of a session,
+    so its count can fall short; it never adds one.)"""
+    with RouteProbe(torch, programs, mm, keep=True) as probe:
+        step()
+    pairs = probe.skinny_operands
+    before = mm.skinny_launches
+    seen = launches_seen(torch, lambda: [programs.matmul(a, b) for a, b in pairs])
+    counted = (mm.skinny_launches - before) / (1 + len(seen))
+    counts = [sum(n for name, n in c.items() if "matmul_skinny_stream" in name) for c in seen]
+    others = {name for c in seen for name in c if "matmul_skinny_stream" not in name}
+    check(pairs and counted == len(pairs) and not others and 0 < max(counts) <= len(pairs),
+          f"the {len(pairs)} skinny products of a decode step counted {counted} skinny "
+          f"launches and ran as {counts} matmul_skinny_stream launches per profiled replay, "
+          f"with other kernels {others}")
+    return (f"the {len(pairs)} skinny products of a decode step, replayed alone: {counted:g} "
+            f"skinny launches counted per replay; the profiler saw {counts} "
+            f"matmul_skinny_stream launches and no other kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +746,8 @@ def main() -> int:
     for lib, ops in sass.items():
         for op, n in ops.items():
             check(n > 0, f"the {lib} library has no {op} instruction: B1/B3 are not on wgmma + TMA")
+    for fun, ops in sass_counts_per_function(_build).items():
+        log(f"  SASS of {fun}: {ops}")
 
     kernels, stats = [], {}
 

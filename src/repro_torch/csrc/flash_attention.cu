@@ -36,15 +36,31 @@
 //   Both take causal and window masks from positions, with queries
 //   right-aligned (offset Skv - Sq), and never load a tile wholly above
 //   the causal diagonal or wholly before the window.
-// * B4 (B=4, KV=8, G=4, D=128, W=256) reads every cache byte once for
-//   2 flops per byte per query row: bound by bytes. A block serves one
-//   (batch, kv head) and its G grouped query rows, so each cached K/V row
-//   is read once for all G heads that share it; the block's four warps
-//   take interleaved 32-key tiles with their own online softmax and merge
-//   (m, l, acc) at the end — the flash-decoding split inside one block.
-//   The cache is read through strides, so the [B, W, KV, D] cache needs
-//   no head-major copy per layer and tick; a slot is valid iff
-//   k_pos <= pos[b], or every slot once a ring cache has wrapped.
+// * B4 (B=4, KV=8, G=4, D=128, W=256) reads every live cache byte once
+//   for 2 flops per byte per query row: bound by bytes, and at the serving
+//   shapes (0.4-0.7 us of bytes) by a launch's latency. bf16 (the serving
+//   path) runs `flash_decode_split`, flash-decoding across blocks: the grid
+//   is (batch x kv head, splits), each block one warp over `chunk` slots
+//   (the wrapper's `decode_plan` picks the split from W, B*KV and the SM
+//   count, never from pos, which stays on the card), so qwen3-4b's 32
+//   (batch, kv head) pairs become 256 blocks. Lanes 0-15 / 16-31 bulk-copy
+//   one K / V row (D x 2 contiguous bytes) each per 16-slot tile into a
+//   3-stage ring (`cp.async.bulk` completing on an mbarrier; no tensor
+//   map, so no host work per call), rows padded by 16 bytes so ldmatrix
+//   reads are conflict-free. S = Q Kt and O += P V run on mma.sync
+//   m16n8k16 (the G <= 16 grouped rows padded to 16; K the column-major B
+//   operand by ldmatrix, V by ldmatrix.trans; P re-packed in registers from
+//   the S accumulator as the A fragment), the online softmax in f32 base 2.
+//   The (at most 8) splits of a (batch, kv head) are the blocks of one
+//   thread-block cluster: each leaves its (acc, m, l) in its shared
+//   memory and merges a slice of the output over all of them in split
+//   order through distributed shared memory: no second launch, no
+//   workspace, no atomics, equal bits on every run. f32 (tests) runs `flash_decode_kernel` on the CUDA
+//   cores: one block per (batch, kv head), four warps over interleaved
+//   32-slot tiles merging their states at the end.
+//   Both read the [B, W, KV, D] cache through strides (no head-major copy
+//   per layer and tick); a slot is valid iff k_pos <= pos[b], or every
+//   slot once a ring cache has wrapped.
 // Masked logits take no part (p = 0); a row with no valid key comes out
 // as 0, the reference oracle's convention (kernels/ref.py).
 #include "hopper.cuh"
@@ -396,10 +412,12 @@ __host__ __device__ constexpr int decode_warp_floats() {
   return 32 * (D + 1) + 32 * D + ROWS * 32;  // K tile, V tile, P
 }
 
-template <typename T, int ROWS, int DPL>
-__global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v, const int* __restrict__ pos,
-                                    T* __restrict__ o, int KVH, int G, int W, long long qb,
+// B4, f32 (tests, not the serving path): one block per (batch, kv head)
+// on the CUDA cores
+template <int ROWS, int DPL>
+__global__ void flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const int* __restrict__ pos,
+                                    float* __restrict__ o, int KVH, int G, int W, long long qb,
                                     long long qk, long long qg, long long kb, long long kk,
                                     long long kw, long long vb, long long vk, long long vw,
                                     long long ob, long long ok, long long og, int ring,
@@ -417,9 +435,9 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
   const int p = pos[b];
   // number of live cache slots: k_pos <= pos, or all once a ring wrapped
   const int n = (ring && p + 1 >= W) ? W : max(0, min(W, p + 1));
-  const T* kp = k + b * kb + h * kk;
-  const T* vp = v + b * vb + h * vk;
-  load_rows<T, D>(Qs, D, q + b * qb + h * qk, qg, ROWS, G, tid, blockDim.x);
+  const float* kp = k + b * kb + h * kk;
+  const float* vp = v + b * vb + h * vk;
+  load_rows<float, D>(Qs, D, q + b * qb + h * qk, qg, ROWS, G, tid, blockDim.x);
   __syncthreads();
 
   float m[ROWS], l[ROWS], acc[ROWS][DPL];
@@ -431,8 +449,8 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
   for (int t = warp * 32; t < n; t += nw * 32) {
-    load_rows<T, D>(Ks, D + 1, kp + (long long)t * kw, kw, 32, n - t, lane, 32);
-    load_rows<T, D>(Vs, D, vp + (long long)t * vw, vw, 32, n - t, lane, 32);
+    load_rows<float, D>(Ks, D + 1, kp + (long long)t * kw, kw, 32, n - t, lane, 32);
+    load_rows<float, D>(Vs, D, vp + (long long)t * vw, vw, 32, n - t, lane, 32);
     __syncwarp();
     float s[ROWS];
     tile_scores<ROWS, D>(Qs, Ks, lane, s);
@@ -469,8 +487,259 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
         A = fmaf(rw[r * D + c], sc, A);
       }
     }
-    o[b * ob + h * ok + r * og + c] = from_f32<T>(L > 0.f ? A / L : 0.f);
+    o[b * ob + h * ok + r * og + c] = L > 0.f ? A / L : 0.f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// B4, bf16: split-KV decode on mma.sync, the cache streamed by bulk copies
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_BK = 16;          // cache slots per tile: one k16 step of P V
+constexpr int DEC_STAGES = 3;       // tiles in flight
+constexpr int DEC_ROWS = 16;        // grouped query rows, padded to mma's m16
+constexpr int DEC_MAX_SPLITS = 8;   // splits: one cluster, portable size
+
+// bytes per shared-memory row: 16 more than a cache row, so the eight rows
+// one ldmatrix reads start in eight different banks
+template <int D>
+__host__ __device__ constexpr int dec_pitch() { return 2 * D + 16; }
+
+template <int D>
+__host__ __device__ constexpr int dec_smem_bytes() {  // Q, then the K and V rings
+  return (DEC_ROWS + 2 * DEC_STAGES * DEC_BK) * dec_pitch<D>();
+}
+
+// One warp per block; block (bh, split) covers cache slots
+// [split * chunk, split * chunk + chunk) of (batch, kv head) bh. Lanes 0-15
+// bulk-copy one K row each and lanes 16-31 one V row each per tile into a
+// DEC_STAGES ring; S = Q Kt (K as the column-major B operand by ldmatrix)
+// and O += P V (P re-packed from the S accumulator as the A fragment, V by
+// ldmatrix.trans) run on mma.sync with an online softmax in base 2. With
+// one split the block writes o; with more, the splits of bh are the blocks
+// of one cluster: each leaves its (acc, m, l) in its shared memory and
+// merges a slice of o over all of them in split order.
+template <int D>
+__global__ void __launch_bounds__(32)
+    flash_decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const int* __restrict__ pos,
+                       bf16* __restrict__ o, int KVH, int G, int W, int chunk, long long qb, long long qk, long long qg,
+                       long long kb, long long kk, long long kw, long long vb, long long vk,
+                       long long vw, long long ob, long long ok, long long og, int ring,
+                       float scale_log2) {
+  constexpr int P = dec_pitch<D>();
+  constexpr int NT = D / 8;  // n8 tiles of a row of O
+  extern __shared__ __align__(128) uint8_t dec_smem[];
+  __shared__ __align__(8) uint64_t qbar, full[DEC_STAGES];
+  __shared__ float fac[DEC_MAX_SPLITS * DEC_ROWS];
+  uint8_t* Qs = dec_smem;
+  uint8_t* Ks = Qs + DEC_ROWS * P;
+  uint8_t* Vs = Ks + DEC_STAGES * DEC_BK * P;
+
+  const int lane = threadIdx.x, gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x, b = bh / KVH, h = bh % KVH;
+  const int split = blockIdx.y, S = gridDim.y;
+  const int p = pos[b];
+  // live cache slots: k_pos <= pos, or all once a ring has wrapped
+  const int n = (ring && p + 1 >= W) ? W : max(0, min(W, p + 1));
+  const int start = split * chunk, end = min(start + chunk, n);
+  const int ntiles = end > start ? (end - start + DEC_BK - 1) / DEC_BK : 0;
+  const bf16* kp = k + b * kb + h * kk;
+  const bf16* vp = v + b * vb + h * vk;
+
+  if (lane == 0) {
+    hopper::mbar_init(&qbar, 1);
+    for (int s = 0; s < DEC_STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncwarp();
+
+  // tile i into stage i % DEC_STAGES; the rows past `end` are zeroed
+  // (only the last tile has any), so a dead slot adds 0, never NaN
+  auto issue = [&](int i) {
+    const int s = i % DEC_STAGES, t = start + i * DEC_BK;
+    const int rows = min(DEC_BK, end - t), r = lane & 15;
+    const bool isv = lane >= 16;
+    if (lane == 0) hopper::mbar_expect_tx(&full[s], 2 * rows * D * 2);
+    __syncwarp();
+    uint8_t* dst = (isv ? Vs : Ks) + (s * DEC_BK + r) * P;
+    if (r < rows) {
+      hopper::bulk_load(dst, (isv ? vp : kp) + (long long)(t + r) * (isv ? vw : kw), D * 2,
+                        &full[s]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) reinterpret_cast<uint4*>(dst)[c] = make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows gq and gq + 8
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (ntiles > 0) {
+    if (lane == 0) hopper::mbar_expect_tx(&qbar, G * D * 2);
+    __syncwarp();
+    if (lane < G) {
+      hopper::bulk_load(Qs + lane * P, q + b * qb + h * qk + lane * qg, D * 2, &qbar);
+    } else if (lane < DEC_ROWS) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        reinterpret_cast<uint4*>(Qs + lane * P)[c] = make_uint4(0, 0, 0, 0);
+    }
+    for (int i = 0; i < min(DEC_STAGES, ntiles); ++i) issue(i);
+    hopper::mbar_wait(&qbar, 0);
+    __syncwarp();
+  }
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % DEC_STAGES, t = start + i * DEC_BK;
+    hopper::mbar_wait(&full[s], (i / DEC_STAGES) & 1);
+    __syncwarp();
+    const uint8_t* ks = Ks + s * DEC_BK * P;
+    const uint8_t* vs = Vs + s * DEC_BK * P;
+
+    // S [16 rows x 16 slots] = Q Kt over D in k16 steps
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t a[4], bk[4];
+      hopper::ldmatrix_x4(a, Qs + (lane & 15) * P + (c * 16 + (lane >> 4) * 8) * 2);
+      hopper::ldmatrix_x4(bk, ks + ((lane & 7) + ((lane >> 4) << 3)) * P +
+                                  (c * 16 + ((lane >> 3) & 1) * 8) * 2);
+      hopper::mma_16816(sc[0], a, bk[0], bk[1]);
+      hopper::mma_16816(sc[1], a, bk[2], bk[3]);
+    }
+
+    // online softmax in base 2; only the last tile has dead slots
+    const bool edge = t + DEC_BK > end;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale_log2;
+        if (edge && t + 8 * j + 2 * tq + (e & 1) >= end) x = -INFINITY;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], base[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row lives in the 4 lanes of a quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - base[e >> 1]);
+        rs[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    // the S accumulator of slots 0-7 and 8-15 is the A fragment of P V
+    const uint32_t pa[4] = {hopper::pack_bf16(sc[0][0], sc[0][1]),
+                            hopper::pack_bf16(sc[0][2], sc[0][3]),
+                            hopper::pack_bf16(sc[1][0], sc[1][1]),
+                            hopper::pack_bf16(sc[1][2], sc[1][3])};
+    // O [16 x D] += P [16 x 16] V [16 x D], V transposed by ldmatrix
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t bv[4];
+      hopper::ldmatrix_x4_trans(bv, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                        (c * 16 + (lane >> 4) * 8) * 2);
+      hopper::mma_16816(acc[2 * c], pa, bv[0], bv[1]);
+      hopper::mma_16816(acc[2 * c + 1], pa, bv[2], bv[3]);
+    }
+    __syncwarp();
+    if (i + DEC_STAGES < ntiles) {
+      hopper::fence_proxy_async();  // this stage's reads before its refill
+      issue(i + DEC_STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row[2] = {gq, gq + 8};
+  if (S == 1) {  // the whole cache in this block: normalise and write o
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= G) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      bf16* orow = o + b * ob + h * ok + row[r] * og;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+            hopper::pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    }
+    return;
+  }
+
+  // this split's state (an empty split has m = -inf, l = 0, acc = 0) in
+  // its own shared memory, over the ring it no longer needs: acc [G][D],
+  // then m [16] and l [16]
+  float* st = reinterpret_cast<float*>(Ks);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= G) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(st + row[r] * D + 8 * j + 2 * tq) =
+          make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+    if (tq == 0) {
+      st[G * D + row[r]] = m[r];
+      st[G * D + 16 + row[r]] = l[r];
+    }
+  }
+  hopper::cluster_sync();  // the splits of bh are the blocks of this cluster, rank == split
+
+  // fac[s][r] = 2^(m_s - M) / L for row r, 0 for an empty split
+  if (lane < G) {
+    float M = -INFINITY;
+    for (int s = 0; s < S; ++s) M = fmaxf(M, hopper::ld_cluster(st + G * D + lane, s));
+    float L = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float ms = hopper::ld_cluster(st + G * D + lane, s);
+      const float f = ms == -INFINITY ? 0.f : exp2f(ms - M);
+      fac[s * DEC_ROWS + lane] = f;
+      L = fmaf(hopper::ld_cluster(st + G * D + 16 + lane, s), f, L);
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    for (int s = 0; s < S; ++s) fac[s * DEC_ROWS + lane] *= inv;
+  }
+  __syncwarp();
+  // this block merges every S-th 4-column vector of o, in split order
+  for (int i = split + S * lane; i < G * D / 4; i += S * 32) {
+    const int r = 4 * i / D, c = 4 * i % D;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const float f = fac[s * DEC_ROWS + r];
+      if (f != 0.f) {
+        const float4 a = hopper::ld_cluster4(st + 4 * i, s);
+        sum.x = fmaf(a.x, f, sum.x);
+        sum.y = fmaf(a.y, f, sum.y);
+        sum.z = fmaf(a.z, f, sum.z);
+        sum.w = fmaf(a.w, f, sum.w);
+      }
+    }
+    *reinterpret_cast<uint2*>(o + b * ob + h * ok + r * og + c) =
+        make_uint2(hopper::pack_bf16(sum.x, sum.y), hopper::pack_bf16(sum.z, sum.w));
+  }
+  hopper::cluster_sync();  // no block leaves while another reads its shared memory
 }
 
 template <typename T, int DPL>
@@ -516,7 +785,7 @@ int launch_attend_wgmma(const void* q, const void* k, const void* v, void* o, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int ROWS, int DPL>
+template <int ROWS, int DPL>
 int launch_decode(const void* q, const void* k, const void* v, const int* pos, void* o, int B,
                   int KVH, int G, int W, const long long* st, int ring, float scale,
                   cudaStream_t s) {
@@ -527,14 +796,34 @@ int launch_decode(const void* q, const void* k, const void* v, const int* pos, v
   };
   while (nw > 1 && bytes(nw) > 200 * 1024) nw /= 2;
   const size_t smem = bytes(nw);
-  auto kern = flash_decode_kernel<T, ROWS, DPL>;
+  auto kern = flash_decode_kernel<ROWS, DPL>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<B * KVH, nw * 32, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), pos, static_cast<T*>(o), KVH, G,
-                                      W, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                                      st[8], st[9], st[10], st[11], ring, scale);
+  kern<<<B * KVH, nw * 32, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                      static_cast<const float*>(v), pos, static_cast<float*>(o),
+                                      KVH, G, W, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                                      st[7], st[8], st[9], st[10], st[11], ring, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// grid (B * KVH, splits) in clusters of the splits, one warp per block
+template <int D>
+int launch_decode_split(const void* q, const void* k, const void* v, const int* pos, void* o,
+                        int B, int KVH, int G, int W, const long long* st, int ring, float scale,
+                        int splits, int chunk, cudaStream_t s) {
+  constexpr int smem = dec_smem_bytes<D>();
+  auto kern = flash_decode_split<D>;
+  static bool ready = false;  // the attribute is set once per process
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  return launch_cluster_y(
+      kern, dim3(B * KVH, splits), 32, smem, splits, s, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), pos, static_cast<bf16*>(o), KVH,
+      G, W, chunk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], ring, scale * LOG2E);
 }
 
 template <typename T>
@@ -560,25 +849,25 @@ int attend_wgmma_for_d(int D, const void* q, const void* k, const void* v, void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int ROWS>
+template <int ROWS>
 int decode_for_d(int D, const void* q, const void* k, const void* v, const int* pos, void* o,
                  int B, int KVH, int G, int W, const long long* st, int ring, float scale,
                  cudaStream_t s) {
   switch (D) {
-    case 64: return launch_decode<T, ROWS, 2>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
-    case 128: return launch_decode<T, ROWS, 4>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
-    case 256: return launch_decode<T, ROWS, 8>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+    case 64: return launch_decode<ROWS, 2>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+    case 128: return launch_decode<ROWS, 4>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+    case 256: return launch_decode<ROWS, 8>(q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+// f32 decode (tests, not the serving path), by grouped rows per kv head
 int decode_for_g(int D, const void* q, const void* k, const void* v, const int* pos, void* o,
                  int B, int KVH, int G, int W, const long long* st, int ring, float scale,
                  cudaStream_t s) {
-  if (G <= 4) return decode_for_d<T, 4>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
-  if (G <= 8) return decode_for_d<T, 8>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
-  if (G <= 16) return decode_for_d<T, 16>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+  if (G <= 4) return decode_for_d<4>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+  if (G <= 8) return decode_for_d<8>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
+  if (G <= 16) return decode_for_d<16>(D, q, k, v, pos, o, B, KVH, G, W, st, ring, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -610,17 +899,29 @@ extern "C" int flash_attend_wgmma(const void* q, const void* k, const void* v, v
 }
 
 // q [B,KVH,G,D], k/v [B,KVH,W,D], o [B,KVH,G,D] by (batch, kv head,
-// row) strides, unit stride on D; pos [B] int32 on the card.
+// row) strides, unit stride on D; pos [B] int32 on the card. bf16 runs
+// `flash_decode_split` over `splits` <= DEC_MAX_SPLITS blocks of `chunk`
+// slots (a multiple of DEC_BK) per (batch, kv head): q, k and v 16-byte
+// aligned with strides that are multiples of 8. f32 runs
+// `flash_decode_kernel` (splits and chunk unused).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* pos, void* o,
-                            int B, int KVH, int G, int W, int D, long long qb, long long qk,
-                            long long qg, long long kb, long long kk, long long kw, long long vb,
-                            long long vk, long long vw, long long ob, long long ok, long long og,
-                            int ring, float scale, int dtype, void* stream) {
+                            int B, int KVH, int G, int W, int D,
+                            long long qb, long long qk, long long qg, long long kb, long long kk,
+                            long long kw, long long vb, long long vk, long long vw, long long ob,
+                            long long ok, long long og, int ring, float scale, int dtype,
+                            int splits, int chunk, void* stream) {
   const long long st[12] = {qb, qk, qg, kb, kk, kw, vb, vk, vw, ob, ok, og};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
-  if (dtype == BF16) return decode_for_g<bf16>(D, q, k, v, p, o, B, KVH, G, W, st, ring, scale, s);
-  return decode_for_g<float>(D, q, k, v, p, o, B, KVH, G, W, st, ring, scale, s);
+  if (dtype != BF16) return decode_for_g(D, q, k, v, p, o, B, KVH, G, W, st, ring, scale, s);
+  if (splits < 1 || splits > DEC_MAX_SPLITS || chunk % DEC_BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64: return launch_decode_split<64>(q, k, v, p, o, B, KVH, G, W, st, ring, scale, splits, chunk, s);
+    case 128: return launch_decode_split<128>(q, k, v, p, o, B, KVH, G, W, st, ring, scale, splits, chunk, s);
+    case 256: return launch_decode_split<256>(q, k, v, p, o, B, KVH, G, W, st, ring, scale, splits, chunk, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 REPRO_EXPORT_ERROR_STRING_TMA

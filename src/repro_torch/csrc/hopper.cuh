@@ -1,5 +1,6 @@
-// Hopper building blocks of the port's wgmma kernels (B1's tile path in
-// matmul.cu, B3's bf16 path in flash_attention.cu), written as inline PTX
+// Hopper building blocks of the port's kernels (B1's tile and skinny
+// paths in matmul.cu, B3's and B4's bf16 paths in flash_attention.cu),
+// written as inline PTX
 // from the PTX ISA (sm_90a):
 //
 // * mbarrier: init, arrive, arrive-expect-tx and a try-wait-parity loop;
@@ -10,7 +11,15 @@
 // * `wgmma.fence` / `commit_group` / `wait_group`, and `wgmma.mma_async`
 //   m64nNk16 bf16 -> f32 with A from shared memory or registers and B from
 //   shared memory, K-major or (transpose bit) MN-major;
-// * the host side: `cuTensorMapEncodeTiled`, reached through
+// * bulk copies: one contiguous run of bytes from global into shared
+//   memory (`cp.async.bulk`), completing on an mbarrier, with no tensor
+//   map (B4 streams the cache's rows by it);
+// * `ldmatrix` (plain and transposed) and `mma.sync` m16n8k16 bf16 -> f32
+//   (B4's tensor-core path);
+// * thread-block clusters: the cluster barrier, loads from another
+//   block's shared memory (distributed shared memory) and the launch of
+//   a grid in clusters along y (B1's and B4's splits sum through them);
+// * the host side: `cuTensorMapEncodeTiled` (swizzled or not), reached through
 //   `cudaGetDriverEntryPoint` so that the libraries link no -lcuda.
 //
 // Layout of a 128-byte-swizzled tile: TMA writes a box whose inner extent
@@ -99,6 +108,91 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// `bytes` contiguous bytes from global `src` into shared `dst`, completing
+// on `bar`; both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses before later async
+// (bulk copy) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// ldmatrix and mma.sync (warp-level tensor-core products)
+// ---------------------------------------------------------------------------
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and r[i] receives matrix i in the mma fragment layout (thread
+// t holds row t / 4, elements 2 (t % 4) and 2 (t % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// The same, each matrix transposed: thread t holds column t / 4, rows
+// 2 (t % 4) and 2 (t % 4) + 1.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 accumulate. A row-major
+// (a[0..3]: rows g / g + 8, columns 2q.. / 2q + 8.., with g = lane / 4,
+// q = lane % 4), B column-major (b0: rows 2q.., b1: rows 2q + 8.., column
+// g), D: d[0..1] row g, d[2..3] row g + 8, columns 2q, 2q + 1.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// clusters
+// ---------------------------------------------------------------------------
+
+// every thread of every block of the cluster arrives; shared-memory
+// writes before it are visible to the cluster's loads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared-memory address of `local` in block `rank` of this cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(local)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_addr(local, rank))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(const float* local, uint32_t rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(cluster_addr(local, rank))
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -264,6 +358,26 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
+// Launch `kern` on `grid` in clusters of (1, cy, 1) blocks (cy <= 8, and
+// grid.y a multiple of cy); returns the launch's error code.
+template <typename... Params, typename... Args>
+inline int launch_cluster_y(void (*kern)(Params...), dim3 grid, int threads, int smem, int cy,
+                            cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cy;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...));
+}
+
 // Error codes of the C entries above cudaError_t's range: a refused
 // tensor map returns TMA_ERROR_BASE + its CUresult.
 constexpr int TMA_ERROR_BASE = 100000;
@@ -295,19 +409,26 @@ inline int encode_tiled_fn(EncodeTiledFn* fn) {
   return 0;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; dims[0] contiguous),
-// byte strides of dims 1.., a box of `box` elements, 128-byte swizzle,
-// zeros outside the tensor. Returns 0 or an error code.
-inline int encode_bf16_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
-                           const cuuint64_t* byte_strides, const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first; dims[0] contiguous), byte
+// strides of dims 1.., a box of `box` elements, zeros outside the tensor.
+// Returns 0 or an error code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                      const cuuint64_t* dims, const cuuint64_t* byte_strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode;
   if (int err = encode_tiled_fn(&encode)) return err;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                      byte_strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, byte_strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_ERROR_BASE + static_cast<int>(r);
+}
+
+// bf16 with the 128-byte swizzle (the wgmma operand layout)
+inline int encode_bf16_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
+                           const cuuint64_t* byte_strides, const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, byte_strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace repro

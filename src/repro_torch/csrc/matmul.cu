@@ -33,18 +33,39 @@
 //   16x16x16 fragments (mma.sync) on 64x128x32 tiles with a register
 //   prefetch and masked scalar loads (gemm_tiles.cuh, shared with B5).
 // * Decode shapes (M = batch = 4) are pure weight streaming: every byte
-//   of B is read once for 2*M flops, so they are bound by bytes. A 64-row
-//   tile would waste 60 of its 64 rows and, worse, put only N/128 blocks
-//   on the card. `matmul_skinny` instead gives each lane a 16-byte column
-//   vector of B (coalesced 512-byte rows per warp), keeps A's few rows in
-//   shared memory, splits K across the four warps of a block and across
-//   blocks (`splits`, chosen by the wrapper to fill the SMs), and sums the
-//   K splits in a second, deterministic pass (`splitk_reduce`).
-// * f32 (tests and the comparisons in chip_smoke.py; not on the bf16
-//   main path) runs `matmul_f32_tiled` on the CUDA cores in full f32 —
+//   of B is read once for 2*M flops, so they are bound by bytes, and
+//   reaching the byte rate takes ~25 KB in flight per SM (3.35 TB/s at
+//   ~1 us of latency over 132 SMs). A 64-row tile would waste 60 of its 64
+//   rows and put only N/128 blocks on the card. `matmul_skinny_stream`
+//   gives a block one 512-byte column segment of B (256 bf16 columns) and
+//   one K split (`skinny_plan` in the wrapper picks up to 8 splits, to
+//   about one block per SM, and the ring's depth); one producer thread
+//   streams the segment by TMA, 16 KB (32 rows x 512 bytes) per stage,
+//   through a 2-8-stage mbarrier ring; each weight's tensor map is
+//   encoded at its first product and kept, so a decode step encodes
+//   none. The consumers run the product transposed on the tensor cores,
+//   Ct = Bt At on mma.sync m16n8k16, A's <= 8 rows the n8 operand: a
+//   first version on CUDA-core FMAs (a lane per 16-byte column vector)
+//   spent ~66 clocks per 512-byte row per block whatever the ring depth,
+//   its consumers and not the memory the bound; mma.sync needs 8 products
+//   and 9 ldmatrix per warp and stage where that loop issued ~400
+//   instructions (f32, off the serving path, keeps it). The bf16 boxes
+//   carry the 128-byte swizzle, so ldmatrix.trans reads Bt without bank
+//   conflicts. The K splits are the blocks of one thread-block cluster
+//   and are summed inside the same launch through distributed shared
+//   memory, in split order: no second pass, no workspace, no atomics,
+//   equal bits on every run.
+// * f32 products of more than 8 rows (tests and the comparisons in
+//   chip_smoke.py; not on the bf16 main path) run `matmul_f32_tiled` on
+//   the CUDA cores in full f32 (f32 skinny products take the skinny
+//   kernel, templated on the type) —
 //   never TF32, whose ~3 decimal digits the f32 tolerance does not admit.
 // Ragged M, N and K are masked in every kernel: out-of-range loads read
 // zeros (TMA fills them) and out-of-range stores are skipped.
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "gemm_tiles.cuh"
 #include "hopper.cuh"
 
@@ -146,6 +167,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+// the wgmma path's K splits, summed in split order: deterministic, no atomics
+__global__ void splitk_reduce(const float* __restrict__ ws, bf16* __restrict__ C, int M, int N,
+                              int splits, long long ldc) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)M * N) return;
+  const int r = e / N, c = e % N;
+  float s = 0.f;
+  for (int i = 0; i < splits; ++i) s += ws[((long long)i * M + r) * N + c];
+  C[(long long)r * ldc + c] = from_f32<bf16>(s);
+}
+
 // ---------------------------------------------------------------------------
 // ragged tiles (M > 8): bf16 on WMMA, f32 on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -165,102 +197,292 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// skinny products (M <= 8): weight streaming with split K
+// skinny products (M <= 8): one launch streaming the weight, split K
 // ---------------------------------------------------------------------------
 
-constexpr int SK_WARPS = 4;
-constexpr int SK_SMEM = 8192;  // floats: A's rows for one K split, then the warp reduction
+constexpr int SK_CONSUMERS = 4;                         // warps that compute
+constexpr int SK_THREADS = (SK_CONSUMERS + 1) * 32;     // + the producer warp
+constexpr int SK_BK = 32;                               // K rows per stage
+constexpr int SK_MAX_STAGES = 8;                        // stages in flight, at most
+constexpr int SK_SEG = 512;                             // bytes of each B row a block streams
+constexpr int SK_STAGE = SK_BK * SK_SEG;                // 16 KB
+constexpr int SK_A_BYTES = 49152;                       // A's rows of one split
+constexpr int SK_MAX_SPLITS = 8;                        // K splits: one cluster, portable size
+constexpr int SK_SMEM = SK_MAX_STAGES * SK_STAGE + SK_A_BYTES + 1024;  // the most a block takes
 
-// One block: 32 lanes x VEC columns of B (one 16-byte load per lane and K
-// row), K rows [kbeg, kbeg + kchunk) shared round-robin by SK_WARPS warps.
-// With `ws` the block writes its f32 partial sums to ws[split][M][N];
-// without, it writes C directly.
+__device__ __forceinline__ void consumers_sync() {  // the consumer warps only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SK_CONSUMERS * 32) : "memory");
+}
+
+// Block (blockIdx.x, blockIdx.y) computes columns [n0, n0 + SK_SEG / size)
+// of C over K rows [kbeg, kbeg + kchunk); the gridDim.y <= SK_MAX_SPLITS
+// splits of a column group form one cluster. One thread of the producer
+// warp keeps a ring of `stages` stages of SK_BK rows x 512 bytes of B
+// full by TMA, completing on the stage's mbarrier (bf16: four 64-column
+// boxes with the 128-byte swizzle; f32: one unswizzled box); K rows past
+// the weight's end are zero-filled.
+// * bf16: the product runs transposed on the tensor cores, Ct = Bt At,
+//   as mma.sync m16n8k16 with A's (at most) 8 rows the n8 operand: each
+//   consumer warp owns 64 columns and takes Bt's 16 x 16 fragments by
+//   ldmatrix.trans from its box and At's from A's rows, which sit
+//   row-major in shared memory (bf16, padded to 8 rows with zeros).
+// * f32: the consumer warps take a stage's rows round-robin, a lane one
+//   16-byte column vector of each against A's rows (k-major, f32), with
+//   CUDA-core FMAs, then sum their partials through shared memory.
+// With one split the block stores C; with more, each split leaves its f32
+// partial [MR][columns] in its shared memory and every block of the
+// cluster sums a slice of the columns over the splits in split order,
+// read through distributed shared memory, and stores it.
 template <typename T, int MR>
-__global__ void __launch_bounds__(SK_WARPS * 32)
-    matmul_skinny_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
-                         float* __restrict__ ws, int M, int N, int K, long long lda, long long ldb,
-                         long long ldc, int kchunk) {
+__global__ void __launch_bounds__(SK_THREADS)
+    matmul_skinny_stream(const T* __restrict__ A, const __grid_constant__ CUtensorMap map_b,
+                         T* __restrict__ C, int M, int N, int K, long long lda, long long ldc,
+                         int kchunk, int stages) {
+  constexpr bool TC = sizeof(T) == 2;     // bf16: tensor cores
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int CG = 32 * VEC;
-  __shared__ __align__(16) float sm[SK_SMEM];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kbeg = blockIdx.y * kchunk;
-  const int klen = min(K, kbeg + kchunk) - kbeg;
+  constexpr int CG = SK_SEG / sizeof(T);  // columns per block
+  constexpr int NT = SK_CONSUMERS * 32;
+  extern __shared__ uint8_t sk_raw[];
+  __shared__ __align__(8) uint64_t full[SK_MAX_STAGES], empty[SK_MAX_STAGES];
+  // 1024-aligned: the 128-byte swizzle's atoms
+  uint8_t* smem = sk_raw + ((1024 - (hopper::smem_addr(sk_raw) & 1023)) & 1023);
+  T* sA = reinterpret_cast<T*>(smem + stages * SK_STAGE);
+  float* part = reinterpret_cast<float*>(smem);  // [MR][CG], once the ring is done
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * CG, S = gridDim.y;
+  const int kbeg = blockIdx.y * kchunk, klen = min(K, kbeg + kchunk) - kbeg;
+  const int ntiles = (klen + SK_BK - 1) / SK_BK;
 
-  for (int e = threadIdx.x; e < MR * klen; e += blockDim.x) {
-    const int r = e / klen, c = e % klen;
-    sm[r * kchunk + c] = r < M ? to_f32(A[(long long)r * lda + kbeg + c]) : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);             // the producer's expect-tx
+      hopper::mbar_init(&empty[s], SK_CONSUMERS);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  float acc[MR][VEC];
+  if (warp == SK_CONSUMERS) {  // the producer warp: one thread
+    if (lane == 0) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % stages;
+        hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], SK_STAGE);  // a box past K or N is zero-filled
+        uint8_t* dst = smem + s * SK_STAGE;
+        if constexpr (TC) {
 #pragma unroll
-  for (int r = 0; r < MR; ++r)
+          for (int j = 0; j < 4; ++j)
+            hopper::tma_load_2d(dst + j * (SK_STAGE / 4), &map_b, &full[s], n0 + 64 * j,
+                                kbeg + i * SK_BK);
+        } else {
+          hopper::tma_load_2d(dst, &map_b, &full[s], n0, kbeg + i * SK_BK);
+        }
+      }
+    }
+    __syncwarp();
+  } else if constexpr (TC) {
+    // A's rows of this split, row-major [8][apitch], zeros past M and past
+    // klen (a last tile may reach past K, where B's rows are zeros too);
+    // the 8-element pad keeps ldmatrix's eight rows in distinct banks
+    const int apitch = ntiles * SK_BK + 8, rv = apitch / 8;  // 16-byte vectors per row
+    const bool vec = (reinterpret_cast<uintptr_t>(A) & 15) == 0 && lda % 8 == 0;
+    const int nv = vec ? klen / 8 : 0;
+    for (int i0 = tid; i0 < 8 * rv; i0 += 4 * NT) {  // four loads in flight per thread
+      uint4 x[4];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NT, r = i / rv, v = i % rv;
+        x[u] = make_uint4(0, 0, 0, 0);
+        if (r < M && v < nv) x[u] = __ldg(reinterpret_cast<const uint4*>(A + r * lda + kbeg) + v);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NT;
+        if (i < 8 * rv) *reinterpret_cast<uint4*>(sA + (i / rv) * apitch + (i % rv) * 8) = x[u];
+      }
+    }
+    consumers_sync();
+    for (int c = nv * 8 + tid; c < klen; c += NT)  // the rest, element by element
+      for (int r = 0; r < M; ++r) sA[r * apitch + c] = A[r * lda + kbeg + c];
+    consumers_sync();
 
-  const int n = blockIdx.x * CG + lane * VEC;
-  if (n < N) {  // N % VEC == 0: a lane's vector is wholly in or out
-    const T* bp = B + (long long)kbeg * ldb + n;
-#pragma unroll 4
-    for (int kk = warp; kk < klen; kk += SK_WARPS) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(bp + (long long)kk * ldb));
-      float bv[VEC];
-      unpack16(raw, bv);
+    float d[4][4];  // Ct: 4 n16 tiles of this warp's 64 columns x 8 rows of A
 #pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        const float a = sm[r * kchunk + kk];
+    for (int t = 0; t < 4; ++t) d[t][0] = d[t][1] = d[t][2] = d[t][3] = 0.f;
+    const uint8_t* a_row = reinterpret_cast<const uint8_t*>(sA + (lane & 7) * apitch) +
+                           (lane >> 3) * 16;
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % stages;
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      __syncwarp();
+      const uint8_t* box = smem + s * SK_STAGE + warp * (SK_STAGE / 4);  // [32 k][64 n]
+      uint32_t at[4];  // At's k16 fragments (b0, b1) of the stage's two k steps
+      hopper::ldmatrix_x4(at, a_row + i * SK_BK * 2);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(a, bv[v], acc[r][v]);
+      for (int kk = 0; kk < 2; ++kk) {
+        const int k = kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int chunk = 2 * t + ((lane >> 3) & 1);
+          uint32_t bt[4];
+          hopper::ldmatrix_x4_trans(bt, box + k * 128 + ((chunk ^ (k & 7)) << 4));
+          hopper::mma_16816(d[t], bt, at[2 * kk], at[2 * kk + 1]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this stage may be refilled
+    }
+
+    // d[t][e]: column warp * 64 + 16 t + lane / 4 (+ 8 for e >= 2), row
+    // 2 (lane % 4) + e % 2
+    consumers_sync();  // every warp is done with the ring
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = warp * 64 + 16 * t + (lane >> 2) + 8 * (e >> 1), r = 2 * (lane & 3) + (e & 1);
+        if (S > 1)
+          part[r * CG + c] = d[t][e];
+        else if (r < M && n0 + c < N)
+          C[(long long)r * ldc + n0 + c] = from_f32<T>(d[t][e]);
+      }
+  } else {
+    // A's rows of this split, k-major [kchunk][MR] in f32
+    for (int e = tid; e < MR * klen; e += NT) {
+      const int r = e / klen, c = e % klen;
+      sA[c * MR + r] = r < M ? A[(long long)r * lda + kbeg + c] : 0.f;
+    }
+    consumers_sync();
+
+    float acc[MR][VEC];
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % stages, rows = min(SK_BK, klen - i * SK_BK);
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      const uint8_t* stage = smem + s * SK_STAGE + lane * 16;
+#pragma unroll
+      for (int jj = 0; jj < SK_BK / SK_CONSUMERS; ++jj) {
+        const int j = jj * SK_CONSUMERS + warp;
+        if (j < rows) {
+          float bv[VEC];
+          unpack16(*reinterpret_cast<const uint4*>(stage + j * SK_SEG), bv);
+          const T* ap = sA + (i * SK_BK + j) * MR;
+#pragma unroll
+          for (int r = 0; r < MR; ++r)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(ap[r], bv[v], acc[r][v]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this stage may be refilled
+    }
+
+    // every stage has landed and been read: the ring now sums the warps
+    consumers_sync();
+    float* red = reinterpret_cast<float*>(smem);  // [SK_CONSUMERS][MR][CG]
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int v = 0; v < VEC; v += 4)
+        *reinterpret_cast<float4*>(red + (warp * MR + r) * CG + lane * VEC + v) =
+            make_float4(acc[r][v], acc[r][v + 1], acc[r][v + 2], acc[r][v + 3]);
+    consumers_sync();
+    for (int e = 4 * tid; e < M * CG; e += 4 * NT) {  // part[r][c] = the warps' sum
+      const int r = e / CG, c = e % CG;
+      float4 sum = *reinterpret_cast<const float4*>(red + r * CG + c);
+#pragma unroll
+      for (int w = 1; w < SK_CONSUMERS; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(red + (w * MR + r) * CG + c);
+        sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
+      }
+      if (S == 1) {
+        if (n0 + c < N) {  // N % 4 == 0: the vector is wholly in or out
+          T* out = C + (long long)r * ldc + n0 + c;
+          out[0] = sum.x, out[1] = sum.y, out[2] = sum.z, out[3] = sum.w;
+        }
+      } else {
+        *reinterpret_cast<float4*>(part + r * CG + c) = sum;
       }
     }
   }
-  __syncthreads();  // A's rows are done with; the buffer now sums the warps
-#pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) sm[(warp * MR + r) * CG + lane * VEC + v] = acc[r][v];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MR * CG; e += blockDim.x) {
-    const int r = e / CG, c = e % CG;
-    const int gn = blockIdx.x * CG + c;
-    if (r < M && gn < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < SK_WARPS; ++w) s += sm[(w * MR + r) * CG + c];
-      if (ws)
-        ws[((long long)blockIdx.y * M + r) * N + gn] = s;
-      else
-        C[(long long)r * ldc + gn] = from_f32<T>(s);
+  if (S == 1) return;
+
+  // the splits of this column group are the blocks of this cluster, and
+  // block rank == blockIdx.y: each sums every S-th 4-column vector over
+  // the splits in split order (equal bits on every run) and stores it
+  hopper::cluster_sync();
+  const int rank = blockIdx.y;
+  for (int q = rank + S * tid; q < M * CG / 4; q += S * SK_THREADS) {
+    const int r = 4 * q / CG, c = 4 * q % CG;
+    if (n0 + c >= N) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sp = 0; sp < S; ++sp) {
+      const float4 x = hopper::ld_cluster4(part + r * CG + c, sp);
+      sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
     }
+    T* out = C + (long long)r * ldc + n0 + c;
+    out[0] = from_f32<T>(sum.x), out[1] = from_f32<T>(sum.y);
+    out[2] = from_f32<T>(sum.z), out[3] = from_f32<T>(sum.w);
   }
+  hopper::cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T>
-__global__ void splitk_reduce(const float* __restrict__ ws, T* __restrict__ C, int M, int N,
-                              int splits, long long ldc) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)M * N) return;
-  const int r = e / N, c = e % N;
-  float s = 0.f;
-  for (int i = 0; i < splits; ++i) s += ws[((long long)i * M + r) * N + c];
-  C[(long long)r * ldc + c] = from_f32<T>(s);
+// The tensor map of a weight B [K, N] (row stride ldb) in boxes of SK_BK
+// rows: bf16 64 columns wide with the 128-byte swizzle, f32 128 wide
+// unswizzled. Encoded at its first product and kept, keyed by everything
+// it encodes, so a key always names a valid map and a decode step encodes
+// none.
+static int weight_map(CUtensorMap* map, const void* b, int N, int K, long long ldb, int dtype) {
+  using Key = std::tuple<const void*, int, int, long long, int>;
+  static std::map<Key, CUtensorMap> maps;
+  static std::mutex lock;
+  const Key key{b, N, K, ldb, dtype};
+  std::lock_guard<std::mutex> guard(lock);
+  auto it = maps.find(key);
+  if (it == maps.end()) {
+    const bool bf = dtype == BF16;
+    const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t strides[1] = {(cuuint64_t)(ldb * (bf ? 2 : 4))};
+    const cuuint32_t box[2] = {bf ? 64u : 128u, SK_BK};
+    CUtensorMap m;
+    if (int err = encode_map(&m, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                             2, b, dims, strides, box,
+                             bf ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
+      return err;
+    it = maps.emplace(key, m).first;
+  }
+  *map = it->second;
+  return 0;
+}
+
+// bytes of shared memory A's rows of one split of `kchunk` rows take
+template <typename T, int MR>
+constexpr int skinny_a_bytes(int kchunk) {
+  return sizeof(T) == 2 ? 8 * (kchunk + 8) * 2 : kchunk * MR * 4;
 }
 
 template <typename T, int MR>
-static void launch_skinny(const void* a, const void* b, void* c, float* ws, int M, int N, int K,
-                          long long lda, long long ldb, long long ldc, int splits, int kchunk,
-                          cudaStream_t s) {
-  constexpr int CG = 32 * (16 / sizeof(T));
-  const dim3 grid((N + CG - 1) / CG, splits);
-  matmul_skinny_kernel<T, MR><<<grid, SK_WARPS * 32, 0, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      splits > 1 ? ws : nullptr, M, N, K, lda, ldb, ldc, kchunk);
-  if (splits > 1) {
-    const long long total = (long long)M * N;
-    splitk_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(ws, static_cast<T*>(c), M, N,
-                                                                     splits, ldc);
+static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M, int N, int K,
+                         long long lda, long long ldc, int splits, int kchunk, int stages,
+                         cudaStream_t s) {
+  auto kern = matmul_skinny_stream<T, MR>;
+  static bool ready = false;  // the attribute is set once per process
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SK_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
   }
+  constexpr int CG = SK_SEG / sizeof(T);
+  const dim3 grid((N + CG - 1) / CG, splits);
+  const int smem = stages * SK_STAGE + skinny_a_bytes<T, MR>(kchunk) + 1024;  // + align slack
+  return launch_cluster_y(kern, grid, SK_THREADS, smem, splits, s, static_cast<const T*>(a),
+                          map_b, static_cast<T*>(c), M, N, K, lda, ldc, kchunk, stages);
 }
 
 // ---------------------------------------------------------------------------
@@ -290,7 +512,7 @@ extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long total = (long long)M * N;
-  splitk_reduce<bf16><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
+  splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,25 +534,24 @@ extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `ws` holds splits * M * N floats when splits > 1 (ignored otherwise);
-// `kchunk` * (M <= 4 ? 4 : 8) must not exceed SK_SMEM.
-extern "C" int matmul_skinny(const void* a, const void* b, void* c, void* ws, int M, int N, int K,
+// B's rows 16-byte aligned (base and ldb) with N % (16 / size) == 0;
+// `splits` <= SK_MAX_SPLITS K splits of `kchunk` rows, a multiple of SK_BK
+// with kchunk * (M <= 4 ? 4 : 8) * size <= SK_A_BYTES.
+extern "C" int matmul_skinny(const void* a, const void* b, void* c, int M, int N, int K,
                              long long lda, long long ldb, long long ldc, int dtype, int splits,
-                             int kchunk, void* stream) {
+                             int kchunk, int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (dtype == BF16) {
-    if (M <= 4)
-      launch_skinny<bf16, 4>(a, b, c, w, M, N, K, lda, ldb, ldc, splits, kchunk, s);
-    else
-      launch_skinny<bf16, 8>(a, b, c, w, M, N, K, lda, ldb, ldc, splits, kchunk, s);
-  } else {
-    if (M <= 4)
-      launch_skinny<float, 4>(a, b, c, w, M, N, K, lda, ldb, ldc, splits, kchunk, s);
-    else
-      launch_skinny<float, 8>(a, b, c, w, M, N, K, lda, ldb, ldc, splits, kchunk, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool bf = dtype == BF16;
+  const int a_bytes = bf ? skinny_a_bytes<bf16, 8>(kchunk)
+                         : M <= 4 ? skinny_a_bytes<float, 4>(kchunk) : skinny_a_bytes<float, 8>(kchunk);
+  if (M > 8 || splits < 1 || splits > SK_MAX_SPLITS || kchunk % SK_BK || a_bytes > SK_A_BYTES ||
+      stages < 2 || stages > SK_MAX_STAGES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_b;
+  if (int err = weight_map(&map_b, b, N, K, ldb, dtype)) return err;
+  if (bf) return launch_skinny<bf16, 8>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s);
+  return M <= 4 ? launch_skinny<float, 4>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s)
+                : launch_skinny<float, 8>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s);
 }
 
 REPRO_EXPORT_ERROR_STRING_TMA

@@ -21,8 +21,12 @@
   ``q [B, KV, G, D]`` over the cache ``k/v [B, KV, W, D]`` at per-slot
   positions ``pos [B]``: ``flash_decode`` (kernel B4). The cache is read
   through strides, so a ``[B, W, KV, D]`` cache is passed as its
-  ``transpose(1, 2)`` view, never copied head-major. Untunable, as in
-  the JAX package.
+  ``transpose(1, 2)`` view, never copied head-major. bf16 runs
+  ``flash_decode_split`` (tensor cores, bulk copies; the cache split
+  across the blocks of a cluster by :func:`decode_plan` and merged inside
+  the launch; its
+  operands' bases must be 16-byte aligned and their strides multiples
+  of 8); f32 runs the CUDA-core kernel. Untunable, as in the JAX package.
 * ``flash_attention/softmax_mac`` and ``flash_attention/decode_mac``
   (BLOCK) — the plain torch bodies, :func:`attention_plain` and
   :func:`decode_plain`, run only on CPU tensors.
@@ -34,20 +38,25 @@ on the H100 and how the design meets it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.ref import attention_ref
 
 #: launches of the CUDA kernels since the last reset (kernels.programs);
-#: ``attend_wgmma_launches`` counts the bf16 attends that took the wgmma kernel
+#: ``attend_wgmma_launches`` counts the bf16 attends that took the wgmma
+#: kernel, ``decode_split_launches`` the bf16 decodes that took the
+#: split-KV kernel
 attend_launches = 0
 attend_wgmma_launches = 0
 decode_launches = 0
+decode_split_launches = 0
 
 #: head dims the CUDA kernels are built for
 HEAD_DIMS = (64, 128, 256)
@@ -57,11 +66,17 @@ HEAD_DIMS = (64, 128, 256)
 ATTEND_BLOCKS = {"bq": 64, "bkv": 64}
 #: grouped query rows per kv head the decode kernel takes
 DECODE_MAX_G = 16
+#: ``flash_decode_split`` (csrc/flash_attention.cu): cache slots per tile
+#: (DEC_BK) and the most splits, the blocks of one cluster (DEC_MAX_SPLITS)
+DECODE_BK = 16
+DECODE_MAX_SPLITS = 8
+#: blocks per SM the decode split aims at
+DECODE_BLOCKS_PER_SM = 2
 #: ctypes argument codes of the C entries in csrc/flash_attention.cu
 SIGNATURES = {
     "flash_attend": "ppppiiiiii" + "l" * 12 + "iifp",
     "flash_attend_wgmma": "ppppiiiiii" + "l" * 12 + "iifp",
-    "flash_decode": "pppppiiiii" + "l" * 12 + "ifip",
+    "flash_decode": "ppppp" + "iiiii" + "l" * 12 + "ifiii" + "p",
 }
 
 flash_attention_program = program(
@@ -202,6 +217,40 @@ def check_decode(q, k, v, pos) -> None:
         raise DeviceError(f"flash_attention/decode: {g} grouped rows > {DECODE_MAX_G}")
     if pos.shape != (b,) or pos.dtype != torch.int32 or not pos.is_contiguous():
         raise DeviceError(f"flash_attention/decode: pos must be [{b}] int32, got {tuple(pos.shape)} {pos.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if not bulk_ready(x):
+                raise DeviceError(
+                    f"flash_attention/decode: the bf16 kernel bulk-copies the rows of {name}, "
+                    f"which needs a 16-byte-aligned base and strides that are multiples of 8; "
+                    f"got strides {x.stride()}"
+                )
+
+
+def bulk_ready(x) -> bool:
+    """Every row of the 4-D bf16 ``x`` starts 16-byte aligned: an aligned
+    base and (batch, head, row) strides of multiples of 8 elements (a
+    dim of extent 1 is never stepped). Checked on every decode call, so
+    written for the host's time."""
+    (s0, s1, s2, _), (n0, n1, n2, _) = x.stride(), x.shape
+    return (x.data_ptr() % 16 == 0 and (s0 % 8 == 0 or n0 == 1) and (s1 % 8 == 0 or n1 == 1)
+            and (s2 % 8 == 0 or n2 == 1))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(bkv: int, w: int, n_sm: int):
+    """(splits, chunk) for ``flash_decode_split``: the W cache slots of
+    each (batch, kv head) cut into ``splits`` runs of ``chunk`` slots, a
+    whole number of :data:`DECODE_BK`-slot tiles and at least two of them,
+    so that about :data:`DECODE_BLOCKS_PER_SM` blocks stand on every SM;
+    at most :data:`DECODE_MAX_SPLITS` (one cluster). From W, B*KV and the SM count
+    only: never from the positions, which stay on the card (a split past
+    a row's live slots returns at once)."""
+    tiles = -(-w // DECODE_BK)
+    want = -(-DECODE_BLOCKS_PER_SM * n_sm // bkv)
+    splits = max(1, min(want, -(-tiles // 2), DECODE_MAX_SPLITS))
+    chunk_tiles = -(-tiles // splits)
+    return -(-tiles // chunk_tiles), chunk_tiles * DECODE_BK
 
 
 @flash_attention_program.stage("decode", scope=Scope.GRID)
@@ -209,7 +258,7 @@ def _decode(ctx, q, k, v, pos, *, ring: bool = False, scale: Optional[float] = N
     """Flash decode: grouped single-token queries ``q [B, KV, G, d]``
     attend over the cache ``k/v [B, KV, W, d]`` at per-slot positions
     ``pos [B]``."""
-    global decode_launches
+    global decode_launches, decode_split_launches
     if not ctx.on_card(q, k, v, pos):
         return ctx.run("decode_mac", q, k, v, pos, ring=ring, scale=scale)
     check_decode(q, k, v, pos)
@@ -217,14 +266,18 @@ def _decode(ctx, q, k, v, pos, *, ring: bool = False, scale: Optional[float] = N
     w = k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     o = torch.empty((b, kvh, g, d), dtype=q.dtype, device=q.device)
+    split = q.dtype == torch.bfloat16
+    splits, chunk = decode_plan(b * kvh, w, sm_count(q.device)) if split else (1, w)
     ctx.launch(
         "flash_attention", "flash_decode", SIGNATURES["flash_decode"],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), o.data_ptr(),
         b, kvh, g, w, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(ring), float(scale), DTYPE_CODES[q.dtype], stream_of(q),
+        int(ring), float(scale), DTYPE_CODES[q.dtype], splits, chunk, stream_of(q),
     )
     decode_launches += 1
+    if split:
+        decode_split_launches += 1
     return o
 
 

@@ -14,7 +14,9 @@ The CUDA entry is chosen from the operands by :func:`tile_route`, a
 rule on shapes, strides and dtypes (never a fallback on failure):
 products with at most :data:`SKINNY_MAX_M` rows (every decode tick, and
 the prefill's last-position lm_head) stream the weight through
-``matmul_skinny`` with the K split :func:`skinny_plan` picks; larger bf16
+``matmul_skinny`` — one launch whose K splits, the blocks of a cluster,
+sum through distributed shared memory — with the split
+:func:`skinny_plan` picks; larger bf16
 products whose operands TMA can address (every prefill matmul) run the
 wgmma kernel ``matmul_wgmma`` with the K split :func:`tile_plan` picks;
 the rest (ragged bf16 shapes, f32) run ``matmul_tiled`` (WMMA bf16 tiles,
@@ -26,17 +28,22 @@ Replaces ``repro/kernels/matmul.py:_tile`` (TPU launch at :138, body
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.ref import matmul_ref
 
 #: launches of the CUDA kernels since the last reset (kernels.programs):
-#: all routes, and those that took the wgmma kernel
+#: all routes, those that took the wgmma kernel and those that took the
+#: skinny (weight-streaming) kernel
 launches = 0
 wgmma_launches = 0
+skinny_launches = 0
 
 #: the block tile ``matmul_bf16_wgmma`` is compiled for (csrc/matmul.cu,
 #: WG_BM/WG_BN/WG_BK); the WMMA and f32 tiles of the ragged route and the
@@ -44,11 +51,19 @@ wgmma_launches = 0
 TILE_BLOCKS = {"bm": 128, "bn": 128, "bk": 64}
 #: products with at most this many rows take the weight-streaming path
 SKINNY_MAX_M = 8
-#: f32 words of shared memory ``matmul_skinny`` stages A's rows in
-SKINNY_SMEM_FLOATS = 8192
+#: ``matmul_skinny_stream`` (csrc/matmul.cu): bytes of shared memory A's
+#: rows of one split may take (SK_A_BYTES), K rows per ring stage (SK_BK),
+#: bytes of each B row one block streams (SK_SEG), the most K splits, the
+#: blocks of one cluster (SK_MAX_SPLITS)
+SKINNY_A_BYTES = 49152
+SKINNY_BK = 32
+SKINNY_SEG = 512
+SKINNY_MAX_SPLITS = 8
+#: the most stages of the skinny kernel's ring (SK_MAX_STAGES)
+SKINNY_MAX_STAGES = 8
 #: ctypes argument codes of the C entries in csrc/matmul.cu
 SIGNATURES = {"matmul_wgmma": "ppppiiillliip", "matmul_tiled": "pppiiilllip",
-              "matmul_skinny": "ppppiiillliiip"}
+              "matmul_skinny": "pppiiillliiiip"}
 
 matmul_program = program(
     "matmul", doc="C[M,N] = A[M,K] @ B[K,N] with f32 accumulation"
@@ -66,18 +81,43 @@ def _dot(ctx, a, b, *, out_dtype=None):
     return matmul_plain(a, b, out_dtype)
 
 
+def _skinny_max_chunk(m: int, itemsize: int) -> int:
+    """The deepest K split whose rows of A fit in the skinny kernel's
+    shared memory, in whole ring stages: bf16 keeps 8 rows of
+    ``kchunk + 8`` (the tensor cores' n8), f32 ``kchunk`` x 4 or 8."""
+    if itemsize == 2:
+        chunk = SKINNY_A_BYTES // (8 * 2) - 8
+    else:
+        chunk = SKINNY_A_BYTES // ((4 if m <= 4 else 8) * itemsize)
+    return chunk // SKINNY_BK * SKINNY_BK
+
+
+def skinny_fits(m: int, k: int, itemsize: int) -> bool:
+    """A's rows fit the skinny kernel in at most :data:`SKINNY_MAX_SPLITS`
+    splits (K up to 24320 in bf16)."""
+    return -(-k // _skinny_max_chunk(m, itemsize)) <= SKINNY_MAX_SPLITS
+
+
+@functools.lru_cache(maxsize=None)
 def skinny_plan(m: int, k: int, n: int, itemsize: int, n_sm: int):
-    """(splits, kchunk) for ``matmul_skinny``: enough K splits that
-    about two blocks per SM are in flight, each split at least 64 rows
-    deep and small enough that A's ``m`` rows of it fit in shared
-    memory."""
-    rows = 4 if m <= 4 else 8
-    max_chunk = SKINNY_SMEM_FLOATS // rows
-    groups = -(-n // (32 * (16 // itemsize)))
-    want = -(-2 * n_sm // groups)
-    splits = max(-(-k // max_chunk), min(want, max(1, k // 64)))
-    kchunk = -(-k // splits)
-    return -(-k // kchunk), kchunk
+    """(splits, kchunk, stages) for ``matmul_skinny``, from the shapes and
+    the SM count only. K is split, up to :data:`SKINNY_MAX_SPLITS` (one
+    cluster), until the blocks (one per 512-byte column group and split)
+    reach one per SM, each split a whole number of :data:`SKINNY_BK`-row
+    ring stages, at least two of them, and few enough rows that A's rows
+    of it fit in shared memory. The ring is 8 stages deep where at most
+    half the SMs get a block, 2 where the grid is more than two waves of
+    two blocks per SM, else 4 (``tests/torch_skinny_plans.py`` measured
+    each shape of both serving paths)."""
+    bk = SKINNY_BK
+    groups = -(-n // (SKINNY_SEG // itemsize))
+    splits = max(-(-k // _skinny_max_chunk(m, itemsize)),
+                 min(-(-n_sm // groups), -(-k // (2 * bk)), SKINNY_MAX_SPLITS))
+    kchunk = -(-(-(-k // splits)) // bk) * bk
+    splits = -(-k // kchunk)
+    blocks = groups * splits
+    stages = 8 if blocks <= n_sm // 2 else 2 if blocks > 2 * n_sm else 4
+    return splits, kchunk, stages
 
 
 def tile_plan(m: int, k: int, n: int, n_sm: int):
@@ -105,10 +145,12 @@ def tma_ready(t: torch.Tensor) -> bool:
 def tile_route(a: torch.Tensor, b: torch.Tensor) -> str:
     """The CUDA kernel of B1 that takes ``a @ b`` (operands as
     :func:`check_operands` admits them): ``"skinny"`` (at most
-    :data:`SKINNY_MAX_M` rows and 16-byte rows of ``b``), ``"wgmma"``
+    :data:`SKINNY_MAX_M` rows, 16-byte rows of ``b`` and a K whose rows of
+    ``a`` fit, :func:`skinny_fits`), ``"wgmma"``
     (bf16 whose operands TMA can address) or ``"tiled"`` (the rest)."""
     vec = 16 // a.element_size()
-    if a.shape[0] <= SKINNY_MAX_M and b.shape[1] % vec == 0 and _aligned(b, vec):
+    if (a.shape[0] <= SKINNY_MAX_M and b.shape[1] % vec == 0 and _aligned(b, vec)
+            and skinny_fits(a.shape[0], a.shape[1], a.element_size())):
         return "skinny"
     if a.dtype == torch.bfloat16 and tma_ready(a) and tma_ready(b):
         return "wgmma"
@@ -151,7 +193,7 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
     variants=("kernel", "xla"),
 )
 def _tile(ctx, a, b, *, out_dtype=None):
-    global launches, wgmma_launches
+    global launches, wgmma_launches, skinny_launches
     if ctx.impl != "kernel" or not ctx.on_card(a, b):
         return ctx.run("dot", a, b, out_dtype=out_dtype)
     check_operands(a, b, out_dtype)
@@ -166,8 +208,9 @@ def _tile(ctx, a, b, *, out_dtype=None):
     ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr())
     route = tile_route(a, b)
     if route == "wgmma":
-        splits, kchunk = tile_plan(m, k, n, _sm_count(a.device))
-        ws = _workspace(c, splits)
+        splits, kchunk = tile_plan(m, k, n, sm_count(a.device))
+        ws = c if splits == 1 else torch.empty((splits, m, n), dtype=torch.float32,
+                                               device=c.device)
         ctx.launch(
             "matmul", "matmul_wgmma", SIGNATURES["matmul_wgmma"],
             *ptrs, ws.data_ptr(), m, n, k,
@@ -175,13 +218,13 @@ def _tile(ctx, a, b, *, out_dtype=None):
         )
         wgmma_launches += 1
     elif route == "skinny":
-        splits, kchunk = skinny_plan(m, k, n, a.element_size(), _sm_count(a.device))
-        ws = _workspace(c, splits)
+        splits, kchunk, stages = skinny_plan(m, k, n, a.element_size(), sm_count(a.device))
         ctx.launch(
             "matmul", "matmul_skinny", SIGNATURES["matmul_skinny"],
-            *ptrs, ws.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype], splits, kchunk, stream_of(a),
+            *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype],
+            splits, kchunk, stages, stream_of(a),
         )
+        skinny_launches += 1
     else:
         ctx.launch(
             "matmul", "matmul_tiled", SIGNATURES["matmul_tiled"],
@@ -190,14 +233,3 @@ def _tile(ctx, a, b, *, out_dtype=None):
     launches += 1
     return c
 
-
-def _workspace(c: torch.Tensor, splits: int) -> torch.Tensor:
-    """The f32 partial sums of a K split (``[splits, M, N]``), or ``c``
-    itself where there is no split (the kernel then ignores it)."""
-    if splits == 1:
-        return c
-    return torch.empty((splits, *c.shape), dtype=torch.float32, device=c.device)
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

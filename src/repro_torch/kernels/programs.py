@@ -16,7 +16,8 @@ plain torch version. :func:`launch_counts` reads, and
 :func:`reset_launch_counts` zeroes, the per-kernel launch counters the
 wrappers keep, so a run can show which kernels it went through;
 :func:`wgmma_counts` reads how many of B1's and B3's launches took their
-wgmma kernels.
+wgmma kernels, :func:`bulk_counts` how many of B1's and B4's took their
+bulk-copy kernels (the skinny weight stream, the split-KV decode).
 """
 from __future__ import annotations
 
@@ -57,18 +58,32 @@ def wgmma_counts() -> Dict[str, int]:
     }
 
 
+def bulk_counts() -> Dict[str, int]:
+    """Launches since the last reset that took the kernels fed by
+    asynchronous bulk copies (``cp.async.bulk``, or its tensor form, TMA):
+    B1's ``matmul_skinny_stream`` (every product of at most 8 rows whose
+    A fits it) and B4's bf16 ``flash_decode_split``."""
+    return {
+        "matmul/tile": _mm.skinny_launches,
+        "flash_attention/decode": _fa.decode_split_launches,
+    }
+
+
 def reset_launch_counts() -> None:
     _mm.launches = 0
     _mm.wgmma_launches = 0
+    _mm.skinny_launches = 0
     _rn.launches = 0
     _fa.attend_launches = 0
     _fa.attend_wgmma_launches = 0
     _fa.decode_launches = 0
+    _fa.decode_split_launches = 0
     _moe.launches = 0
 
 
 __all__ = [
     "ALL_PROGRAMS",
+    "bulk_counts",
     "flash_attention",
     "flash_decode",
     "launch_counts",

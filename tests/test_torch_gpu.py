@@ -133,18 +133,103 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, window, h, kv
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("ring,g,w,d,pos", [(False, 4, 256, 128, (128, 3, 255, 0)),
-                                            (True, 2, 48, 64, (100, 7, 47, 48)),
-                                            (False, 9, 64, 128, (10, 20, 30, 63)),
-                                            (False, 8, 100, 64, (99, 0, 31, 64)),
-                                            (True, 16, 64, 256, (70, 5, 63, 64))])
-def test_flash_decode_kernel_matches_plain(cuda, dtype, ring, g, w, d, pos):
-    b, kvh = 4, 2
+@pytest.mark.parametrize("ring,kvh,g,w,d,pos", [(False, 2, 4, 256, 128, (128, 3, 255, 0)),
+                                                (True, 2, 2, 48, 64, (100, 7, 47, 48)),
+                                                (False, 2, 9, 64, 128, (10, 20, 30, 63)),
+                                                (False, 2, 8, 100, 64, (99, 0, 31, 64)),
+                                                (True, 2, 16, 64, 256, (70, 5, 63, 64)),
+                                                # the serving paths: qwen3-4b, qwen3-moe
+                                                (False, 8, 4, 256, 128, (128, 137, 148, 158)),
+                                                (False, 4, 16, 256, 128, (128, 137, 148, 158))])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, ring, kvh, g, w, d, pos):
+    b = 4
     q = _randn(cuda, (b, kvh, g, d), dtype, 10)
     kc, vc = _randn(cuda, (b, w, kvh, d), dtype, 11), _randn(cuda, (b, w, kvh, d), dtype, 12)
     p = torch.tensor(pos, dtype=torch.int32, device=cuda)
     args = (q, kc.transpose(1, 2), vc.transpose(1, 2), p)
-    _close(programs.flash_decode(*args, ring=ring), fa.decode_plain(*args, ring=ring), dtype)
+    before = fa.decode_split_launches
+    got = programs.flash_decode(*args, ring=ring)
+    # bf16 takes the split-KV tensor-core kernel; f32 the CUDA-core one
+    assert fa.decode_split_launches == before + (dtype == torch.bfloat16)
+    _close(got, fa.decode_plain(*args, ring=ring), dtype)
+
+
+def test_flash_decode_split_gives_equal_bits_on_repeat(cuda):
+    """The splits, the blocks of one cluster, merge in split order inside
+    the launch: no atomics, so repeated runs give the same bits."""
+    b, kvh, g, w, d = 4, 8, 4, 256, 128
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.decode_plan(b * kvh, w, n_sm)[0] > 1
+    q = _randn(cuda, (b, kvh, g, d), torch.bfloat16, 13)
+    kc = _randn(cuda, (b, w, kvh, d), torch.bfloat16, 14).transpose(1, 2)
+    vc = _randn(cuda, (b, w, kvh, d), torch.bfloat16, 15).transpose(1, 2)
+    p = torch.tensor((128, 0, 255, 31), dtype=torch.int32, device=cuda)
+    first = programs.flash_decode(q, kc, vc, p)
+    for _ in range(3):
+        assert torch.equal(programs.flash_decode(q, kc, vc, p), first)
+    _close(first, fa.decode_plain(q, kc, vc, p), torch.bfloat16)
+
+
+def test_flash_decode_bf16_refuses_rows_it_cannot_bulk_copy(cuda):
+    q = torch.zeros(2, 2, 4, 64, dtype=torch.bfloat16, device=cuda)
+    bad = torch.zeros(2, 2, 16, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(DeviceError, match="bulk-copies"):
+        programs.flash_decode(q, bad, bad, torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+# every decode product of both serving paths (K, N): qwen3-4b q, k|v, o,
+# gate|up, down, lm_head; qwen3-moe q, k|v, o, lm_head
+DECODE_KN = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560),
+             (2560, 151936), (4096, 8192), (4096, 512), (8192, 4096), (4096, 151936)]
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_skinny_kernel_matches_plain_at_every_decode_shape(cuda, m, k, n):
+    a = _randn(cuda, (m, k), torch.bfloat16, 16)
+    b = _randn(cuda, (k, n), torch.bfloat16, 17, k ** -0.5)
+    assert mm.tile_route(a, b) == "skinny"
+    before = mm.skinny_launches
+    got = programs.matmul(a, b)
+    assert mm.skinny_launches == before + 1
+    _close(got, mm.matmul_plain(a, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_skinny_kernel_takes_a_strided_a(cuda, dtype):
+    big = _randn(cuda, (8, 2600), dtype, 18)
+    a, b = big[:, 20:2580], _randn(cuda, (2560, 1024), dtype, 19, 2560 ** -0.5)
+    for rows in (4, 8):
+        _close(programs.matmul(a[:rows], b), mm.matmul_plain(a[:rows], b), dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 1024), (8, 9728, 2560), (4, 2560, 4096)])
+def test_skinny_kernel_gives_equal_bits_on_repeat(cuda, m, k, n):
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mm.skinny_plan(m, k, n, 2, n_sm)[0] > 1  # the splits are summed in the launch
+    a = _randn(cuda, (m, k), torch.bfloat16, 20)
+    b = _randn(cuda, (k, n), torch.bfloat16, 21, k ** -0.5)
+    first = programs.matmul(a, b)
+    for _ in range(3):
+        assert torch.equal(programs.matmul(a, b), first)
+
+
+def test_skinny_product_is_one_kernel_launch(cuda):
+    """A split skinny product sums its K splits inside its one launch:
+    the profiler sees one kernel, ``matmul_skinny_stream``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mm.skinny_plan(4, 2560, 4096, 2, n_sm)[0] > 1
+    a = _randn(cuda, (4, 2560), torch.bfloat16, 22)
+    b = _randn(cuda, (2560, 4096), torch.bfloat16, 23, 2560 ** -0.5)
+    programs.matmul(a, b)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        programs.matmul(a, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "matmul_skinny_stream" in kernels[0], kernels
 
 
 def test_plain_bodies_and_split_operands_raise_on_the_card(cuda):

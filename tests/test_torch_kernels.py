@@ -7,6 +7,7 @@ to both. The card-only tests that hold each hand-written CUDA kernel
 against its plain version live in
 ``tests/test_torch_gpu.py``, which imports no JAX.
 """
+import inspect
 import re
 from pathlib import Path
 
@@ -62,12 +63,24 @@ def test_matmul_ragged_matches_oracle(dtype):
     [(4, 2560, 4096), (4, 2560, 1024), (4, 9728, 2560), (4, 2560, 151936), (8, 3, 8)],
 )
 def test_skinny_plan_covers_k_and_fits_shared_memory(m, k, n):
+    n_sm, bk = 132, mm.SKINNY_BK
     for itemsize in (2, 4):
-        splits, kchunk = mm.skinny_plan(m, k, n, itemsize, n_sm=132)
+        splits, kchunk, stages = mm.skinny_plan(m, k, n, itemsize, n_sm=n_sm)
         rows = 4 if m <= 4 else 8
-        assert rows * kchunk <= mm.SKINNY_SMEM_FLOATS
+        assert 2 <= stages <= mm.SKINNY_MAX_STAGES
+        a_bytes = 8 * (kchunk + 8) * 2 if itemsize == 2 else rows * kchunk * itemsize
+        assert a_bytes <= mm.SKINNY_A_BYTES
+        assert kchunk % bk == 0  # whole ring stages
         assert (splits - 1) * kchunk < k <= splits * kchunk  # every split non-empty
-        assert splits == 1 or kchunk >= 32  # no split thinner than the 64-row floor allows
+        assert 1 <= splits <= mm.SKINNY_MAX_SPLITS  # the splits are one cluster
+        assert splits == 1 or kchunk >= 2 * bk  # no split thinner than two stages
+        groups = -(-n // (mm.SKINNY_SEG // itemsize))
+        # K is split only where A's rows would not fit or the grid is under
+        # one block per SM
+        assert splits == 1 or k > mm._skinny_max_chunk(m, itemsize) or \
+            groups * (splits - 1) < n_sm
+        # a deep ring only where few blocks share the card
+        assert stages == 8 or groups * splits > n_sm // 2
 
 
 def _bf16(shape):
@@ -81,6 +94,8 @@ ROUTES = {
     "strided a, lda 304": (lambda: (_bf16((64, 304))[:, 8:264], _bf16((256, 128))), "wgmma"),
     "decode bf16": (lambda: (_bf16((4, 2560)), _bf16((2560, 1024))), "skinny"),
     "decode f32": (lambda: (torch.empty(4, 64), torch.empty(64, 36)), "skinny"),
+    "decode, A's rows too deep for one cluster": (lambda: (_bf16((8, 24336)), _bf16((24336, 64))),
+                                                   "wgmma"),
     "prefill f32": (lambda: (torch.empty(512, 64), torch.empty(64, 64)), "tiled"),
     "ragged": (lambda: (_bf16((37, 83)), _bf16((83, 45))), "tiled"),
     "k not a multiple of 8": (lambda: (_bf16((64, 100)), _bf16((100, 64))), "tiled"),
@@ -277,6 +292,92 @@ def test_flash_decode_matches_pallas(dtype, ring, pos):
     assert_close(got, want, **tol(dtype))
 
 
+LOG2E = 1.4426950408889634
+
+
+def _split_decode(q, k, v, pos, *, ring, splits, chunk):
+    """A torch emulation of ``flash_decode_split``'s arithmetic (a test
+    helper, not on the path): each split's base-2 online-softmax state
+    (m, l, acc) over its slots, P rounded to the input type before P V,
+    then the merge in split order that the last-arriving block runs."""
+    b, kvh, g, d = q.shape
+    w = k.shape[2]
+    pos = pos.long()
+    n = torch.where(torch.tensor(ring) & (pos + 1 >= w), torch.full_like(pos, w),
+                    (pos + 1).clamp(0, w))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    parts = []
+    for s in range(splits):
+        lo, hi = s * chunk, min(s * chunk + chunk, w)
+        x = torch.einsum("bkgd,bkwd->bkgw", qf, kf[:, :, lo:hi]) * (d ** -0.5 * LOG2E)
+        live = torch.arange(lo, hi)[None, :] < n[:, None]
+        x = x.masked_fill(~live[:, None, None, :], float("-inf"))
+        m = x.amax(-1)
+        base = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+        p = torch.exp2(x - base[..., None])
+        acc = torch.einsum("bkgw,bkwd->bkgd", p.to(q.dtype).float(), vf[:, :, lo:hi])
+        parts.append((m, p.sum(-1), acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    facs = [torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp2(m - mx))
+            for m, _, _ in parts]
+    denom = torch.zeros_like(mx)
+    for (_, l, _), f in zip(parts, facs):
+        denom = denom + l * f
+    inv = torch.where(denom > 0, 1.0 / denom, torch.zeros_like(denom))
+    out = torch.zeros_like(parts[0][2])
+    for (_, _, acc), f in zip(parts, facs):
+        out = out + acc * (f * inv)[..., None]
+    return out.to(q.dtype)
+
+
+# (pos of slot 0, pos of slot 1), ring: W = 96 in 3 splits of 32 slots
+SPLIT_POS = {
+    "first slot": ((0, 0), False),
+    "a split boundary - 1": ((31, 63), False),
+    "a split boundary": ((32, 64), False),
+    "last slot": ((95, 95), False),
+    "ring wrapped": ((150, 40), True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("case", list(SPLIT_POS))
+def test_split_kv_decode_emulation_matches_pallas(dtype, d, g, case):
+    """The split-KV partials and their in-order merge, as the bf16 B4
+    kernel computes them with the plan's splits, agree with the Pallas
+    decode kernel."""
+    (p0, p1), ring = SPLIT_POS[case]
+    b, kvh, w = 2, 1, 96
+    splits, chunk = fa.decode_plan(b * kvh, w, 132)
+    assert (splits, chunk) == (3, 32)
+    q = draw(23, (b, kvh, g, d), dtype)
+    kc, vc = draw(24, (b, kvh, w, d), dtype), draw(25, (b, kvh, w, d), dtype)
+    pos = np.asarray([p0, p1], np.int32)
+    want = flash_decode_pallas(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                               jnp.asarray(pos), ring=ring, interpret=True)
+    got = _split_decode(t(q), t(kc), t(vc), torch.from_numpy(pos), ring=ring, splits=splits,
+                        chunk=chunk)
+    assert_close(got, want, **tol(dtype))
+
+
+@pytest.mark.parametrize("bkv,w", [(32, 256), (16, 256), (8, 48), (8, 100), (1, 4096),
+                                   (512, 256), (4, 1), (2, 96)])
+def test_decode_plan_covers_the_cache_in_whole_tiles(bkv, w):
+    """The split covers W in non-empty runs of whole tiles, from W, B*KV
+    and the SM count only (the positions are never read on the host)."""
+    for n_sm in (132, 114):
+        splits, chunk = fa.decode_plan(bkv, w, n_sm)
+        assert chunk % fa.DECODE_BK == 0
+        assert (splits - 1) * chunk < w <= splits * chunk  # no split empty of slots
+        assert 1 <= splits <= fa.DECODE_MAX_SPLITS  # the splits are one cluster
+        assert splits == 1 or chunk >= 2 * fa.DECODE_BK
+    assert list(inspect.signature(fa.decode_plan).parameters) == ["bkv", "w", "n_sm"]
+    if (bkv, w) in ((32, 256), (16, 256)):  # the serving paths: 8 splits of 32 slots
+        assert fa.decode_plan(bkv, w, 132) == (8, 32)
+
+
 def test_flash_decode_operand_checks():
     q, c = torch.zeros(2, 2, 4, 64), torch.zeros(2, 2, 16, 64)
     with pytest.raises(DeviceError, match="int32"):
@@ -284,6 +385,15 @@ def test_flash_decode_operand_checks():
     with pytest.raises(DeviceError, match="grouped rows"):
         fa.check_decode(torch.zeros(2, 2, 17, 64), c, c, torch.zeros(2, dtype=torch.int32))
     fa.check_decode(q, c, c, torch.zeros(2, dtype=torch.int32))
+    # bf16 bulk-copies rows: the [B, W, KV, D] cache view passes, a
+    # row stride that is not a multiple of 8 does not
+    bf = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
+    pos = torch.zeros(2, dtype=torch.int32)
+    cache = bf(2, 16, 2, 64).transpose(1, 2)
+    fa.check_decode(bf(2, 2, 4, 64), cache, cache, pos)
+    bad = bf(2, 2, 16, 68)[..., :64]
+    with pytest.raises(DeviceError, match="bulk-copies"):
+        fa.check_decode(bf(2, 2, 4, 64), bad, bad, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +443,23 @@ def test_wrapper_constants_match_the_kernels():
         assert '#include "gemm_tiles.cuh"' in _csrc(source)
     for source in ("matmul", "flash_attention"):
         assert '#include "hopper.cuh"' in _csrc(source)
-    assert mm.SKINNY_SMEM_FLOATS == const(src, "SK_SMEM")
+    assert (mm.SKINNY_A_BYTES, mm.SKINNY_BK, mm.SKINNY_SEG, mm.SKINNY_MAX_SPLITS,
+            mm.SKINNY_MAX_STAGES) == (
+        const(src, "SK_A_BYTES"), const(src, "SK_BK"), const(src, "SK_SEG"),
+        const(src, "SK_MAX_SPLITS"), const(src, "SK_MAX_STAGES"))
     src = _csrc("flash_attention")
     assert fa.ATTEND_BLOCKS == {"bq": const(src, "FA_BQ"), "bkv": const(src, "FA_BKV")}
     for launcher in ("launch_attend", "launch_attend_wgmma"):  # f32 and bf16 B3
         dims = re.findall(r"case (\d+): return " + launcher + "<", src)
         assert sorted(int(d) for d in dims) == list(fa.HEAD_DIMS), launcher
     assert max(int(g) for g in re.findall(r"if \(G <= (\d+)\)", src)) == fa.DECODE_MAX_G
+    assert (fa.DECODE_BK, fa.DECODE_MAX_SPLITS) == (const(src, "DEC_BK"),
+                                                   const(src, "DEC_MAX_SPLITS"))
+    assert const(src, "DEC_ROWS") == fa.DECODE_MAX_G  # the grouped rows pad to one m16
+    dims = re.findall(r"case (\d+): return launch_decode_split<", src)
+    assert sorted(int(d) for d in dims) == list(fa.HEAD_DIMS)
+    for kernel in ("matmul_skinny_stream", "flash_decode_split"):  # fed by cp.async.bulk
+        assert kernel in _csrc("matmul") + src
+    hopper = _csrc("hopper.cuh")
+    assert "cp.async.bulk.shared::cluster.global.mbarrier" in hopper
+    assert "ld.shared::cluster" in hopper  # the splits sum through distributed shared memory

@@ -26,6 +26,8 @@ TARGETS = {
                                                        "grad of flash_attention_trainable"),
     "test_flash_decode_matches_pallas": ("kernels/flash_attention.py",
                                          "flash_decode_pallas (interpret)"),
+    "test_split_kv_decode_emulation_matches_pallas": (
+        "tests/test_torch_kernels.py:_split_decode", "flash_decode_pallas (interpret)"),
     "test_prefill_logits_and_cache_match_jax": ("models/transformer.py", "transformer.prefill"),
     "test_decode_step_mid_sequence_matches_jax": ("models/transformer.py",
                                                   "transformer.decode_step"),
