@@ -8,13 +8,15 @@ Phases, in order; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (fails without a card);
 2. build   — every kernel library from ``src/repro_torch/csrc``, one
    ``nvcc`` per source, all started together; then the evidence of
-   B1's and B3's design: ``cuobjdump -sass`` counts the ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) instructions of the ``matmul`` and
-   ``flash_attention`` libraries, and none of either fails the run; and,
-   per function, the TMA (``UTMALDG``), bulk-copy (``UBLKCP``),
-   ``cp.async`` (``LDGSTS``), ``mma.sync`` (``HMMA``) and ``ldmatrix``
-   (``LDSM``) instructions of B1's skinny kernel and B4's split-KV kernel
-   (reported, never failing);
+   B1's, B3's and B5's design: ``cuobjdump -sass`` counts the ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions of the ``matmul``,
+   ``flash_attention`` and ``moe_gemm`` libraries, and none of either
+   fails the run; and, per function, the TMA (``UTMALDG``), bulk-copy
+   (``UBLKCP``), ``cp.async`` (``LDGSTS``), wgmma (``HGMMA``),
+   ``mma.sync`` (``HMMA``), ``ldmatrix`` (``LDSM``) and 16-byte load and
+   store (``LDG.E.128``, ``STG.E.128``) instructions of B1's skinny
+   kernel, B4's split-KV kernel, B5's expert stream and wgmma kernels and
+   B2's row kernels (reported, never failing);
 
 the dense path, qwen3-4b:
 
@@ -41,7 +43,10 @@ the dense path, qwen3-4b:
 the MoE path, qwen3-moe-235b-a22b at full width:
 
 6. kernels — B5 (moe_gemm) at the four expert-GEMM shapes of the path
-   in bf16 and one in f32, and B1-B4 at the path's own shapes (d 4096,
+   in bf16 on full random buffers and one in f32, at the decode gate|up
+   and down on a capacity buffer as ``local_dispatch`` fills it for a
+   4-token tick (its live experts counted; the bound counts the live
+   experts' weights only), and B1-B4 at the path's own shapes (d 4096,
    q 8192 wide, 4 kv heads, 16 query rows per kv head), held and timed
    as in phase 3 (B5's yardstick: one ``torch.bmm``);
 7. depth 2 — 2 layers, bf16, weights from a seed drawn on the card and
@@ -52,7 +57,8 @@ the MoE path, qwen3-moe-235b-a22b at full width:
 8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
    as phase 5, launch, wgmma and bulk-copy counters read and checked
-   around that one run as in phase 5.
+   around that one run as in phase 5, and every bf16 B5 launch counted
+   by B5's expert-stream (capacity <= 8) or wgmma (larger) counter.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -167,7 +173,8 @@ def sass_of(build, name) -> str:
                           text=True, timeout=300, check=True).stdout
 
 
-def sass_counts(build, names=("matmul", "flash_attention"), opcodes=("HGMMA", "UTMALDG")):
+def sass_counts(build, names=("matmul", "flash_attention", "moe_gemm"),
+                opcodes=("HGMMA", "UTMALDG")):
     """Count each opcode in the SASS of each built library."""
     counts = {}
     for name in names:
@@ -176,10 +183,14 @@ def sass_counts(build, names=("matmul", "flash_attention"), opcodes=("HGMMA", "U
     return counts
 
 
-#: the kernels of B1's skinny path and B4's bf16 path, and the opcodes of
-#: their design: TMA and bulk copies, cp.async, mma.sync, ldmatrix
-STREAM_KERNELS = {"matmul": "matmul_skinny_stream", "flash_attention": "flash_decode_split"}
-STREAM_OPCODES = ("UTMALDG", "UBLKCP", "LDGSTS", "HMMA", "LDSM")
+#: the kernels of B1's skinny path, B4's bf16 path, B5's bf16 routes and
+#: B2, and the opcodes of their design: TMA and bulk copies, cp.async,
+#: wgmma, mma.sync, ldmatrix, 16-byte loads and stores
+STREAM_KERNELS = {"matmul": ("matmul_skinny_stream",), "flash_attention": ("flash_decode_split",),
+                  "moe_gemm": ("moe_expert_stream", "moe_expert_wgmma"),
+                  "rmsnorm": ("rows_kernel",)}
+STREAM_OPCODES = ("UTMALDG", "UBLKCP", "LDGSTS", "HGMMA", "HMMA", "LDSM", "LDG.E.128",
+                  "STG.E.128")
 
 
 def sass_counts_per_function(build):
@@ -187,12 +198,12 @@ def sass_counts_per_function(build):
     (``Function :`` section of ``cuobjdump -sass``) of the kernels in
     ``STREAM_KERNELS``, keyed by the section's (mangled) name."""
     counts = {}
-    for lib, kernel in STREAM_KERNELS.items():
+    for lib, kernels in STREAM_KERNELS.items():
         fun = None
         for line in sass_of(build, lib).splitlines():
             if "Function :" in line:
                 name = line.split("Function :", 1)[1].strip()
-                fun = name if kernel in name else None
+                fun = name if any(k in name for k in kernels) else None
                 if fun:
                     counts[fun] = dict.fromkeys(STREAM_OPCODES, 0)
             elif fun:
@@ -219,6 +230,18 @@ def b1_kernel(mm, a, b, n_sm) -> str:
         splits = 1
         name = "matmul_bf16_tiled" if a.element_size() == 2 else "matmul_f32_tiled"
     return name + (f" + splitk_reduce ({splits} splits)" if splits > 1 else "")
+
+
+def b5_kernel(moe_k, x, w, n_sm) -> str:
+    """The CUDA kernel B5's wrapper launches for ``x @ w``."""
+    route = moe_k.expert_route(x, w)
+    if route == "stream":
+        e, _, d = x.shape
+        splits, _, stages = moe_k.stream_plan(d, w.shape[2], e, n_sm)
+        return f"moe_expert_stream ({splits} splits x {stages} stages, one launch)"
+    if route == "wgmma":
+        return "moe_expert_wgmma"
+    return "moe_gemm_bf16" if x.element_size() == 2 else "moe_gemm_f32"
 
 
 def kernel_cases(cfg, torch, F, device):
@@ -258,29 +281,39 @@ def kernel_cases(cfg, torch, F, device):
 
     def rmsnorm_case(label, rows, width, dtype):
         x, w = randn((rows, width), dtype), 1.0 + randn((width,), dtype, 0.1)
+        plan = rn.rows_plan(rows, width)
         cases.append(dict(
             kernel="rmsnorm/rows", label=f"{label} {rows}x{width}", dtype=dtype,
-            cuda_kernel="rmsnorm_rows_kernel",
+            cuda_kernel=f"rows_kernel ({plan['cls']}: {plan['blocks']} blocks of "
+                        f"{plan['rows_per_block']} rows, {plan['threads']} threads)",
             run=lambda: programs.rmsnorm(x, w), plain=lambda: rn.rmsnorm_plain(x, w),
             library=lambda: F.rms_norm(x, (width,), w, 1e-6),
             nbytes=(2 * rows * width + width) * x.element_size(), flops=4.0 * rows * width))
 
     weights = {}
 
-    def moe_case(label, c, k, n, dtype):
-        """B5 on a full [E, c, k] capacity buffer against the [E, k, n]
-        expert weights (drawn once per shape and dtype)."""
-        e = cfg.num_experts
+    def expert_weights(k, n, dtype):
+        """The [E, k, n] expert weights, drawn once per shape and dtype."""
         key = (k, n, dtype)
         if key not in weights:
-            weights[key] = randn((e, k, n), dtype, k ** -0.5)
-        x, w = randn((e, c, k), dtype), weights[key]
+            weights[key] = randn((cfg.num_experts, k, n), dtype, k ** -0.5)
+        return weights[key]
+
+    def moe_case(label, x, w):
+        """B5 on the [E, c, k] capacity buffer ``x``; the bound counts the
+        weights of the experts whose rows of ``x`` are not all zero (all
+        of them on a random buffer), the whole buffer and the output."""
+        e, c, k = x.shape
+        n = w.shape[2]
+        live = int(x.flatten(1).ne(0).any(1).sum())
+        rows = int(x.flatten(0, 1).ne(0).any(1).sum())
+        size = x.element_size()
         cases.append(dict(
-            kernel="moe_gemm/expert_gemm", label=f"{label} {e}x{c}x{k}x{n}", dtype=dtype,
-            cuda_kernel="moe_gemm_bf16" if dtype == bf16 else "moe_gemm_f32",
+            kernel="moe_gemm/expert_gemm", label=f"{label} {e}x{c}x{k}x{n}", dtype=x.dtype,
+            cuda_kernel=b5_kernel(moe_k, x, w, n_sm), live_experts=live,
             run=lambda: programs.moe_gemm(x, w), plain=lambda: moe_k.moe_gemm_plain(x, w),
             library=lambda: torch.bmm(x, w),
-            nbytes=e * (c * k + k * n + c * n) * x.element_size(), flops=2.0 * e * c * k * n))
+            nbytes=(live * k * n + e * c * (k + n)) * size, flops=2.0 * rows * k * n))
 
     bf16, f32 = torch.bfloat16, torch.float32
     ffn = [] if cfg.is_moe else [("gate|up", d, ff), ("down", ff, d)]
@@ -293,11 +326,21 @@ def kernel_cases(cfg, torch, F, device):
     ]:
         matmul_case(label, m, k, n, bf16)
     if cfg.is_moe:
-        eff, c_prefill, c_decode = cfg.moe_d_ff, moe.capacity(t, cfg), moe.capacity(BATCH, cfg)
+        e, eff = cfg.num_experts, cfg.moe_d_ff
+        c_prefill, c_decode = moe.capacity(t, cfg), moe.capacity(BATCH, cfg)
         for label, c in (("prefill", c_prefill), ("decode", c_decode)):
-            moe_case(f"{label} gate|up", c, d, eff, bf16)
-            moe_case(f"{label} down", c, eff, d, bf16)
-        moe_case("decode gate|up", c_decode, d, eff, f32)
+            moe_case(f"{label} gate|up", randn((e, c, d), bf16), expert_weights(d, eff, bf16))
+            moe_case(f"{label} down", randn((e, c, eff), bf16), expert_weights(eff, d, bf16))
+        moe_case("decode gate|up", randn((e, c_decode, d), f32), expert_weights(d, eff, f32))
+        # a decode tick's buffer as the dispatch fills it: BATCH tokens, top-k
+        wg, wo = expert_weights(d, eff, bf16), expert_weights(eff, d, bf16)
+        buf, _ = moe.local_dispatch(randn((BATCH, d), bf16), randn((d, e), f32, d ** -0.5),
+                                    num_experts=e, experts_per_tok=cfg.experts_per_tok,
+                                    capacity=c_decode)
+        gate = moe_k.moe_gemm_plain(buf, wg)
+        act = F.silu(gate) * gate  # zero on the rows the dispatch left zero, as silu(gate) * up
+        moe_case("decode gate|up, dispatched", buf, wg)
+        moe_case("decode down, dispatched", act, wo)
     else:
         matmul_case("prefill q", t, d, h * hd, f32)
         matmul_case("decode gate|up", BATCH, d, ff, f32)
@@ -370,6 +413,8 @@ def phase_kernels(cfg, torch, F, device):
         check(ok, f"{c['kernel']} {c['label']} {dtype}: max |diff| {err} outside {tol}")
         ms, plain_ms, lib_ms = timer(c["run"]), timer(c["plain"]), timer(c["library"])
         b_ms, b_by = bound_ms(c["nbytes"], c["flops"], dtype)
+        if "live_experts" in c:
+            c["cuda_kernel"] += f", {c['live_experts']} live experts"
         rows.append(dict(kernel=c["kernel"], shape=c["label"], dtype=dtype,
                          cuda_kernel=c["cuda_kernel"], max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
@@ -506,18 +551,23 @@ class RouteProbe:
     """Counts, around one run, what the model hands the kernel programs:
     bf16 products of more than ``SKINNY_MAX_M`` rows (B1's wgmma counter
     must then show as many), products ``tile_route`` sends to the skinny
-    kernel (B1's skinny counter), bf16 attends (B3's wgmma counter) and
-    bf16 decode attends (B4's split-KV counter)."""
+    kernel (B1's skinny counter), bf16 attends (B3's wgmma counter), bf16
+    decode attends (B4's split-KV counter) and bf16 expert GEMMs of at
+    most ``STREAM_MAX_C`` capacity rows and of more (B5's stream and
+    wgmma counters)."""
 
     def __init__(self, torch, programs, mm, keep=False):
-        self.torch, self.programs, self.mm, self.keep = torch, programs, mm, keep
+        from repro_torch.kernels import moe_gemm as moe_k
+
+        self.torch, self.programs, self.mm, self.moe_k, self.keep = torch, programs, mm, moe_k, keep
         self.tiles = self.skinny = self.attends = self.decodes = 0
+        self.expert_streams = self.expert_tiles = 0
         self.skinny_operands = []  # with ``keep``: the (a, b) of each skinny product
 
     def __enter__(self):
         p, bf16 = self.programs, self.torch.bfloat16
-        self.saved = p.matmul, p.flash_attention, p.flash_decode
-        matmul, attend, decode = self.saved
+        self.saved = p.matmul, p.flash_attention, p.flash_decode, p.moe_gemm
+        matmul, attend, decode, expert = self.saved
 
         def counted_matmul(a, b, **kw):
             if a.dtype == bf16 and a.shape[0] > self.mm.SKINNY_MAX_M:
@@ -538,20 +588,32 @@ class RouteProbe:
                 self.decodes += 1
             return decode(q, k, v, pos, **kw)
 
-        p.matmul, p.flash_attention, p.flash_decode = counted_matmul, counted_attend, counted_decode
+        def counted_expert(x, w, **kw):
+            if x.dtype == bf16:
+                if x.shape[1] <= self.moe_k.STREAM_MAX_C:
+                    self.expert_streams += 1
+                else:
+                    self.expert_tiles += 1
+            return expert(x, w, **kw)
+
+        p.matmul, p.flash_attention, p.flash_decode, p.moe_gemm = (
+            counted_matmul, counted_attend, counted_decode, counted_expert)
         return self
 
     def __exit__(self, *exc):
-        self.programs.matmul, self.programs.flash_attention, self.programs.flash_decode = self.saved
+        p = self.programs
+        p.matmul, p.flash_attention, p.flash_decode, p.moe_gemm = self.saved
 
 
 def phase_full(cfg, torch, device):
     """``cfg`` through ``ServeEngine.generate`` on the card, launch
     counters zeroed just before the one measured run and read just
     after: every kernel of the path must have launched (B5, on an MoE
-    path, exactly three times per layer and step), and every bf16 matmul
-    of more than 8 rows and every bf16 attend must have taken B1's and
-    B3's wgmma kernels."""
+    path, exactly three times per layer and step), every bf16 matmul of
+    more than 8 rows and every bf16 attend must have taken B1's and B3's
+    wgmma kernels, and on an MoE path every bf16 expert GEMM B5's expert
+    stream (at most 8 capacity rows: the decode ticks) or its wgmma
+    kernel (more: the prefill)."""
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import programs
     from repro_torch.models.model_zoo import build_model
@@ -601,6 +663,16 @@ def phase_full(cfg, torch, device):
           counts["flash_attention/decode"],
           f"B4: {bulk['flash_attention/decode']} split-KV launches, "
           f"{counts['flash_attention/decode']} launches, for {probe.decodes} bf16 decode attends")
+    if cfg.is_moe:
+        check(probe.expert_streams > 0 and probe.expert_tiles > 0 and
+              bulk["moe_gemm/expert_gemm"] == probe.expert_streams and
+              wgmma["moe_gemm/expert_gemm"] == probe.expert_tiles and
+              probe.expert_streams + probe.expert_tiles == counts["moe_gemm/expert_gemm"],
+              f"B5: {bulk['moe_gemm/expert_gemm']} expert-stream and "
+              f"{wgmma['moe_gemm/expert_gemm']} wgmma launches of "
+              f"{counts['moe_gemm/expert_gemm']}, for {probe.expert_streams} bf16 expert GEMMs "
+              f"of at most {probe.moe_k.STREAM_MAX_C} capacity rows and {probe.expert_tiles} of "
+              f"more")
     logits, _ = api.prefill(params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(bool((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).all()),
@@ -619,7 +691,9 @@ def phase_full(cfg, torch, device):
     log(f"  launches in that run: {counts}; of them through wgmma: {wgmma}, through the "
         f"bulk-copy kernels: {bulk} (the model issued {probe.tiles} bf16 matmuls of more than "
         f"{mm.SKINNY_MAX_M} rows, {probe.skinny} skinny products, {probe.attends} bf16 "
-        f"attends, {probe.decodes} bf16 decode attends)")
+        f"attends, {probe.decodes} bf16 decode attends, {probe.expert_streams} + "
+        f"{probe.expert_tiles} bf16 expert GEMMs of at most / more than "
+        f"{probe.moe_k.STREAM_MAX_C} capacity rows)")
     log(f"  first tokens: {out[:, :8].tolist()}")
 
     # where the time goes: device busy time by kernel under the profiler,
@@ -641,9 +715,15 @@ def phase_full(cfg, torch, device):
     return counts, stats
 
 
+#: name fragments of the port's hand-written kernels (B1-B5), whose device
+#: time per call the main path also reports one by one
+PORT_KERNELS = ("matmul_", "rows_kernel", "rmsnorm_rows", "flash_", "moe_")
+
+
 def device_busy_ms(torch, fn, reps=3):
     """Mean device time per call of ``fn`` summed over its CUDA kernels
-    (torch.profiler), and the five kernels that took most of it."""
+    (torch.profiler), and the five kernels that took most of it and every
+    hand-written kernel of the port."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -659,6 +739,8 @@ def device_busy_ms(torch, fn, reps=3):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name[:48]] += e.time_range.elapsed_us() / 1e3 / reps
     top = {k: round(v, 4) for k, v in by_name.most_common(5)}
+    top.update({k: round(v, 4) for k, v in by_name.items()
+                if any(frag in k for frag in PORT_KERNELS)})
     return sum(by_name.values()), top
 
 
@@ -736,7 +818,7 @@ def main() -> int:
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif src in ("matmul", "flash_attention") and "wgmma" in entry and (
+            elif src in ("matmul", "flash_attention", "moe_gemm") and "wgmma" in entry and (
                     "Used" in line or "spill" in line):
                 log(f"  ptxas {src} {entry}: {line.strip()}")
             elif "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
@@ -745,7 +827,8 @@ def main() -> int:
     log(f"  SASS instruction counts (cuobjdump -sass): {sass}")
     for lib, ops in sass.items():
         for op, n in ops.items():
-            check(n > 0, f"the {lib} library has no {op} instruction: B1/B3 are not on wgmma + TMA")
+            check(n > 0, f"the {lib} library has no {op} instruction: B1/B3/B5 are not on "
+                         f"wgmma + TMA")
     for fun, ops in sass_counts_per_function(_build).items():
         log(f"  SASS of {fun}: {ops}")
 

@@ -1,6 +1,7 @@
 // Block tiles of a row-major GEMM C = A @ B with f32 accumulation and
 // one cast on the way out, shared by B1 (matmul.cu, one product) and B5
-// (moe_gemm.cu, one product per expert). A caller's kernel hands each
+// (moe_gemm.cu, one product per expert): the routes of f32 and of bf16
+// operands that TMA cannot address. A caller's kernel hands each
 // thread block its operands' base pointers and the output tile's origin
 // (m0, n0); ragged M, N and K are masked here (out-of-range loads read
 // zeros, out-of-range stores are skipped).
@@ -27,27 +28,21 @@ constexpr int A_LD = TBK + 8;  // bf16 elements; +8 breaks bank conflicts, keeps
 constexpr int B_LD = TBN + 8;
 constexpr int C_LD = TBN + 4;  // f32 staging of the output tile
 
-// VEC: K and N are multiples of 8 and every row starts 16-byte aligned,
-// so each 8-element chunk is either wholly inside the matrix or wholly
-// outside and moves as one 16-byte load.
-template <bool VEC>
+// One 8-element chunk of row `row`, columns [col, col + 8), zeros past
+// `rows` and `cols`; element loads (the callers' operands are the ones
+// TMA cannot address, so rows need not be 16-byte aligned).
 __device__ __forceinline__ uint4 load_chunk(const bf16* __restrict__ base, long long ld, int row,
                                             int col, int rows, int cols) {
   uint4 out = make_uint4(0u, 0u, 0u, 0u);
   if (row >= rows) return out;
   const bf16* p = base + (long long)row * ld + col;
-  if (VEC) {
-    if (col < cols) out = *reinterpret_cast<const uint4*>(p);
-  } else {
-    bf16* e = reinterpret_cast<bf16*>(&out);
+  bf16* e = reinterpret_cast<bf16*>(&out);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (col + i < cols) e[i] = p[i];
-  }
+  for (int i = 0; i < 8; ++i)
+    if (col + i < cols) e[i] = p[i];
   return out;
 }
 
-template <bool VEC>
 __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
                                           bf16* __restrict__ C, int M, int N, int K, long long lda,
                                           long long ldb, long long ldc, int m0, int n0) {
@@ -69,9 +64,9 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16
   const int b_row0 = tid >> 4, b_col = (tid & 15) * 8;
   uint4 ra, rb0, rb1;
   auto fetch = [&](int k0) {
-    ra = load_chunk<VEC>(A + (long long)m0 * lda + k0, lda, a_row, a_col, M - m0, K - k0);
-    rb0 = load_chunk<VEC>(B + (long long)k0 * ldb + n0, ldb, b_row0, b_col, K - k0, N - n0);
-    rb1 = load_chunk<VEC>(B + (long long)k0 * ldb + n0, ldb, b_row0 + 16, b_col, K - k0, N - n0);
+    ra = load_chunk(A + (long long)m0 * lda + k0, lda, a_row, a_col, M - m0, K - k0);
+    rb0 = load_chunk(B + (long long)k0 * ldb + n0, ldb, b_row0, b_col, K - k0, N - n0);
+    rb1 = load_chunk(B + (long long)k0 * ldb + n0, ldb, b_row0 + 16, b_col, K - k0, N - n0);
   };
 
   fetch(0);

@@ -1,10 +1,11 @@
 // Hopper building blocks of the port's kernels (B1's tile and skinny
-// paths in matmul.cu, B3's and B4's bf16 paths in flash_attention.cu),
+// paths in matmul.cu, B3's and B4's bf16 paths in flash_attention.cu,
+// B5's bf16 routes in moe_gemm.cu),
 // written as inline PTX
 // from the PTX ISA (sm_90a):
 //
 // * mbarrier: init, arrive, arrive-expect-tx and a try-wait-parity loop;
-// * TMA: one tile of a 2-D or 4-D tensor map from global into shared
+// * TMA: one tile of a 2-D, 3-D or 4-D tensor map from global into shared
 //   memory (`cp.async.bulk.tensor`), completing on an mbarrier;
 // * the wgmma shared-memory matrix descriptor of a tile that TMA wrote
 //   with the 128-byte swizzle;
@@ -97,6 +98,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

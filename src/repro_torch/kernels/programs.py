@@ -15,9 +15,10 @@ On CUDA tensors each program launches its hand-written Hopper kernel
 plain torch version. :func:`launch_counts` reads, and
 :func:`reset_launch_counts` zeroes, the per-kernel launch counters the
 wrappers keep, so a run can show which kernels it went through;
-:func:`wgmma_counts` reads how many of B1's and B3's launches took their
-wgmma kernels, :func:`bulk_counts` how many of B1's and B4's took their
-bulk-copy kernels (the skinny weight stream, the split-KV decode).
+:func:`wgmma_counts` reads how many of B1's, B3's and B5's launches took
+their wgmma kernels, :func:`bulk_counts` how many of B1's, B4's and B5's
+took their bulk-copy kernels (the skinny weight stream, the split-KV
+decode, the expert weight stream).
 """
 from __future__ import annotations
 
@@ -51,10 +52,12 @@ def launch_counts() -> Dict[str, int]:
 
 def wgmma_counts() -> Dict[str, int]:
     """Launches since the last reset that took the wgmma kernels: B1's
-    ``matmul_bf16_wgmma`` and B3's ``flash_attend_wgmma``."""
+    ``matmul_bf16_wgmma``, B3's ``flash_attend_wgmma`` and B5's
+    ``moe_expert_wgmma``."""
     return {
         "matmul/tile": _mm.wgmma_launches,
         "flash_attention/attend": _fa.attend_wgmma_launches,
+        "moe_gemm/expert_gemm": _moe.wgmma_launches,
     }
 
 
@@ -62,10 +65,13 @@ def bulk_counts() -> Dict[str, int]:
     """Launches since the last reset that took the kernels fed by
     asynchronous bulk copies (``cp.async.bulk``, or its tensor form, TMA):
     B1's ``matmul_skinny_stream`` (every product of at most 8 rows whose
-    A fits it) and B4's bf16 ``flash_decode_split``."""
+    A fits it), B4's bf16 ``flash_decode_split`` and B5's
+    ``moe_expert_stream`` (every bf16 buffer of at most 8 capacity
+    rows)."""
     return {
         "matmul/tile": _mm.skinny_launches,
         "flash_attention/decode": _fa.decode_split_launches,
+        "moe_gemm/expert_gemm": _moe.stream_launches,
     }
 
 
@@ -79,6 +85,8 @@ def reset_launch_counts() -> None:
     _fa.decode_launches = 0
     _fa.decode_split_launches = 0
     _moe.launches = 0
+    _moe.stream_launches = 0
+    _moe.wgmma_launches = 0
 
 
 __all__ = [

@@ -1,12 +1,17 @@
 """RMSNorm as an ``axe.program`` stage graph (kernel B2).
 
 * ``rmsnorm/rows``      (GRID)  — on CUDA tensors, one launch of the
-  hand-written kernel ``csrc/rmsnorm.cu`` (one warp per row, ``brows``
-  rows per thread block); on CPU tensors, the plain torch body.
-  Schedule key ``rmsnorm/rows`` (block ``brows``, which the kernel is
-  built for at 8 and refuses any other pin; variants ``kernel|xla`` as
-  in the JAX package — ``xla`` names the plain body, which runs only on
-  CPU tensors).
+  hand-written kernel ``csrc/rmsnorm.cu``; on CPU tensors, the plain
+  torch body. The kernel has two width classes (:func:`rows_plan`):
+  rows of at most :data:`NARROW_MAX_D` elements (q/k-norm) go 8 to a
+  128-thread block, 16 lanes a row; wider rows (norm1, norm2, the final
+  norm) get one 256-thread block each. Widths of whole 16-byte chunks
+  on 16-byte-aligned bases move as vectors, others by element loads
+  (:func:`vector_ready`). Schedule key ``rmsnorm/rows``: block
+  ``brows`` is the narrow class's rows per block, built for 8 (a wide
+  row is always one block); any other pin raises. Variants
+  ``kernel|xla`` as in the JAX package — ``xla`` names the plain body,
+  which runs only on CPU tensors.
 * ``rmsnorm/normalize`` (BLOCK) — the plain torch body,
   :func:`rmsnorm_plain`.
 
@@ -26,13 +31,19 @@ from repro_torch.kernels.ref import rmsnorm_ref
 #: launches of the CUDA kernel since the last reset (kernels.programs)
 launches = 0
 
-#: rows (warps) per thread block ``rmsnorm_rows`` is compiled for
+#: rows per thread block of the narrow class (csrc/rmsnorm.cu NARROW_ROWS)
 BROWS = 8
+#: widths up to this take the narrow class (NARROW_MAX_D); lanes per
+#: narrow row (NARROW_LANES) and threads of a wide row's block
+#: (WIDE_THREADS)
+NARROW_MAX_D = 256
+NARROW_LANES = 16
+WIDE_THREADS = 256
 #: ctypes argument codes of the C entry in csrc/rmsnorm.cu
-SIGNATURES = {"rmsnorm_rows": "pppiillfip"}
+SIGNATURES = {"rmsnorm_rows": "pppiillfiip"}
 
 rmsnorm_program = program(
-    "rmsnorm", doc="x * rsqrt(mean(x², -1) + eps) * w, one warp per row"
+    "rmsnorm", doc="x * rsqrt(mean(x², -1) + eps) * w, one DRAM round trip per row"
 )
 
 
@@ -62,6 +73,23 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, brows: int) -> None:
         raise DeviceError(f"rmsnorm/rows: the CUDA kernel is built for brows={BROWS}, pinned {brows}")
 
 
+def rows_plan(rows: int, d: int) -> dict:
+    """The launch ``rmsnorm_rows`` makes for ``rows`` rows of ``d``
+    elements: its width class, rows per block, threads per block and
+    blocks."""
+    if d <= NARROW_MAX_D:
+        return dict(cls="narrow", rows_per_block=BROWS, threads=NARROW_LANES * BROWS,
+                    blocks=-(-rows // BROWS))
+    return dict(cls="wide", rows_per_block=1, threads=WIDE_THREADS, blocks=rows)
+
+
+def vector_ready(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Rows of whole 16-byte chunks on 16-byte-aligned bases: the kernel
+    moves them as vectors, else by element loads."""
+    return (x.shape[-1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0 \
+        and w.data_ptr() % 16 == 0
+
+
 @rmsnorm_program.stage(
     "rows", scope=Scope.GRID, entry=True,
     blocks=(("brows", BROWS),),
@@ -80,7 +108,7 @@ def _rows(ctx, x, w, *, eps: float = 1e-6):
     ctx.launch(
         "rmsnorm", "rmsnorm_rows", SIGNATURES["rmsnorm_rows"],
         x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, d, d, eps,
-        DTYPE_CODES[x.dtype], stream_of(x),
+        DTYPE_CODES[x.dtype], int(vector_ready(x, w)), stream_of(x),
     )
     launches += 1
     return y

@@ -134,7 +134,8 @@ def test_stage_ops_registered_with_schedule_registry():
     assert d.impl == "kernel" and d.block("bm") == 128 and d.block("bk") == 64
     assert tsched.allowed_impls("moe_gemm/expert_gemm") == ("kernel", "xla")
     d = tsched.default_schedule("moe_gemm/expert_gemm")
-    assert d.impl == "kernel" and d.blocks_dict == {"bc": 64, "bf": 128, "bd": 32}
+    # the declared tile of B5's wgmma route (64 capacity rows x 128 columns x 64 deep)
+    assert d.impl == "kernel" and d.blocks_dict == {"bc": 64, "bf": 128, "bd": 64}
     with pytest.raises(tsched.InvalidImplError):
         tsched.Schedule("flash_attention/attend", "xla")
 

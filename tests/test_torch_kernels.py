@@ -183,6 +183,46 @@ def test_rmsnorm_operand_checks():
     rn.check_operands(x, torch.zeros(128), rn.BROWS)
 
 
+# the norms of both serving paths, 4 x 128-token prefill and 4-slot decode:
+# (rows, width) -> width class. qwen3-4b: norm 2560, q-norm 32 heads, k-norm
+# 8; qwen3-moe: norm 4096, q-norm 64 heads, k-norm 4; head_dim 128
+PATH_NORMS = {
+    (512, 2560): "wide", (16384, 128): "narrow", (4096, 128): "narrow",
+    (4, 2560): "wide", (128, 128): "narrow", (32, 128): "narrow",
+    (512, 4096): "wide", (32768, 128): "narrow", (2048, 128): "narrow",
+    (4, 4096): "wide", (256, 128): "narrow", (16, 128): "narrow",
+}
+
+
+@pytest.mark.parametrize("rows,d", list(PATH_NORMS))
+def test_rows_plan_gives_every_row_a_block_share_at_path_shapes(rows, d):
+    """Wide rows take a block each; narrow rows go 8 to a block, 16 lanes
+    a row: the grid covers the card at 16384 rows and is never one block
+    doing all the work."""
+    plan = rn.rows_plan(rows, d)
+    assert plan["cls"] == PATH_NORMS[(rows, d)]
+    assert plan["blocks"] * plan["rows_per_block"] >= rows > (plan["blocks"] - 1) * \
+        plan["rows_per_block"]
+    if plan["cls"] == "wide":
+        assert plan["blocks"] == rows and plan["threads"] == rn.WIDE_THREADS
+        # at most 8 chunks of 16 bytes a thread: the row stays in registers
+        assert d * 4 <= rn.WIDE_THREADS * 8 * 16
+    else:
+        assert plan["threads"] == rn.NARROW_LANES * rn.BROWS
+        assert d * 4 <= rn.NARROW_LANES * 4 * 16  # at most 4 chunks a lane, in f32
+    assert plan["blocks"] >= min(132, rows // 8) and (rows <= 8 or plan["blocks"] > 1)
+
+
+def test_vector_ready_needs_whole_chunks_on_aligned_bases():
+    for dtype, d in ((torch.float32, 4), (torch.bfloat16, 8), (torch.bfloat16, 2560)):
+        assert rn.vector_ready(torch.zeros(3, d, dtype=dtype), torch.zeros(d, dtype=dtype))
+    bf = torch.zeros(2 * 100 + 1, dtype=torch.bfloat16)
+    assert not rn.vector_ready(bf[:200].view(2, 100), bf[:100])  # 200-byte rows
+    x = torch.zeros(2 * 64 + 1)[1:].view(2, 64)  # off 16 bytes
+    assert not rn.vector_ready(x, torch.zeros(64))
+    assert not rn.vector_ready(torch.zeros(2, 64), torch.zeros(65)[1:])
+
+
 # ---------------------------------------------------------------------------
 # B3 flash attention
 # ---------------------------------------------------------------------------
@@ -433,20 +473,27 @@ def test_build_all_covers_every_kernel_source():
 def test_wrapper_constants_match_the_kernels():
     """The shapes the wrappers check against are the ones compiled in."""
     const = lambda src, name: int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
-    src = _csrc("matmul")  # B1's wgmma tile; B5 keeps the WMMA tiles of gemm_tiles.cuh
+    src = _csrc("matmul")  # B1's wgmma tile
     assert mm.TILE_BLOCKS == {"bm": const(src, "WG_BM"), "bn": const(src, "WG_BN"),
                               "bk": const(src, "WG_BK")}
-    tiles = _csrc("gemm_tiles.cuh")
-    assert moe_k.EXPERT_BLOCKS == {"bc": const(tiles, "TBM"), "bf": const(tiles, "TBN"),
-                                   "bd": const(tiles, "TBK")}
-    for source in ("matmul", "moe_gemm"):
+    moe_src = _csrc("moe_gemm")  # B5's wgmma tile
+    assert moe_k.EXPERT_BLOCKS == {"bc": const(moe_src, "MW_BM"), "bf": const(moe_src, "MW_BN"),
+                                   "bd": const(moe_src, "MW_BK")}
+    for source in ("matmul", "moe_gemm"):  # the tiles of the ragged routes; the skinny stream
         assert '#include "gemm_tiles.cuh"' in _csrc(source)
-    for source in ("matmul", "flash_attention"):
+        assert '#include "skinny_stream.cuh"' in _csrc(source)
+    for source in ("matmul", "flash_attention", "moe_gemm"):
         assert '#include "hopper.cuh"' in _csrc(source)
+    stream = _csrc("skinny_stream.cuh")
     assert (mm.SKINNY_A_BYTES, mm.SKINNY_BK, mm.SKINNY_SEG, mm.SKINNY_MAX_SPLITS,
             mm.SKINNY_MAX_STAGES) == (
-        const(src, "SK_A_BYTES"), const(src, "SK_BK"), const(src, "SK_SEG"),
-        const(src, "SK_MAX_SPLITS"), const(src, "SK_MAX_STAGES"))
+        const(stream, "SK_A_BYTES"), const(stream, "SK_BK"), const(stream, "SK_SEG"),
+        const(stream, "SK_MAX_SPLITS"), const(stream, "SK_MAX_STAGES"))
+    assert "__syncthreads_or" in stream and "tma_load_3d" in stream  # B5 skips empty experts
+    norm = _csrc("rmsnorm")
+    assert (rn.BROWS, rn.NARROW_MAX_D, rn.NARROW_LANES, rn.WIDE_THREADS) == (
+        const(norm, "NARROW_ROWS"), const(norm, "NARROW_MAX_D"), const(norm, "NARROW_LANES"),
+        const(norm, "WIDE_THREADS"))
     src = _csrc("flash_attention")
     assert fa.ATTEND_BLOCKS == {"bq": const(src, "FA_BQ"), "bkv": const(src, "FA_BKV")}
     for launcher in ("launch_attend", "launch_attend_wgmma"):  # f32 and bf16 B3

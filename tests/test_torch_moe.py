@@ -79,6 +79,103 @@ def test_moe_gemm_operand_checks():
     moe_k.check_operands(x, w, None)
 
 
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+# (x, w) builders and the CUDA kernel of B5 each pair must go to
+EXPERT_ROUTES = {
+    "decode gate|up": (lambda: (_bf16(128, 8, 4096), _bf16(128, 4096, 1536)), "stream"),
+    "decode down": (lambda: (_bf16(128, 8, 1536), _bf16(128, 1536, 4096)), "stream"),
+    "prefill gate|up": (lambda: (_bf16(128, 40, 4096), _bf16(128, 4096, 1536)), "wgmma"),
+    "prefill down": (lambda: (_bf16(128, 40, 1536), _bf16(128, 1536, 4096)), "wgmma"),
+    "one row": (lambda: (_bf16(2, 1, 24), _bf16(2, 24, 8)), "stream"),
+    "nine rows": (lambda: (_bf16(2, 9, 64), _bf16(2, 64, 128)), "wgmma"),
+    "d too deep for one cluster": (lambda: (_bf16(1, 8, 24336), _bf16(1, 24336, 8)), "wgmma"),
+    "f32 decode": (lambda: (torch.empty(4, 8, 64), torch.empty(4, 64, 64)), "tiled"),
+    "d not a multiple of 8": (lambda: (_bf16(2, 8, 100), _bf16(2, 100, 64)), "tiled"),
+    "f not a multiple of 8": (lambda: (_bf16(2, 40, 64), _bf16(2, 64, 60)), "tiled"),
+}
+
+
+@pytest.mark.parametrize("case", list(EXPERT_ROUTES))
+def test_expert_route_picks_the_kernel_from_shapes_and_dtype(case):
+    make, want = EXPERT_ROUTES[case]
+    x, w = make()
+    moe_k.check_operands(x, w, None)
+    assert moe_k.expert_route(x, w) == want
+
+
+# the stream's products on the serving path: qwen3-moe's decode gate|up
+# and down (128 experts, capacity 8), and small ones of the card tests
+@pytest.mark.parametrize("e,c,d,f", [(128, 8, 4096, 1536), (128, 8, 1536, 4096),
+                                     (4, 8, 4096, 256), (3, 3, 96, 136), (2, 1, 24, 8),
+                                     (1, 8, 24320, 64)])
+def test_stream_plan_covers_d_in_whole_stages_and_fits_shared_memory(e, c, d, f):
+    n_sm = 132
+    splits, kchunk, stages = moe_k.stream_plan(d, f, e, n_sm)
+    assert kchunk % moe_k.SKINNY_BK == 0  # whole ring stages
+    assert 8 * (kchunk + 8) * 2 <= 49152  # x's 8 rows of a split in shared memory
+    assert (splits - 1) * kchunk < d <= splits * kchunk  # every split non-empty
+    assert 1 <= splits <= moe_k.SKINNY_MAX_SPLITS  # the splits are one cluster
+    groups = -(-f // 256)
+    assert stages == (4 if groups * e * splits < n_sm else 2)
+    # split for the live work: no split deeper than STREAM_CHUNK rows unless
+    # the cluster is full
+    assert kchunk <= moe_k.STREAM_CHUNK or splits == moe_k.SKINNY_MAX_SPLITS
+    # no more splits than the fewest of at most that many rows, but where
+    # every expert live would leave SMs idle
+    assert splits <= -(-d // min(moe_k.STREAM_CHUNK, moe_k._skinny_max_chunk(8, 2))) or \
+        groups * e * (splits - 1) < n_sm
+    if (e, d) == (128, 4096):  # qwen3-moe's decode gate|up and down
+        assert (splits, kchunk, stages) == (4, 1024, 2)
+    if (e, d) == (128, 1536):
+        assert (splits, kchunk, stages) == (2, 768, 2)
+
+
+def _split_expert_gemm(x, w, splits, kchunk):
+    """A torch emulation of ``moe_expert_stream``'s arithmetic (a test
+    helper, not on the path): for each expert and K split, the f32
+    partial of its rows of x against the weight's rows, or zeros without
+    touching the weight where those rows of x are all zero (the skipped
+    block), summed over the splits in split order, then one cast. Returns
+    the result and the number of skipped (expert, split) slices."""
+    e, c, d = x.shape
+    out = torch.zeros((e, c, w.shape[2]), dtype=torch.float32)
+    skipped = 0
+    for s in range(splits):
+        lo, hi = s * kchunk, min(d, s * kchunk + kchunk)
+        for i in range(e):
+            xs = x[i, :, lo:hi]
+            if not bool(xs.ne(0).any()):
+                skipped += 1
+                continue
+            out[i] = out[i] + xs.float() @ w[i, lo:hi].float()
+    return out.to(x.dtype), skipped
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_expert_stream_emulation_matches_pallas(dtype):
+    """B5's decode route, emulated with the plan's splits on a dispatched
+    buffer with empty experts (4 tokens x top-2 over 16 experts), agrees
+    with the Pallas kernel in interpret mode; the experts with no token
+    are skipped and come out zero."""
+    tokens, d, e, f = 4, 256, 16, 128
+    xf, router = draw(50, (tokens, d), dtype), draw(51, (d, e))
+    buf, _ = moe.local_dispatch(t(xf), t(router), num_experts=e, experts_per_tok=2, capacity=8)
+    w = draw(52, (e, d, f), dtype, d ** -0.5)
+    splits, kchunk, _ = moe_k.stream_plan(d, f, e, 132)
+    assert splits > 1
+    live = buf.flatten(1).ne(0).any(1)
+    assert 0 < int(live.sum()) <= tokens * 2 < e
+    got, skipped = _split_expert_gemm(buf, t(w), splits, kchunk)
+    assert skipped >= splits * (e - int(live.sum()))
+    assert torch.count_nonzero(got[~live]).item() == 0
+    want = jprog.moe_gemm(jnp.asarray(to_numpy(buf)), jnp.asarray(w), stage="expert_gemm",
+                          impl="kernel")
+    assert_close(got, want, **tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # routing: capacity, dispatch and combine
 # ---------------------------------------------------------------------------

@@ -36,6 +36,8 @@ TARGETS = {
     "test_prefill_and_decode_bf16": ("models/transformer.py", "prefill + decode_step, bf16"),
     "test_moe_gemm_matches_pallas": ("kernels/moe_gemm.py",
                                      "programs.moe_gemm, Pallas expert_gemm; ref.moe_gemm_ref"),
+    "test_split_expert_stream_emulation_matches_pallas": (
+        "tests/test_torch_moe.py:_split_expert_gemm", "Pallas expert_gemm (interpret)"),
     "test_local_dispatch_matches_jax_with_dropped_tokens": ("models/moe.py",
                                                             "moe.local_combine (dropped tokens)"),
     "test_local_dispatch_matches_the_loop_oracle": ("models/moe.py",
