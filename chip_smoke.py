@@ -29,16 +29,32 @@ the dense path, qwen3-4b:
    sequence, not a path shape, where it is bound by operations;
 4. depth 2 — qwen3-4b at full width with 2 layers, bf16, weights from a
    seed on the CPU: prefill + 3 decode steps on the CPU (plain
-   versions) and on the card (kernels), logits compared;
+   versions) and on the card (kernels), logits compared; then, on the
+   card with one set of weights, the compiled path (``axe.compile``:
+   ``ServeEngine.score`` of the prompts and 3 compiled decode ticks)
+   against the legacy one (the model API's prefill and 3 ticks fed the
+   same tokens), logits compared (``phase_compiled_depth2``);
 5. full    — qwen3-4b at full width and depth (36 layers, bf16, random
-   weights from a seed on the card) through ``ServeEngine.generate``:
+   weights from a seed on the card) through ``ServeEngine.generate``
+   with its decode ticks through the model API (``decode_mode="legacy"``):
    4 requests x 128-token prompts x 32 new tokens, greedy, max_seq 256,
    with every kernel's launch counter read around that one run, every
    bf16 matmul of more than 8 rows and every bf16 attend the model issued
    in it counted by B1's and B3's wgmma counters, every matmul of at most
    8 rows and every bf16 decode attend by B1's skinny and B4's split-KV
    counters, and the profiler showing one ``matmul_skinny_stream`` launch
-   per skinny product of a decode step (replayed alone);
+   per skinny product of a decode step (replayed alone); then the same
+   weights and traffic with the ticks through the compiled decode
+   executable (``phase_compiled_full``): the seconds ``solve`` +
+   ``compile`` took, the compiled wall per tick beside the legacy one,
+   device busy and idle share of a tick, peak memory, whether the two
+   modes' greedy streams are equal, each mode's wall per tick over
+   ``WALL_PAIRS`` alternated ``generate`` runs, the launch counters read around
+   every compiled tick (each kernel-bound node of the decode graph
+   launches once per tick: B1 per 2-D ``matmul``, B2 per ``norm`` and
+   qk-normed select, B4 per ``decode_attention``, B5 per rank-3
+   ``matmul``), and a compiled ``score`` of the prompts with one launch
+   per kernel-bound node (B3 once per ``attention`` node);
 
 the MoE path, qwen3-moe-235b-a22b at full width:
 
@@ -53,12 +69,15 @@ the MoE path, qwen3-moe-235b-a22b at full width:
    copied to the CPU: prefill + 3 decode steps on both, logits
    compared, the share of (token, choice) expert routings on which card
    and CPU agree, and the logits of the CPU routed to the card's expert
-   choices compared (``phase_depth2`` says why);
+   choices compared (``phase_depth2`` says why); then compiled against
+   legacy on the card as in phase 4, with the same matched-routing rule
+   and the share of routings on which the two modes agree;
 8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
    as phase 5, launch, wgmma and bulk-copy counters read and checked
    around that one run as in phase 5, and every bf16 B5 launch counted
-   by B5's expert-stream (capacity <= 8) or wgmma (larger) counter.
+   by B5's expert-stream (capacity <= 8) or wgmma (larger) counter; then
+   the compiled ticks and score as in phase 5.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -71,6 +90,7 @@ import dataclasses
 import gc
 import json
 import resource
+import statistics
 import subprocess
 import sys
 import time
@@ -82,6 +102,8 @@ ARCH = "qwen3-4b"
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
+# generate runs per decode mode, alternated, for the two modes' wall spread
+WALL_PAIRS = 10
 LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
 # kernel vs plain version: tests/test_program.py:_tol of the reference
@@ -606,7 +628,8 @@ class RouteProbe:
 
 
 def phase_full(cfg, torch, device):
-    """``cfg`` through ``ServeEngine.generate`` on the card, launch
+    """``cfg`` through ``ServeEngine.generate`` on the card, each decode
+    tick through the model API (``decode_mode="legacy"``), launch
     counters zeroed just before the one measured run and read just
     after: every kernel of the path must have launched (B5, on an MoE
     path, exactly three times per layer and step), every bf16 matmul of
@@ -625,7 +648,8 @@ def phase_full(cfg, torch, device):
     torch.cuda.synchronize()
     log(f"  init {cfg.num_layers} layers ({cfg.param_count() / 1e9:.2f} B params) on the card: "
         f"{time.perf_counter() - t0:.3f} s")
-    engine = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device)
+    engine = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device,
+                         decode_mode="legacy")
     engine.load(params)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=device,
                             generator=torch.Generator(device=device).manual_seed(SEED + 1))
@@ -706,13 +730,252 @@ def phase_full(cfg, torch, device):
         f"device time); by kernel: {top}")
     tok = torch.from_numpy(out[:, 0]).to(device)
     pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=device)
-    busy, top = device_busy_ms(torch, lambda: engine.decode_step(tok, cache, pos))
+    busy, top = device_busy_ms(torch, lambda: engine.legacy_decode_step(tok, cache, pos))
     stats["decode_device_busy_ms_per_step"] = busy
     log(f"  decode step: device busy {busy:.3f} ms of {stats['decode_ms_per_step']:.3f} ms "
         f"wall (idle share {1 - busy / stats['decode_ms_per_step']:.3f}); by kernel: {top}")
     log("  " + check_one_launch_per_skinny_product(
-        torch, programs, mm, lambda: engine.decode_step(tok, cache, pos)))
-    return counts, stats
+        torch, programs, mm, lambda: engine.legacy_decode_step(tok, cache, pos)))
+    return counts, stats, dict(engine=engine, prompts=prompts, out=out)
+
+
+# ---------------------------------------------------------------------------
+# the compiled serving path (axe.compile): ServeEngine.score and the
+# compiled decode ticks
+# ---------------------------------------------------------------------------
+
+def launch_deltas(programs, fn):
+    """``fn()`` and the kernel launches (``programs.launch_counts``) it
+    made: the counters are read just before and just after."""
+    before = programs.launch_counts()
+    out = fn()
+    after = programs.launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def phase_compiled_depth2(cfg, torch, device):
+    """``cfg`` cut to 2 layers on the card, one set of weights: the
+    compiled ``score`` of the prompts and 3 compiled decode ticks against
+    the model API's prefill and 3 legacy ticks fed the same tokens,
+    within ``LOGIT_TOL``. Both sides run the same kernels; an MoE
+    config's routing is recorded on both, and where a top-k choice
+    differs the legacy side runs again routed as the compiled one
+    (``phase_depth2``'s matched-routing rule)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
+    api = build_model(cfg2, device=device)
+    engine = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device)
+    engine.load(api.init(SEED))
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 1)).to(device)
+    route = moe.route
+    routes = {"legacy": [], "compiled": []}
+
+    def recording(side):
+        def rec(xf, router, k):
+            gates, experts = route(xf, router, k)
+            if side is not None:
+                routes[side].append(experts.cpu())
+            return gates, experts
+        return rec
+
+    def forced(choices):
+        it = iter(choices)
+
+        def rec(xf, router, k):
+            experts = next(it).to(xf.device)
+            gates = torch.softmax(xf.float() @ router, dim=-1).gather(1, experts)
+            return gates / gates.sum(dim=-1, keepdim=True), experts
+        return rec
+
+    def ticks(step, cache, first, tokens):
+        out, fed = [first], []
+        for i in range(DEPTH2_DECODE):
+            tok = tokens[i] if tokens is not None else out[-1].argmax(-1)
+            fed.append(tok)
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device=device)
+            logits, cache = step(tok.to(device).to(torch.int32), cache, pos)
+            out.append(logits.float().cpu())
+        return torch.stack(out), fed
+
+    def legacy(tokens):
+        logits, cache = api.prefill(engine.params, {"tokens": prompts},
+                                    api.cache_init(BATCH, MAX_SEQ))
+        return ticks(engine.legacy_decode_step, cache, logits[:, -1].float().cpu(), tokens)
+
+    try:
+        moe.route = recording("legacy")
+        want, fed = legacy(None)
+        moe.route = recording("compiled")
+        t0 = time.perf_counter()
+        first = engine.score(prompts)[:, -1].float().cpu()
+        score_s = time.perf_counter() - t0
+        moe.route = recording(None)  # the prefill that fills the ticks' cache
+        _, cache = api.prefill(engine.params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
+        moe.route = recording("compiled")
+        got, _ = ticks(engine.decode_step, cache, first, fed)
+        if cfg.is_moe:
+            moe.route = forced(routes["compiled"])
+            matched, _ = legacy(fed)
+    finally:
+        moe.route = route
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **LOGIT_TOL))
+    check(bool(torch.isfinite(got).all()), "compiled depth-2 logits: non-finite")
+    log(f"  depth-2 logits, compiled (score + {DEPTH2_DECODE} decode ticks) vs legacy (prefill + "
+        f"{DEPTH2_DECODE} ticks), both on the card: max |diff| {err:.4g} (tolerance "
+        f"{LOGIT_TOL}{'' if ok else ': outside'}); first score, solve + compile included: "
+        f"{score_s:.2f} s")
+    if not cfg.is_moe:
+        check(ok, f"compiled vs legacy depth-2 logits: max |diff| {err} outside {LOGIT_TOL}")
+        return err
+    same = total = 0
+    for a, b in zip(routes["legacy"], routes["compiled"], strict=True):
+        for ra, rb in zip(a.tolist(), b.tolist()):
+            same += len(set(ra) & set(rb))
+            total += len(ra)
+    err_matched = float((got - matched).abs().max())
+    ok_matched = bool(torch.allclose(got, matched, **LOGIT_TOL))
+    log(f"  expert routings (token, choice) on which compiled and legacy agree: {same} of "
+        f"{total} ({same / total:.6f}); legacy routed as compiled: max |diff| {err_matched:.4g}"
+        f" (tolerance {LOGIT_TOL}{'' if ok_matched else ': outside'})")
+    check(ok_matched, f"compiled vs legacy routed alike: max |diff| {err_matched} outside "
+                      f"{LOGIT_TOL}")
+    check(ok or same < total, f"compiled vs legacy depth-2 logits: max |diff| {err} outside "
+                              f"{LOGIT_TOL} with every routing equal")
+    return err
+
+
+def phase_compiled_full(cfg, torch, device, run, legacy):
+    """The engine, weights and traffic of ``phase_full`` again, now with
+    every decode tick through the compiled decode executable
+    (``decode_mode="compiled"``): the seconds ``solve`` + ``compile``
+    took, the wall per tick beside the legacy one of the same script
+    run, device busy time and idle share of a tick, peak memory,
+    whether the greedy streams of the two modes are equal (bf16 may part
+    them; not a failure), and each mode's wall per tick over
+    ``WALL_PAIRS`` alternated ``generate`` runs. Launch counters are read around every compiled
+    tick: each kernel-bound node of the decode graph launches its kernel
+    once per tick. Then one compiled ``score`` of the prompts: one
+    launch per kernel-bound node of the forward graph, B3 once per
+    ``attention`` node."""
+    import numpy as np
+
+    from repro_torch.kernels import programs
+
+    engine, prompts = run["engine"], run["prompts"]
+    api = engine.api
+    engine.decode_mode = "compiled"
+    t0 = time.perf_counter()
+    dexe = engine.compiled_decode()
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fexe = engine.compiled_forward(PROMPT)
+    solve_fwd_s = time.perf_counter() - t0
+    log(f"  solve + compile: decode graph {solve_s:.3f} s ({len(dexe.plan.entries)} ops), "
+        f"forward graph {solve_fwd_s:.3f} s ({len(fexe.plan.entries)} ops)")
+    engine.generate(prompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+
+    tick_launches = dict.fromkeys(programs.launch_counts(), 0)
+    ticks = 0
+    compiled_step = engine.decode_step
+
+    def counted_step(tok, cache, pos):
+        nonlocal ticks
+        out, delta = launch_deltas(programs, lambda: compiled_step(tok, cache, pos))
+        for k, n in delta.items():
+            tick_launches[k] += n
+        ticks += 1
+        return out
+
+    engine.decode_step = counted_step
+    programs.reset_launch_counts()
+    try:
+        out = engine.generate(prompts, NEW)
+    finally:
+        del engine.decode_step
+    counts = programs.launch_counts()
+    timing = engine.last_timing
+    check(out.shape == (BATCH, NEW), f"compiled tokens {out.shape} != {(BATCH, NEW)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "compiled token ids out of range")
+    nodes = dexe.op_counts()
+    check(ticks == NEW - 1, f"{ticks} compiled decode ticks, not {NEW - 1}")
+    want = {k: n * ticks for k, n in nodes.items()}
+    check(tick_launches == want,
+          f"launches around the compiled ticks {tick_launches} != graph nodes x {ticks} ticks "
+          f"{want} (nodes per tick {nodes})")
+    stats = dict(
+        solve_compile_decode_s=solve_s,
+        solve_compile_forward_s=solve_fwd_s,
+        compiled_decode_ms_per_step=timing["decode_s"] * 1e3 / timing["decode_steps"],
+        compiled_max_memory_allocated_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+    )
+    legacy_out = run["out"]
+    diff = np.argwhere(out != legacy_out)
+    stats["streams_equal"] = not len(diff)
+    first = "equal" if not len(diff) else (
+        f"first differ at new token {int(diff[:, 1].min())} (request "
+        f"{int(diff[diff[:, 1].argmin(), 0])}); {len(diff)} of {out.size} tokens differ")
+    log(f"  compiled generate {BATCH}x{PROMPT} prompt -> {NEW} tokens: decode "
+        f"{stats['compiled_decode_ms_per_step']:.3f} ms/tick wall against legacy "
+        f"{legacy['decode_ms_per_step']:.3f} ms/tick in this run; peak memory "
+        f"{stats['compiled_max_memory_allocated_gib']:.2f} GiB; greedy streams of the two "
+        f"modes: {first}")
+    log(f"  launches around the {ticks} compiled ticks: {tick_launches} = decode-graph nodes "
+        f"{nodes} x {ticks}; whole run (prefill through the model API included): {counts}")
+
+    cache = api.cache_init(BATCH, MAX_SEQ)
+    api.prefill(engine.params, {"tokens": prompts}, cache)
+    tok = torch.from_numpy(out[:, 0]).to(device)
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=device)
+    busy, top = device_busy_ms(torch, lambda: engine.decode_step(tok, cache, pos))
+    stats["compiled_decode_device_busy_ms_per_step"] = busy
+    log(f"  compiled decode tick: device busy {busy:.3f} ms of "
+        f"{stats['compiled_decode_ms_per_step']:.3f} ms wall (idle share "
+        f"{1 - busy / stats['compiled_decode_ms_per_step']:.3f}); by kernel: {top}")
+
+    # the two modes' walls per tick, alternated within this run (compiled,
+    # legacy, legacy, compiled, ...), so that host drift falls on both
+    walls = {"compiled": [], "legacy": []}
+    for i in range(WALL_PAIRS):
+        for mode in ("compiled", "legacy")[::1 if i % 2 == 0 else -1]:
+            engine.decode_mode = mode
+            engine.generate(prompts, NEW)
+            timing = engine.last_timing
+            walls[mode].append(timing["decode_s"] * 1e3 / timing["decode_steps"])
+    engine.decode_mode = "compiled"
+    for mode, ms in walls.items():
+        stats[f"{mode}_decode_ms_per_step_alternated"] = ms
+    ratios = [c / l for c, l in zip(walls["compiled"], walls["legacy"], strict=True)]
+    log(f"  decode wall per tick, {WALL_PAIRS} alternated generate runs per mode: compiled "
+        f"{[round(x, 3) for x in walls['compiled']]} (median "
+        f"{statistics.median(walls['compiled']):.3f}), legacy "
+        f"{[round(x, 3) for x in walls['legacy']]} (median "
+        f"{statistics.median(walls['legacy']):.3f}); compiled / legacy per pair "
+        f"{[round(x, 3) for x in ratios]}")
+
+    engine.score(prompts)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, score_launches = launch_deltas(programs, lambda: engine.score(prompts))
+    torch.cuda.synchronize()
+    stats["compiled_score_ms"] = (time.perf_counter() - t0) * 1e3
+    fnodes = fexe.op_counts()
+    check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), f"compiled score logits {tuple(logits.shape)}: "
+                                              f"wrong shape or non-finite")
+    check(score_launches == fnodes and fnodes["flash_attention/attend"] == cfg.num_layers,
+          f"compiled score launched {score_launches}, the forward graph binds {fnodes}")
+    agree = float((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).mean())
+    log(f"  compiled score {BATCH}x{PROMPT}: {stats['compiled_score_ms']:.2f} ms wall, launches "
+        f"{score_launches} = forward-graph nodes (B3 once per attention node); last-position "
+        f"argmax equal to the first generated token for {agree:.2f} of the requests")
+    return stats
 
 
 #: name fragments of the port's hand-written kernels (B1-B5), whose device
@@ -843,8 +1106,16 @@ def main() -> int:
         phase_depth2(cfg, torch, device, init_on=init_on)
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[{step + 2}/8] main path ({cfg.name}), {cfg.num_layers} layers:")
-        counts, stats[cfg.name] = phase_full(cfg, torch, device)
+        log(f"  depth {DEPTH2_LAYERS}, compiled against legacy on the card:")
+        phase_compiled_depth2(cfg, torch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{step + 2}/8] main path ({cfg.name}), {cfg.num_layers} layers, legacy decode "
+            f"ticks:")
+        counts, stats[cfg.name], run = phase_full(cfg, torch, device)
+        log(f"  the same weights and traffic, compiled decode ticks and score:")
+        stats[cfg.name].update(phase_compiled_full(cfg, torch, device, run, stats[cfg.name]))
+        del run
         gc.collect()
         torch.cuda.empty_cache()
         kernels.extend(

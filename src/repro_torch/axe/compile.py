@@ -1,0 +1,921 @@
+"""``axe.compile`` — one Executable API from GraphSpec + LayoutPlan to
+running numerics, on one GPU (the port of ``repro/axe/compile.py``).
+
+``axe.compile(graph, None, plan)`` turns a
+:class:`~repro_torch.axe.graphs.GraphSpec` plus a solved (or given)
+layout into a callable. The compiler:
+
+1. **solves** the layout when ``plan is None`` (``repro_torch.axe.solve``);
+2. **binds** each graph op to a backend through the public
+   :data:`OP_BACKENDS` table (:func:`register_op_backend`): the kernel
+   programs where one matches — ``matmul`` to B1 (``matmul/tile``) and,
+   with a rank-3 weight, to B5 (``moe_gemm/expert_gemm``), ``norm`` to
+   B2, ``attention`` to B3, ``decode_attention`` to B4 — and torch
+   bodies otherwise.
+3. **runs** the plan's redistributions between ops. In the mesh-free
+   space (``PhysicalSpace(())``) every plan has none.
+
+The JAX package jits the body into one program per call shape. PyTorch
+runs eagerly: the executable walks the plan in DEVICE scope on the
+tensors' device, so on CUDA tensors every bound op launches its
+hand-written kernel and on CPU tensors runs its plain version (the
+device rule of ``axe.program``); ``__call__`` is :meth:`Executable.apply`.
+The backend's output shape is still checked against the plan's.
+
+Not in this slice, each refused with a :class:`CompileError` that names
+its roadmap item (``ROADMAP.md``): a concrete ``mesh`` and ``offload``
+(A14), ``fuse=True`` (A10), ``cotune`` (A11), and the ``ssm_mix`` /
+``ssm_decode`` / ``side_output`` backends (A13).
+
+``model_inputs`` maps the port's model params (``models.transformer``
+layout: stacked super-blocks) onto graph inputs + the auxiliary tensors
+the execution attrs name, exactly as the JAX package maps its own;
+``model_executable`` / ``decode_executable`` are the constructors
+``ServeEngine`` builds its compiled forward and decode step from.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.axe.graphs import GraphSpec
+from repro_torch.axe.propagate import LayoutPlan, OpNode, PlanEntry, epilogue_steps, step_node
+from repro_torch.axe.solve import SolveResult, evaluate_env, finalize_entries, solve
+from repro_torch.axe.spec import AxeSpec, PhysicalSpace
+from repro_torch.core.scopes import Scope, scope
+from repro_torch.tune import schedule as tsched
+
+
+class CompileError(ValueError):
+    pass
+
+
+def _not_ported(what: str, item: str) -> CompileError:
+    return CompileError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+# ---------------------------------------------------------------------------
+# the op-backend registry (mirrors propagate._RULES)
+# ---------------------------------------------------------------------------
+
+#: op kind → backend callable ``(ctx, *local_operands) -> local output``
+OP_BACKENDS: Dict[str, Callable] = {}
+
+
+def register_op_backend(kind: str, fn: Optional[Callable] = None):
+    """Register (or decorate) the execution backend for one op kind.
+
+    The backend receives an :class:`ExecCtx` (node attrs, post-
+    redistribution operand specs, auxiliary tensors) and the operand
+    tensors; it returns the output tensor matching the plan's output
+    spec."""
+
+    def deco(f: Callable) -> Callable:
+        OP_BACKENDS[kind] = f
+        return f
+
+    return deco(fn) if fn is not None else deco
+
+
+def op_backend(kind: str) -> Callable:
+    try:
+        return OP_BACKENDS[kind]
+    except KeyError:
+        raise CompileError(
+            f"no execution backend for op kind {kind!r} "
+            f"(registered: {sorted(OP_BACKENDS)}); add one with "
+            f"compile.register_op_backend"
+        ) from None
+
+
+# ---------------------------------------------------------------------------
+# execution context handed to backends
+# ---------------------------------------------------------------------------
+
+
+class ExecCtx:
+    """What one op backend sees: the node, the operand specs, the shared
+    auxiliary tensors, and the side channel ops use to hand state to
+    later ops (MoE routing). Without a mesh every operand is whole on the
+    card and no plan has redistribution steps (:class:`Executable`
+    refuses the others)."""
+
+    def __init__(self, node: OpNode, entry: PlanEntry, in_specs, aux, side, *,
+                 out_local: Tuple[int, ...]):
+        self.node = node
+        self.entry = entry
+        self.in_specs = in_specs
+        self.out_spec: AxeSpec = entry.out_spec
+        #: the output's local (per-card) shape, as the plan says
+        self.out_local = out_local
+        self._aux = aux
+        self.side = side
+
+    def attr(self, key: str, default=None):
+        return self.node.attr(key, default)
+
+    def aux(self, name: Optional[str], *, required: bool = True):
+        if name is None:
+            return None
+        arr = self._aux.get(name)
+        if arr is None and required:
+            raise CompileError(
+                f"{self.node.name}: auxiliary tensor {name!r} missing from "
+                f"the executable's params (see compile.model_inputs)"
+            )
+        return arr
+
+    def out_spec_dtype(self) -> torch.dtype:
+        return getattr(torch, self.out_spec.dtype)
+
+
+# ---------------------------------------------------------------------------
+# default backends
+# ---------------------------------------------------------------------------
+
+
+@register_op_backend("matmul")
+def _exec_matmul(ctx: ExecCtx, a, b):
+    """2-D matmuls bind to the ``matmul`` program (B1), grouped (rank-3
+    weight) matmuls to ``moe_gemm`` (B5)."""
+    from repro_torch.kernels import programs
+
+    if b.ndim == 3:
+        return programs.moe_gemm(a, b)
+    return programs.matmul(a, b)
+
+
+@register_op_backend("norm")
+def _exec_norm(ctx: ExecCtx, x):
+    from repro_torch.kernels import programs
+
+    w = ctx.aux(ctx.attr("weight"), required=False)
+    if w is None:
+        w = torch.ones((x.shape[-1],), dtype=x.dtype, device=x.device)
+    return programs.rmsnorm(x, w)
+
+
+def _activation(fn: str, xs):
+    """The elementwise ops of the graphs; gelu in its tanh form, as
+    ``jax.nn.gelu`` defaults to."""
+    if fn == "add":
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+    if fn == "swiglu":
+        return F.silu(xs[0]) * xs[1]
+    if fn == "mul_silu":
+        return xs[0] * F.silu(xs[1])
+    if fn == "gelu":
+        return F.gelu(xs[0], approximate="tanh")
+    return None
+
+
+@register_op_backend("elementwise")
+def _exec_elementwise(ctx: ExecCtx, *xs):
+    fn = ctx.attr("fn", "add")
+    out = _activation(fn, xs)
+    if out is None:
+        raise CompileError(f"{ctx.node.name}: unknown elementwise fn {fn!r}")
+    return out
+
+
+@register_op_backend("embed")
+def _exec_embed(ctx: ExecCtx, tok, table):
+    """Token lookup."""
+    return table[tok]
+
+
+def _heads(ctx: ExecCtx, y, positions):
+    """qk-norm (kernel B2 on the card) then rope, on ``y [B, S, n, hd]``."""
+    from repro_torch.models.common import rmsnorm, rope
+
+    w = ctx.aux(ctx.attr("norm_weight"), required=False)
+    if w is not None:
+        y = rmsnorm(y, w)
+    theta = ctx.attr("rope_theta")
+    if theta:
+        y = rope(y, positions, theta)
+    return y
+
+
+@register_op_backend("reshape")
+def _exec_reshape(ctx: ExecCtx, x):
+    """Value-preserving boundaries. ``select`` attrs mark the model
+    boundaries with real math: q/k/v head split (+ qk-norm + rope at
+    positions ``arange(s)``, per the models) and the head merge before
+    the output projection; plain reshapes map locally. The head split
+    returns ``[B, n, S, hd]`` as a transposed view of ``[B, S, n, hd]``
+    memory, which kernel B3 takes through its strides."""
+    sel = ctx.attr("select")
+    out_local = ctx.out_local
+    if sel in ("q", "k", "v"):
+        b_l, n_l, s, hd = out_local
+        y = x.reshape(b_l, s, n_l, hd)
+        y = _heads(ctx, y, torch.arange(s, device=x.device)[None, :])
+        return y.transpose(1, 2)
+    if sel == "merge_heads":
+        t_l, nhd_l = out_local
+        return x.transpose(1, 2).reshape(t_l, nhd_l)
+    return x.reshape(out_local)
+
+
+@register_op_backend("attention")
+def _exec_attention(ctx: ExecCtx, q, k, v):
+    """Binds to the ``flash_attention/attend`` stage (B3), which reads
+    kv head ``h // (H // KV)`` by index: GQA heads are never repeated."""
+    from repro_torch.kernels import programs
+
+    return programs.flash_attention(
+        q, k, v, causal=bool(ctx.attr("causal", True)), window=ctx.attr("window"),
+    )
+
+
+@register_op_backend("moe_dispatch")
+def _exec_moe_dispatch(ctx: ExecCtx, x):
+    """Capacity routing of the tokens into the ``[E, C, d]`` buffer
+    (``models.moe.local_dispatch``); the routing metadata goes on the
+    side channel for the matching combine."""
+    from repro_torch.models import moe as moe_mod
+
+    buf, meta = moe_mod.local_dispatch(
+        x, ctx.aux(ctx.attr("router")),
+        num_experts=int(ctx.attr("experts")),
+        experts_per_tok=int(ctx.attr("experts_per_tok", 1)),
+        capacity=int(ctx.attr("capacity")),
+    )
+    ctx.side[ctx.node.out] = {"meta": meta, "tokens": x.shape[0], "d": x.shape[1]}
+    return buf
+
+
+@register_op_backend("moe_combine")
+def _exec_moe_combine(ctx: ExecCtx, oe):
+    """Combines the tokens' expert outputs with the routing metadata the
+    dispatch backend stashed (``models.moe.local_combine``)."""
+    from repro_torch.models import moe as moe_mod
+
+    side = ctx.side.get(ctx.attr("dispatch"))
+    if side is None:
+        raise CompileError(
+            f"{ctx.node.name}: no dispatch state — moe_combine is only "
+            f"executable in a graph whose 'dispatch' attr names the "
+            f"matching moe_dispatch node"
+        )
+    y = moe_mod.local_combine(oe, side["meta"], side["tokens"], side["d"])
+    return y.to(ctx.out_spec_dtype())
+
+
+@register_op_backend("decode_select")
+def _exec_decode_select(ctx: ExecCtx, x, pos):
+    """The decode-time q/k/v boundary: head split + qk-norm + rope at
+    the *runtime* per-slot positions (the prefill ``reshape`` select
+    ropes at ``arange(seq)``; decode cannot)."""
+    b_l, h_l, _one, hd = ctx.out_local
+    y = _heads(ctx, x.reshape(b_l, 1, h_l, hd), pos[:, None])
+    return y.transpose(1, 2)
+
+
+@register_op_backend("cache_update")
+def _exec_cache_update(ctx: ExecCtx, cache, new, pos):
+    """Write one token into the cache at each slot's own position (ring
+    buffers wrap). The JAX package selects the row with a one-hot mask
+    into a new cache; here the row is written in place, which gives the
+    same values and saves a copy of the cache per layer and tick: the
+    returned cache-out tensor IS the cache-in tensor."""
+    w = cache.shape[1]
+    write = (pos % w if ctx.attr("ring") else pos).long()
+    slots = torch.arange(cache.shape[0], device=cache.device)
+    cache[slots, write] = new[:, :, 0].to(cache.dtype)   # new [B, KV, 1, hd]
+    return cache
+
+
+@register_op_backend("decode_attention")
+def _exec_decode_attention(ctx: ExecCtx, q, k, v, pos):
+    """Single-token attention over the laid-out cache, bound to the
+    ``flash_attention/decode`` stage (B4): queries grouped per kv head,
+    the ``[B, W, KV, hd]`` cache handed over as its ``transpose(1, 2)``
+    view, read through strides and never copied head-major."""
+    from repro_torch.kernels import programs
+
+    b_l, h_l, _one, hd = q.shape
+    kv_l = k.shape[2]
+    out = programs.flash_decode(
+        q.reshape(b_l, kv_l, h_l // kv_l, hd), k.transpose(1, 2), v.transpose(1, 2),
+        pos, ring=bool(ctx.attr("ring")),
+    )
+    return out.reshape(b_l, h_l, 1, hd)
+
+
+def _ssm_backend(ctx: ExecCtx, *_):
+    raise _not_ported(f"{ctx.node.name}: the {ctx.node.kind!r} backend (SSM family)", "A13")
+
+
+for _kind in ("ssm_mix", "ssm_decode", "side_output"):
+    register_op_backend(_kind, _ssm_backend)
+
+
+# ---------------------------------------------------------------------------
+# the Executable
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredOp:
+    """One row of the executable's deterministic lowering trace."""
+
+    op: str
+    kind: str
+    backend: str
+    out_spec: str
+    collectives: Tuple[Tuple[str, Tuple[str, ...]], ...]  # (operand, steps)
+    comm_bytes: int
+    schedule: Optional[str] = None
+    #: operands whose collectives the JAX package's overlap schedule
+    #: issues one entry early; none without collectives
+    prefetched: Tuple[str, ...] = ()
+
+    def describe(self) -> str:
+        cols = "; ".join(f"{o}:{'+'.join(s)}" for o, s in self.collectives)
+        sched = f"  sched={self.schedule}" if self.schedule else ""
+        comm = f"  comm={self.comm_bytes}B" if self.comm_bytes else ""
+        pre = (f"  prefetch=[{', '.join(self.prefetched)}]"
+               if self.prefetched else "")
+        return f"{self.op} [{self.kind} -> {self.backend}]{sched}{comm}{pre}" + (
+            f"  [{cols}]" if cols else ""
+        )
+
+
+def _backend_name(node: OpNode, in_specs: Sequence[AxeSpec] = ()) -> str:
+    """The trace's backend names are the JAX package's (``jnp:<kind>``
+    names the plain tensor bodies, torch here), so the two packages'
+    lowering traces compare equal."""
+    if node.kind == "matmul":
+        grouped = len(in_specs) > 1 and len(in_specs[1].shape) == 3
+        base = "program:moe_gemm" if grouped else "program:matmul"
+    elif node.kind == "attention":
+        base = "program:flash_attention"
+    elif node.kind == "decode_attention":
+        base = "program:flash_attention/decode"
+    elif node.kind == "norm":
+        base = "program:rmsnorm"
+    elif node.kind == "finalize":
+        base = "collective"
+    else:
+        base = f"jnp:{node.kind}"
+    steps = epilogue_steps(node)
+    if steps:
+        base += "+epi:" + "+".join(str(s[0]) for s in steps)
+    return base
+
+
+def stage_key_for(kind: str, in_specs: Sequence[AxeSpec]) -> Optional[str]:
+    """The tunable ``program/stage`` key one graph node dispatches under
+    (None for kinds with no tunable stage) — the keys the JAX package's
+    planner plans under (``repro/tune/planner.py``, ``stage_key_for``)."""
+    if kind == "matmul":
+        grouped = len(in_specs) > 1 and len(in_specs[1].shape) == 3
+        return "moe_gemm/expert_gemm" if grouped else "matmul/tile"
+    return {"attention": "flash_attention/attend", "norm": "rmsnorm/rows"}.get(kind)
+
+
+#: attr keys whose values name auxiliary (replicated) input tensors
+_AUX_ATTRS = ("weight", "norm_weight", "router", "dt_bias", "A_log", "D", "conv_w")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Step:
+    """One plan entry, resolved once at construction so a call only
+    walks tensors: the backend, its operands' names and specs, the
+    output shape the plan expects, and the intermediates this entry is
+    the last to read (dropped after it, so a call holds no more of them
+    than the graph still needs)."""
+
+    entry: PlanEntry
+    backend: Callable
+    in_specs: Tuple[AxeSpec, ...]
+    want: Tuple[int, ...]
+    release: Tuple[str, ...] = ()
+
+
+class Executable:
+    """A compiled graph: a callable from named params and positional
+    activations to the graph outputs.
+
+    ``exe(params, *activations)`` — ``params`` maps graph input names
+    (role ``param`` and ``cache``) and auxiliary names to tensors;
+    activations are positional, in graph declaration order. A single
+    output is returned bare, several as a tuple in ``graph.outputs()``
+    order. Introspection surfaces: :attr:`lowering_trace` (deterministic
+    per plan), :meth:`collective_sequence` and :attr:`plan`.
+    """
+
+    def __init__(self, graph: GraphSpec, mesh, plan: LayoutPlan,
+                 assignment: Mapping[str, AxeSpec], *,
+                 solve_result: Optional[SolveResult] = None):
+        if mesh is not None:
+            raise _not_ported("compiling for a device mesh", "A14")
+        self.graph = graph
+        self.mesh = None
+        self.plan = plan
+        self.assignment = dict(assignment)
+        self.solve_result = solve_result
+
+        self.activation_names = tuple(
+            m.name for m in graph.inputs.values() if m.role == "activation"
+        )
+        self.param_names = tuple(
+            m.name for m in graph.inputs.values() if m.role != "activation"
+        )
+        aux: List[str] = []
+        for node in graph.nodes:
+            subs = (node,) + tuple(step_node(s) for s in epilogue_steps(node))
+            for sub in subs:
+                for key in _AUX_ATTRS:
+                    name = sub.attr(key)
+                    if name is not None and name not in aux:
+                        aux.append(name)
+        self.aux_names: Tuple[str, ...] = tuple(aux)
+        self.outputs = graph.outputs()
+
+        self.lowering_trace: Tuple[LoweredOp, ...] = tuple(
+            self._lower_entry(e) for e in plan.entries
+        )
+        names = self.activation_names + self.param_names
+        if any(any(plan.env[n].placement()) for n in names) or any(
+                r.steps for e in plan.entries for r in e.redistributions):
+            raise _not_ported(
+                "this plan shards tensors / issues collectives: its execution", "A14"
+            )
+        for node in graph.nodes:
+            if epilogue_steps(node):
+                raise _not_ported(f"{node.name}: fused epilogues", "A10")
+        entries = [e for e in plan.entries if e.op.kind != "finalize"]
+        produced = {e.op.out for e in entries} - set(self.outputs)
+        last_use = {nm: i for i, e in enumerate(entries) for nm in e.op.inputs if nm in produced}
+        self._steps: Tuple[_Step, ...] = tuple(
+            _Step(e, op_backend(e.op.kind), tuple(e.input_specs(plan.env)),
+                  tuple(e.out_spec.local_shape()),
+                  tuple(nm for nm, j in last_use.items() if j == i))
+            for i, e in enumerate(entries)
+        )
+        #: the FusionReport / cotune trace of the JAX package's fused and
+        #: cotuned executables; neither is ported (A10, A11)
+        self.fusion_report = None
+        self.cotune_report = None
+
+    # -- introspection ---------------------------------------------------
+    def _lower_entry(self, entry: PlanEntry) -> LoweredOp:
+        """One trace row. ``schedule`` is the stage's declared default
+        (a pin, when the caller forces one, is resolved by the stage at
+        call time); the tune slice's planner (A11) will plan it from the
+        solved specs as the JAX package's does."""
+        node = entry.op
+        sched = None
+        in_specs: Tuple[AxeSpec, ...] = ()
+        if node.kind != "finalize":
+            in_specs = entry.input_specs(self.plan.env)
+            op = stage_key_for(node.kind, in_specs)
+            default = tsched.default_schedule(op) if op is not None else None
+            if default is not None:
+                sched = f"{op}={default.describe()}"
+        return LoweredOp(
+            op=node.name,
+            kind=node.kind,
+            backend=_backend_name(node, in_specs),
+            out_spec=entry.out_spec.signature(),
+            collectives=tuple(
+                (r.operand, tuple(type(s).__name__ for s in r.steps))
+                for r in entry.redistributions if r.steps
+            ),
+            comm_bytes=entry.comm_bytes,
+            schedule=sched,
+        )
+
+    def collective_sequence(self) -> Tuple[Tuple[str, str, Tuple[str, ...]], ...]:
+        """Every redistribution the body issues, in execution order:
+        ``(op, operand, step type names)`` — empty without a mesh."""
+        return tuple(
+            (row.op, operand, steps)
+            for row in self.lowering_trace
+            for operand, steps in row.collectives
+        )
+
+    def input_spec(self, name: str) -> AxeSpec:
+        return self.plan.env[name]
+
+    def describe(self) -> str:
+        lines = [
+            f"executable over {self.graph.space.signature()}: "
+            f"{len(self.plan.entries)} ops, "
+            f"{self.plan.total_comm_bytes} comm B/dev"
+        ]
+        lines += ["  " + row.describe() for row in self.lowering_trace]
+        return "\n".join(lines)
+
+    def op_counts(self) -> Dict[str, int]:
+        """Nodes per bound kernel stage: ``matmul/tile`` (2-D ``matmul``
+        nodes), ``moe_gemm/expert_gemm`` (rank-3 ``matmul`` nodes),
+        ``rmsnorm/rows`` (``norm`` nodes plus the selects that qk-norm),
+        ``flash_attention/attend`` (``attention`` nodes) and
+        ``flash_attention/decode`` (``decode_attention`` nodes) — the
+        launches one call makes on the card."""
+        counts = dict.fromkeys(("matmul/tile", "moe_gemm/expert_gemm", "rmsnorm/rows",
+                                "flash_attention/attend", "flash_attention/decode"), 0)
+        for st in self._steps:
+            node = st.entry.op
+            op = stage_key_for(node.kind, st.in_specs)
+            if op is not None:
+                counts[op] += 1
+            elif node.kind == "decode_attention":
+                counts["flash_attention/decode"] += 1
+            elif node.kind in ("reshape", "decode_select") and node.attr("norm_weight"):
+                counts["rmsnorm/rows"] += 1
+        return counts
+
+    # -- execution -------------------------------------------------------
+    def _ordered_inputs(self, params: Mapping[str, Any], acts: Sequence[Any]):
+        if len(acts) != len(self.activation_names):
+            raise CompileError(
+                f"expected {len(self.activation_names)} activation inputs "
+                f"{self.activation_names}, got {len(acts)}"
+            )
+        arrays = list(acts)
+        for name in self.param_names:
+            if name not in params:
+                raise CompileError(
+                    f"graph input {name!r} missing from params (have "
+                    f"{sorted(params)[:8]}...)"
+                )
+            arrays.append(params[name])
+        for name in self.aux_names:
+            if name not in params:
+                raise CompileError(f"auxiliary tensor {name!r} missing from params")
+            arrays.append(params[name])
+        for name, arr in zip(self.activation_names + self.param_names, arrays):
+            want = self.graph.inputs[name].shape
+            if tuple(arr.shape) != want:
+                raise CompileError(
+                    f"input {name!r}: expected shape {want}, got {tuple(arr.shape)}"
+                )
+        return arrays
+
+    def _body(self, *arrays):
+        names = self.activation_names + self.param_names
+        env: Dict[str, Any] = dict(zip(names, arrays[: len(names)]))
+        aux = dict(zip(self.aux_names, arrays[len(names):]))
+        side: Dict[str, Any] = {}
+        with scope(Scope.DEVICE):
+            for st in self._steps:
+                node = st.entry.op
+                ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want)
+                out = st.backend(ctx, *[env[nm] for nm in node.inputs])
+                if tuple(out.shape) != st.want:
+                    raise CompileError(
+                        f"{node.name} [{node.kind}]: backend produced local "
+                        f"shape {tuple(out.shape)}, plan says {st.want}"
+                    )
+                env[node.out] = out
+                for nm in st.release:
+                    del env[nm]
+        outs = tuple(env[o] for o in self.outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+    def apply(self, params: Mapping[str, Any], *activations):
+        """Run the graph eagerly on the tensors' device."""
+        return self._body(*self._ordered_inputs(params, activations))
+
+    def __call__(self, params: Mapping[str, Any], *activations):
+        return self.apply(params, *activations)
+
+
+# ---------------------------------------------------------------------------
+# compile()
+# ---------------------------------------------------------------------------
+
+
+def _plan_assignment(plan) -> Optional[Mapping[str, AxeSpec]]:
+    """The name → AxeSpec input assignment a plan object carries."""
+    if isinstance(plan, SolveResult):
+        return plan.assignment
+    if isinstance(plan, LayoutPlan):
+        return plan.env
+    if isinstance(plan, Mapping):
+        return plan
+    return None
+
+
+def plan_covers(graph: GraphSpec, plan) -> bool:
+    """Whether ``plan`` was produced for (a graph shaped like)
+    ``graph``: every graph input has an assigned spec with the right
+    shape over the right space, and a LayoutPlan / SolveResult was
+    planned over these exact nodes. A plan solved at a different
+    batch/seq/depth does not cover and must be re-solved."""
+    env = _plan_assignment(plan)
+    if env is None:
+        return False
+    for name, meta in graph.inputs.items():
+        spec = env.get(name)
+        if spec is None or spec.shape != meta.shape or spec.space != graph.space:
+            return False
+    layout = plan.plan if isinstance(plan, SolveResult) else plan
+    if isinstance(layout, LayoutPlan):
+        have = {e.op.name: e.op for e in layout.entries}
+        if any(have.get(n.name) != n for n in graph.nodes):
+            return False
+    return True
+
+
+def compile(  # noqa: A001 - the paper-facing API name
+    graph: GraphSpec,
+    mesh=None,
+    plan=None,
+    *,
+    beam: int = 4,
+    fuse: bool = False,
+    overlap: bool = False,
+) -> Executable:
+    """Compile ``graph`` under ``plan`` for one GPU (``mesh=None``).
+
+    ``plan`` may be a :class:`~repro_torch.axe.solve.SolveResult`, a
+    :class:`~repro_torch.axe.propagate.LayoutPlan`, a plain
+    ``name → AxeSpec`` input assignment, or None — in which case the
+    layout solver runs (``beam`` and ``overlap`` forwarded: without
+    collectives ``overlap`` changes only the solver's objective)."""
+    if mesh is not None:
+        raise _not_ported("compiling for a device mesh", "A14")
+    if fuse:
+        raise _not_ported("fuse=True (the fusion passes and in-kernel epilogues)", "A10")
+    solve_result: Optional[SolveResult] = None
+    if plan is None:
+        plan = solve(graph, beam=beam, overlap=overlap)
+    if isinstance(plan, SolveResult):
+        solve_result = plan
+        layout = plan.plan
+        assignment = plan.assignment
+    elif isinstance(plan, LayoutPlan):
+        layout = plan
+        missing = [n for n in graph.inputs if n not in layout.env]
+        if missing:
+            raise CompileError(f"plan env lacks graph inputs {missing}")
+        assignment = {n: layout.env[n] for n in graph.inputs}
+        have = {e.op.name for e in layout.entries}
+        extra = [
+            e for e in finalize_entries(graph.outputs(), layout.env)
+            if e.op.name not in have
+        ]
+        if extra:
+            layout = LayoutPlan(
+                layout.space, list(layout.entries) + extra, dict(layout.env)
+            )
+    elif isinstance(plan, Mapping):
+        assignment = dict(plan)
+        layout, _, _ = evaluate_env(graph, assignment)
+    else:
+        raise CompileError(
+            f"plan must be a SolveResult, LayoutPlan, mapping, or None; "
+            f"got {type(plan).__name__}"
+        )
+    return Executable(graph, mesh, layout, assignment, solve_result=solve_result)
+
+
+# ---------------------------------------------------------------------------
+# model binding: the port's param trees -> graph inputs (+ aux)
+# ---------------------------------------------------------------------------
+
+#: families whose params map onto executable model graphs in the port
+#: (the JAX package also binds ssm and hybrid; their backends are A13)
+SUPPORTED_FAMILIES = ("dense", "moe")
+
+
+def _period(cfg) -> int:
+    if cfg.local_global_ratio:
+        return cfg.local_global_ratio + 1
+    if cfg.attn_period:
+        return cfg.attn_period
+    return 1
+
+
+def _graph_layers(graph: GraphSpec) -> List[int]:
+    seen = set()
+    for node in graph.nodes:
+        if node.name.startswith("L") and "." in node.name:
+            head = node.name[1:].split(".", 1)[0]
+            if head.isdigit():
+                seen.add(int(head))
+    return sorted(seen)
+
+
+def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
+    """Map the port's model params (``models.transformer`` layout:
+    stacked super-blocks, attention projections already 2-D with
+    head-major columns) onto the graph's input tensors and auxiliary
+    names — the same names and shapes the JAX package's
+    ``model_inputs`` produces from its own params. Every entry is a view
+    of a param leaf: nothing is copied."""
+    if cfg.family not in SUPPORTED_FAMILIES:
+        raise CompileError(
+            f"family {cfg.family!r} has no model binding "
+            f"(supported: {SUPPORTED_FAMILIES}; the others come with ROADMAP.md A13)"
+        )
+    per = _period(cfg)
+    out: Dict[str, Any] = {
+        "embed": params["embed"],
+        "final_norm": params["final_norm"],
+        "lm_head": params["embed"].t() if cfg.tie_embeddings else params["lm_head"],
+    }
+    for i in _graph_layers(graph):
+        sup, slot = i // per, i % per
+        lp = params["blocks"][f"l{slot}"]
+        p = f"L{i}."
+        out[f"{p}norm1"] = lp["norm1"][sup]
+        ap = lp["attn"]
+        for name in ("wq", "wk", "wv", "wo"):
+            out[f"{p}{name}"] = ap[name][sup]
+        if cfg.qk_norm:
+            out[f"{p}q_norm"] = ap["q_norm"][sup]
+            out[f"{p}k_norm"] = ap["k_norm"][sup]
+        out[f"{p}norm2"] = lp["norm2"][sup]
+        if "mlp" in lp:
+            mp = lp["mlp"]
+            if cfg.mlp_type == "swiglu":
+                out[f"{p}wg"] = mp["wg"][sup]
+                out[f"{p}wu"] = mp["wu"][sup]
+            else:
+                out[f"{p}wi"] = mp["wi"][sup]
+            out[f"{p}wo2"] = mp["wo"][sup]
+        if "moe" in lp:
+            mo = lp["moe"]
+            out[f"{p}router"] = mo["router"][sup]
+            out[f"{p}moe_wg"] = mo["wg"][sup]
+            out[f"{p}moe_wu"] = mo["wu"][sup]
+            out[f"{p}moe_wo"] = mo["wo"][sup]
+    return out
+
+
+def _check_model(cfg, mesh, **unported) -> None:
+    if mesh is not None:
+        raise _not_ported("compiling for a device mesh", "A14")
+    for flag, item in (("fuse", "A10"), ("cotune", "A11"), ("offload", "A14")):
+        if unported.get(flag):
+            raise _not_ported(f"{flag}={unported[flag]!r}", item)
+    if cfg.family not in SUPPORTED_FAMILIES:
+        raise CompileError(
+            f"family {cfg.family!r} has no model binding "
+            f"(supported: {SUPPORTED_FAMILIES}; the others come with ROADMAP.md A13)"
+        )
+
+
+def model_executable(
+    cfg,
+    mesh,
+    batch: int,
+    seq: int,
+    *,
+    plan=None,
+    layers: Optional[int] = None,
+    beam: int = 4,
+    dtype: Optional[str] = None,
+    fuse: bool = False,
+    offload: Sequence[str] = (),
+    overlap: bool = False,
+    cotune: bool = False,
+) -> Executable:
+    """The consumer-facing constructor: build the model-zoo graph for
+    ``cfg`` at (batch, seq) over the mesh-free space and compile it.
+    ``layers=None`` compiles the full depth. A ``plan`` solved for a
+    *different* graph shape does not cover this graph: it is dropped
+    with a warning and the layout is re-solved."""
+    import warnings
+
+    from repro_torch.axe.graphs import model_graph
+
+    _check_model(cfg, mesh, fuse=fuse, cotune=cotune, offload=tuple(offload))
+    gs = model_graph(
+        cfg, batch, seq, PhysicalSpace(()),
+        dtype=dtype or cfg.dtype,
+        layers=cfg.num_layers if layers is None else layers,
+    )
+    if plan is not None and not plan_covers(gs, plan):
+        warnings.warn(
+            f"layout plan does not cover the {cfg.name} graph at "
+            f"batch={batch}, seq={seq} (different shape/depth/space/"
+            f"fusion): re-solving",
+            UserWarning, stacklevel=2,
+        )
+        plan = None
+    return compile(gs, mesh, plan, beam=beam, overlap=overlap)
+
+
+def decode_inputs(graph: GraphSpec, cfg, params, cache) -> Dict[str, Any]:
+    """:func:`model_inputs` plus the cache tensors: each layer's cache
+    leaves (``l{slot}/k`` ``[n_super, B, W, KV, hd]``) as views onto the
+    graph's per-layer cache-in names."""
+    out = model_inputs(graph, cfg, params)
+    out.update(cache_inputs(graph, cfg, cache))
+    return out
+
+
+def _cache_layers(graph: GraphSpec) -> List[int]:
+    """The layers whose KV caches are inputs of a decode graph (read
+    from its input names: a decode tick calls this twice)."""
+    return sorted(int(n[1:].split(".", 1)[0]) for n in graph.inputs if n.endswith(".k_cache"))
+
+
+def cache_inputs(graph: GraphSpec, cfg, cache) -> Dict[str, Any]:
+    """The cache half of :func:`decode_inputs` (views, no copies)."""
+    per = _period(cfg)
+    out: Dict[str, Any] = {}
+    for i in _cache_layers(graph):
+        sup, slot = i // per, i % per
+        leaf = cache[f"l{slot}"]
+        out[f"L{i}.k_cache"] = leaf["k"][sup]
+        out[f"L{i}.v_cache"] = leaf["v"][sup]
+    return out
+
+
+def decode_cache(graph: GraphSpec, cfg, outputs: Sequence[Any], cache):
+    """Reassemble the cache tree from a decode executable's output
+    tuple (the cache-out tensors, one pair per layer) — the inverse of
+    :func:`decode_inputs`'s per-layer slicing. The ``cache_update``
+    backend writes in place, so its outputs are the views
+    :func:`decode_inputs` took of ``cache``; a leaf whose outputs all are
+    such views is returned as it is, any other is stacked anew."""
+    per = _period(cfg)
+    vals = dict(zip(graph.outputs(), outputs))
+    layers = _cache_layers(graph)
+    sups = sorted({i // per for i in layers})
+    new = {}
+    for slot in sorted({i % per for i in layers}):
+        leaf = cache[f"l{slot}"]
+        new[f"l{slot}"] = {}
+        for key, g in (("k", "k_cache_out"), ("v", "v_cache_out")):
+            outs = [vals[f"L{s * per + slot}.{g}"] for s in sups]
+            stacked = leaf[key]
+            in_place = len(sups) == stacked.shape[0] and all(
+                o.data_ptr() == stacked[s].data_ptr() and o.shape == stacked[s].shape
+                for o, s in zip(outs, sups))
+            new[f"l{slot}"][key] = stacked if in_place else torch.stack(outs)
+    return new
+
+
+def decode_executable(
+    cfg,
+    mesh,
+    batch: int,
+    max_seq: int,
+    *,
+    plan=None,
+    layers: Optional[int] = None,
+    beam: int = 4,
+    dtype: Optional[str] = None,
+    fuse: bool = False,
+    overlap: bool = False,
+) -> Executable:
+    """Build the single-token decode-step graph for ``cfg`` (cache
+    tensors as first-class inputs/outputs) over the mesh-free space and
+    compile it — the serving twin of :func:`model_executable`. A
+    ``plan`` solved for a different graph does not cover the decode
+    graph and is dropped with a warning."""
+    import warnings
+
+    from repro_torch.axe.graphs import decode_graph
+
+    _check_model(cfg, mesh, fuse=fuse)
+    gs = decode_graph(
+        cfg, batch, max_seq, PhysicalSpace(()),
+        dtype=dtype or cfg.dtype,
+        layers=cfg.num_layers if layers is None else layers,
+    )
+    if plan is not None and not plan_covers(gs, plan):
+        warnings.warn(
+            f"layout plan does not cover the {cfg.name} decode graph at "
+            f"batch={batch}, max_seq={max_seq} (different shape/depth/"
+            f"space/fusion): re-solving",
+            UserWarning, stacklevel=2,
+        )
+        plan = None
+    return compile(gs, mesh, plan, beam=beam, overlap=overlap)
+
+
+__all__ = [
+    "CompileError",
+    "ExecCtx",
+    "Executable",
+    "LoweredOp",
+    "OP_BACKENDS",
+    "cache_inputs",
+    "compile",
+    "decode_cache",
+    "decode_executable",
+    "decode_inputs",
+    "model_executable",
+    "model_inputs",
+    "op_backend",
+    "plan_covers",
+    "register_op_backend",
+    "stage_key_for",
+]

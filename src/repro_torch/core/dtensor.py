@@ -1,0 +1,103 @@
+"""Distributed tensors as Axe layouts (paper §2.2, §3.2 Fig. 8) — the
+mesh-free half of ``repro/core/dtensor.py``.
+
+A ``DTensorSpec`` binds a logical shape to an Axe layout over the device
+mesh axes (``pod``/``data``/``model``) plus the linear memory axis ``m``.
+It is the distribution-layer signature type the collective planner
+(``core.collective``) plans over; ``AxeSpec.to_dtensor`` builds one.
+
+The JAX package also derives a ``NamedSharding`` from it for
+``jax.jit``; the port has no sharded execution until the multi-GPU
+slice (``ROADMAP.md`` A14), so ``pspec`` here returns the placement as
+a plain tuple of entries (``None``, an axis name, or a tuple of names)
+— the same entries the JAX package's ``PartitionSpec`` holds.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping, Tuple, Union
+
+from repro_torch.core.axes import MEM_AXIS, is_mesh_axis
+from repro_torch.core.layout import Layout, group, layouts_equal
+
+PSpecEntry = Union[None, str, Tuple[str, ...]]
+
+
+def pspec_of_layout(layout: Layout, shape, mesh_shape: Mapping[str, int]) -> Tuple[PSpecEntry, ...]:
+    """The per-dim mesh-axis entries of ``layout`` (the JAX package's
+    ``axe.lower.pspec_of_layout`` without the ``PartitionSpec`` wrapper);
+    raises when the layout is outside the GSPMD-expressible subset
+    (strided device placement, offsets, ...)."""
+    shape = tuple(int(s) for s in shape)
+    if not layout.O.is_zero:
+        raise ValueError("GSPMD cannot express per-tensor offsets (O != 0)")
+    g = group(layout, shape)
+
+    entries: list = []
+    used: list = []
+    for blk, s in zip(g.blocks, shape):
+        dim_axes: list = []
+        mem_done = False
+        for it in blk:
+            ax = it.axis
+            if ax is None:
+                raise ValueError(f"multi-axis iter {it} not expressible in PartitionSpec")
+            if is_mesh_axis(ax):
+                if mem_done:
+                    raise ValueError("mesh iter inside local-memory digits (interleaved shard)")
+                if it.stride[ax] != 1 or it.extent != mesh_shape.get(ax):
+                    raise ValueError(f"mesh axis {ax} not fully, unit-strided sharded: {it}")
+                dim_axes.append(ax)
+                used.append(ax)
+            elif ax == MEM_AXIS:
+                mem_done = True
+            else:
+                raise ValueError(f"axis {ax} is not a mesh or linear-memory axis")
+        entries.append(tuple(dim_axes) if len(dim_axes) > 1 else (dim_axes[0] if dim_axes else None))
+
+    # replicated axes must appear in R with full extent (or be size-1)
+    r_axes: dict = {}
+    for it in layout.R:
+        ax = it.axis
+        if ax is None or not is_mesh_axis(ax):
+            raise ValueError(f"replication iter {it} is not a mesh axis")
+        r_axes[ax] = r_axes.get(ax, 1) * it.extent
+    for a, size in mesh_shape.items():
+        if a in used or size == 1:
+            continue
+        if r_axes.get(a, 1) != size:
+            raise ValueError(f"mesh axis {a} neither sharded nor fully replicated")
+    return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class DTensorSpec:
+    """A distributed tensor signature (paper Fig. 8): logical shape +
+    Axe layout over mesh axes."""
+
+    shape: Tuple[int, ...]
+    layout: Layout
+    dtype: str = "bfloat16"
+
+    def pspec(self, mesh_shape: Mapping[str, int]) -> Tuple[PSpecEntry, ...]:
+        return pspec_of_layout(self.layout, self.shape, mesh_shape)
+
+    def check_consistent(self, mesh_shape: Mapping[str, int]) -> None:
+        """Consistency check (paper: 'compiler generates runtime checks
+        for DTensor/layout consistency')."""
+        if not self.layout.admits(self.shape):
+            raise ValueError(f"layout size {self.layout.size} != shape {self.shape}")
+        self.pspec(mesh_shape)  # raises when inconsistent
+
+    def equivalent(self, other: "DTensorSpec") -> bool:
+        return self.shape == other.shape and layouts_equal(self.layout, other.layout)
+
+    def bytes_per_device(self, mesh_shape: Mapping[str, int], itemsize: int) -> int:
+        total = math.prod(self.shape) * itemsize
+        shards = 1
+        for it in self.layout.D:
+            ax = it.axis
+            if ax is not None and is_mesh_axis(ax):
+                shards *= it.extent
+        return total // shards

@@ -1,5 +1,6 @@
 // Block tiles of a row-major GEMM C = A @ B with f32 accumulation and
-// one cast on the way out, shared by B1 (matmul.cu, one product) and B5
+// one cast on the way out (C may be of another type than A and B: the
+// f32 accumulator is written as OutT), shared by B1 (matmul.cu, one product) and B5
 // (moe_gemm.cu, one product per expert): the routes of f32 and of bf16
 // operands that TMA cannot address. A caller's kernel hands each
 // thread block its operands' base pointers and the output tile's origin
@@ -43,8 +44,9 @@ __device__ __forceinline__ uint4 load_chunk(const bf16* __restrict__ base, long 
   return out;
 }
 
+template <typename OutT>
 __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                                          bf16* __restrict__ C, int M, int N, int K, long long lda,
+                                          OutT* __restrict__ C, int M, int N, int K, long long lda,
                                           long long ldb, long long ldc, int m0, int n0) {
   __shared__ __align__(128) bf16 As[TBM * A_LD];
   __shared__ __align__(128) bf16 Bs[TBK * B_LD];
@@ -104,14 +106,15 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16
   for (int e = tid; e < TBM * TBN; e += 256) {
     const int r = e / TBN, c = e % TBN;
     const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<bf16>(Cs[r * C_LD + c]);
+    if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<OutT>(Cs[r * C_LD + c]);
   }
 }
 
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
+template <typename OutT>
 __device__ __forceinline__ void f32_tile(const float* __restrict__ A, const float* __restrict__ B,
-                                         float* __restrict__ C, int M, int N, int K, long long lda,
+                                         OutT* __restrict__ C, int M, int N, int K, long long lda,
                                          long long ldb, long long ldc, int m0, int n0) {
   __shared__ float As[FBK][FBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[FBK][FBN + 4];
@@ -148,7 +151,7 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A, const floa
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) C[(long long)gm * ldc + gn] = acc[i][j];
+      if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<OutT>(acc[i][j]);
     }
 }
 

@@ -276,6 +276,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two adjacent accumulator columns (c, c + 1) stored as one 4-byte (bf16)
+// or 8-byte (f32) write; `p` is aligned to the pair (c even, an even
+// leading stride).
+__device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,

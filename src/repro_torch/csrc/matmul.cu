@@ -1,6 +1,9 @@
 // B1 — C[M,N] = A[M,K] @ B[K,N], f32 accumulation, one cast on the way
 // out. A and B are row-major with a unit last stride (leading strides
-// lda/ldb/ldc are free).
+// lda/ldb/ldc are free). C is of the operands' type or, where the caller
+// asks (`out_dtype` of the C entries), of the other one (f32 or bf16):
+// every kernel writes its f32 accumulator as C's type, never rounding
+// through the operands' type first.
 //
 // Replaces the TPU kernel `matmul/tile` (src/repro/kernels/matmul.py:
 // `_tile` at :80, launch at :138, body `_mac` at :52). On the TPU the K
@@ -90,9 +93,10 @@ constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;  // + slack to align 
 // f32 slice ws[blockIdx.z][M][N]. M tiles run fastest, so the blocks that
 // share a column tile of B (the weight) are resident together and read it
 // from device memory once.
+template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     matmul_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
-                      const __grid_constant__ CUtensorMap map_b, bf16* __restrict__ C,
+                      const __grid_constant__ CUtensorMap map_b, OutT* __restrict__ C,
                       float* __restrict__ ws, int M, int N, int K, long long ldc, int ksteps) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
@@ -162,21 +166,21 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + r) * N + c) =
             make_float2(acc[i], acc[i + 1]);
       else
-        *reinterpret_cast<uint32_t*>(C + (long long)r * ldc + c) =
-            hopper::pack_bf16(acc[i], acc[i + 1]);
+        hopper::store_pair(C + (long long)r * ldc + c, acc[i], acc[i + 1]);
     }
   }
 }
 
 // the wgmma path's K splits, summed in split order: deterministic, no atomics
-__global__ void splitk_reduce(const float* __restrict__ ws, bf16* __restrict__ C, int M, int N,
+template <typename OutT>
+__global__ void splitk_reduce(const float* __restrict__ ws, OutT* __restrict__ C, int M, int N,
                               int splits, long long ldc) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)M * N) return;
   const int r = e / N, c = e % N;
   float s = 0.f;
   for (int i = 0; i < splits; ++i) s += ws[((long long)i * M + r) * N + c];
-  C[(long long)r * ldc + c] = from_f32<bf16>(s);
+  C[(long long)r * ldc + c] = from_f32<OutT>(s);
 }
 
 // ---------------------------------------------------------------------------
@@ -185,14 +189,16 @@ __global__ void splitk_reduce(const float* __restrict__ ws, bf16* __restrict__ C
 
 // The wrapper sends here only bf16 operands that TMA cannot address, so
 // the rows are not all 16-byte aligned: masked element loads.
+template <typename OutT>
 __global__ void __launch_bounds__(256)
-    matmul_bf16_tiled(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
+    matmul_bf16_tiled(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C,
                       int M, int N, int K, long long lda, long long ldb, long long ldc) {
   bf16_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * TBM, blockIdx.x * TBN);
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(256)
-    matmul_f32_tiled(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+    matmul_f32_tiled(const float* __restrict__ A, const float* __restrict__ B, OutT* __restrict__ C,
                      int M, int N, int K, long long lda, long long ldb, long long ldc) {
   f32_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * FBM, blockIdx.x * FBN);
 }
@@ -202,12 +208,12 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 
 // The block body (skinny_stream.cuh) is shared with B5's decode route.
-template <typename T, int MR>
+template <typename T, int MR, typename OutT>
 __global__ void __launch_bounds__(SK_THREADS)
     matmul_skinny_stream(const T* __restrict__ A, const __grid_constant__ CUtensorMap map_b,
-                         T* __restrict__ C, int M, int N, int K, long long lda, long long ldc,
+                         OutT* __restrict__ C, int M, int N, int K, long long lda, long long ldc,
                          int kchunk, int stages) {
-  skinny_stream<T, MR, false>(A, &map_b, C, M, N, K, lda, ldc, kchunk, stages, 0);
+  skinny_stream<T, MR, false, OutT>(A, &map_b, C, M, N, K, lda, ldc, kchunk, stages, 0);
 }
 
 // The tensor map of a weight B [K, N] (row stride ldb) in boxes of SK_BK
@@ -239,11 +245,11 @@ static int weight_map(CUtensorMap* map, const void* b, int N, int K, long long l
   return 0;
 }
 
-template <typename T, int MR>
+template <typename T, int MR, typename OutT>
 static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M, int N, int K,
                          long long lda, long long ldc, int splits, int kchunk, int stages,
                          cudaStream_t s) {
-  auto kern = matmul_skinny_stream<T, MR>;
+  auto kern = matmul_skinny_stream<T, MR, OutT>;
   static bool ready = false;  // the attribute is set once per process
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -255,7 +261,36 @@ static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M
   const dim3 grid((N + CG - 1) / CG, splits);
   const int smem = stages * SK_STAGE + skinny_a_bytes<T, MR>(kchunk) + 1024;  // + align slack
   return launch_cluster_y(kern, grid, SK_THREADS, smem, splits, s, static_cast<const T*>(a),
-                          map_b, static_cast<T*>(c), M, N, K, lda, ldc, kchunk, stages);
+                          map_b, static_cast<OutT*>(c), M, N, K, lda, ldc, kchunk, stages);
+}
+
+template <typename T, int MR>
+static int launch_skinny_out(int out_dtype, const void* a, const CUtensorMap& map_b, void* c,
+                             int M, int N, int K, long long lda, long long ldc, int splits,
+                             int kchunk, int stages, cudaStream_t s) {
+  return out_dtype == BF16
+             ? launch_skinny<T, MR, bf16>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s)
+             : launch_skinny<T, MR, float>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages,
+                                           s);
+}
+
+template <typename OutT>
+static int launch_wgmma(const CUtensorMap& map_a, const CUtensorMap& map_b, OutT* C, void* ws,
+                        int M, int N, int K, long long ldc, int splits, int kchunk,
+                        cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(matmul_bf16_wgmma<OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* w = static_cast<float*>(ws);
+  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
+  matmul_bf16_wgmma<OutT><<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C,
+                                                            splits > 1 ? w : nullptr, M, N, K,
+                                                            ldc, kchunk / WG_BK);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = (long long)M * N;
+  splitk_reduce<OutT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -266,7 +301,7 @@ static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M
 // `kchunk`, the K depth of one split, is a multiple of WG_BK.
 extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int M, int N, int K,
                             long long lda, long long ldb, long long ldc, int splits, int kchunk,
-                            void* stream) {
+                            int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_a, map_b;
   const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides_a[1] = {(cuuint64_t)lda * 2};
@@ -274,35 +309,32 @@ extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int
   const cuuint32_t box_a[2] = {WG_BK, WG_BM}, box_b[2] = {64, WG_BK};
   if (int err = encode_bf16_map(&map_a, 2, a, dims_a, strides_a, box_a)) return err;
   if (int err = encode_bf16_map(&map_b, 2, b, dims_b, strides_b, box_b)) return err;
-  cudaError_t err = cudaFuncSetAttribute(matmul_bf16_wgmma,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto* C = static_cast<bf16*>(c);
-  float* w = static_cast<float*>(ws);
-  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
-  matmul_bf16_wgmma<<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C, splits > 1 ? w : nullptr,
-                                                      M, N, K, ldc, kchunk / WG_BK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long total = (long long)M * N;
-  splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
-  return static_cast<int>(cudaGetLastError());
+  return out_dtype == BF16
+             ? launch_wgmma(map_a, map_b, static_cast<bf16*>(c), ws, M, N, K, ldc, splits, kchunk, s)
+             : launch_wgmma(map_a, map_b, static_cast<float*>(c), ws, M, N, K, ldc, splits, kchunk,
+                            s);
 }
 
 extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N, int K,
-                            long long lda, long long ldb, long long ldc, int dtype,
+                            long long lda, long long ldb, long long ldc, int dtype, int out_dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == BF16) {
     const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    matmul_bf16_tiled<<<grid, 256, 0, s>>>(static_cast<const bf16*>(a),
-                                           static_cast<const bf16*>(b), static_cast<bf16*>(c), M,
-                                           N, K, lda, ldb, ldc);
+    const auto* A = static_cast<const bf16*>(a);
+    const auto* B = static_cast<const bf16*>(b);
+    if (out_dtype == BF16)
+      matmul_bf16_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<bf16*>(c), M, N, K, lda, ldb, ldc);
+    else
+      matmul_bf16_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<float*>(c), M, N, K, lda, ldb, ldc);
   } else {
     const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    matmul_f32_tiled<<<grid, 256, 0, s>>>(static_cast<const float*>(a),
-                                          static_cast<const float*>(b), static_cast<float*>(c), M,
-                                          N, K, lda, ldb, ldc);
+    const auto* A = static_cast<const float*>(a);
+    const auto* B = static_cast<const float*>(b);
+    if (out_dtype == BF16)
+      matmul_f32_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<bf16*>(c), M, N, K, lda, ldb, ldc);
+    else
+      matmul_f32_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<float*>(c), M, N, K, lda, ldb, ldc);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -311,8 +343,8 @@ extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N,
 // `splits` <= SK_MAX_SPLITS K splits of `kchunk` rows, a multiple of SK_BK
 // with kchunk * (M <= 4 ? 4 : 8) * size <= SK_A_BYTES.
 extern "C" int matmul_skinny(const void* a, const void* b, void* c, int M, int N, int K,
-                             long long lda, long long ldb, long long ldc, int dtype, int splits,
-                             int kchunk, int stages, void* stream) {
+                             long long lda, long long ldb, long long ldc, int dtype, int out_dtype,
+                             int splits, int kchunk, int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf = dtype == BF16;
   const int a_bytes = bf ? skinny_a_bytes<bf16, 8>(kchunk)
@@ -322,9 +354,13 @@ extern "C" int matmul_skinny(const void* a, const void* b, void* c, int M, int N
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_b;
   if (int err = weight_map(&map_b, b, N, K, ldb, dtype)) return err;
-  if (bf) return launch_skinny<bf16, 8>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s);
-  return M <= 4 ? launch_skinny<float, 4>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s)
-                : launch_skinny<float, 8>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s);
+  if (bf)
+    return launch_skinny_out<bf16, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits, kchunk,
+                                      stages, s);
+  return M <= 4 ? launch_skinny_out<float, 4>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
+                                              kchunk, stages, s)
+                : launch_skinny_out<float, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
+                                              kchunk, stages, s);
 }
 
 REPRO_EXPORT_ERROR_STRING_TMA

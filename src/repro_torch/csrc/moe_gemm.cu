@@ -1,7 +1,9 @@
 // B5 — per-expert batched GEMM out[e] = x[e] @ w[e] for every expert e:
 // x [E, C, d] (the capacity buffer of the MoE dispatch), w [E, d, f],
-// out [E, C, f], f32 accumulation and one cast to the output dtype. All
-// three are contiguous; expert e's operands start at e times the
+// out [E, C, f], f32 accumulation and one cast to the output dtype (the
+// operands' or, where the caller asks, the other of f32 / bf16: the
+// accumulator is written as that type, never rounded through the
+// operands' type first). All three are contiguous; expert e's operands start at e times the
 // per-expert stride.
 //
 // Replaces the TPU kernel `moe_gemm/expert_gemm` (src/repro/kernels/
@@ -59,12 +61,13 @@ using namespace repro;
 // C <= 8: the expert weight stream, empty experts skipped
 // ---------------------------------------------------------------------------
 
+template <typename OutT>
 __global__ void __launch_bounds__(SK_THREADS)
     moe_expert_stream(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap map_w,
-                      bf16* __restrict__ out, int C, int D, int F, int kchunk, int stages) {
+                      OutT* __restrict__ out, int C, int D, int F, int kchunk, int stages) {
   const long long e = blockIdx.z;
-  skinny_stream<bf16, 8, true>(x + e * C * D, &map_w, out + e * C * F, C, F, D, D, F, kchunk,
-                               stages, (int)e);
+  skinny_stream<bf16, 8, true, OutT>(x + e * C * D, &map_w, out + e * C * F, C, F, D, D, F,
+                                     kchunk, stages, (int)e);
 }
 
 // ---------------------------------------------------------------------------
@@ -79,9 +82,10 @@ constexpr int MW_B_HALF = MW_BK * 64 * 2;         // [64 d][64 f], 8 KB; two per
 constexpr int MW_STAGE_BYTES = MW_A_BYTES + 2 * MW_B_HALF;
 constexpr int MW_SMEM = MW_STAGES * MW_STAGE_BYTES + 1024;  // + slack to align to 1024
 
+template <typename OutT>
 __global__ void __launch_bounds__(MW_THREADS, 2)
     moe_expert_wgmma(const __grid_constant__ CUtensorMap map_x,
-                     const __grid_constant__ CUtensorMap map_w, bf16* __restrict__ out, int C,
+                     const __grid_constant__ CUtensorMap map_w, OutT* __restrict__ out, int C,
                      int D, int F) {
   extern __shared__ uint8_t mw_raw[];
   __shared__ __align__(8) uint64_t full[MW_STAGES], empty[MW_STAGES];
@@ -141,12 +145,12 @@ __global__ void __launch_bounds__(MW_THREADS, 2)
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
 
-  bf16* o = out + (long long)e * C * F;
+  OutT* o = out + (long long)e * C * F;
 #pragma unroll
   for (int i = 0; i < MW_BN / 2; i += 2) {
     const int r = m0 + hopper::acc_row(i, tid), c = n0 + hopper::acc_col(i, tid);
     if (r < C && c < F)  // F % 8 == 0: column c + 1 is inside too
-      *reinterpret_cast<uint32_t*>(o + (long long)r * F + c) = hopper::pack_bf16(acc[i], acc[i + 1]);
+      hopper::store_pair(o + (long long)r * F + c, acc[i], acc[i + 1]);
   }
 }
 
@@ -154,16 +158,18 @@ __global__ void __launch_bounds__(MW_THREADS, 2)
 // f32, and bf16 shapes TMA cannot address: B1's tiles
 // ---------------------------------------------------------------------------
 
+template <typename OutT>
 __global__ void __launch_bounds__(256)
-    moe_gemm_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
+    moe_gemm_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w, OutT* __restrict__ out,
                   int C, int D, int F) {
   const long long e = blockIdx.z;
   bf16_tile(x + e * C * D, w + e * D * F, out + e * C * F, C, F, D, D, F, F,
                  blockIdx.y * TBM, blockIdx.x * TBN);
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(256)
-    moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
+    moe_gemm_f32(const float* __restrict__ x, const float* __restrict__ w, OutT* __restrict__ out,
                  int C, int D, int F) {
   const long long e = blockIdx.z;
   f32_tile(x + e * C * D, w + e * D * F, out + e * C * F, C, F, D, D, F, F, blockIdx.y * FBM,
@@ -200,17 +206,12 @@ static int weight_map(CUtensorMap* map, const void* w, int E, int D, int F, int 
 // bf16, D and F multiples of 8, x and w 16-byte aligned; C <= 8;
 // `splits` <= SK_MAX_SPLITS K splits of `kchunk` rows, a multiple of
 // SK_BK with 8 * (kchunk + 8) * 2 <= SK_A_BYTES; 2 <= stages <= 8.
-extern "C" int moe_gemm_stream(const void* x, const void* w, void* out, int E, int C, int D,
-                                     int F, int splits, int kchunk, int stages, void* stream) {
-  if (C > 8 || splits < 1 || splits > SK_MAX_SPLITS || kchunk % SK_BK ||
-      skinny_a_bytes<bf16, 8>(kchunk) > SK_A_BYTES || stages < 2 || stages > SK_MAX_STAGES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap map_w;
-  if (int err = weight_map(&map_w, w, E, D, F, SK_BK)) return err;
-  static bool ready = false;  // the attribute is set once per process
+template <typename OutT>
+static int launch_stream(const void* x, const CUtensorMap& map_w, void* out, int E, int C, int D,
+                         int F, int splits, int kchunk, int stages, cudaStream_t s) {
+  static bool ready = false;  // the attribute is set once per process and type
   if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(moe_expert_stream,
+    cudaError_t err = cudaFuncSetAttribute(moe_expert_stream<OutT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SK_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
@@ -218,14 +219,63 @@ extern "C" int moe_gemm_stream(const void* x, const void* w, void* out, int E, i
   constexpr int CG = SK_SEG / 2;
   const dim3 grid((F + CG - 1) / CG, splits, E);
   const int smem = stages * SK_STAGE + skinny_a_bytes<bf16, 8>(kchunk) + 1024;  // + align slack
-  return launch_cluster_y(moe_expert_stream, grid, SK_THREADS, smem, splits, s,
-                          static_cast<const bf16*>(x), map_w, static_cast<bf16*>(out), C, D, F,
+  return launch_cluster_y(moe_expert_stream<OutT>, grid, SK_THREADS, smem, splits, s,
+                          static_cast<const bf16*>(x), map_w, static_cast<OutT*>(out), C, D, F,
                           kchunk, stages);
 }
 
-// bf16, D and F multiples of 8, x and w 16-byte aligned.
+template <typename OutT>
+static int launch_expert_wgmma(const CUtensorMap& map_x, const CUtensorMap& map_w, void* out,
+                               int E, int C, int D, int F, cudaStream_t s) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(moe_expert_wgmma<OutT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  const dim3 grid((F + MW_BN - 1) / MW_BN, (C + MW_BM - 1) / MW_BM, E);
+  moe_expert_wgmma<OutT><<<grid, MW_THREADS, MW_SMEM, s>>>(map_x, map_w,
+                                                           static_cast<OutT*>(out), C, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename OutT>
+static void launch_tiled(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                         cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((F + TBN - 1) / TBN, (C + TBM - 1) / TBM, E);
+    moe_gemm_bf16<OutT><<<grid, 256, 0, s>>>(static_cast<const bf16*>(x),
+                                             static_cast<const bf16*>(w),
+                                             static_cast<OutT*>(out), C, D, F);
+  } else {
+    const dim3 grid((F + FBN - 1) / FBN, (C + FBM - 1) / FBM, E);
+    moe_gemm_f32<OutT><<<grid, 256, 0, s>>>(static_cast<const float*>(x),
+                                            static_cast<const float*>(w),
+                                            static_cast<OutT*>(out), C, D, F);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// C entries: `out_dtype` is the type `out` is written as (F32 or BF16)
+// ---------------------------------------------------------------------------
+
+extern "C" int moe_gemm_stream(const void* x, const void* w, void* out, int E, int C, int D,
+                               int F, int splits, int kchunk, int stages, int out_dtype,
+                               void* stream) {
+  if (C > 8 || splits < 1 || splits > SK_MAX_SPLITS || kchunk % SK_BK ||
+      skinny_a_bytes<bf16, 8>(kchunk) > SK_A_BYTES || stages < 2 || stages > SK_MAX_STAGES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map_w;
+  if (int err = weight_map(&map_w, w, E, D, F, SK_BK)) return err;
+  return out_dtype == BF16
+             ? launch_stream<bf16>(x, map_w, out, E, C, D, F, splits, kchunk, stages, s)
+             : launch_stream<float>(x, map_w, out, E, C, D, F, splits, kchunk, stages, s);
+}
+
 extern "C" int moe_gemm_wgmma(const void* x, const void* w, void* out, int E, int C, int D,
-                                    int F, void* stream) {
+                              int F, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_x, map_w;
   const cuuint64_t dims_x[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)E};
@@ -233,32 +283,21 @@ extern "C" int moe_gemm_wgmma(const void* x, const void* w, void* out, int E, in
   const cuuint32_t box_x[3] = {MW_BK, MW_BM, 1};
   if (int err = encode_bf16_map(&map_x, 3, x, dims_x, strides_x, box_x)) return err;
   if (int err = weight_map(&map_w, w, E, D, F, MW_BK)) return err;
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(moe_expert_wgmma,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MW_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
-  }
-  const dim3 grid((F + MW_BN - 1) / MW_BN, (C + MW_BM - 1) / MW_BM, E);
-  moe_expert_wgmma<<<grid, MW_THREADS, MW_SMEM, s>>>(map_x, map_w, static_cast<bf16*>(out), C, D,
-                                                   F);
-  return static_cast<int>(cudaGetLastError());
+  return out_dtype == BF16 ? launch_expert_wgmma<bf16>(map_x, map_w, out, E, C, D, F, s)
+                           : launch_expert_wgmma<float>(map_x, map_w, out, E, C, D, F, s);
 }
 
-// f32, or bf16 whose d or f is not a multiple of 8.
 extern "C" int moe_gemm(const void* x, const void* w, void* out, int E, int C, int D, int F,
-                        int dtype, void* stream) {
+                        int dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16) {
-    const dim3 grid((F + TBN - 1) / TBN, (C + TBM - 1) / TBM, E);
-    moe_gemm_bf16<<<grid, 256, 0, s>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                                       static_cast<bf16*>(out), C, D, F);
-  } else {
-    const dim3 grid((F + FBN - 1) / FBN, (C + FBM - 1) / FBM, E);
-    moe_gemm_f32<<<grid, 256, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(w),
-                                      static_cast<float*>(out), C, D, F);
-  }
+  if (dtype == BF16 && out_dtype == BF16)
+    launch_tiled<bf16, bf16>(x, w, out, E, C, D, F, s);
+  else if (dtype == BF16)
+    launch_tiled<bf16, float>(x, w, out, E, C, D, F, s);
+  else if (out_dtype == BF16)
+    launch_tiled<float, bf16>(x, w, out, E, C, D, F, s);
+  else
+    launch_tiled<float, float>(x, w, out, E, C, D, F, s);
   return static_cast<int>(cudaGetLastError());
 }
 

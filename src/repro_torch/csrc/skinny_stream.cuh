@@ -108,9 +108,11 @@ __device__ __forceinline__ uint32_t skinny_load_a(const bf16* __restrict__ A, bf
   return bits & 0x7FFF7FFFu;
 }
 
-template <typename T, int MR, bool EXPERTS>
+// C is written as OutT (the operands' type unless the caller asks for
+// another): the f32 sums are cast once, on the store.
+template <typename T, int MR, bool EXPERTS, typename OutT>
 __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUtensorMap* map_b,
-                                              T* __restrict__ C, int M, int N, int K,
+                                              OutT* __restrict__ C, int M, int N, int K,
                                               long long lda, long long ldc, int kchunk, int stages,
                                               int expert) {
   constexpr bool TC = sizeof(T) == 2;     // bf16: tensor cores
@@ -217,7 +219,7 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
         if (S > 1)
           part[r * CG + c] = d[t][e];
         else if (r < M && n0 + c < N)
-          C[(long long)r * ldc + n0 + c] = from_f32<T>(d[t][e]);
+          C[(long long)r * ldc + n0 + c] = from_f32<OutT>(d[t][e]);
       }
   } else {
     // A's rows of this split, k-major [kchunk][MR] in f32
@@ -274,8 +276,9 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
       }
       if (S == 1) {
         if (n0 + c < N) {  // N % 4 == 0: the vector is wholly in or out
-          T* out = C + (long long)r * ldc + n0 + c;
-          out[0] = sum.x, out[1] = sum.y, out[2] = sum.z, out[3] = sum.w;
+          OutT* out = C + (long long)r * ldc + n0 + c;
+          out[0] = from_f32<OutT>(sum.x), out[1] = from_f32<OutT>(sum.y);
+          out[2] = from_f32<OutT>(sum.z), out[3] = from_f32<OutT>(sum.w);
         }
       } else {
         *reinterpret_cast<float4*>(part + r * CG + c) = sum;
@@ -298,9 +301,9 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
       const float4 x = hopper::ld_cluster4(part + r * CG + c, sp);
       sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
     }
-    T* out = C + (long long)r * ldc + n0 + c;
-    out[0] = from_f32<T>(sum.x), out[1] = from_f32<T>(sum.y);
-    out[2] = from_f32<T>(sum.z), out[3] = from_f32<T>(sum.w);
+    OutT* out = C + (long long)r * ldc + n0 + c;
+    out[0] = from_f32<OutT>(sum.x), out[1] = from_f32<OutT>(sum.y);
+    out[2] = from_f32<OutT>(sum.z), out[3] = from_f32<OutT>(sum.w);
   }
   hopper::cluster_sync();  // no block leaves while another reads its shared memory
 }

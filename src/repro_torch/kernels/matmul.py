@@ -1,14 +1,25 @@
 """Tiled GEMM as an ``axe.program`` stage graph (kernel B1).
 
-* ``matmul/dot``  (BLOCK) — the plain torch body, :func:`matmul_plain`:
-  one f32-accumulated product, dispatched at BLOCK scope; it runs only on
-  CPU tensors. (The JAX package also dispatches MESH scope here, to an
-  XLA dot; until MESH lowering is ported, MESH takes ``tile`` so that a
-  plain ``programs.matmul`` call on CUDA tensors reaches the kernel.)
+* ``matmul/dot``  (BLOCK) — the plain body: on CPU tensors
+  :func:`matmul_plain`, one f32-accumulated product; on CUDA tensors the
+  library's product, :func:`matmul_library` (``torch.matmul``). It runs
+  where the JAX package runs its plain ``jnp`` dot: at BLOCK scope, for
+  the ``xla`` variant and for operands that are not 2-D
+  (``repro/kernels/matmul.py:92-114``). The JAX package's third fallback,
+  an output tile that does not divide the shape, has no counterpart:
+  the CUDA kernel takes ragged shapes. (The JAX package also dispatches
+  MESH scope here, to an XLA dot; until MESH lowering is ported, MESH
+  takes ``tile`` so that a plain ``programs.matmul`` call on CUDA tensors
+  reaches the kernel.)
 * ``matmul/tile`` (GRID)  — on CUDA tensors, one launch of the
-  hand-written kernel ``csrc/matmul.cu``; on CPU tensors, the plain
-  body. Schedule key ``matmul/tile`` (blocks bm/bn/bk, variants
-  ``kernel|xla`` — ``xla`` names the plain body).
+  hand-written kernel ``csrc/matmul.cu``, which writes its f32
+  accumulator as ``out_dtype`` (f32 or bf16, the operands' type by
+  default); on CPU tensors, the plain body. An operand whose rows are
+  not unit-strided is copied first; operands the kernel cannot take
+  (mixed types, other output types) and pins outside the built blocks
+  raise. Schedule key
+  ``matmul/tile`` (blocks bm/bn/bk, variants ``kernel|xla`` — ``xla``
+  names the plain body).
 
 The CUDA entry is chosen from the operands by :func:`tile_route`, a
 rule on shapes, strides and dtypes (never a fallback on failure):
@@ -32,7 +43,7 @@ import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.axe.program import DeviceError, program, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -62,8 +73,8 @@ SKINNY_MAX_SPLITS = 8
 #: the most stages of the skinny kernel's ring (SK_MAX_STAGES)
 SKINNY_MAX_STAGES = 8
 #: ctypes argument codes of the C entries in csrc/matmul.cu
-SIGNATURES = {"matmul_wgmma": "ppppiiillliip", "matmul_tiled": "pppiiilllip",
-              "matmul_skinny": "pppiiillliiiip"}
+SIGNATURES = {"matmul_wgmma": "ppppiiillliiip", "matmul_tiled": "pppiiillliip",
+              "matmul_skinny": "pppiiillliiiiip"}
 
 matmul_program = program(
     "matmul", doc="C[M,N] = A[M,K] @ B[K,N] with f32 accumulation"
@@ -75,9 +86,21 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tens
     return matmul_ref(a, b, out_dtype)
 
 
+def matmul_library(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """The library's product on the card (``torch.matmul``, cuBLAS),
+    where the JAX package itself falls back to its plain body: in the
+    operands' type when that is the result's, else in f32 and cast
+    once, as the plain body does."""
+    out_dtype = out_dtype or a.dtype
+    if a.dtype == b.dtype == out_dtype:
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
 @matmul_program.stage("dot", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,))
 def _dot(ctx, a, b, *, out_dtype=None):
-    require_host(ctx.op, a, b)
+    if ctx.on_card(a, b):
+        return matmul_library(a, b, out_dtype)
     return matmul_plain(a, b, out_dtype)
 
 
@@ -168,8 +191,8 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> None:
         raise DeviceError(
             f"matmul/tile: operands must share f32 or bf16, got {a.dtype}, {b.dtype}"
         )
-    if out_dtype not in (None, a.dtype):
-        raise DeviceError(f"matmul/tile: the CUDA kernel writes {a.dtype}, not {out_dtype}")
+    if out_dtype not in (None, *DTYPE_CODES):
+        raise DeviceError(f"matmul/tile: the CUDA kernel writes f32 or bf16, not {out_dtype}")
     if a.stride(1) != 1 or b.stride(1) != 1 or a.stride(0) < a.shape[1] or b.stride(0) < b.shape[1]:
         raise DeviceError(
             f"matmul/tile: operands must be row-major with a unit last stride, got "
@@ -179,6 +202,14 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> None:
         raise DeviceError("matmul/tile: empty operands")
     if max(a.numel(), b.numel(), a.shape[0] * b.shape[1]) >= 2 ** 31:
         raise DeviceError("matmul/tile: operands past 2^31 elements")
+
+
+def _rows_unit(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its rows are unit-strided and do not overlap,
+    else a contiguous copy."""
+    if t.stride(1) == 1 and t.stride(0) >= t.shape[1]:
+        return t
+    return t.contiguous()
 
 
 def _aligned(t: torch.Tensor, elems: int) -> bool:
@@ -194,17 +225,23 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
 )
 def _tile(ctx, a, b, *, out_dtype=None):
     global launches, wgmma_launches, skinny_launches
-    if ctx.impl != "kernel" or not ctx.on_card(a, b):
+    # the JAX package's fallbacks to its plain body (matmul.py:92-114):
+    # operands that are not 2-D and the xla variant, on any device
+    if a.ndim != 2 or b.ndim != 2 or ctx.impl != "kernel" or not ctx.on_card(a, b):
         return ctx.run("dot", a, b, out_dtype=out_dtype)
-    check_operands(a, b, out_dtype)
     blocks = {name: ctx.block(name) for name in TILE_BLOCKS}
     if blocks != TILE_BLOCKS:
         raise DeviceError(
             f"matmul/tile: the CUDA kernel is built for {TILE_BLOCKS}, pinned {blocks}"
         )
+    # the kernel reads rows by their leading stride: an operand whose
+    # last stride is not 1 (a transposed view) is copied first
+    a, b = _rows_unit(a), _rows_unit(b)
+    check_operands(a, b, out_dtype)
     m, k = a.shape
     n = b.shape[1]
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    out_dtype = out_dtype or a.dtype
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr())
     route = tile_route(a, b)
     if route == "wgmma":
@@ -214,7 +251,7 @@ def _tile(ctx, a, b, *, out_dtype=None):
         ctx.launch(
             "matmul", "matmul_wgmma", SIGNATURES["matmul_wgmma"],
             *ptrs, ws.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), n, splits, kchunk, stream_of(a),
+            a.stride(0), b.stride(0), n, splits, kchunk, DTYPE_CODES[out_dtype], stream_of(a),
         )
         wgmma_launches += 1
     elif route == "skinny":
@@ -222,13 +259,14 @@ def _tile(ctx, a, b, *, out_dtype=None):
         ctx.launch(
             "matmul", "matmul_skinny", SIGNATURES["matmul_skinny"],
             *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype],
-            splits, kchunk, stages, stream_of(a),
+            DTYPE_CODES[out_dtype], splits, kchunk, stages, stream_of(a),
         )
         skinny_launches += 1
     else:
         ctx.launch(
             "matmul", "matmul_tiled", SIGNATURES["matmul_tiled"],
-            *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype], stream_of(a),
+            *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype],
+            DTYPE_CODES[out_dtype], stream_of(a),
         )
     launches += 1
     return c

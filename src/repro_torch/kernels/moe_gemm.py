@@ -3,15 +3,19 @@ B5): with capacity routing the dispatched activations are a dense
 ``[E, C, d]`` buffer, so the expert FFN is a batched GEMM against
 per-expert weights ``[E, d, f]``.
 
-* ``moe_gemm/einsum``      (BLOCK) — the plain torch body,
-  :func:`moe_gemm_plain` (``ecd,edf->ecf`` with f32 accumulation); it
-  runs only on CPU tensors. (The JAX package also dispatches MESH scope
+* ``moe_gemm/einsum``      (BLOCK) — the plain body: on CPU tensors
+  :func:`moe_gemm_plain` (``ecd,edf->ecf`` with f32 accumulation); on
+  CUDA tensors, where the JAX package runs its plain ``jnp`` body (the
+  ``xla`` variant, ``repro/kernels/moe_gemm.py:72-73``), the library's
+  ``torch.bmm`` (:func:`moe_gemm_library`). (The JAX package also dispatches MESH scope
   here; until MESH lowering is ported, MESH takes ``expert_gemm`` so
   that a plain ``programs.moe_gemm`` call on CUDA tensors reaches the
   kernel, as for ``matmul``.)
 * ``moe_gemm/expert_gemm`` (GRID)  — on CUDA tensors, one launch of the
-  hand-written kernel ``csrc/moe_gemm.cu``; on CPU tensors, the plain
-  body. Schedule key ``moe_gemm/expert_gemm`` (blocks bc/bf/bd, the
+  hand-written kernel ``csrc/moe_gemm.cu``, which writes its f32
+  accumulator as ``out_dtype`` (f32 or bf16, the operands' type by
+  default); on CPU tensors, the plain body. The kernel takes contiguous
+  operands: the wrapper copies non-contiguous ones first. Schedule key ``moe_gemm/expert_gemm`` (blocks bc/bf/bd, the
   wgmma route's tile; variants ``kernel|xla`` — ``xla`` names the plain
   body).
 
@@ -42,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.axe.program import DeviceError, program, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -65,8 +69,8 @@ STREAM_MAX_C = 8
 #: K rows one split of the expert stream aims at (:func:`stream_plan`)
 STREAM_CHUNK = 1024
 #: ctypes argument codes of the C entries in csrc/moe_gemm.cu
-SIGNATURES = {"moe_gemm": "pppiiiiip", "moe_gemm_stream": "pppiiiiiiip",
-              "moe_gemm_wgmma": "pppiiiip"}
+SIGNATURES = {"moe_gemm": "pppiiiiiip", "moe_gemm_stream": "pppiiiiiiiip",
+              "moe_gemm_wgmma": "pppiiiiip"}
 
 moe_gemm_program = program(
     "moe_gemm", doc="per-expert batched GEMM [E,C,d] @ [E,d,f] -> [E,C,f]"
@@ -78,9 +82,20 @@ def moe_gemm_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Te
     return moe_gemm_ref(x, w, out_dtype)
 
 
+def moe_gemm_library(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """The library's batched product on the card (``torch.bmm``, cuBLAS),
+    where the JAX package runs its plain body: in the operands' type
+    when that is the result's, else in f32 and cast once."""
+    out_dtype = out_dtype or x.dtype
+    if x.dtype == w.dtype == out_dtype:
+        return torch.bmm(x, w)
+    return torch.bmm(x.float(), w.float()).to(out_dtype)
+
+
 @moe_gemm_program.stage("einsum", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,))
 def _einsum(ctx, x, w, *, out_dtype=None):
-    require_host(ctx.op, x, w)
+    if ctx.on_card(x, w):
+        return moe_gemm_library(x, w, out_dtype)
     return moe_gemm_plain(x, w, out_dtype)
 
 
@@ -95,8 +110,9 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, out_dtype) -> None:
         raise DeviceError(
             f"moe_gemm/expert_gemm: operands must share f32 or bf16, got {x.dtype}, {w.dtype}"
         )
-    if out_dtype not in (None, x.dtype):
-        raise DeviceError(f"moe_gemm/expert_gemm: the CUDA kernel writes {x.dtype}, not {out_dtype}")
+    if out_dtype not in (None, *DTYPE_CODES):
+        raise DeviceError(
+            f"moe_gemm/expert_gemm: the CUDA kernel writes f32 or bf16, not {out_dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise DeviceError(
             f"moe_gemm/expert_gemm: operands must be contiguous, got strides {x.stride()} "
@@ -162,6 +178,8 @@ def _expert_gemm(ctx, x, w, *, out_dtype=None):
     global launches, stream_launches, wgmma_launches
     if ctx.impl != "kernel" or not ctx.on_card(x, w):
         return ctx.run("einsum", x, w, out_dtype=out_dtype)
+    # the kernel reads contiguous experts: strided views are copied first
+    x, w = x.contiguous(), w.contiguous()
     check_operands(x, w, out_dtype)
     blocks = {name: ctx.block(name) for name in EXPERT_BLOCKS}
     if blocks != EXPERT_BLOCKS:
@@ -171,20 +189,21 @@ def _expert_gemm(ctx, x, w, *, out_dtype=None):
         )
     e, c, d = x.shape
     f = w.shape[2]
-    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    out_dtype = out_dtype or x.dtype
+    out = torch.empty((e, c, f), dtype=out_dtype, device=x.device)
     ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f)
     route = expert_route(x, w)
     if route == "stream":
         splits, kchunk, stages = stream_plan(d, f, e, sm_count(x.device))
         ctx.launch("moe_gemm", "moe_gemm_stream", SIGNATURES["moe_gemm_stream"],
-                   *ptrs, splits, kchunk, stages, stream_of(x))
+                   *ptrs, splits, kchunk, stages, DTYPE_CODES[out_dtype], stream_of(x))
         stream_launches += 1
     elif route == "wgmma":
         ctx.launch("moe_gemm", "moe_gemm_wgmma", SIGNATURES["moe_gemm_wgmma"],
-                   *ptrs, stream_of(x))
+                   *ptrs, DTYPE_CODES[out_dtype], stream_of(x))
         wgmma_launches += 1
     else:
         ctx.launch("moe_gemm", "moe_gemm", SIGNATURES["moe_gemm"],
-                   *ptrs, DTYPE_CODES[x.dtype], stream_of(x))
+                   *ptrs, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], stream_of(x))
     launches += 1
     return out

@@ -7,13 +7,16 @@
   128-thread block, 16 lanes a row; wider rows (norm1, norm2, the final
   norm) get one 256-thread block each. Widths of whole 16-byte chunks
   on 16-byte-aligned bases move as vectors, others by element loads
-  (:func:`vector_ready`). Schedule key ``rmsnorm/rows``: block
-  ``brows`` is the narrow class's rows per block, built for 8 (a wide
-  row is always one block); any other pin raises. Variants
-  ``kernel|xla`` as in the JAX package — ``xla`` names the plain body,
-  which runs only on CPU tensors.
-* ``rmsnorm/normalize`` (BLOCK) — the plain torch body,
-  :func:`rmsnorm_plain`.
+  (:func:`vector_ready`). The kernel takes contiguous rows: the wrapper
+  copies a non-contiguous ``x`` or ``w`` to contiguous memory first.
+  Schedule key ``rmsnorm/rows``: block ``brows`` is the narrow class's
+  rows per block, built for 8 (a wide row is always one block); any
+  other pin raises. Variants ``kernel|xla`` as in the JAX package —
+  ``xla`` names the plain body.
+* ``rmsnorm/normalize`` (BLOCK) — the plain body: on CPU tensors
+  :func:`rmsnorm_plain`; on CUDA tensors, where the JAX package runs its
+  plain ``jnp`` body (the ``xla`` variant, ``repro/kernels/rmsnorm.py:51-53``),
+  the library's ``F.rms_norm`` (:func:`rmsnorm_library`).
 
 Replaces ``repro/kernels/rmsnorm.py:_rows`` (TPU launch at :72, body
 ``_normalize`` at :28). The kernel is bound by bytes; its source says
@@ -22,8 +25,9 @@ how the design meets that.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.axe.program import DeviceError, program, stream_of
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.ref import rmsnorm_ref
@@ -52,9 +56,16 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.
     return rmsnorm_ref(x, w, eps)
 
 
+def rmsnorm_library(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The library's norm on the card (``F.rms_norm``), where the JAX
+    package runs its plain body: in f32 and cast once, as that body."""
+    return F.rms_norm(x.float(), (x.shape[-1],), w.float(), eps).to(x.dtype)
+
+
 @rmsnorm_program.stage("normalize", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,))
 def _normalize(ctx, x, w, *, eps: float = 1e-6):
-    require_host(ctx.op, x, w)
+    if ctx.on_card(x, w):
+        return rmsnorm_library(x, w, eps)
     return rmsnorm_plain(x, w, eps)
 
 
@@ -99,6 +110,8 @@ def _rows(ctx, x, w, *, eps: float = 1e-6):
     global launches
     if ctx.impl != "kernel" or not ctx.on_card(x, w):
         return ctx.run("normalize", x, w, eps=eps)
+    # the kernel reads contiguous rows: a strided view is copied first
+    x, w = x.contiguous(), w.contiguous()
     check_operands(x, w, ctx.block("brows"))
     d = x.shape[-1]
     rows = x.numel() // d if d else 0

@@ -1,13 +1,15 @@
 """Batched serving engine: prefill + decode with per-slot position
 tracking and greedy / temperature / top-k sampling — the port of
-``repro/serve/engine.py``'s ``generate`` path.
+``repro/serve/engine.py`` on one GPU.
 
-The JAX engine's compiled full-sequence forward (``score``,
-``compiled_forward``), its compiled decode executable and the
-``decode_mode`` switch come with the graph-compiler slice
-(``ROADMAP.md``, queue A6-A9); here every decode tick runs the model's
-own ``decode_step``, which already takes per-slot positions — the
-semantics the JAX engine's compiled ``decode_step`` exposes.
+As in the JAX engine, the full-sequence forward (:meth:`ServeEngine.score`)
+is one ``axe.compile`` executable of the model-zoo graph, and every
+decode tick of :meth:`ServeEngine.generate` runs the compiled decode-step
+executable (``decode_mode="compiled"``, the default); the prefill runs
+through the model API, and ``decode_mode="legacy"`` keeps the model
+API's own ``decode_step`` per tick. The JAX engine's mesh placement,
+solved-layout and schedule-cache options come with the multi-GPU and
+tune slices (``ROADMAP.md`` A14, A11).
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import torch
 from repro_torch.core.device import resolve_device
 
 
+DECODE_MODES = ("compiled", "legacy")
+
+
 @dataclasses.dataclass
 class ServeEngine:
     api: Any                 # ModelAPI
@@ -29,30 +34,113 @@ class ServeEngine:
     temperature: float = 0.0
     rng_seed: int = 0
     device: Optional[Union[str, torch.device]] = None  # default: cuda
+    decode_mode: str = "compiled"      # "compiled" | "legacy"
+
+    #: compiled-executable memo bound: each entry holds a solved plan and
+    #: its executable, so callers should bucket sequence lengths
+    MAX_COMPILED = 8
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         if self.device != self.api.device:
             raise ValueError(f"engine on {self.device}, model API on {self.api.device}")
+        if self.decode_mode not in DECODE_MODES:
+            raise ValueError(f"decode_mode {self.decode_mode!r} not in {DECODE_MODES}")
         self.params = None
+        self._compiled: Dict[tuple, Any] = {}
+        #: graph inputs bound to the loaded params, per memoized executable
+        self._bound: Dict[tuple, Dict[str, Any]] = {}
         #: host seconds of the last ``generate``: prefill (first token
         #: included) and the decode ticks, each ended by a device sync
         self.last_timing: Dict[str, float] = {}
 
     def load(self, params) -> None:
         self.params = params
+        self._bound.clear()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- compiled executables (axe.compile) -----------------------------
+    def _memo(self, key: tuple, build):
+        exe = self._compiled.get(key)
+        if exe is None:
+            exe = build()
+            while len(self._compiled) >= self.MAX_COMPILED:
+                old = next(iter(self._compiled))
+                self._compiled.pop(old)
+                self._bound.pop(old, None)
+            self._compiled[key] = exe
+        return exe
+
+    def _inputs(self, key: tuple, exe) -> Dict[str, Any]:
+        """The executable's param inputs (views of the loaded params),
+        bound once per executable and params."""
+        from repro_torch.axe.compile import model_inputs
+
+        bound = self._bound.get(key)
+        if bound is None:
+            bound = self._bound[key] = model_inputs(exe.graph, self.api.cfg, self.params)
+        return bound
+
+    def compiled_forward(self, seq: int, *, batch: Optional[int] = None,
+                         layers: Optional[int] = None):
+        """The :class:`~repro_torch.axe.compile.Executable` for a
+        (batch, seq) full-sequence forward of this engine's model,
+        memoized per shape (FIFO-bounded at :data:`MAX_COMPILED` — each
+        miss solves + compiles, so bucket sequence lengths)."""
+        from repro_torch.axe.compile import model_executable
+
+        b = batch or self.batch_size
+        return self._memo((b, seq, layers), lambda: model_executable(
+            self.api.cfg, None, b, seq, layers=layers, dtype=str(self.api.cfg.dtype)))
+
+    def compiled_decode(self, *, batch: Optional[int] = None,
+                        layers: Optional[int] = None):
+        """The :class:`~repro_torch.axe.compile.Executable` for one decode
+        step of this engine's model — the KV caches are graph inputs and
+        outputs — memoized in the same FIFO-bounded table as
+        :meth:`compiled_forward`."""
+        from repro_torch.axe.compile import decode_executable
+
+        b = batch or self.batch_size
+        return self._memo(("decode", b, layers), lambda: decode_executable(
+            self.api.cfg, None, b, self.max_seq, layers=layers,
+            dtype=str(self.api.cfg.dtype)))
+
     def decode_step(self, tok: torch.Tensor, cache, pos: torch.Tensor):
-        """One decode step: ``tok [B]`` current tokens, ``pos [B]``
-        per-slot positions (requests in one batch may sit at different
-        depths). Returns ``(logits [B, V], cache)``; the cache is
-        updated in place."""
+        """One compiled decode step: ``tok [B]`` current tokens, ``pos
+        [B]`` int32 per-slot positions (requests in one batch may sit at
+        different depths), the model API's ``cache`` tree in and out.
+        Returns ``(logits [B, V], cache)``; the cache is updated in
+        place."""
+        from repro_torch.axe.compile import cache_inputs, decode_cache
+
+        b = int(tok.shape[0])
+        exe = self.compiled_decode(batch=b)
+        inputs = dict(self._inputs(("decode", b, None), exe))
+        inputs.update(cache_inputs(exe.graph, self.api.cfg, cache))
+        outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))
+        logits = outs[exe.outputs.index("logits")]
+        return logits, decode_cache(exe.graph, self.api.cfg, outs, cache)
+
+    def legacy_decode_step(self, tok: torch.Tensor, cache, pos: torch.Tensor):
+        """One decode step through the model API's ``decode_step``
+        (``decode_mode="legacy"``); same contract as :meth:`decode_step`."""
         logits, cache = self.api.decode_step(self.params, tok[:, None], cache, pos)
         return logits[:, -1], cache
+
+    def score(self, tokens) -> torch.Tensor:
+        """Full-sequence logits ``[B, S, V]`` through the compiled graph —
+        the engine's forward pass as one ``axe.compile`` executable."""
+        if self.params is None:
+            raise RuntimeError("call load() first")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        b, s = tokens.shape
+        exe = self.compiled_forward(s, batch=b)
+        logits = exe(self._inputs((b, s, None), exe), tokens.reshape(-1).to(torch.int32))
+        return logits.reshape(b, s, -1)
 
     def generate(
         self,
@@ -63,8 +151,10 @@ class ServeEngine:
         top_k: Optional[int] = None,
     ) -> np.ndarray:
         """Greedy / temperature / top-k sampling for a fixed batch: the
-        first token comes from the prefill logits, then
-        ``max_new_tokens - 1`` decode ticks follow. ``temperature``/
+        first token comes from the prefill logits (model API), then
+        ``max_new_tokens - 1`` decode ticks follow, each through the
+        compiled decode executable or, with ``decode_mode="legacy"``,
+        the model API's ``decode_step``. ``temperature``/
         ``top_k`` override the engine defaults per call;
         ``temperature<=0`` is exact greedy decoding."""
         if self.params is None:
@@ -84,10 +174,13 @@ class ServeEngine:
         tok = self._sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         outs = [tok]
         self._sync()
+        step = self.decode_step if self.decode_mode == "compiled" else self.legacy_decode_step
+        if max_new_tokens > 1 and self.decode_mode == "compiled":
+            self.compiled_decode(batch=b)  # solve + compile before the clock
         t1 = time.perf_counter()
         for i in range(max_new_tokens - 1):
             pos = torch.full((b,), s_prompt + i, dtype=torch.int32, device=self.device)
-            step_logits, cache = self.decode_step(tok, cache, pos)
+            step_logits, cache = step(tok, cache, pos)
             tok = self._sample(step_logits, gen, temperature=temperature, top_k=top_k)
             outs.append(tok)
         out = torch.stack(outs, dim=1).cpu().numpy()

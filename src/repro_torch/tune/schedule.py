@@ -113,3 +113,34 @@ class Schedule:
                 f"(expected 'impl' or 'impl:name=int,...', e.g. "
                 f"'kernel:bm=128,bn=128,bk=256'): {e}"
             ) from e
+
+
+def layout_signature(*layouts, tag: Optional[str] = None) -> str:
+    """Canonical signature of operand layouts for keying schedules.
+
+    Accepts ``AxeSpec`` objects (preferred — the canonical end-to-end
+    signature including shape, space, and pending-partial axes),
+    ``Layout`` / ``DTensorSpec`` objects, or None (dense). Operands that
+    canonicalize equal produce identical signatures, so a schedule key
+    is one of layout *semantics*, never of how a spec was constructed.
+    ``tag`` prefixes an op-level variant (e.g. ``"causal"``)."""
+    from repro_torch.core.layout import Layout, canonicalize
+
+    parts = []
+    for l in layouts:
+        if l is None:
+            parts.append("dense")
+            continue
+        sig = getattr(l, "signature", None)
+        if callable(sig):          # AxeSpec (duck-typed: no core->axe import)
+            parts.append(sig())
+            continue
+        layout = getattr(l, "layout", l)
+        if isinstance(layout, Layout):
+            parts.append(repr(canonicalize(layout)))
+        else:
+            parts.append(str(layout))
+    base = "dense" if all(p == "dense" for p in parts) else "&".join(parts)
+    if tag:
+        return tag if base == "dense" else f"{tag}&{base}"
+    return base

@@ -215,16 +215,33 @@ class _CardTensor(torch.Tensor):
     is_cuda = True
 
 
-def test_plain_bodies_refuse_cuda_tensors():
+def test_plain_bodies_refuse_cuda_tensors(monkeypatch):
+    """The plain attention bodies run only on CPU tensors. Where the JAX
+    package itself falls back to a plain ``jnp`` body (the ``xla``
+    variants of B1, B2 and B5, B1's operands that are not 2-D), CUDA
+    tensors reach the library's call instead of the plain body."""
     require_host("probe", torch.zeros(2))
     card = torch.zeros(8, 8).as_subclass(_CardTensor)
     with pytest.raises(DeviceError, match="only on CPU tensors"):
         require_host("probe", card)
+    card4 = torch.zeros(1, 2, 8, 64).as_subclass(_CardTensor)
     with pytest.raises(DeviceError, match="only on CPU tensors"):
-        programs.matmul(card, card, impl="xla")
+        programs.flash_attention(card4, card4, card4, stage="softmax_mac")
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_gemm as moe_k
+    from repro_torch.kernels import rmsnorm as rn
+
+    calls = []
+    for mod, name in ((mm, "matmul_library"), (moe_k, "moe_gemm_library"),
+                      (rn, "rmsnorm_library")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n) or a[0])
+    programs.matmul(card, card, impl="xla")
+    programs.matmul(torch.zeros(2, 8, 8).as_subclass(_CardTensor), card)
     card3 = torch.zeros(2, 8, 8).as_subclass(_CardTensor)
-    with pytest.raises(DeviceError, match="only on CPU tensors"):
-        programs.moe_gemm(card3, card3, impl="xla")
+    programs.moe_gemm(card3, card3, impl="xla")
+    programs.rmsnorm(card, torch.ones(8).as_subclass(_CardTensor), impl="xla")
+    assert calls == ["matmul_library", "matmul_library", "moe_gemm_library", "rmsnorm_library"]
+    assert set(programs.launch_counts().values()) == {0}
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):

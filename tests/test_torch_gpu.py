@@ -276,9 +276,12 @@ def test_skinny_product_is_one_kernel_launch(cuda):
 
 
 def test_plain_bodies_and_split_operands_raise_on_the_card(cuda):
-    a = torch.zeros(8, 8, device=cuda)
-    with pytest.raises(DeviceError, match="CPU tensors"):
-        programs.matmul(a, a, impl="xla")
+    a = _randn(cuda, (8, 8), torch.float32, 3)
+    # the xla variant is the JAX package's plain body: on the card, the
+    # library's product, within _tol of the plain version
+    before = mm.launches
+    _close(programs.matmul(a, a, impl="xla"), mm.matmul_plain(a, a), torch.float32)
+    assert mm.launches == before
     with pytest.raises(DeviceError, match="split"):
         programs.matmul(a, a.cpu())
     with pytest.raises(DeviceError, match="built for"):
@@ -397,8 +400,6 @@ def test_moe_gemm_kernel_gives_zeros_for_an_expert_with_no_tokens(cuda, dtype):
 
 def test_moe_gemm_kernel_refuses_what_it_does_not_take(cuda):
     x, w = torch.zeros(2, 8, 64, device=cuda), torch.zeros(2, 64, 32, device=cuda)
-    with pytest.raises(DeviceError, match="contiguous"):
-        programs.moe_gemm(x, torch.zeros(2, 32, 64, device=cuda).transpose(1, 2))
     with pytest.raises(DeviceError, match="aligned"):
         programs.moe_gemm(torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(2, 8, 64), w)
     with pytest.raises(DeviceError, match="share"):
@@ -406,8 +407,11 @@ def test_moe_gemm_kernel_refuses_what_it_does_not_take(cuda):
     for pin in ({"bc": 128}, {"bf": 256}, {"bd": 512}):
         with pytest.raises(DeviceError, match="built for"):
             programs.moe_gemm(x, w, blocks=pin)
-    with pytest.raises(DeviceError, match="CPU tensors"):
-        programs.moe_gemm(x, w, impl="xla")
+    # the xla variant is the JAX package's plain body: on the card, torch.bmm
+    x, w = _randn(cuda, (2, 8, 64), torch.float32, 4), _randn(cuda, (2, 64, 32), torch.float32, 5)
+    before = moe_k.launches
+    _close(programs.moe_gemm(x, w, impl="xla"), moe_k.moe_gemm_plain(x, w), torch.float32)
+    assert moe_k.launches == before
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "dbrx-132b"])
@@ -458,3 +462,108 @@ def test_launch_serve_cli_runs_on_the_card(cuda, capsys):
                 "--new-tokens", "3", "--max-seq", "16"])
     out = capsys.readouterr().out
     assert "2x3 tokens" in out and "on cuda" in out and "'matmul/tile': 0" not in out
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's fallbacks to its plain body reach a library call on the
+# card, other output types are written by the kernels, strided operands of
+# B2 and B5 are copied, and pins outside the built blocks still raise
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_fallbacks_reach_the_library_on_the_card(cuda, dtype):
+    a, b = _randn(cuda, (16, 64), dtype, 6), _randn(cuda, (64, 48), dtype, 7, 0.125)
+    before = mm.launches
+    # the xla variant, and operands that are not 2-D
+    _close(programs.matmul(a, b, impl="xla"), mm.matmul_plain(a, b), dtype)
+    a3 = a.view(2, 8, 64)
+    _close(programs.matmul(a3, b), mm.matmul_plain(a3, b), dtype)
+    assert mm.launches == before
+    # a column-major B is copied and launches B1, pinned or not
+    bt = b.t().contiguous().t()
+    _close(programs.matmul(a, bt), mm.matmul_plain(a, bt), dtype)
+    _close(programs.matmul(a, bt, impl="kernel"), mm.matmul_plain(a, bt), dtype)
+    assert mm.launches == before + 2
+    # mixed operand types raise, pinned or not: the JAX package has no
+    # plain-body fallback for them
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(DeviceError, match="share"):
+        programs.matmul(a, b.to(other))
+    with pytest.raises(DeviceError, match="share"):
+        programs.matmul(a, b.to(other), blocks=mm.TILE_BLOCKS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 1024), (256, 512, 384), (37, 83, 45),
+                                   (512, 2560, 1024)])
+def test_matmul_kernel_writes_the_other_output_type(cuda, dtype, m, k, n):
+    """Every route (skinny, wgmma with and without K splits, tiled) writes
+    its f32 accumulator as the type asked for."""
+    out = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    a, b = _randn(cuda, (m, k), dtype, 8), _randn(cuda, (k, n), dtype, 9, k ** -0.5)
+    before = mm.launches
+    got = programs.matmul(a, b, out_dtype=out)
+    assert mm.launches == before + 1 and got.dtype == out
+    # the plain body: f32 accumulation, one cast to `out`
+    _close(got, mm.matmul_plain(a, b, out), out)
+    if out == torch.float32:  # not rounded through bf16 first
+        assert not torch.equal(got, got.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_fallbacks_and_strided_rows_on_the_card(cuda, dtype):
+    x, w = _randn(cuda, (6, 512), dtype, 10), _randn(cuda, (512,), dtype, 11)
+    before = rn.launches
+    _close(programs.rmsnorm(x, w, impl="xla"), rn.rmsnorm_plain(x, w), dtype)
+    assert rn.launches == before
+    xs = _randn(cuda, (512, 6), dtype, 12).t()  # non-contiguous rows: copied first
+    _close(programs.rmsnorm(xs, w), rn.rmsnorm_plain(xs, w), dtype)
+    assert rn.launches == before + 1
+    with pytest.raises(DeviceError, match="built for"):
+        programs.rmsnorm(x, w, blocks={"brows": 16})
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,c,d,f", [(4, 8, 256, 128), (3, 64, 128, 256), (2, 13, 96, 40)])
+def test_moe_gemm_writes_the_other_output_type_and_copies_strided_operands(cuda, dtype, e, c,
+                                                                            d, f):
+    out = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    x, w = _randn(cuda, (e, c, d), dtype, 13), _randn(cuda, (e, d, f), dtype, 14, d ** -0.5)
+    before = moe_k.launches
+    got = programs.moe_gemm(x, w, out_dtype=out)
+    assert moe_k.launches == before + 1 and got.dtype == out
+    _close(got, moe_k.moe_gemm_plain(x, w, out), out)
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)  # strided: copied first
+    _close(programs.moe_gemm(x, wt), moe_k.moe_gemm_plain(x, wt), dtype)
+    assert moe_k.launches == before + 2
+    with pytest.raises(DeviceError, match="built for"):
+        programs.moe_gemm(x, w, blocks={"bc": 128})
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-12b", "qwen3-moe-235b-a22b"])
+def test_compiled_decode_tick_matches_legacy_on_the_card(cuda, arch):
+    """One compiled decode tick against the model API's tick on the same
+    weights, cache and per-slot positions (a wrapped gemma3 ring
+    included), with one kernel launch per bound graph node."""
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32",
+                              capacity_factor=8.0)
+    api = build_model(cfg, device=cuda)
+    eng = ServeEngine(api, batch_size=2, max_seq=32, device=cuda)
+    eng.load(api.init(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    _, cache = api.prefill(eng.params, {"tokens": prompts.to(cuda)}, api.cache_init(2, 32))
+    twin = {slot: {k: v.clone() for k, v in leaf.items()} for slot, leaf in cache.items()}
+    tok = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([20, 25], dtype=torch.int32, device=cuda)
+    want, want_cache = eng.legacy_decode_step(tok, twin, pos)
+    exe = eng.compiled_decode()
+    programs.reset_launch_counts()
+    got, got_cache = eng.decode_step(tok, cache, pos)
+    counts = programs.launch_counts()
+    _close(got, want, torch.float32)
+    for slot in want_cache:
+        for leaf in ("k", "v"):
+            _close(got_cache[slot][leaf], want_cache[slot][leaf], torch.float32)
+    nodes = exe.op_counts()
+    assert {k: counts[k] for k in nodes} == nodes, (counts, nodes)

@@ -152,8 +152,9 @@ def test_matmul_operand_checks():
         mm.check_operands(f32, torch.zeros(8, 8, dtype=torch.bfloat16), None)
     with pytest.raises(DeviceError, match="unit last stride"):
         mm.check_operands(f32, torch.zeros(8, 8).t(), None)
-    with pytest.raises(DeviceError, match="writes"):
-        mm.check_operands(f32, torch.zeros(8, 8), torch.bfloat16)
+    with pytest.raises(DeviceError, match="writes f32 or bf16"):
+        mm.check_operands(f32, torch.zeros(8, 8), torch.float16)
+    mm.check_operands(f32, torch.zeros(8, 8), torch.bfloat16)  # the kernel writes either type
     mm.check_operands(f32, torch.zeros(8, 8), None)
 
 

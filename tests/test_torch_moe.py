@@ -68,8 +68,9 @@ def test_moe_gemm_operand_checks():
         moe_k.check_operands(x, torch.zeros(3, 16, 24), None)
     with pytest.raises(DeviceError, match="share"):
         moe_k.check_operands(x, w.to(torch.bfloat16), None)
-    with pytest.raises(DeviceError, match="writes"):
-        moe_k.check_operands(x, w, torch.bfloat16)
+    with pytest.raises(DeviceError, match="writes f32 or bf16"):
+        moe_k.check_operands(x, w, torch.float16)
+    moe_k.check_operands(x, w, torch.bfloat16)  # the kernel writes either type
     with pytest.raises(DeviceError, match="contiguous"):
         moe_k.check_operands(x, torch.zeros(2, 24, 16).transpose(1, 2), None)
     with pytest.raises(DeviceError, match="aligned"):

@@ -22,6 +22,7 @@ import torch
 from repro_torch.axe.program import stream_of
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels import moe_gemm as moe_k
 from repro_torch.kernels import programs
 from repro_torch.models import moe
@@ -48,7 +49,7 @@ def stream(x, w, splits, stages):
 
     def run():
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, splits, kchunk, stages,
-                stream_of(x))
+                DTYPE_CODES[out.dtype], stream_of(x))
         if rc:
             raise _build.KernelError(_build.error_string("moe_gemm", rc))
     return out, run

@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 HERE = Path(__file__).resolve().parent
-FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py")
+FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
+         "test_torch_compile.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -51,6 +52,12 @@ TARGETS = {
                                                 "MoE decode_step, batch-1 per slot"),
     "test_moe_prefill_and_decode_bf16": ("models/transformer.py",
                                          "MoE prefill + decode_step, bf16"),
+    "test_compiled_score_matches_jax_executable": (
+        "axe/compile.py", "model_executable (mesh=None), ServeEngine.score"),
+    "test_compiled_score_bf16_moe_matches_the_jax_model": (
+        "axe/compile.py", "transformer.lm_forward, MoE bf16"),
+    "test_compiled_decode_step_matches_jax_at_per_slot_positions": (
+        "axe/compile.py", "decode_executable (mesh=None), ServeEngine.decode_step"),
 }
 
 

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.axe.program import stream_of
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels import matmul as mm
 from torch_tile_splits import time_ms
 
@@ -46,7 +47,7 @@ def skinny(a, b, splits, stages):
 
     def run():
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0), b.stride(0), n,
-                1, splits, kchunk, stages, stream_of(a))
+                DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype], splits, kchunk, stages, stream_of(a))
         if rc:
             raise _build.KernelError(_build.error_string("matmul", rc))
     return c, run

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.axe.program import stream_of
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels import matmul as mm
 
 # M = 4 x 128 prompt tokens; (k, n): qwen3-4b q, k|v, o, gate|up, down;
@@ -61,7 +62,7 @@ def wgmma(a, b, splits):
 
     def run():
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), ws.data_ptr(), m, n, k, a.stride(0),
-                b.stride(0), n, splits, chunk * bk, stream_of(a))
+                b.stride(0), n, splits, chunk * bk, DTYPE_CODES[c.dtype], stream_of(a))
         if rc:
             raise _build.KernelError(_build.error_string("matmul", rc))
     return c, run
