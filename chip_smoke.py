@@ -26,14 +26,24 @@ the dense path, qwen3-4b:
    version on the same CUDA tensors, then timed beside the plain
    version and a one-call PyTorch yardstick (CUDA events, L2 flushed
    before every launch); B3 also at qwen3-4b's heads over one 2048-token
-   sequence, not a path shape, where it is bound by operations;
+   sequence, not a path shape, where it is bound by operations; then B1
+   with a fused epilogue chain (``phase_epilogue``): qwen3-4b's fused
+   decode products (o-proj + add, down + add, up + swiglu) on the skinny
+   route with several K splits, the same at 512 rows on wgmma, a 512-row
+   product that takes split-K through ``splitk_reduce``, starcoder2-7b's
+   up + gelu, a ragged f32 case on the tiled route and an extra that is
+   not row-contiguous, each held against ``matmul_epilogue_plain`` and
+   timed fused, as the unfused pair (kernel + torch op), as the library
+   pair (``torch.matmul`` + op), as one library call where one computes
+   it (``torch.addmm``), with the extras' bytes in its bound;
 4. depth 2 — qwen3-4b at full width with 2 layers, bf16, weights from a
    seed on the CPU: prefill + 3 decode steps on the CPU (plain
    versions) and on the card (kernels), logits compared; then, on the
    card with one set of weights, the compiled path (``axe.compile``:
    ``ServeEngine.score`` of the prompts and 3 compiled decode ticks)
    against the legacy one (the model API's prefill and 3 ticks fed the
-   same tokens), logits compared (``phase_compiled_depth2``);
+   same tokens), logits compared (``phase_compiled_depth2``), and the
+   compiled path with ``fuse=True`` against it (``phase_fused_depth2``);
 5. full    — qwen3-4b at full width and depth (36 layers, bf16, random
    weights from a seed on the card) through ``ServeEngine.generate``
    with its decode ticks through the model API (``decode_mode="legacy"``):
@@ -54,30 +64,61 @@ the dense path, qwen3-4b:
    launches once per tick: B1 per 2-D ``matmul``, B2 per ``norm`` and
    qk-normed select, B4 per ``decode_attention``, B5 per rank-3
    ``matmul``), and a compiled ``score`` of the prompts with one launch
-   per kernel-bound node (B3 once per ``attention`` node);
+   per kernel-bound node (B3 once per ``attention`` node); then the fused
+   ticks (``phase_fused_full``, ``fuse=True``): plan entries per tick, one
+   B1 launch per ``matmul`` node, every fused matmul chain run inside B1
+   (its launch counter per tick), torch's elementwise kernels per tick
+   under the profiler, the greedy stream against the unfused one, device
+   busy and idle share, and the wall per tick over ``WALL_PAIRS``
+   alternated fused / unfused ``generate`` runs, and a fused ``score``;
+6. batcher — ``ContinuousBatcher`` on that engine: a seeded trace of 16
+   requests (prompts of 16-128 tokens, 8-32 new tokens, arrivals 0-3
+   steps apart) on 4 slots, greedy, the slot and page invariants after
+   every step, each request's tokens against a batch-1 ``generate`` of
+   its prompt (a divergence fails unless the batch-1 run's top-2 logit
+   gap there is within ``LOGIT_TOL``), then the same trace with
+   ``offload=True`` and a pool small enough to page requests out to the
+   host, whose tokens must equal the first run's;
 
 the MoE path, qwen3-moe-235b-a22b at full width:
 
-6. kernels — B5 (moe_gemm) at the four expert-GEMM shapes of the path
+7. kernels — B5 (moe_gemm) at the four expert-GEMM shapes of the path
    in bf16 on full random buffers and one in f32, at the decode gate|up
    and down on a capacity buffer as ``local_dispatch`` fills it for a
    4-token tick (its live experts counted; the bound counts the live
    experts' weights only), and B1-B4 at the path's own shapes (d 4096,
    q 8192 wide, 4 kv heads, 16 query rows per kv head), held and timed
    as in phase 3 (B5's yardstick: one ``torch.bmm``);
-7. depth 2 — 2 layers, bf16, weights from a seed drawn on the card and
+8. depth 2 — 2 layers, bf16, weights from a seed drawn on the card and
    copied to the CPU: prefill + 3 decode steps on both, logits
    compared, the share of (token, choice) expert routings on which card
    and CPU agree, and the logits of the CPU routed to the card's expert
    choices compared (``phase_depth2`` says why); then compiled against
    legacy on the card as in phase 4, with the same matched-routing rule
    and the share of routings on which the two modes agree;
-8. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
+9. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
    as phase 5, launch, wgmma and bulk-copy counters read and checked
    around that one run as in phase 5, and every bf16 B5 launch counted
    by B5's expert-stream (capacity <= 8) or wgmma (larger) counter; then
-   the compiled ticks and score as in phase 5.
+   the compiled ticks and score as in phase 5;
+
+the SSM path, mamba2-2.7b at full width and depth (64 layers):
+
+10. kernels — B1 and B2 at every shape its mixer gives them, as phase 3;
+11. depth 2 — card vs CPU as phase 4;
+12. full   — ``generate`` with the model API's ticks (B1 and B2 launched,
+    no attention or expert kernel), then compiled and fused compiled
+    ticks (launches per tick = decode-graph nodes, chains in B1), greedy
+    streams compared, device busy, peak memory; then the batcher as in
+    phase 6 on 8 requests;
+
+the hybrid family:
+
+13. jamba  — jamba-1.5-large-398b at smoke width (7 SSD + 1 attention
+    layers, a MoE FFN in each; full width holds 19.3 GB of experts a
+    layer and no 8-layer period fits one card): card against CPU
+    (greedy tokens, ``score`` logits), fused against unfused.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -100,6 +141,11 @@ ROOT = Path(__file__).resolve().parent
 
 ARCH = "qwen3-4b"
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+SSM_ARCH = "mamba2-2.7b"
+# requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
+BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
+# phases of the run
+STEPS = 13
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 # generate runs per decode mode, alternated, for the two modes' wall spread
@@ -120,6 +166,8 @@ REPLACES = {
     "flash_attention/decode": "src/repro/kernels/flash_attention.py:224",
     "moe_gemm/expert_gemm": "src/repro/kernels/moe_gemm.py:70",
 }
+#: B1's fused epilogue: the `fused` branch of the TPU kernel's body `_mac`
+EPILOGUE_REPLACES = "src/repro/kernels/matmul.py:52"
 SOURCES = {
     "matmul/tile": "src/repro_torch/csrc/matmul.cu",
     "rmsnorm/rows": "src/repro_torch/csrc/rmsnorm.cu",
@@ -338,6 +386,17 @@ def kernel_cases(cfg, torch, F, device):
             nbytes=(live * k * n + e * c * (k + n)) * size, flops=2.0 * rows * k * n))
 
     bf16, f32 = torch.bfloat16, torch.float32
+    if cfg.family == "ssm":  # mamba2: the mixer's projections and norms, no attention
+        di, n, hs = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        for rows, when in ((t, "prefill"), (BATCH, "decode")):
+            for label, k, nn in (("x|z", d, di), ("B|C", d, n), ("dt", d, hs), ("out", di, d)):
+                matmul_case(f"{when} {label}", rows, k, nn, bf16)
+            rmsnorm_case(f"{when} norm", rows, d, bf16)
+            rmsnorm_case(f"{when} gate norm", rows, di, bf16)
+        matmul_case("lm_head", BATCH, d, v, bf16)
+        matmul_case("prefill x|z", t, d, di, f32)
+        rmsnorm_case("prefill gate norm", t, di, f32)
+        return cases
     ffn = [] if cfg.is_moe else [("gate|up", d, ff), ("down", ff, d)]
     for label, m, k, n in [
         ("prefill q", t, d, h * hd), ("prefill k|v", t, d, kv * hd),
@@ -881,19 +940,7 @@ def phase_compiled_full(cfg, torch, device, run, legacy):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
 
-    tick_launches = dict.fromkeys(programs.launch_counts(), 0)
-    ticks = 0
-    compiled_step = engine.decode_step
-
-    def counted_step(tok, cache, pos):
-        nonlocal ticks
-        out, delta = launch_deltas(programs, lambda: compiled_step(tok, cache, pos))
-        for k, n in delta.items():
-            tick_launches[k] += n
-        ticks += 1
-        return out
-
-    engine.decode_step = counted_step
+    tick_launches, counted = counted_ticks(engine, programs)
     programs.reset_launch_counts()
     try:
         out = engine.generate(prompts, NEW)
@@ -904,6 +951,7 @@ def phase_compiled_full(cfg, torch, device, run, legacy):
     check(out.shape == (BATCH, NEW), f"compiled tokens {out.shape} != {(BATCH, NEW)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "compiled token ids out of range")
     nodes = dexe.op_counts()
+    ticks = counted[0]
     check(ticks == NEW - 1, f"{ticks} compiled decode ticks, not {NEW - 1}")
     want = {k: n * ticks for k, n in nodes.items()}
     check(tick_launches == want,
@@ -1053,6 +1101,592 @@ def check_one_launch_per_skinny_product(torch, programs, mm, step) -> str:
 
 
 # ---------------------------------------------------------------------------
+# B1's fused epilogue: the chains the fusion passes hand it
+# ---------------------------------------------------------------------------
+
+#: the chains of the cases below (-1: the chain value, i: extra i), as
+#: ``axe.passes`` builds them: o-proj / down + add, up + swiglu, up + gelu
+EPI_CHAINS = {"add": (("add", (-1, 0)),), "swiglu": (("swiglu", (0, -1)),),
+              "gelu": (("gelu", (-1,)),)}
+#: the function each chain computes, as the unfused graph runs it
+EPI_OPS = {"add": lambda F, y, x: y + x, "swiglu": lambda F, y, x: F.silu(x) * y,
+           "gelu": lambda F, y, x: F.gelu(y, approximate="tanh")}
+
+
+def epilogue_cases(torch, F, device):
+    """B1 with a fused chain: qwen3-4b's fused decode products on the
+    skinny route with several K splits (o-proj + add, down + add, up +
+    swiglu), the same three at 512 rows on wgmma and, since none of those
+    three grids (80, 80, 304 tiles) is under one wave, qwen3-4b's k|v
+    shape + add, which takes split-K through ``splitk_reduce``;
+    starcoder2-7b's up + gelu (decode), a ragged f32 case on the tiled
+    route, and an extra whose rows are not unit-strided (copied first).
+    Each case: the fused call, ``matmul_epilogue_plain``, the unfused pair
+    (kernel + torch op), the library pair (``torch.matmul`` + op), one
+    library call where one computes the same function (``torch.addmm``
+    for add), and the bytes of A, B, C and the extras."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import programs
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if torch.device(device).type == "cuda" else 132)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    cases = []
+
+    def case(label, m, k, n, fn, dtype=torch.bfloat16, *, transposed_extra=False):
+        a, b = randn((m, k), dtype), randn((k, n), dtype, k ** -0.5)
+        steps = EPI_CHAINS[fn]
+        x = randn((n, m), dtype).t() if transposed_extra else randn((m, n), dtype)
+        extras = (x,) if any(o >= 0 for _, ops in steps for o in ops) else ()
+        epi = programs.Epilogue(fn, steps, extras)
+        op = EPI_OPS[fn]
+        size = a.element_size()
+        kern = b1_kernel(mm, a, b, n_sm)
+        cases.append(dict(
+            kernel="matmul/tile", epilogue=fn, label=f"{label} {m}x{k}x{n} + {fn}", dtype=dtype,
+            cuda_kernel=f"{kern}, epilogue {fn} in the kernel", split_k="splitk_reduce" in kern,
+            run=lambda: programs.matmul(a, b, epilogue=epi),
+            plain=lambda: mm.matmul_epilogue_plain(a, b, epi),
+            unfused=lambda: op(F, programs.matmul(a, b), x),
+            library_pair=lambda: op(F, torch.matmul(a, b), x),
+            library=(lambda: torch.addmm(x, a, b)) if fn == "add" else None,
+            nbytes=(m * k + k * n + m * n) * size + sum(e.numel() * e.element_size()
+                                                      for e in extras),
+            flops=2.0 * m * n * k))
+
+    d, ff = 2560, 9728  # qwen3-4b
+    for rows, route in ((BATCH, "decode"), (BATCH * PROMPT, "prefill")):
+        case(f"{route} o-proj", rows, 4096, d, "add")
+        case(f"{route} down", rows, ff, d, "add")
+        case(f"{route} up", rows, d, ff, "swiglu")
+    case("prefill k|v shape (split-K)", BATCH * PROMPT, d, 1024, "add")
+    case("starcoder2-7b decode up", BATCH, 4608, 18432, "gelu")
+    case("ragged f32 (tiled)", 37, 83, 45, "add", torch.float32)
+    case("decode o-proj, transposed extra", BATCH, 4096, d, "add", transposed_extra=True)
+    return cases
+
+
+def phase_epilogue(torch, F, device):
+    """Every case of :func:`epilogue_cases` held against
+    ``matmul_epilogue_plain`` within ``TOL`` and timed: fused, unfused
+    pair, library pair, plain; at least one case takes split-K."""
+    from repro_torch.kernels import matmul as mm
+
+    timer = Timer(torch, device)
+    rows = []
+    cases = epilogue_cases(torch, F, device)
+    check(any(c["split_k"] for c in cases), "no epilogue case takes wgmma's split-K")
+    for c in cases:
+        dtype = str(c["dtype"]).removeprefix("torch.")
+        before = mm.epilogue_launches
+        got = c["run"]()
+        torch.cuda.synchronize()
+        check(mm.epilogue_launches == before + 1,
+              f"{c['label']}: the chain did not run inside the kernel")
+        want = c["plain"]()
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOL[dtype]
+        check(bool(torch.allclose(got.float(), want.float(), **tol)),
+              f"matmul/tile + epilogue {c['label']} {dtype}: max |diff| {err} outside {tol}")
+        ms, plain_ms = timer(c["run"]), timer(c["plain"])
+        unfused_ms, pair_ms = timer(c["unfused"]), timer(c["library_pair"])
+        lib_ms = timer(c["library"]) if c["library"] else None
+        b_ms, b_by = bound_ms(c["nbytes"], c["flops"], dtype)
+        rows.append(dict(kernel=c["kernel"], epilogue=c["epilogue"], shape=c["label"],
+                         dtype=dtype, cuda_kernel=c["cuda_kernel"], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, unfused_pair_ms=unfused_ms, library_pair_ms=pair_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"  matmul/tile + epi:{c['epilogue']:<7} {c['label']:<44} {dtype:<8} "
+            f"[{c['cuda_kernel']}] max|d| {err:.3g}  fused {ms:.4f} ms  unfused pair "
+            f"{unfused_ms:.4f}  library pair {pair_ms:.4f}"
+            + (f"  library (addmm) {lib_ms:.4f}" if lib_ms is not None else "")
+            + f"  plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})")
+    return rows
+
+
+class EpilogueProbe:
+    """Counts, by chain tag, the ``programs.matmul`` calls that hand B1 a
+    chain it runs in the kernel (on the card, :func:`epilogue_fits`)."""
+
+    def __init__(self, programs, mm):
+        self.programs, self.mm = programs, mm
+        self.tags = {}
+
+    def __enter__(self):
+        self.saved = matmul = self.programs.matmul
+
+        def counted(a, b, **kw):
+            epi = kw.get("epilogue")
+            if epi is not None and a.is_cuda and self.mm.epilogue_fits(epi, a.shape[0], b.shape[1]):
+                self.tags[epi.tag] = self.tags.get(epi.tag, 0) + 1
+            return matmul(a, b, **kw)
+
+        self.programs.matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.programs.matmul = self.saved
+
+
+# ---------------------------------------------------------------------------
+# the fused compiled path (axe.passes + B1's epilogue), the continuous
+# batcher, the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+#: name fragments of torch's own elementwise kernels (add, mul, silu, ...)
+TORCH_ELEMENTWISE = ("elementwise_kernel",)
+
+
+def elementwise_launches(torch, fn) -> int:
+    """The most torch elementwise kernel launches the profiler saw in one
+    call of ``fn`` over three profiled calls (it may drop a record, never
+    add one)."""
+    seen = launches_seen(torch, fn)
+    return max(sum(n for name, n in c.items() if any(f in name for f in TORCH_ELEMENTWISE))
+               for c in seen)
+
+
+def phase_fused_depth2(cfg, torch, device):
+    """``cfg`` cut to 2 layers on the card, one set of weights: the
+    compiled ``score`` and 3 compiled decode ticks with ``fuse=True``
+    against the same with ``fuse=False``, fed the same tokens, within
+    ``LOGIT_TOL``."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
+    api = build_model(cfg2, device=device)
+    engine = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device)
+    engine.load(api.init(SEED))
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 1)).to(device)
+    out, fed = {}, None
+    for fuse in (False, True):
+        engine.fuse = fuse
+        logits = [engine.score(prompts)[:, -1].float().cpu()]
+        _, cache = api.prefill(engine.params, {"tokens": prompts}, api.cache_init(BATCH, MAX_SEQ))
+        toks = fed or []
+        for i in range(DEPTH2_DECODE):
+            if fed is None:
+                toks.append(logits[-1].argmax(-1))
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device=device)
+            lg, cache = engine.decode_step(toks[i].to(device).to(torch.int32), cache, pos)
+            logits.append(lg.float().cpu())
+        fed = toks
+        out[fuse] = torch.stack(logits)
+    err = float((out[True] - out[False]).abs().max())
+    ok = bool(torch.allclose(out[True], out[False], **LOGIT_TOL))
+    log(f"  depth-2 logits, compiled fused vs compiled unfused (score + {DEPTH2_DECODE} ticks), "
+        f"both on the card: max |diff| {err:.4g} (tolerance {LOGIT_TOL}"
+        f"{'' if ok else ': outside'})")
+    check(bool(torch.isfinite(out[True]).all()), "fused depth-2 logits: non-finite")
+    check(ok, f"fused vs unfused depth-2 logits: max |diff| {err} outside {LOGIT_TOL}")
+    return err
+
+
+def counted_ticks(engine, programs):
+    """Wrap ``engine.decode_step`` (the caller deletes the wrapper) so
+    each tick's kernel launches are read around it; returns (per-kernel
+    totals, a one-element list holding the tick count)."""
+    totals = dict.fromkeys(programs.launch_counts(), 0)
+    ticks = [0]
+    step = engine.decode_step
+
+    def counted(tok, cache, pos):
+        out, delta = launch_deltas(programs, lambda: step(tok, cache, pos))
+        for k, n in delta.items():
+            totals[k] += n
+        ticks[0] += 1
+        return out
+
+    engine.decode_step = counted
+    return totals, ticks
+
+
+def phase_fused_full(cfg, torch, device, run, legacy):
+    """The engine, weights and traffic of ``phase_full`` with ``fuse=True``:
+    plan entries and nodes per tick against the unfused graph, one B1
+    launch per ``matmul`` node per tick, every fused matmul chain run in
+    B1 (its launch counter per tick), torch's elementwise kernels per tick
+    under the profiler (the absorbed add / swiglu nodes leave none), the
+    greedy stream against the unfused compiled one, device busy and idle
+    share, and each mode's wall per tick over ``WALL_PAIRS`` alternated
+    fused / unfused ``generate`` runs; then a fused ``score``."""
+    import numpy as np
+
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import programs
+
+    engine, prompts = run["engine"], run["prompts"]
+    engine.decode_mode, engine.fuse = "compiled", False
+    uexe = engine.compiled_decode()
+    engine.generate(prompts, 2)
+    unfused_out = engine.generate(prompts, NEW)
+    engine.fuse = True
+    t0 = time.perf_counter()
+    fexe = engine.compiled_decode()
+    solve_s = time.perf_counter() - t0
+    rep = fexe.fusion_report
+    chains = sum(1 for st in fexe._steps if st.chain is not None)
+    log(f"  fused decode graph: {len(fexe.graph.nodes)} nodes, {len(fexe.plan.entries)} plan "
+        f"entries per tick (unfused {len(uexe.graph.nodes)}, {len(uexe.plan.entries)}); "
+        f"{len(rep.patterns_fired)} patterns fired, {chains} matmul chains handed to B1; "
+        f"solve + compile {solve_s:.3f} s")
+    engine.generate(prompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    totals, ticks = counted_ticks(engine, programs)
+    programs.reset_launch_counts()
+    try:
+        with EpilogueProbe(programs, mm) as probe:
+            out = engine.generate(prompts, NEW)
+    finally:
+        del engine.decode_step
+    fused_launches = mm.epilogue_launches
+    timing = engine.last_timing
+    nodes = fexe.op_counts()
+    check(ticks[0] == NEW - 1, f"{ticks[0]} fused ticks, not {NEW - 1}")
+    check(totals == {k: n * ticks[0] for k, n in nodes.items()},
+          f"launches around the fused ticks {totals} != graph nodes {nodes} x {ticks[0]}")
+    check(nodes == uexe.op_counts(), f"the fused tick binds {nodes}, the unfused {uexe.op_counts()}")
+    matmuls = sum(1 for n in uexe.graph.nodes if n.kind == "matmul")
+    check(nodes["matmul/tile"] == matmuls, f"{nodes['matmul/tile']} B1 launches per fused tick "
+                                           f"for {matmuls} matmul nodes")
+    check(fused_launches == chains * ticks[0] == sum(probe.tags.values()),
+          f"B1 ran {fused_launches} chains in its kernel over {ticks[0]} ticks; the graph hands it "
+          f"{chains} a tick; the probe counted {probe.tags}")
+    diff = np.argwhere(out != unfused_out)
+    streams = "equal" if not len(diff) else (
+        f"first differ at new token {int(diff[:, 1].min())}; {len(diff)} of {out.size} differ")
+    stats = dict(fused_plan_entries=len(fexe.plan.entries),
+                 unfused_plan_entries=len(uexe.plan.entries), fused_epilogue_launches=fused_launches,
+                 fused_nodes=len(fexe.graph.nodes), unfused_nodes=len(uexe.graph.nodes),
+                 fused_chains_per_tick=chains, fused_b1_per_tick=nodes["matmul/tile"],
+                 fused_decode_ms_per_step=timing["decode_s"] * 1e3 / timing["decode_steps"],
+                 fused_streams_equal_unfused=not len(diff), epilogue_tags=probe.tags)
+    log(f"  fused generate: {stats['fused_decode_ms_per_step']:.3f} ms/tick; launches per tick "
+        f"{nodes} (B1 {nodes['matmul/tile']} = matmul nodes); chains run in B1 per tick "
+        f"{chains}, by tag {({k: v // ticks[0] for k, v in probe.tags.items()})}; greedy "
+        f"stream vs unfused compiled: {streams}")
+
+    cache = engine.api.cache_init(BATCH, MAX_SEQ)
+    engine.api.prefill(engine.params, {"tokens": prompts}, cache)
+    tok = torch.from_numpy(out[:, 0]).to(device)
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=device)
+    ew = {}
+    for fuse in (False, True):
+        engine.fuse = fuse
+        ew[fuse] = elementwise_launches(torch, lambda: engine.decode_step(tok, cache, pos))
+    # an absorbed add ran one torch kernel, a swiglu two (silu, mul)
+    absorbed = sum(2 if st.chain.tag == "swiglu" else 1 for st in fexe._steps
+                   if st.chain is not None)
+    stats.update(elementwise_per_tick_unfused=ew[False], elementwise_per_tick_fused=ew[True],
+                 elementwise_absorbed_expected=absorbed)
+    log(f"  torch elementwise kernels per tick (profiler, most of 3 sessions): unfused {ew[False]}, "
+        f"fused {ew[True]}; the absorbed add and swiglu nodes ran {absorbed} (an add one, a "
+        f"swiglu silu + mul)")
+    check(ew[False] - ew[True] >= absorbed // 2,
+          f"fused tick left {ew[True]} elementwise kernels against {ew[False]} unfused")
+    engine.fuse = True
+    busy, top = device_busy_ms(torch, lambda: engine.decode_step(tok, cache, pos))
+    stats["fused_decode_device_busy_ms_per_step"] = busy
+    engine.fuse = False
+    ubusy, _ = device_busy_ms(torch, lambda: engine.decode_step(tok, cache, pos))
+    stats["unfused_decode_device_busy_ms_per_step"] = ubusy
+    log(f"  fused tick: device busy {busy:.3f} ms (unfused {ubusy:.3f}); by kernel: {top}")
+
+    walls = {"fused": [], "unfused": []}
+    for i in range(WALL_PAIRS):
+        for mode in ("fused", "unfused")[::1 if i % 2 == 0 else -1]:
+            engine.fuse = mode == "fused"
+            engine.generate(prompts, NEW)
+            timing = engine.last_timing
+            walls[mode].append(timing["decode_s"] * 1e3 / timing["decode_steps"])
+    for mode, ms in walls.items():
+        stats[f"{mode}_decode_ms_per_step_alternated"] = ms
+    ratios = [f / u for f, u in zip(walls["fused"], walls["unfused"], strict=True)]
+    med = {m: statistics.median(v) for m, v in walls.items()}
+    log(f"  decode wall per tick, {WALL_PAIRS} alternated generate runs per mode: fused "
+        f"{[round(x, 3) for x in walls['fused']]} (median {med['fused']:.3f}, idle share "
+        f"{1 - busy / med['fused']:.3f}), unfused {[round(x, 3) for x in walls['unfused']]} "
+        f"(median {med['unfused']:.3f}, idle share {1 - ubusy / med['unfused']:.3f}); fused / "
+        f"unfused per pair {[round(x, 3) for x in ratios]}, median "
+        f"{statistics.median(ratios):.3f}")
+    stats["fused_over_unfused_median_ratio"] = statistics.median(ratios)
+
+    engine.fuse = True
+    fwd = engine.compiled_forward(PROMPT)
+    engine.score(prompts)
+    logits, score_launches = launch_deltas(programs, lambda: engine.score(prompts))
+    check(score_launches == fwd.op_counts(), f"fused score launched {score_launches}, the fused "
+                                             f"forward graph binds {fwd.op_counts()}")
+    engine.fuse = False
+    ref = engine.score(prompts)
+    err = float((logits.float() - ref.float()).abs().max())
+    check(bool(torch.allclose(logits.float(), ref.float(), **LOGIT_TOL)),
+          f"fused vs unfused score: max |diff| {err} outside {LOGIT_TOL}")
+    log(f"  fused score {BATCH}x{PROMPT}: launches {score_launches}; against the unfused score "
+        f"max |diff| {err:.4g} ({len(fwd.plan.entries)} plan entries, unfused "
+        f"{len(engine.compiled_forward(PROMPT).plan.entries)})")
+    return stats
+
+
+def batcher_trace(cfg, n, seed):
+    """``n`` requests: prompt lengths 16-``PROMPT`` (128), 8-``NEW`` (32)
+    new tokens, arrivals 0-3 steps apart, token ids from a seeded
+    generator."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    reqs, t = [], 0
+    for uid in range(1, n + 1):
+        reqs.append(Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size,
+                                                         int(rng.integers(16, PROMPT + 1))),
+                            max_new_tokens=int(rng.integers(8, NEW + 1)), arrival=t))
+        t += int(rng.integers(0, 4))
+    return reqs
+
+
+def batcher_invariants(bat) -> None:
+    live = [s.uid for s in bat.slots if s.uid is not None]
+    leased = bat.pool.leased_pages()
+    pages = [p for ps in leased.values() for p in ps]
+    check(len(live) == len(set(live)) and set(leased) == set(live) and
+          len(pages) == len(set(pages)) and bat.pool.available + len(pages) == bat.pool.n_pages,
+          f"batcher step {bat.step_count}: slots {live}, leases {leased}, "
+          f"{bat.pool.available} of {bat.pool.n_pages} pages free")
+
+
+def run_batcher(bat, reqs):
+    """Drive ``bat`` over ``reqs`` with the invariants after every step;
+    returns (results, wall seconds)."""
+    for r in reqs:
+        bat.submit(r)
+    torch_sync = bat.engine._sync
+    t0 = time.perf_counter()
+    while True:
+        alive = bat.step()
+        batcher_invariants(bat)
+        if not alive:
+            break
+    torch_sync()
+    check(bat.pool.available == bat.pool.n_pages and not bat.pool.host_leased(),
+          "the batcher leaked pages")
+    return dict(bat.results), time.perf_counter() - t0
+
+
+def phase_batcher(cfg, torch, device, engine, n_requests, *, seed=SEED + 5):
+    """``ContinuousBatcher`` over ``engine`` (its slots, ``max_seq``,
+    greedy): a seeded trace of ``n_requests``, the slot / page invariants
+    after every step; each request's tokens against a batch-1
+    ``generate`` of its prompt, a divergence failing unless the top-2
+    logit gap of the batch-1 run at that position is within
+    ``LOGIT_TOL``; then the same trace with ``offload=True`` and a pool
+    small enough to page requests out, whose tokens must equal the first
+    run's."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.engine import ServeEngine
+
+    reqs = batcher_trace(cfg, n_requests, seed)
+    bat = ContinuousBatcher(engine)
+    results, wall = run_batcher(bat, reqs)
+    n_tok = sum(len(r.tokens) for r in results.values())
+    done = sorted(r.finished - r.submitted for r in results.values())
+    stats = dict(batcher_requests=len(reqs), batcher_steps=bat.step_count,
+                 batcher_tokens=n_tok, batcher_tokens_per_s=n_tok / wall,
+                 batcher_completion_steps_p50=float(np.percentile(done, 50)),
+                 batcher_completion_steps_p99=float(np.percentile(done, 99)))
+
+    api = engine.api
+    one = ServeEngine(api, batch_size=1, max_seq=engine.max_seq, device=device,
+                      fuse=engine.fuse)
+    one.load(engine.params)
+    diverged = []
+    for r in reqs:
+        want = one.generate(torch.as_tensor(r.prompt[None, :], device=device), r.max_new_tokens)[0]
+        got = results[r.uid].tokens
+        if (got == want).all():
+            continue
+        j = int(np.argmax(got != want))
+        cache = api.cache_init(1, engine.max_seq)
+        logits, cache = api.prefill(engine.params, {"tokens": torch.as_tensor(
+            r.prompt[None, :], device=device).long()}, cache)
+        for i in range(j):
+            logits, cache = api.decode_step(engine.params, torch.tensor(
+                [[int(want[i])]], device=device), cache, len(r.prompt) + i)
+        lg = logits[0, -1].float()
+        gap = float(lg[int(want[j])] - lg[int(got[j])])
+        bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * float(lg[int(want[j])].abs())
+        diverged.append((r.uid, j, gap))
+        log(f"  request {r.uid}: batcher and batch-1 generate part at new token {j} "
+            f"({int(got[j])} vs {int(want[j])}); top-2 logit gap there {gap:.4g} "
+            f"(bound {bound:.4g})")
+        check(gap <= bound, f"request {r.uid} diverges from batch-1 generate at token {j} by a "
+                            f"logit gap of {gap} > {bound}")
+    stats["batcher_divergences"] = diverged
+
+    per_req = max(bat.pool.pages_for(min(len(r.prompt) + r.max_new_tokens, engine.max_seq))
+                  for r in reqs)
+    two = ContinuousBatcher(engine, offload=True, n_pages=max(per_req, bat.pool.n_pages * 3 // 8))
+    off, off_wall = run_batcher(two, reqs)
+    outs = sum(1 for e in two.transfer_log if e[0] == "page_out")
+    check(outs > 0, f"the offload run ({two.pool.n_pages} pages) paged nothing out")
+    check(all((off[u].tokens == results[u].tokens).all() for u in results),
+          "offload run tokens differ from the first run's")
+    stats.update(batcher_offload_pages=two.pool.n_pages, batcher_page_outs=outs,
+                 batcher_transfer_bytes=two.transfer_bytes,
+                 batcher_offload_tokens_per_s=n_tok / off_wall)
+    log(f"  batcher {len(reqs)} requests on {bat.n_slots} slots (max_seq {engine.max_seq}): "
+        f"{bat.step_count} steps, {n_tok} tokens, {stats['batcher_tokens_per_s']:.1f} tokens/s, "
+        f"completion steps p50 {stats['batcher_completion_steps_p50']:.1f} / p99 "
+        f"{stats['batcher_completion_steps_p99']:.1f}; {len(diverged)} requests part from "
+        f"batch-1 generate within the near-tie rule; offload run ({two.pool.n_pages} pages): "
+        f"{outs} page-outs, {two.transfer_bytes} bytes moved, tokens equal")
+    return stats
+
+
+def phase_ssm_full(cfg, torch, device):
+    """An SSM config (mamba2) at full width and depth through
+    ``ServeEngine.generate``: the model API's ticks (launch counters read
+    around that run: B1 and B2, and no attention or expert kernel), then
+    the compiled ticks unfused and fused (launches per tick = decode-graph
+    nodes, the fused chains run in B1), greedy streams compared, device
+    busy per tick, peak memory."""
+    import numpy as np
+
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    log(f"  init {cfg.num_layers} layers ({cfg.param_count() / 1e9:.2f} B params) on the card: "
+        f"{time.perf_counter() - t0:.3f} s")
+    engine = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device,
+                         decode_mode="legacy")
+    engine.load(params)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED + 1))
+    engine.generate(prompts, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    programs.reset_launch_counts()
+    out = engine.generate(prompts, NEW)
+    counts = programs.launch_counts()
+    check(out.shape == (BATCH, NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{cfg.name} tokens {out.shape} wrong or out of range")
+    check(counts["matmul/tile"] > 0 and counts["rmsnorm/rows"] > 0,
+          f"{cfg.name}: B1 / B2 not launched on the main path: {counts}")
+    check(counts["flash_attention/attend"] == counts["flash_attention/decode"] ==
+          counts["moe_gemm/expert_gemm"] == 0, f"{cfg.name} launched kernels it has no use "
+                                                f"for: {counts}")
+    timing = engine.last_timing
+    stats = dict(prefill_ms=timing["prefill_s"] * 1e3,
+                 decode_ms_per_step=timing["decode_s"] * 1e3 / timing["decode_steps"],
+                 tokens_per_s=BATCH * NEW / (timing["prefill_s"] + timing["decode_s"]))
+    tok = torch.from_numpy(out[:, 0]).to(device)
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=device)
+    cache = api.cache_init(BATCH, MAX_SEQ)
+    api.prefill(params, {"tokens": prompts}, cache)
+    busy, top = device_busy_ms(torch, lambda: engine.legacy_decode_step(tok, cache, pos))
+    stats["decode_device_busy_ms_per_step"] = busy
+    log(f"  legacy generate {BATCH}x{PROMPT} -> {NEW}: prefill {stats['prefill_ms']:.2f} ms, "
+        f"decode {stats['decode_ms_per_step']:.3f} ms/tick (device busy {busy:.3f}), "
+        f"{stats['tokens_per_s']:.1f} tokens/s; launches {counts}; by kernel: {top}")
+    engine.decode_mode = "compiled"
+    for fuse in (False, True):
+        engine.fuse = fuse
+        label = "fused" if fuse else "unfused"
+        t0 = time.perf_counter()
+        exe = engine.compiled_decode()
+        solve_s = time.perf_counter() - t0
+        engine.generate(prompts, 2)
+        totals, ticks = counted_ticks(engine, programs)
+        programs.reset_launch_counts()
+        try:
+            got = engine.generate(prompts, NEW)
+        finally:
+            del engine.decode_step
+        nodes = exe.op_counts()
+        check(totals == {k: n * ticks[0] for k, n in nodes.items()},
+              f"{cfg.name} {label} ticks launched {totals}, graph nodes {nodes} x {ticks[0]}")
+        chains = sum(1 for st in exe._steps if st.chain is not None)
+        check(mm.epilogue_launches == chains * ticks[0] and (chains > 0) == fuse,
+              f"{cfg.name} {label}: {mm.epilogue_launches} chains in B1 over {ticks[0]} ticks, "
+              f"{chains} a tick in the graph")
+        timing = engine.last_timing
+        diff = np.argwhere(got != out)
+        busy, _ = device_busy_ms(torch, lambda: engine.decode_step(tok, cache, pos))
+        stats[f"compiled_{label}_decode_ms_per_step"] = timing["decode_s"] * 1e3 / timing[
+            "decode_steps"]
+        stats[f"compiled_{label}_decode_device_busy_ms_per_step"] = busy
+        stats[f"compiled_{label}_plan_entries"] = len(exe.plan.entries)
+        stats[f"compiled_{label}_streams_equal_legacy"] = not len(diff)
+        log(f"  compiled {label} generate: {stats[f'compiled_{label}_decode_ms_per_step']:.3f} "
+            f"ms/tick (device busy {busy:.3f}); {len(exe.plan.entries)} plan entries, solve + "
+            f"compile {solve_s:.3f} s; launches per tick {nodes}, chains in B1 {chains}; greedy "
+            f"stream vs legacy: "
+            + ("equal" if not len(diff) else f"first differ at new token {int(diff[:, 1].min())}"))
+    engine.fuse = False
+    stats["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    log(f"  peak memory over the legacy and compiled runs: "
+        f"{stats['max_memory_allocated_gib']:.2f} GiB")
+    return counts, stats, dict(engine=engine, prompts=prompts, out=out)
+
+
+def phase_jamba_smoke(torch, device):
+    """jamba's smoke width (8 layers: 7 SSD + 1 attention, a 4-expert MoE
+    FFN in each, f32, drop-free capacity) on the card against the CPU:
+    greedy ``generate`` tokens equal and ``score`` logits within 2e-4;
+    then fused against unfused compiled ticks and score on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = smoke_variant(get_config("jamba-1.5-large-398b"))
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    f32 = dict(rtol=2e-4, atol=2e-4)  # tests/test_compile.py's f32 tolerance
+    cpu_api = build_model(cfg, device="cpu")
+    params = cpu_api.init(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, 24),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    ref = ServeEngine(cpu_api, batch_size=BATCH, max_seq=64, device="cpu")
+    ref.load(params)
+    want, want_score = ref.generate(prompts, 8), ref.score(prompts)
+    api = build_model(cfg, device=device)
+    res = {}
+    for fuse in (False, True):
+        eng = ServeEngine(api, batch_size=BATCH, max_seq=64, device=device, fuse=fuse)
+        eng.load(tree_to(params, device))
+        res[fuse] = eng.generate(prompts, 8), eng.score(prompts.to(device)).float().cpu()
+    for fuse, (toks, score) in res.items():
+        err = float((score - want_score).abs().max())
+        log(f"  jamba smoke {'fused' if fuse else 'unfused'} on the card vs the CPU: tokens "
+            f"{'equal' if (toks == want).all() else 'differ'}, score max |diff| {err:.3g}")
+        check(bool((toks == want).all()), f"jamba smoke tokens (fuse={fuse}) differ from the CPU's")
+        check(bool(torch.allclose(score, want_score, **f32)),
+              f"jamba smoke score (fuse={fuse}) max |diff| {err} outside {f32}")
+    err = float((res[True][1] - res[False][1]).abs().max())
+    check(bool(torch.allclose(res[True][1], res[False][1], **f32)),
+          f"jamba smoke fused vs unfused score max |diff| {err}")
+    log(f"  jamba smoke fused vs unfused score on the card: max |diff| {err:.3g}")
+    return err
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1072,10 +1706,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/8] device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/{STEPS}] device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     secs = _build.build_all()
-    log(f"[2/8] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
+    log(f"[2/{STEPS}] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
     for src, text in _build.BUILD_LOG.items():
         entry = ""
         for line in text.splitlines():
@@ -1097,41 +1731,92 @@ def main() -> int:
 
     kernels, stats = [], {}
 
-    def path(step, cfg, *, init_on):
-        """Phases ``step`` .. ``step + 2`` on ``cfg``: its kernels, depth
-        2 card vs CPU, then ``generate`` at ``cfg``'s depth."""
-        log(f"[{step}/8] kernels at the main path's shapes ({cfg.name}):")
-        rows = phase_kernels(cfg, torch, F, device)
-        log(f"[{step + 1}/8] main path ({cfg.name}), depth {DEPTH2_LAYERS}, card vs CPU:")
-        phase_depth2(cfg, torch, device, init_on=init_on)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"  depth {DEPTH2_LAYERS}, compiled against legacy on the card:")
-        phase_compiled_depth2(cfg, torch, device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"[{step + 2}/8] main path ({cfg.name}), {cfg.num_layers} layers, legacy decode "
-            f"ticks:")
-        counts, stats[cfg.name], run = phase_full(cfg, torch, device)
-        log(f"  the same weights and traffic, compiled decode ticks and score:")
-        stats[cfg.name].update(phase_compiled_full(cfg, torch, device, run, stats[cfg.name]))
-        del run
-        gc.collect()
-        torch.cuda.empty_cache()
+    def add_rows(rows, cfg, counts, *, launches=None):
         kernels.extend(
-            {"name": f"{r['kernel']} [{cfg.name} {r['shape']}, {r['dtype']}]", "route": "cuda",
-             "cuda_kernel": r["cuda_kernel"],
-             "source": SOURCES[r["kernel"]], "replaces": REPLACES[r["kernel"]],
-             "launches": counts[r["kernel"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r["library_ms"]}
+            {"name": (f"{r['kernel']}+epi:{r['epilogue']}" if "epilogue" in r else r["kernel"])
+                     + f" [{cfg.name} {r['shape']}, {r['dtype']}]",
+             "route": "cuda", "cuda_kernel": r["cuda_kernel"],
+             "source": SOURCES[r["kernel"]] + (" (+ csrc/epilogue.cuh)" if "epilogue" in r else ""),
+             "replaces": EPILOGUE_REPLACES if "epilogue" in r else REPLACES[r["kernel"]],
+             "launches": counts[r["kernel"]] if launches is None else launches,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             **({"unfused_pair_ms": r["unfused_pair_ms"], "library_pair_ms": r["library_pair_ms"]}
+                if "epilogue" in r else {})}
             for r in rows)
 
-    path(3, get_config(ARCH), init_on="cpu")
-    # qwen3-moe-235b-a22b's 94 layers hold ~470 GB of bf16 weights; one
-    # 80 GB card holds ~14, and 8 (~42 GB) leave room for the run. The
-    # depth-2 weights (~10 GB) are drawn on the card, where it is quick.
-    path(6, dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS), init_on="card")
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def depth2(step, cfg, *, init_on, fused=False):
+        log(f"[{step}/{STEPS}] main path ({cfg.name}), depth {DEPTH2_LAYERS}, card vs CPU:")
+        phase_depth2(cfg, torch, device, init_on=init_on)
+        release()
+        if cfg.family == "ssm":
+            return
+        log(f"  depth {DEPTH2_LAYERS}, compiled against legacy on the card:")
+        phase_compiled_depth2(cfg, torch, device)
+        release()
+        if fused:
+            log(f"  depth {DEPTH2_LAYERS}, compiled fused against compiled unfused on the card:")
+            phase_fused_depth2(cfg, torch, device)
+            release()
+
+    # the dense path, qwen3-4b, with the fused ticks and the batcher
+    cfg = get_config(ARCH)
+    log(f"[3/{STEPS}] kernels at the main path's shapes ({cfg.name}):")
+    rows = phase_kernels(cfg, torch, F, device)
+    log("  B1 with a fused epilogue chain:")
+    epi_rows = phase_epilogue(torch, F, device)
+    depth2(4, cfg, init_on="cpu", fused=True)
+    log(f"[5/{STEPS}] main path ({cfg.name}), {cfg.num_layers} layers, legacy decode ticks:")
+    counts, stats[cfg.name], run = phase_full(cfg, torch, device)
+    log("  the same weights and traffic, compiled decode ticks and score:")
+    stats[cfg.name].update(phase_compiled_full(cfg, torch, device, run, stats[cfg.name]))
+    log("  the same weights and traffic, fused compiled ticks (fuse=True) and score:")
+    fused = phase_fused_full(cfg, torch, device, run, stats[cfg.name])
+    stats[cfg.name].update(fused)
+    log(f"[6/{STEPS}] ContinuousBatcher ({cfg.name}, {cfg.num_layers} layers, {BATCH} slots):")
+    stats[cfg.name].update(phase_batcher(cfg, torch, device, run["engine"], BATCHER_REQUESTS))
+    del run
+    release()
+    add_rows(rows, cfg, counts)
+    add_rows(epi_rows, cfg, counts, launches=fused["fused_epilogue_launches"])
+
+    # the MoE path, qwen3-moe-235b-a22b at full width: its 94 layers hold
+    # ~470 GB of bf16 weights; one 80 GB card holds ~14, and 8 (~42 GB)
+    # leave room for the run. The depth-2 weights (~10 GB) are drawn on
+    # the card, where it is quick.
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    log(f"[7/{STEPS}] kernels at the main path's shapes ({cfg.name}):")
+    rows = phase_kernels(cfg, torch, F, device)
+    depth2(8, cfg, init_on="card")
+    log(f"[9/{STEPS}] main path ({cfg.name}), {cfg.num_layers} layers, legacy decode ticks:")
+    counts, stats[cfg.name], run = phase_full(cfg, torch, device)
+    log("  the same weights and traffic, compiled decode ticks and score:")
+    stats[cfg.name].update(phase_compiled_full(cfg, torch, device, run, stats[cfg.name]))
+    del run
+    release()
+    add_rows(rows, cfg, counts)
+
+    # the SSM family, mamba2-2.7b at full width and depth (~5.4 GB)
+    cfg = get_config(SSM_ARCH)
+    log(f"[10/{STEPS}] kernels at the main path's shapes ({cfg.name}):")
+    rows = phase_kernels(cfg, torch, F, device)
+    depth2(11, cfg, init_on="cpu")
+    log(f"[12/{STEPS}] main path ({cfg.name}), {cfg.num_layers} layers: legacy, compiled and "
+        f"fused compiled ticks, then the ContinuousBatcher:")
+    counts, stats[cfg.name], run = phase_ssm_full(cfg, torch, device)
+    stats[cfg.name].update(phase_batcher(cfg, torch, device, run["engine"], SSM_BATCHER_REQUESTS))
+    del run
+    release()
+    add_rows(rows, cfg, counts)
+
+    # the hybrid family: jamba's 16 experts take 19.3 GB a layer at full
+    # width, so one card holds no whole 8-layer period; its smoke width runs
+    log(f"[13/{STEPS}] hybrid family (jamba-1.5-large-398b, smoke width) on the card:")
+    stats["jamba-smoke"] = {"fused_vs_unfused_score_max_abs_diff": phase_jamba_smoke(torch, device)}
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ layout into a callable. The compiler:
    programs where one matches — ``matmul`` to B1 (``matmul/tile``) and,
    with a rank-3 weight, to B5 (``moe_gemm/expert_gemm``), ``norm`` to
    B2, ``attention`` to B3, ``decode_attention`` to B4 — and torch
-   bodies otherwise.
+   bodies otherwise (the SSD mixer's ``ssm_mix`` / ``ssm_decode``
+   through ``models.ssm``, as the JAX package runs them outside any
+   Pallas kernel);
 3. **runs** the plan's redistributions between ops. In the mesh-free
    space (``PhysicalSpace(())``) every plan has none.
 
@@ -22,10 +24,18 @@ hand-written kernel and on CPU tensors runs its plain version (the
 device rule of ``axe.program``); ``__call__`` is :meth:`Executable.apply`.
 The backend's output shape is still checked against the plan's.
 
+``fuse=True`` rewrites the graph through ``axe.passes.fuse_graph``
+first and transfers the unfused solve's layout onto the rewrite. A
+fused node runs once per call: a 2-D matmul whose absorbed steps are
+elementwise hands the chain to B1 as an
+:class:`~repro_torch.axe.program.Epilogue` (in the kernel on the card);
+any other fused node runs its base backend and then each absorbed
+step's backend (:meth:`Executable._run_fused`). Either way it is
+resolved once, when the executable is built.
+
 Not in this slice, each refused with a :class:`CompileError` that names
 its roadmap item (``ROADMAP.md``): a concrete ``mesh`` and ``offload``
-(A14), ``fuse=True`` (A10), ``cotune`` (A11), and the ``ssm_mix`` /
-``ssm_decode`` / ``side_output`` backends (A13).
+(A14) and ``cotune`` (A11).
 
 ``model_inputs`` maps the port's model params (``models.transformer``
 layout: stacked super-blocks) onto graph inputs + the auxiliary tensors
@@ -42,7 +52,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.axe.graphs import GraphSpec
-from repro_torch.axe.propagate import LayoutPlan, OpNode, PlanEntry, epilogue_steps, step_node
+from repro_torch.axe.program import CHAIN, EPILOGUE_FNS, elementwise
+from repro_torch.axe.propagate import (
+    LayoutPlan,
+    OpNode,
+    PlanEntry,
+    compose_epilogue,
+    epilogue_steps,
+    step_node,
+)
 from repro_torch.axe.solve import SolveResult, evaluate_env, finalize_entries, solve
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace
 from repro_torch.core.scopes import Scope, scope
@@ -104,11 +122,12 @@ class ExecCtx:
     refuses the others)."""
 
     def __init__(self, node: OpNode, entry: PlanEntry, in_specs, aux, side, *,
-                 out_local: Tuple[int, ...]):
+                 out_local: Tuple[int, ...], out_spec: Optional[AxeSpec] = None):
         self.node = node
         self.entry = entry
         self.in_specs = in_specs
-        self.out_spec: AxeSpec = entry.out_spec
+        #: the entry's output spec, or a fused segment's own
+        self.out_spec: AxeSpec = out_spec or entry.out_spec
         #: the output's local (per-card) shape, as the plan says
         self.out_local = out_local
         self._aux = aux
@@ -158,27 +177,12 @@ def _exec_norm(ctx: ExecCtx, x):
     return programs.rmsnorm(x, w)
 
 
-def _activation(fn: str, xs):
-    """The elementwise ops of the graphs; gelu in its tanh form, as
-    ``jax.nn.gelu`` defaults to."""
-    if fn == "add":
-        out = xs[0]
-        for x in xs[1:]:
-            out = out + x
-        return out
-    if fn == "swiglu":
-        return F.silu(xs[0]) * xs[1]
-    if fn == "mul_silu":
-        return xs[0] * F.silu(xs[1])
-    if fn == "gelu":
-        return F.gelu(xs[0], approximate="tanh")
-    return None
-
-
 @register_op_backend("elementwise")
 def _exec_elementwise(ctx: ExecCtx, *xs):
+    """The graphs' elementwise ops (``axe.program.elementwise``, the
+    functions a fused B1 epilogue runs too)."""
     fn = ctx.attr("fn", "add")
-    out = _activation(fn, xs)
+    out = elementwise(fn, xs)
     if out is None:
         raise CompileError(f"{ctx.node.name}: unknown elementwise fn {fn!r}")
     return out
@@ -310,12 +314,61 @@ def _exec_decode_attention(ctx: ExecCtx, q, k, v, pos):
     return out.reshape(b_l, h_l, 1, hd)
 
 
-def _ssm_backend(ctx: ExecCtx, *_):
-    raise _not_ported(f"{ctx.node.name}: the {ctx.node.kind!r} backend (SSM family)", "A13")
+@register_op_backend("ssm_mix")
+def _exec_ssm_mix(ctx: ExecCtx, xz, bb, cc, dt_raw):
+    """The Mamba2 SSD mixer, the ``models.ssm`` math (causal conv →
+    silu → chunked SSD scan → D skip) on the projected inputs, as the
+    JAX package's backend runs it with ``mesh=None`` (its head-sharded
+    slicing comes with A14)."""
+    from repro_torch.models import ssm as ssm_mod
+
+    seq, hd = int(ctx.attr("seq")), int(ctx.attr("head_dim"))
+    di, n = int(ctx.attr("d_inner")), int(ctx.attr("state"))
+    t_l, di_l = xz.shape
+    b_l = t_l // seq
+    u = torch.cat([xz, bb, cc], dim=-1).reshape(b_l, seq, -1)
+    u = F.silu(ssm_mod._causal_conv(u, ctx.aux(ctx.attr("conv_w"))))
+    xs = u[..., :di].reshape(b_l, seq, di_l // hd, hd)
+    dt = F.softplus(dt_raw.reshape(b_l, seq, -1).float() + ctx.aux(ctx.attr("dt_bias")))
+    y, _ = ssm_mod.ssd_scan(xs, dt, -torch.exp(ctx.aux(ctx.attr("A_log"))),
+                            u[..., di: di + n], u[..., di + n:])
+    y = y + xs.float() * ctx.aux(ctx.attr("D"))[:, None]
+    return y.reshape(t_l, di_l).to(ctx.out_spec_dtype())
 
 
-for _kind in ("ssm_mix", "ssm_decode", "side_output"):
-    register_op_backend(_kind, _ssm_backend)
+@register_op_backend("ssm_decode")
+def _exec_ssm_decode(ctx: ExecCtx, xz, bb, cc, dt_raw, ssm_state, conv_state):
+    """One recurrent step of the SSD mixer (``models.ssm.decode_mix``)
+    on the cache-in states. The JAX package returns new states; here
+    they are written into the cache-in tensors in place, as
+    ``cache_update`` writes its row, and those tensors go on the side
+    channel for the ``side_output`` boundary nodes."""
+    from repro_torch.models import ssm as ssm_mod
+
+    y, s_new, conv = ssm_mod.decode_mix(
+        torch.cat([xz, bb, cc], dim=-1), dt_raw, ctx.aux(ctx.attr("conv_w")),
+        ctx.aux(ctx.attr("dt_bias")), ctx.aux(ctx.attr("A_log")), ctx.aux(ctx.attr("D")),
+        ssm_state, conv_state, heads=int(ctx.attr("heads")),
+        head_dim=int(ctx.attr("head_dim")), d_inner=int(ctx.attr("d_inner")),
+        state=int(ctx.attr("state")))
+    ssm_state.copy_(s_new)
+    conv_state.copy_(conv)
+    ctx.side[ctx.node.out] = {"ssm": ssm_state, "conv": conv_state}
+    return y.to(ctx.out_spec_dtype())
+
+
+@register_op_backend("side_output")
+def _exec_side_output(ctx: ExecCtx, _x):
+    """Surface a tensor the producing op stashed on the side channel
+    (the SSD mixer's advanced states) as a graph output."""
+    side = ctx.side.get(ctx.attr("side"))
+    if side is None:
+        raise CompileError(
+            f"{ctx.node.name}: no side state — side_output is only "
+            f"executable in a graph whose 'side' attr names an earlier "
+            f"node output with stashed state"
+        )
+    return side[ctx.attr("channel")]
 
 
 # ---------------------------------------------------------------------------
@@ -387,18 +440,99 @@ _AUX_ATTRS = ("weight", "norm_weight", "router", "dt_bias", "A_log", "D", "conv_
 
 
 @dataclasses.dataclass(frozen=True)
+class _Segment:
+    """One stage of a fused node run by :meth:`Executable._run_fused`:
+    the base op or an absorbed step, with its backend, operand specs and
+    output spec (``compose_epilogue``'s decomposition)."""
+
+    node: OpNode
+    backend: Callable
+    in_specs: Tuple[AxeSpec, ...]
+    out_spec: AxeSpec
+    want: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _KernelChain:
+    """A fused 2-D matmul whose chain B1 runs (:meth:`Executable._kernel_epilogue`):
+    the operands' names, the extras' names in the order the descriptor
+    indexes them, the descriptor's steps, its tag and the output type."""
+
+    a: str
+    b: str
+    extras: Tuple[str, ...]
+    steps: Tuple[Tuple[str, Tuple[int, ...]], ...]
+    tag: str
+    out_dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
 class _Step:
     """One plan entry, resolved once at construction so a call only
     walks tensors: the backend, its operands' names and specs, the
     output shape the plan expects, and the intermediates this entry is
     the last to read (dropped after it, so a call holds no more of them
-    than the graph still needs)."""
+    than the graph still needs). A fused node carries its chain for B1
+    (``chain``) or its segments instead."""
 
     entry: PlanEntry
     backend: Callable
     in_specs: Tuple[AxeSpec, ...]
     want: Tuple[int, ...]
     release: Tuple[str, ...] = ()
+    chain: Optional[_KernelChain] = None
+    segments: Tuple[_Segment, ...] = ()
+
+
+def _kernel_chain(node: OpNode, in_specs: Sequence[AxeSpec],
+                  out_dtype: str) -> Optional[_KernelChain]:
+    """The chain B1 runs for a fused node — a 2-D matmul base whose
+    absorbed steps are all elementwise ops of
+    :data:`~repro_torch.axe.program.EPILOGUE_FNS`, each reading the
+    chain's current value and extras — or None, and the node runs its
+    segments (the JAX package's rule, ``repro/axe/compile.py:889-923``;
+    without a mesh no fused node has internal redistributions)."""
+    steps = [step_node(s) for s in epilogue_steps(node)]
+    n_base = int(node.attr("base_inputs") or len(node.inputs))
+    if (node.kind != "matmul" or n_base != 2 or any(s.kind != "elementwise" for s in steps)
+            or len(in_specs[0].shape) != 2 or len(in_specs[1].shape) != 2):
+        return None
+    produced = {str(node.attr("base_out") or node.out)} | {s.out for s in steps}
+    cur = str(node.attr("base_out") or node.out)
+    extras: List[str] = []
+    desc = []
+    for s in steps:
+        fn = s.attr("fn", "add")
+        if fn not in EPILOGUE_FNS:
+            return None
+        ops = []
+        for nm in s.inputs:
+            if nm == cur:
+                ops.append(CHAIN)
+            elif nm in produced:
+                return None  # an earlier chain value: not a descriptor operand
+            else:
+                if nm not in extras:
+                    extras.append(nm)
+                ops.append(extras.index(nm))
+        desc.append((fn, tuple(ops)))
+        cur = s.out
+    return _KernelChain(node.inputs[0], node.inputs[1], tuple(extras), tuple(desc),
+                        "+".join(fn for fn, _ in desc), getattr(torch, out_dtype))
+
+
+def _segments(node: OpNode, plan: LayoutPlan) -> Tuple[_Segment, ...]:
+    """A fused node's stages, base first, with the specs
+    ``compose_epilogue`` gives them."""
+    operands = tuple(plan.env[nm] for nm in node.inputs)
+    _, _, segments = compose_epilogue(node, operands, plan.env)
+    specs = dict(plan.env)
+    out = []
+    for sub, seg_spec in segments:
+        out.append(_Segment(sub, op_backend(sub.kind), tuple(specs[nm] for nm in sub.inputs),
+                            seg_spec, tuple(seg_spec.local_shape())))
+        specs[sub.out] = seg_spec
+    return tuple(out)
 
 
 class Executable:
@@ -450,20 +584,22 @@ class Executable:
             raise _not_ported(
                 "this plan shards tensors / issues collectives: its execution", "A14"
             )
-        for node in graph.nodes:
-            if epilogue_steps(node):
-                raise _not_ported(f"{node.name}: fused epilogues", "A10")
         entries = [e for e in plan.entries if e.op.kind != "finalize"]
         produced = {e.op.out for e in entries} - set(self.outputs)
         last_use = {nm: i for i, e in enumerate(entries) for nm in e.op.inputs if nm in produced}
-        self._steps: Tuple[_Step, ...] = tuple(
-            _Step(e, op_backend(e.op.kind), tuple(e.input_specs(plan.env)),
-                  tuple(e.out_spec.local_shape()),
-                  tuple(nm for nm, j in last_use.items() if j == i))
-            for i, e in enumerate(entries)
-        )
-        #: the FusionReport / cotune trace of the JAX package's fused and
-        #: cotuned executables; neither is ported (A10, A11)
+        steps = []
+        for i, e in enumerate(entries):
+            in_specs = tuple(e.input_specs(plan.env))
+            fused = bool(epilogue_steps(e.op))
+            chain = _kernel_chain(e.op, in_specs, e.out_spec.dtype) if fused else None
+            steps.append(_Step(
+                e, op_backend(e.op.kind), in_specs, tuple(e.out_spec.local_shape()),
+                tuple(nm for nm, j in last_use.items() if j == i), chain,
+                _segments(e.op, plan) if fused and chain is None else ()))
+        self._steps: Tuple[_Step, ...] = tuple(steps)
+        #: the FusionReport when the graph came through ``fuse_graph``
+        #: (set by ``compile(..., fuse=True)``); the cotune trace comes
+        #: with A11
         self.fusion_report = None
         self.cotune_report = None
 
@@ -526,14 +662,17 @@ class Executable:
         counts = dict.fromkeys(("matmul/tile", "moe_gemm/expert_gemm", "rmsnorm/rows",
                                 "flash_attention/attend", "flash_attention/decode"), 0)
         for st in self._steps:
-            node = st.entry.op
-            op = stage_key_for(node.kind, st.in_specs)
-            if op is not None:
-                counts[op] += 1
-            elif node.kind == "decode_attention":
-                counts["flash_attention/decode"] += 1
-            elif node.kind in ("reshape", "decode_select") and node.attr("norm_weight"):
-                counts["rmsnorm/rows"] += 1
+            # a fused node launches its base's kernel and its norm steps'
+            subs = ((st.entry.op, st.in_specs),) + tuple(
+                (step_node(s), ()) for s in epilogue_steps(st.entry.op))
+            for node, in_specs in subs:
+                op = stage_key_for(node.kind, in_specs)
+                if op is not None:
+                    counts[op] += 1
+                elif node.kind == "decode_attention":
+                    counts["flash_attention/decode"] += 1
+                elif node.kind in ("reshape", "decode_select") and node.attr("norm_weight"):
+                    counts["rmsnorm/rows"] += 1
         return counts
 
     # -- execution -------------------------------------------------------
@@ -571,8 +710,13 @@ class Executable:
         with scope(Scope.DEVICE):
             for st in self._steps:
                 node = st.entry.op
-                ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want)
-                out = st.backend(ctx, *[env[nm] for nm in node.inputs])
+                if st.chain is not None:
+                    out = self._kernel_epilogue(st.chain, env)
+                elif st.segments:
+                    out = self._run_fused(st, env, aux, side)
+                else:
+                    ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want)
+                    out = st.backend(ctx, *[env[nm] for nm in node.inputs])
                 if tuple(out.shape) != st.want:
                     raise CompileError(
                         f"{node.name} [{node.kind}]: backend produced local "
@@ -583,6 +727,35 @@ class Executable:
                     del env[nm]
         outs = tuple(env[o] for o in self.outputs)
         return outs[0] if len(outs) == 1 else outs
+
+    # -- fused-epilogue execution (axe.passes) ---------------------------
+    @staticmethod
+    def _run_fused(st: _Step, env: Dict[str, Any], aux, side):
+        """A fused node's segment path: the base op's backend, then each
+        absorbed step's backend on the evolving chain value (the JAX
+        package's ``_run_fused``, ``repro/axe/compile.py:855-887``); the
+        chain's intermediates live only during the node."""
+        for seg in st.segments:
+            ctx = ExecCtx(seg.node, st.entry, seg.in_specs, aux, side, out_local=seg.want,
+                          out_spec=seg.out_spec)
+            out = seg.backend(ctx, *[env[nm] for nm in seg.node.inputs])
+            env[seg.node.out] = out
+        for seg in st.segments[:-1]:
+            del env[seg.node.out]
+        return out
+
+    @staticmethod
+    def _kernel_epilogue(chain: _KernelChain, env: Dict[str, Any]):
+        """A fused 2-D matmul with its elementwise chain handed to B1 as
+        an :class:`~repro_torch.axe.program.Epilogue` (the JAX package's
+        ``_kernel_epilogue``, ``repro/axe/compile.py:889-955``): inside the
+        kernel on the f32 accumulator on the card, or functionally on
+        the result when the extras are not shaped like C."""
+        from repro_torch.kernels import programs
+
+        epi = programs.Epilogue(chain.tag, chain.steps, tuple(env[nm] for nm in chain.extras))
+        return programs.matmul(env[chain.a], env[chain.b], out_dtype=chain.out_dtype,
+                               epilogue=epi)
 
     def apply(self, params: Mapping[str, Any], *activations):
         """Run the graph eagerly on the tensors' device."""
@@ -644,11 +817,32 @@ def compile(  # noqa: A001 - the paper-facing API name
     :class:`~repro_torch.axe.propagate.LayoutPlan`, a plain
     ``name → AxeSpec`` input assignment, or None — in which case the
     layout solver runs (``beam`` and ``overlap`` forwarded: without
-    collectives ``overlap`` changes only the solver's objective)."""
+    collectives ``overlap`` changes only the solver's objective).
+
+    ``fuse=True`` rewrites the graph through
+    :func:`repro_torch.axe.passes.fuse_graph` first (epilogue fusion,
+    reshape collapse, DCE). With ``plan=None`` the layout is solved on
+    the unfused graph and its input assignment is carried onto the
+    rewrite, as the JAX package does (fusion changes execution, never
+    layout decisions); a ``plan`` handed alongside must cover the
+    *fused* graph (:func:`plan_covers`), else :class:`CompileError`."""
     if mesh is not None:
         raise _not_ported("compiling for a device mesh", "A14")
+    fusion_report = None
     if fuse:
-        raise _not_ported("fuse=True (the fusion passes and in-kernel epilogues)", "A10")
+        from repro_torch.axe.passes import fuse_graph
+
+        unfused = graph
+        graph, fusion_report = fuse_graph(graph)
+        if plan is not None and not plan_covers(graph, plan):
+            raise CompileError(
+                "the layout plan does not cover the fused graph (it was "
+                "solved on a different rewrite); pass a covering plan "
+                "or plan=None"
+            )
+        if plan is None:
+            res = solve(unfused, beam=beam, overlap=overlap)
+            plan = {n: res.assignment[n] for n in graph.inputs}
     solve_result: Optional[SolveResult] = None
     if plan is None:
         plan = solve(graph, beam=beam, overlap=overlap)
@@ -679,16 +873,17 @@ def compile(  # noqa: A001 - the paper-facing API name
             f"plan must be a SolveResult, LayoutPlan, mapping, or None; "
             f"got {type(plan).__name__}"
         )
-    return Executable(graph, mesh, layout, assignment, solve_result=solve_result)
+    exe = Executable(graph, mesh, layout, assignment, solve_result=solve_result)
+    exe.fusion_report = fusion_report
+    return exe
 
 
 # ---------------------------------------------------------------------------
 # model binding: the port's param trees -> graph inputs (+ aux)
 # ---------------------------------------------------------------------------
 
-#: families whose params map onto executable model graphs in the port
-#: (the JAX package also binds ssm and hybrid; their backends are A13)
-SUPPORTED_FAMILIES = ("dense", "moe")
+#: families whose params map onto executable model graphs
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _period(cfg) -> int:
@@ -732,13 +927,21 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
         lp = params["blocks"][f"l{slot}"]
         p = f"L{i}."
         out[f"{p}norm1"] = lp["norm1"][sup]
-        ap = lp["attn"]
-        for name in ("wq", "wk", "wv", "wo"):
-            out[f"{p}{name}"] = ap[name][sup]
-        if cfg.qk_norm:
-            out[f"{p}q_norm"] = ap["q_norm"][sup]
-            out[f"{p}k_norm"] = ap["k_norm"][sup]
-        out[f"{p}norm2"] = lp["norm2"][sup]
+        if "attn" in lp:
+            ap = lp["attn"]
+            for name in ("wq", "wk", "wv", "wo"):
+                out[f"{p}{name}"] = ap[name][sup]
+            if cfg.qk_norm:
+                out[f"{p}q_norm"] = ap["q_norm"][sup]
+                out[f"{p}k_norm"] = ap["k_norm"][sup]
+        if "ssm" in lp:
+            sp = lp["ssm"]
+            for name in ("wx", "wz", "wB", "wC", "wdt",
+                         "dt_bias", "A_log", "D", "conv_w", "gate_norm"):
+                out[f"{p}{name}"] = sp[name][sup]
+            out[f"{p}ssm_wo"] = sp["wo"][sup]
+        if "norm2" in lp:
+            out[f"{p}norm2"] = lp["norm2"][sup]
         if "mlp" in lp:
             mp = lp["mlp"]
             if cfg.mlp_type == "swiglu":
@@ -759,7 +962,7 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
 def _check_model(cfg, mesh, **unported) -> None:
     if mesh is not None:
         raise _not_ported("compiling for a device mesh", "A14")
-    for flag, item in (("fuse", "A10"), ("cotune", "A11"), ("offload", "A14")):
+    for flag, item in (("cotune", "A11"), ("offload", "A14")):
         if unported.get(flag):
             raise _not_ported(f"{flag}={unported[flag]!r}", item)
     if cfg.family not in SUPPORTED_FAMILIES:
@@ -788,18 +991,20 @@ def model_executable(
     ``cfg`` at (batch, seq) over the mesh-free space and compile it.
     ``layers=None`` compiles the full depth. A ``plan`` solved for a
     *different* graph shape does not cover this graph: it is dropped
-    with a warning and the layout is re-solved."""
+    with a warning and the layout is re-solved. ``fuse=True`` runs the
+    fusion passes before solving (:func:`compile`); a plan solved on the
+    unfused graph does not cover the fused one."""
     import warnings
 
     from repro_torch.axe.graphs import model_graph
 
-    _check_model(cfg, mesh, fuse=fuse, cotune=cotune, offload=tuple(offload))
+    _check_model(cfg, mesh, cotune=cotune, offload=tuple(offload))
     gs = model_graph(
         cfg, batch, seq, PhysicalSpace(()),
         dtype=dtype or cfg.dtype,
         layers=cfg.num_layers if layers is None else layers,
     )
-    if plan is not None and not plan_covers(gs, plan):
+    if plan is not None and not plan_covers(_fused_view(gs, fuse), plan):
         warnings.warn(
             f"layout plan does not cover the {cfg.name} graph at "
             f"batch={batch}, seq={seq} (different shape/depth/space/"
@@ -807,22 +1012,45 @@ def model_executable(
             UserWarning, stacklevel=2,
         )
         plan = None
-    return compile(gs, mesh, plan, beam=beam, overlap=overlap)
+    return compile(gs, mesh, plan, beam=beam, fuse=fuse, overlap=overlap)
+
+
+def _fused_view(gs: GraphSpec, fuse: bool) -> GraphSpec:
+    """The graph a plan must cover: ``gs`` or, with ``fuse``, its fused
+    rewrite (deterministic, so equal to the one :func:`compile` makes)."""
+    if not fuse:
+        return gs
+    from repro_torch.axe.passes import fuse_graph
+
+    return fuse_graph(gs)[0]
 
 
 def decode_inputs(graph: GraphSpec, cfg, params, cache) -> Dict[str, Any]:
     """:func:`model_inputs` plus the cache tensors: each layer's cache
-    leaves (``l{slot}/k`` ``[n_super, B, W, KV, hd]``) as views onto the
+    leaves (an attention slot's ``l{slot}/k`` ``[n_super, B, W, KV, hd]``,
+    an SSD slot's ``l{slot}/ssm`` and ``l{slot}/conv``) as views onto the
     graph's per-layer cache-in names."""
     out = model_inputs(graph, cfg, params)
     out.update(cache_inputs(graph, cfg, cache))
     return out
 
 
+#: cache leaf → (graph cache-in suffix, cache-out suffix), per slot kind
+_CACHE_NAMES = {
+    "attn": (("k", "k_cache", "k_cache_out"), ("v", "v_cache", "v_cache_out")),
+    "ssm": (("ssm", "ssm_state", "ssm_state_out"), ("conv", "conv_state", "conv_state_out")),
+}
+
+
+def _cache_names(leaf) -> Tuple[Tuple[str, str, str], ...]:
+    return _CACHE_NAMES["attn" if "k" in leaf else "ssm"]
+
+
 def _cache_layers(graph: GraphSpec) -> List[int]:
-    """The layers whose KV caches are inputs of a decode graph (read
-    from its input names: a decode tick calls this twice)."""
-    return sorted(int(n[1:].split(".", 1)[0]) for n in graph.inputs if n.endswith(".k_cache"))
+    """The layers whose caches are inputs of a decode graph (read from
+    its input names: a decode tick calls this twice)."""
+    return sorted(int(n[1:].split(".", 1)[0]) for n in graph.inputs
+                  if n.endswith(".k_cache") or n.endswith(".ssm_state"))
 
 
 def cache_inputs(graph: GraphSpec, cfg, cache) -> Dict[str, Any]:
@@ -832,18 +1060,18 @@ def cache_inputs(graph: GraphSpec, cfg, cache) -> Dict[str, Any]:
     for i in _cache_layers(graph):
         sup, slot = i // per, i % per
         leaf = cache[f"l{slot}"]
-        out[f"L{i}.k_cache"] = leaf["k"][sup]
-        out[f"L{i}.v_cache"] = leaf["v"][sup]
+        for key, name, _ in _cache_names(leaf):
+            out[f"L{i}.{name}"] = leaf[key][sup]
     return out
 
 
 def decode_cache(graph: GraphSpec, cfg, outputs: Sequence[Any], cache):
     """Reassemble the cache tree from a decode executable's output
     tuple (the cache-out tensors, one pair per layer) — the inverse of
-    :func:`decode_inputs`'s per-layer slicing. The ``cache_update``
-    backend writes in place, so its outputs are the views
-    :func:`decode_inputs` took of ``cache``; a leaf whose outputs all are
-    such views is returned as it is, any other is stacked anew."""
+    :func:`decode_inputs`'s per-layer slicing. The ``cache_update`` and
+    ``ssm_decode`` backends write in place, so their outputs are the
+    views :func:`decode_inputs` took of ``cache``; a leaf whose outputs
+    all are such views is returned as it is, any other is stacked anew."""
     per = _period(cfg)
     vals = dict(zip(graph.outputs(), outputs))
     layers = _cache_layers(graph)
@@ -852,7 +1080,7 @@ def decode_cache(graph: GraphSpec, cfg, outputs: Sequence[Any], cache):
     for slot in sorted({i % per for i in layers}):
         leaf = cache[f"l{slot}"]
         new[f"l{slot}"] = {}
-        for key, g in (("k", "k_cache_out"), ("v", "v_cache_out")):
+        for key, _, g in _cache_names(leaf):
             outs = [vals[f"L{s * per + slot}.{g}"] for s in sups]
             stacked = leaf[key]
             in_place = len(sups) == stacked.shape[0] and all(
@@ -879,18 +1107,20 @@ def decode_executable(
     tensors as first-class inputs/outputs) over the mesh-free space and
     compile it — the serving twin of :func:`model_executable`. A
     ``plan`` solved for a different graph does not cover the decode
-    graph and is dropped with a warning."""
+    graph and is dropped with a warning. ``fuse=True`` runs the fusion
+    passes first (DCE keeps every cache-out and ``side_output``
+    channel)."""
     import warnings
 
     from repro_torch.axe.graphs import decode_graph
 
-    _check_model(cfg, mesh, fuse=fuse)
+    _check_model(cfg, mesh)
     gs = decode_graph(
         cfg, batch, max_seq, PhysicalSpace(()),
         dtype=dtype or cfg.dtype,
         layers=cfg.num_layers if layers is None else layers,
     )
-    if plan is not None and not plan_covers(gs, plan):
+    if plan is not None and not plan_covers(_fused_view(gs, fuse), plan):
         warnings.warn(
             f"layout plan does not cover the {cfg.name} decode graph at "
             f"batch={batch}, max_seq={max_seq} (different shape/depth/"
@@ -898,7 +1128,7 @@ def decode_executable(
             UserWarning, stacklevel=2,
         )
         plan = None
-    return compile(gs, mesh, plan, beam=beam, overlap=overlap)
+    return compile(gs, mesh, plan, beam=beam, fuse=fuse, overlap=overlap)
 
 
 __all__ = [

@@ -20,8 +20,10 @@ Schedules attach per stage under ``program_name/stage_name``. In this
 slice a stage resolves to an explicit pin (``schedule=`` / ``schedules=``
 / ``blocks=`` / ``impl=``) or else to its declared default; the planner
 and autotuner come with the tune slice (``ROADMAP.md``). MESH
-``shard_map`` lowering and the fused ``Epilogue`` come with the
-multi-GPU and fusion slices.
+``shard_map`` lowering comes with the multi-GPU slice. A fused
+:class:`Epilogue` (the tail of an ``axe.passes`` epilogue fusion) rides
+on the call options as in the JAX package: ``program(..., epilogue=epi)``
+hands it to the stages as ``ctx.epilogue``.
 
 Minimal program::
 
@@ -98,11 +100,83 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: the elementwise functions a fused epilogue step may apply; their
+#: codes (the index here) are ``EpiFn`` of ``csrc/epilogue.cuh``
+EPILOGUE_FNS = ("add", "swiglu", "mul_silu", "gelu")
+#: the operand code of the chain value in an epilogue step
+CHAIN = -1
+
+
+def elementwise(fn: str, xs):
+    """The graphs' elementwise functions on torch tensors, the JAX
+    package's bodies (``repro/axe/compile.py:925-944``): ``add`` sums its
+    operands left to right, ``swiglu(a0, a1) = silu(a0)·a1``,
+    ``mul_silu(a0, a1) = a0·silu(a1)``, ``gelu`` is the tanh form
+    (``jax.nn.gelu``'s default). None for another ``fn``."""
+    import torch.nn.functional as F
+
+    if fn == "add":
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+    if fn == "swiglu":
+        return F.silu(xs[0]) * xs[1]
+    if fn == "mul_silu":
+        return xs[0] * F.silu(xs[1])
+    if fn == "gelu":
+        return F.gelu(xs[0], approximate="tanh")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """A fused epilogue a GRID stage applies to its f32 accumulator
+    before the one cast to the output type — the BLOCK-scope tail of a
+    ``repro_torch.axe.passes`` epilogue fusion (the JAX package's
+    ``Epilogue``, ``repro/axe/program.py:78-92``).
+
+    The JAX package's carries a Python ``body``; a CUDA kernel cannot
+    call one, so this one carries the chain as a descriptor: ``steps``
+    is a tuple of ``(fn, operands)``, ``fn`` one of
+    :data:`EPILOGUE_FNS`, each operand the chain value (:data:`CHAIN`)
+    or the index of an extra tensor in ``args``, in the step's input
+    order. :meth:`body` computes the chain in torch with the reference
+    body's semantics. ``tag`` is the chain's identity and feeds the
+    schedule key (:attr:`StageContext.schedule_tag`): a fused launch
+    never shares a key with the plain one. The reference's
+    ``full_rows`` (a whole-row body, a norm) has no counterpart: no
+    chain of these functions reads across a row."""
+
+    tag: str
+    steps: Tuple[Tuple[str, Tuple[int, ...]], ...]
+    args: Tuple[Any, ...] = ()
+
+    def __post_init__(self) -> None:
+        for fn, ops in self.steps:
+            if fn not in EPILOGUE_FNS:
+                raise ProgramError(f"epilogue step fn {fn!r} not in {EPILOGUE_FNS}")
+            if any(o != CHAIN and not 0 <= o < len(self.args) for o in ops):
+                raise ProgramError(
+                    f"epilogue step {fn}{ops}: operands are {CHAIN} (the chain) or an "
+                    f"index into the {len(self.args)} extras")
+
+    def body(self, tile: torch.Tensor, *extras: torch.Tensor) -> torch.Tensor:
+        """The chain on the f32 ``tile``, each extra upcast to f32 (the
+        extras default to :attr:`args`)."""
+        extras = extras or self.args
+        cur = tile
+        for fn, ops in self.steps:
+            cur = elementwise(fn, [cur if o == CHAIN else extras[o].float() for o in ops])
+        return cur
+
+
 @dataclasses.dataclass(frozen=True)
 class _CallOptions:
     """Per-invocation options threaded through the stage graph."""
 
     schedules: Tuple[Tuple[str, ScheduleLike], ...] = ()  # stage name → override
+    epilogue: Optional[Epilogue] = None
     # entry-stage-only overrides: (stage_name, schedule, blocks, impl)
     entry: Optional[Tuple[str, Optional[Any], Optional[Dict[str, int]], Optional[str]]] = None
 
@@ -144,6 +218,19 @@ class StageContext:
     def impl(self) -> Optional[str]:
         s = self.schedule
         return s.impl if s is not None else None
+
+    @property
+    def epilogue(self) -> Optional[Epilogue]:
+        """The fused :class:`Epilogue` of this call, or None."""
+        return self._opts.epilogue
+
+    @property
+    def schedule_tag(self) -> Optional[str]:
+        """The variant tag of this call's schedule key, as the JAX
+        package forms it (``repro/axe/program.py:392-395``): a fused
+        launch is keyed ``epi:<chain tag>``, apart from the plain one."""
+        epi = self._opts.epilogue
+        return f"epi:{epi.tag}" if epi is not None else None
 
     @property
     def pinned(self) -> bool:
@@ -287,6 +374,7 @@ class Program:
         schedules: Optional[Mapping[str, ScheduleLike]] = None,
         blocks: Optional[Mapping[str, int]] = None,
         impl: Optional[str] = None,
+        epilogue: Optional[Epilogue] = None,
         **kw,
     ):
         """Run the program on ``args``.
@@ -294,11 +382,14 @@ class Program:
         ``schedule`` pins the dispatched stage's schedule; ``schedules``
         pins per stage by name; ``blocks`` overrides individual block
         sizes (forcing the kernel variant); ``impl`` restricts the
-        dispatched stage to one variant.
+        dispatched stage to one variant; ``epilogue`` fuses an
+        elementwise chain onto the result (stages that take one read
+        ``ctx.epilogue``).
         """
         name = stage or self.dispatch_stage()
         opts = _CallOptions(
             schedules=tuple((schedules or {}).items()),
+            epilogue=epilogue,
             entry=(name, schedule, dict(blocks) if blocks else None, impl),
         )
         return self._run(name, args, kw, opts)

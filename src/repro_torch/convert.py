@@ -3,7 +3,7 @@ numpy arrays) and the port's tensors, so both packages compute on the
 same weights. The port imports nothing of JAX: the caller turns a JAX
 pytree into numpy first (``jax.tree.map(np.asarray, tree)``).
 
-Parameters: the JAX LM (dense and MoE families) keeps ``blocks/l{slot}``
+Parameters: the JAX LM (dense, MoE, SSM and hybrid families) keeps ``blocks/l{slot}``
 stacked over super-blocks (layer ``i`` is super-block ``i // per``, slot
 ``i % per``), and so does the port. Only the attention projections
 change shape: the port's are 2-D with head-major columns —
@@ -11,8 +11,12 @@ change shape: the port's are 2-D with head-major columns —
 products kernel B1 runs. Every other leaf crosses as it is, dtype
 included: the MoE layer's ``moe/{router, wg, wu, wo}`` keep their
 stacked ``[n_super, d, E]`` (router, f32) and ``[n_super, E, d, f]`` /
-``[n_super, E, f, d]`` (experts) shapes, which kernel B5 takes.
-Caches keep their layout, ``l{slot}/k`` ``[n_super, B, W, KV, hd]``.
+``[n_super, E, f, d]`` (experts) shapes, which kernel B5 takes; so do
+an SSD mixer's ``ssm/{wx, wz, wB, wC, wdt, wo}`` (2-D per super-block),
+``conv_w``, ``gate_norm`` and its f32 ``dt_bias``, ``A_log`` and ``D``.
+Caches keep their layout: an attention slot's ``l{slot}/k``
+``[n_super, B, W, KV, hd]``, an SSD slot's ``l{slot}/ssm`` (f32) and
+``l{slot}/conv``.
 
 bf16 arrays from JAX are ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bits, which is

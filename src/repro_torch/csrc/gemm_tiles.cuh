@@ -5,7 +5,9 @@
 // operands that TMA cannot address. A caller's kernel hands each
 // thread block its operands' base pointers and the output tile's origin
 // (m0, n0); ragged M, N and K are masked here (out-of-range loads read
-// zeros, out-of-range stores are skipped).
+// zeros, out-of-range stores are skipped). B1 may hand a fused epilogue
+// (`epi`, epilogue.cuh) that runs on each f32 value before its cast; B5
+// hands none.
 //
 // * `bf16_tile`: tensor cores through WMMA 16x16x16 bf16 fragments (f32
 //   accumulate) on a TBM x TBN tile with a TBK-deep K step, the next K
@@ -19,6 +21,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "epilogue.cuh"
 
 namespace repro {
 
@@ -44,10 +47,11 @@ __device__ __forceinline__ uint4 load_chunk(const bf16* __restrict__ base, long 
   return out;
 }
 
-template <typename OutT>
+template <typename OutT, typename EpiT = NoEpi>
 __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
                                           OutT* __restrict__ C, int M, int N, int K, long long lda,
-                                          long long ldb, long long ldc, int m0, int n0) {
+                                          long long ldb, long long ldc, int m0, int n0,
+                                          const EpiT& epi = EpiT()) {
   __shared__ __align__(128) bf16 As[TBM * A_LD];
   __shared__ __align__(128) bf16 Bs[TBK * B_LD];
   __shared__ __align__(128) float Cs[TBM * C_LD];
@@ -103,19 +107,22 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A, const bf16
       wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16], acc[i][j], C_LD,
                               wmma::mem_row_major);
   __syncthreads();
+  const EpiFast f = epi.fast();
   for (int e = tid; e < TBM * TBN; e += 256) {
     const int r = e / TBN, c = e % TBN;
     const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<OutT>(Cs[r * C_LD + c]);
+    if (gm < M && gn < N)
+      C[(long long)gm * ldc + gn] = from_f32<OutT>(epi_at(epi, f, Cs[r * C_LD + c], gm, gn));
   }
 }
 
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 
-template <typename OutT>
+template <typename OutT, typename EpiT = NoEpi>
 __device__ __forceinline__ void f32_tile(const float* __restrict__ A, const float* __restrict__ B,
                                          OutT* __restrict__ C, int M, int N, int K, long long lda,
-                                         long long ldb, long long ldc, int m0, int n0) {
+                                         long long ldb, long long ldc, int m0, int n0,
+                                         const EpiT& epi = EpiT()) {
   __shared__ float As[FBK][FBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[FBK][FBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -146,13 +153,29 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A, const floa
     }
     __syncthreads();
   }
+  if constexpr (!has_epi<EpiT>) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<OutT>(acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
+        if (gm < M && gn < N) C[(long long)gm * ldc + gn] = from_f32<OutT>(acc[i][j]);
+      }
+  } else {
+    // the chain in one loop, the tile staged in shared memory (epilogue.cuh)
+    __shared__ float Ct[FBM][FBN + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ct[ty + 16 * i][tx + 16 * j] = acc[i][j];
+    __syncthreads();
+    const EpiFast f = epi.fast();
+    for (int e = tid; e < FBM * FBN; e += 256) {
+      const int gm = m0 + e / FBN, gn = n0 + e % FBN;
+      if (gm < M && gn < N)
+        C[(long long)gm * ldc + gn] = from_f32<OutT>(epi_at(epi, f, Ct[e / FBN][e % FBN], gm, gn));
     }
+  }
 }
 
 }  // namespace repro

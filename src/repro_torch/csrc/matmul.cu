@@ -65,10 +65,24 @@
 //   never TF32, whose ~3 decimal digits the f32 tolerance does not admit.
 // Ragged M, N and K are masked in every kernel: out-of-range loads read
 // zeros (TMA fills them) and out-of-range stores are skipped.
+//
+// The fused epilogue (epilogue.cuh; the port of `_mac`'s `fused` branch)
+// is a template functor of every kernel: each C entry takes a nullable
+// chain descriptor and launches the `Epi` instance when it has steps, the
+// `NoEpi` one (the unfused code, unchanged) otherwise. Every route runs
+// the chain once per output element on its final f32 value: the wgmma
+// writeback (a one-step chain straight from the accumulator registers,
+// any other through the tile staged in the free ring), `splitk_reduce`
+// after the split sum (the split kernels store raw partials), the skinny
+// stream after the cluster's sum (with a chain the partials take that
+// path even with one split), the WMMA and f32 tiles' writeback. An
+// element the chain reads of an extra costs a scalar load from device
+// memory (the extras are [M, N], as C).
 #include <map>
 #include <mutex>
 #include <tuple>
 
+#include "epilogue.cuh"
 #include "gemm_tiles.cuh"
 #include "hopper.cuh"
 #include "skinny_stream.cuh"
@@ -93,11 +107,12 @@ constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;  // + slack to align 
 // f32 slice ws[blockIdx.z][M][N]. M tiles run fastest, so the blocks that
 // share a column tile of B (the weight) are resident together and read it
 // from device memory once.
-template <typename OutT>
+template <typename OutT, typename EpiT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     matmul_bf16_wgmma(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_b, OutT* __restrict__ C,
-                      float* __restrict__ ws, int M, int N, int K, long long ldc, int ksteps) {
+                      float* __restrict__ ws, int M, int N, int K, long long ldc, int ksteps,
+                      const __grid_constant__ EpiT epi) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -158,29 +173,75 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   hopper::fence_regs(acc);
 
   const int row0 = m0 + wg * 64;
+  if constexpr (!has_epi<EpiT>) {
 #pragma unroll
-  for (int i = 0; i < WG_BN / 2; i += 2) {
-    const int r = row0 + hopper::acc_row(i, t), c = n0 + hopper::acc_col(i, t);
-    if (r < M && c < N) {  // N % 8 == 0: column c + 1 is inside too
-      if (ws)
-        *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + r) * N + c) =
-            make_float2(acc[i], acc[i + 1]);
-      else
-        hopper::store_pair(C + (long long)r * ldc + c, acc[i], acc[i + 1]);
+    for (int i = 0; i < WG_BN / 2; i += 2) {
+      const int r = row0 + hopper::acc_row(i, t), c = n0 + hopper::acc_col(i, t);
+      if (r < M && c < N) {  // N % 8 == 0: column c + 1 is inside too
+        if (ws)
+          *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + r) * N + c) =
+              make_float2(acc[i], acc[i + 1]);
+        else
+          hopper::store_pair(C + (long long)r * ldc + c, acc[i], acc[i + 1]);
+      }
+    }
+  } else {
+    const EpiFast f = epi.fast();
+    if (f.kind != EPI_CHAIN) {
+      // a one-step chain, straight from the registers: every extra this
+      // thread reads is loaded first, so the loads are in flight together
+      float xa[WG_BN / 2];
+#pragma unroll
+      for (int i = 0; i < WG_BN / 2; i += 2) {
+        const int r = row0 + hopper::acc_row(i, t), c = n0 + hopper::acc_col(i, t);
+        xa[i] = xa[i + 1] = 0.f;
+        if (f.nx && r < M && c < N) {
+          xa[i] = f.load(r, c);
+          xa[i + 1] = f.load(r, c + 1);
+        }
+      }
+      with_fast_op(f.kind, [&](auto op) {
+#pragma unroll
+        for (int i = 0; i < WG_BN / 2; i += 2) {
+          const int r = row0 + hopper::acc_row(i, t), c = n0 + hopper::acc_col(i, t);
+          if (r < M && c < N)
+            hopper::store_pair(C + (long long)r * ldc + c, op(acc[i], xa[i]),
+                               op(acc[i + 1], xa[i + 1]));
+        }
+      });
+    } else {
+      // any other chain: both warpgroups are past their last wgmma, so the
+      // ring is free; the tile goes there in f32 and one loop takes it
+      // through one copy of the general chain
+      constexpr int LD = WG_BN + 4;  // floats per staged row; the pad spreads the banks
+      float* tile = reinterpret_cast<float*>(smem);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS * 128) : "memory");
+#pragma unroll
+      for (int i = 0; i < WG_BN / 2; i += 2)
+        *reinterpret_cast<float2*>(tile + (wg * 64 + hopper::acc_row(i, t)) * LD +
+                                   hopper::acc_col(i, t)) = make_float2(acc[i], acc[i + 1]);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS * 128) : "memory");
+      for (int e = tid; e < WG_BM * WG_BN; e += WG_CONSUMERS * 128) {
+        const int r = m0 + e / WG_BN, c = n0 + e % WG_BN;
+        if (r < M && c < N)
+          C[(long long)r * ldc + c] =
+              from_f32<OutT>(epi_at(epi, f, tile[(e / WG_BN) * LD + e % WG_BN], r, c));
+      }
     }
   }
 }
 
-// the wgmma path's K splits, summed in split order: deterministic, no atomics
-template <typename OutT>
+// the wgmma path's K splits, summed in split order: deterministic, no
+// atomics; a fused epilogue runs here, on the sum, once
+template <typename OutT, typename EpiT>
 __global__ void splitk_reduce(const float* __restrict__ ws, OutT* __restrict__ C, int M, int N,
-                              int splits, long long ldc) {
+                              int splits, long long ldc, const __grid_constant__ EpiT epi) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)M * N) return;
   const int r = e / N, c = e % N;
   float s = 0.f;
   for (int i = 0; i < splits; ++i) s += ws[((long long)i * M + r) * N + c];
-  C[(long long)r * ldc + c] = from_f32<OutT>(s);
+  C[(long long)r * ldc + c] = from_f32<OutT>(epi_at(epi, epi.fast(), s, r, c));
 }
 
 // ---------------------------------------------------------------------------
@@ -189,18 +250,20 @@ __global__ void splitk_reduce(const float* __restrict__ ws, OutT* __restrict__ C
 
 // The wrapper sends here only bf16 operands that TMA cannot address, so
 // the rows are not all 16-byte aligned: masked element loads.
-template <typename OutT>
+template <typename OutT, typename EpiT>
 __global__ void __launch_bounds__(256)
     matmul_bf16_tiled(const bf16* __restrict__ A, const bf16* __restrict__ B, OutT* __restrict__ C,
-                      int M, int N, int K, long long lda, long long ldb, long long ldc) {
-  bf16_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * TBM, blockIdx.x * TBN);
+                      int M, int N, int K, long long lda, long long ldb, long long ldc,
+                      const __grid_constant__ EpiT epi) {
+  bf16_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * TBM, blockIdx.x * TBN, epi);
 }
 
-template <typename OutT>
+template <typename OutT, typename EpiT>
 __global__ void __launch_bounds__(256)
     matmul_f32_tiled(const float* __restrict__ A, const float* __restrict__ B, OutT* __restrict__ C,
-                     int M, int N, int K, long long lda, long long ldb, long long ldc) {
-  f32_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * FBM, blockIdx.x * FBN);
+                     int M, int N, int K, long long lda, long long ldb, long long ldc,
+                     const __grid_constant__ EpiT epi) {
+  f32_tile(A, B, C, M, N, K, lda, ldb, ldc, blockIdx.y * FBM, blockIdx.x * FBN, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -208,12 +271,12 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 
 // The block body (skinny_stream.cuh) is shared with B5's decode route.
-template <typename T, int MR, typename OutT>
+template <typename T, int MR, typename OutT, typename EpiT>
 __global__ void __launch_bounds__(SK_THREADS)
     matmul_skinny_stream(const T* __restrict__ A, const __grid_constant__ CUtensorMap map_b,
                          OutT* __restrict__ C, int M, int N, int K, long long lda, long long ldc,
-                         int kchunk, int stages) {
-  skinny_stream<T, MR, false, OutT>(A, &map_b, C, M, N, K, lda, ldc, kchunk, stages, 0);
+                         int kchunk, int stages, const __grid_constant__ EpiT epi) {
+  skinny_stream<T, MR, false, OutT, EpiT>(A, &map_b, C, M, N, K, lda, ldc, kchunk, stages, 0, epi);
 }
 
 // The tensor map of a weight B [K, N] (row stride ldb) in boxes of SK_BK
@@ -245,11 +308,11 @@ static int weight_map(CUtensorMap* map, const void* b, int N, int K, long long l
   return 0;
 }
 
-template <typename T, int MR, typename OutT>
+template <typename T, int MR, typename OutT, typename EpiT>
 static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M, int N, int K,
                          long long lda, long long ldc, int splits, int kchunk, int stages,
-                         cudaStream_t s) {
-  auto kern = matmul_skinny_stream<T, MR, OutT>;
+                         cudaStream_t s, const EpiT& epi) {
+  auto kern = matmul_skinny_stream<T, MR, OutT, EpiT>;
   static bool ready = false;  // the attribute is set once per process
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,35 +324,47 @@ static int launch_skinny(const void* a, const CUtensorMap& map_b, void* c, int M
   const dim3 grid((N + CG - 1) / CG, splits);
   const int smem = stages * SK_STAGE + skinny_a_bytes<T, MR>(kchunk) + 1024;  // + align slack
   return launch_cluster_y(kern, grid, SK_THREADS, smem, splits, s, static_cast<const T*>(a),
-                          map_b, static_cast<OutT*>(c), M, N, K, lda, ldc, kchunk, stages);
+                          map_b, static_cast<OutT*>(c), M, N, K, lda, ldc, kchunk, stages, epi);
 }
 
-template <typename T, int MR>
+template <typename T, int MR, typename EpiT>
 static int launch_skinny_out(int out_dtype, const void* a, const CUtensorMap& map_b, void* c,
                              int M, int N, int K, long long lda, long long ldc, int splits,
-                             int kchunk, int stages, cudaStream_t s) {
+                             int kchunk, int stages, cudaStream_t s, const EpiT& epi) {
   return out_dtype == BF16
-             ? launch_skinny<T, MR, bf16>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s)
+             ? launch_skinny<T, MR, bf16>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages, s,
+                                          epi)
              : launch_skinny<T, MR, float>(a, map_b, c, M, N, K, lda, ldc, splits, kchunk, stages,
-                                           s);
+                                           s, epi);
 }
 
-template <typename OutT>
+// The split kernel stores raw f32 partials (its epilogue is NoEpi); the
+// chain runs once, in splitk_reduce, on their sum.
+template <typename OutT, typename EpiT>
 static int launch_wgmma(const CUtensorMap& map_a, const CUtensorMap& map_b, OutT* C, void* ws,
                         int M, int N, int K, long long ldc, int splits, int kchunk,
-                        cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(matmul_bf16_wgmma<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                        cudaStream_t s, const EpiT& epi) {
   float* w = static_cast<float*>(ws);
   const dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
-  matmul_bf16_wgmma<OutT><<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C,
-                                                            splits > 1 ? w : nullptr, M, N, K,
-                                                            ldc, kchunk / WG_BK);
+  cudaError_t err;
+  if (splits == 1) {
+    err = cudaFuncSetAttribute(matmul_bf16_wgmma<OutT, EpiT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    matmul_bf16_wgmma<OutT, EpiT><<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C, nullptr, M,
+                                                                    N, K, ldc, kchunk / WG_BK, epi);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = cudaFuncSetAttribute(matmul_bf16_wgmma<OutT, NoEpi>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matmul_bf16_wgmma<OutT, NoEpi><<<grid, WG_THREADS, WG_SMEM, s>>>(map_a, map_b, C, w, M, N, K,
+                                                                   ldc, kchunk / WG_BK, NoEpi{});
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = (long long)M * N;
-  splitk_reduce<OutT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits, ldc);
+  splitk_reduce<OutT, EpiT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(w, C, M, N, splits,
+                                                                            ldc, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,11 +372,14 @@ static int launch_wgmma(const CUtensorMap& map_a, const CUtensorMap& map_b, OutT
 // C entries
 // ---------------------------------------------------------------------------
 
+// Every entry takes `epi`, a fused epilogue's chain descriptor or null
+// (epilogue.cuh); the extras it names are [M, N] with unit column stride.
+
 // `ws` holds splits * M * N floats when splits > 1 (ignored otherwise);
 // `kchunk`, the K depth of one split, is a multiple of WG_BK.
 extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int M, int N, int K,
                             long long lda, long long ldb, long long ldc, int splits, int kchunk,
-                            int out_dtype, void* stream) {
+                            int out_dtype, const Epi* epi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_a, map_b;
   const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M}, strides_a[1] = {(cuuint64_t)lda * 2};
@@ -309,34 +387,43 @@ extern "C" int matmul_wgmma(const void* a, const void* b, void* c, void* ws, int
   const cuuint32_t box_a[2] = {WG_BK, WG_BM}, box_b[2] = {64, WG_BK};
   if (int err = encode_bf16_map(&map_a, 2, a, dims_a, strides_a, box_a)) return err;
   if (int err = encode_bf16_map(&map_b, 2, b, dims_b, strides_b, box_b)) return err;
-  return out_dtype == BF16
-             ? launch_wgmma(map_a, map_b, static_cast<bf16*>(c), ws, M, N, K, ldc, splits, kchunk, s)
-             : launch_wgmma(map_a, map_b, static_cast<float*>(c), ws, M, N, K, ldc, splits, kchunk,
-                            s);
+  return with_epilogue(epi, [&](const auto& e) {
+    return out_dtype == BF16
+               ? launch_wgmma(map_a, map_b, static_cast<bf16*>(c), ws, M, N, K, ldc, splits,
+                              kchunk, s, e)
+               : launch_wgmma(map_a, map_b, static_cast<float*>(c), ws, M, N, K, ldc, splits,
+                              kchunk, s, e);
+  });
+}
+
+template <typename OutT, typename EpiT>
+static int launch_tiled(const void* a, const void* b, void* c, int M, int N, int K,
+                        long long lda, long long ldb, long long ldc, int dtype, cudaStream_t s,
+                        const EpiT& epi) {
+  if (dtype == BF16) {
+    const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+    matmul_bf16_tiled<OutT, EpiT><<<grid, 256, 0, s>>>(static_cast<const bf16*>(a),
+                                                       static_cast<const bf16*>(b),
+                                                       static_cast<OutT*>(c), M, N, K, lda, ldb,
+                                                       ldc, epi);
+  } else {
+    const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+    matmul_f32_tiled<OutT, EpiT><<<grid, 256, 0, s>>>(static_cast<const float*>(a),
+                                                      static_cast<const float*>(b),
+                                                      static_cast<OutT*>(c), M, N, K, lda, ldb,
+                                                      ldc, epi);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N, int K,
                             long long lda, long long ldb, long long ldc, int dtype, int out_dtype,
-                            void* stream) {
+                            const Epi* epi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16) {
-    const dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    const auto* A = static_cast<const bf16*>(a);
-    const auto* B = static_cast<const bf16*>(b);
-    if (out_dtype == BF16)
-      matmul_bf16_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<bf16*>(c), M, N, K, lda, ldb, ldc);
-    else
-      matmul_bf16_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<float*>(c), M, N, K, lda, ldb, ldc);
-  } else {
-    const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    const auto* A = static_cast<const float*>(a);
-    const auto* B = static_cast<const float*>(b);
-    if (out_dtype == BF16)
-      matmul_f32_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<bf16*>(c), M, N, K, lda, ldb, ldc);
-    else
-      matmul_f32_tiled<<<grid, 256, 0, s>>>(A, B, static_cast<float*>(c), M, N, K, lda, ldb, ldc);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_epilogue(epi, [&](const auto& e) {
+    return out_dtype == BF16 ? launch_tiled<bf16>(a, b, c, M, N, K, lda, ldb, ldc, dtype, s, e)
+                             : launch_tiled<float>(a, b, c, M, N, K, lda, ldb, ldc, dtype, s, e);
+  });
 }
 
 // B's rows 16-byte aligned (base and ldb) with N % (16 / size) == 0;
@@ -344,7 +431,7 @@ extern "C" int matmul_tiled(const void* a, const void* b, void* c, int M, int N,
 // with kchunk * (M <= 4 ? 4 : 8) * size <= SK_A_BYTES.
 extern "C" int matmul_skinny(const void* a, const void* b, void* c, int M, int N, int K,
                              long long lda, long long ldb, long long ldc, int dtype, int out_dtype,
-                             int splits, int kchunk, int stages, void* stream) {
+                             int splits, int kchunk, int stages, const Epi* epi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf = dtype == BF16;
   const int a_bytes = bf ? skinny_a_bytes<bf16, 8>(kchunk)
@@ -354,13 +441,15 @@ extern "C" int matmul_skinny(const void* a, const void* b, void* c, int M, int N
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_b;
   if (int err = weight_map(&map_b, b, N, K, ldb, dtype)) return err;
-  if (bf)
-    return launch_skinny_out<bf16, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits, kchunk,
-                                      stages, s);
-  return M <= 4 ? launch_skinny_out<float, 4>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
-                                              kchunk, stages, s)
-                : launch_skinny_out<float, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
-                                              kchunk, stages, s);
+  return with_epilogue(epi, [&](const auto& e) {
+    if (bf)
+      return launch_skinny_out<bf16, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits, kchunk,
+                                        stages, s, e);
+    return M <= 4 ? launch_skinny_out<float, 4>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
+                                                kchunk, stages, s, e)
+                  : launch_skinny_out<float, 8>(out_dtype, a, map_b, c, M, N, K, lda, ldc, splits,
+                                                kchunk, stages, s, e);
+  });
 }
 
 REPRO_EXPORT_ERROR_STRING_TMA

@@ -46,6 +46,7 @@
 // next tile's rows in up to every run.
 #pragma once
 
+#include "epilogue.cuh"
 #include "hopper.cuh"
 
 namespace repro {
@@ -108,13 +109,27 @@ __device__ __forceinline__ uint32_t skinny_load_a(const bf16* __restrict__ A, bf
   return bits & 0x7FFF7FFFu;
 }
 
+// Four consecutive outputs of row r from column c on, each through the
+// epilogue (`f = epi.fast()`, epilogue.cuh).
+template <typename OutT, typename EpiT>
+__device__ __forceinline__ void store4(OutT* out, const float4& v, const EpiT& epi,
+                                       const EpiFast& f, int r, int c) {
+  out[0] = from_f32<OutT>(epi_at(epi, f, v.x, r, c));
+  out[1] = from_f32<OutT>(epi_at(epi, f, v.y, r, c + 1));
+  out[2] = from_f32<OutT>(epi_at(epi, f, v.z, r, c + 2));
+  out[3] = from_f32<OutT>(epi_at(epi, f, v.w, r, c + 3));
+}
+
 // C is written as OutT (the operands' type unless the caller asks for
-// another): the f32 sums are cast once, on the store.
-template <typename T, int MR, bool EXPERTS, typename OutT>
+// another): the f32 sums are cast once, on the store. B1 may hand a fused
+// epilogue (`epi`, epilogue.cuh); it runs on each f32 sum just before that
+// cast, in the block that stores it: after the cluster's sum of the K
+// splits, never on a split's partial. B5 hands none.
+template <typename T, int MR, bool EXPERTS, typename OutT, typename EpiT = NoEpi>
 __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUtensorMap* map_b,
                                               OutT* __restrict__ C, int M, int N, int K,
                                               long long lda, long long ldc, int kchunk, int stages,
-                                              int expert) {
+                                              int expert, const EpiT& epi = EpiT()) {
   constexpr bool TC = sizeof(T) == 2;     // bf16: tensor cores
   static_assert(TC || !EXPERTS, "the expert stream is bf16 only");
   constexpr int VEC = 16 / sizeof(T);
@@ -128,6 +143,9 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
   float* part = reinterpret_cast<float*>(smem);  // [MR][CG], once the ring is done
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * CG, S = gridDim.y;
+  // the partials go through shared memory and the cluster loop below when
+  // there are several splits to sum or a chain to run (one copy of it)
+  const bool staged = S > 1 || has_epi<EpiT>;
   const int kbeg = blockIdx.y * kchunk, klen = min(K, kbeg + kchunk) - kbeg;
   int ntiles = (klen + SK_BK - 1) / SK_BK;
   const int apitch = ntiles * SK_BK + 8;  // bf16 A's row pitch in shared memory
@@ -216,7 +234,7 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = warp * 64 + 16 * t + (lane >> 2) + 8 * (e >> 1), r = 2 * (lane & 3) + (e & 1);
-        if (S > 1)
+        if (staged)
           part[r * CG + c] = d[t][e];
         else if (r < M && n0 + c < N)
           C[(long long)r * ldc + n0 + c] = from_f32<OutT>(d[t][e]);
@@ -274,24 +292,23 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
         const float4 x = *reinterpret_cast<const float4*>(red + (w * MR + r) * CG + c);
         sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
       }
-      if (S == 1) {
+      if (!staged) {
         if (n0 + c < N) {  // N % 4 == 0: the vector is wholly in or out
-          OutT* out = C + (long long)r * ldc + n0 + c;
-          out[0] = from_f32<OutT>(sum.x), out[1] = from_f32<OutT>(sum.y);
-          out[2] = from_f32<OutT>(sum.z), out[3] = from_f32<OutT>(sum.w);
+          store4(C + (long long)r * ldc + n0 + c, sum, NoEpi(), EpiFast(), r, n0 + c);
         }
       } else {
         *reinterpret_cast<float4*>(part + r * CG + c) = sum;
       }
     }
   }
-  if (S == 1) return;
+  if (!staged) return;
 
   // the splits of this column group are the blocks of this cluster, and
   // block rank == blockIdx.y: each sums every S-th 4-column vector over
   // the splits in split order (equal bits on every run) and stores it
   hopper::cluster_sync();
   const int rank = blockIdx.y;
+  const EpiFast f = epi.fast();
   for (int q = rank + S * tid; q < M * CG / 4; q += S * SK_THREADS) {
     const int r = 4 * q / CG, c = 4 * q % CG;
     if (n0 + c >= N) continue;
@@ -301,9 +318,7 @@ __device__ __forceinline__ void skinny_stream(const T* __restrict__ A, const CUt
       const float4 x = hopper::ld_cluster4(part + r * CG + c, sp);
       sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
     }
-    OutT* out = C + (long long)r * ldc + n0 + c;
-    out[0] = from_f32<OutT>(sum.x), out[1] = from_f32<OutT>(sum.y);
-    out[2] = from_f32<OutT>(sum.z), out[3] = from_f32<OutT>(sum.w);
+    store4(C + (long long)r * ldc + n0 + c, sum, epi, f, r, n0 + c);
   }
   hopper::cluster_sync();  // no block leaves while another reads its shared memory
 }

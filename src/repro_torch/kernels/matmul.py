@@ -34,16 +34,36 @@ the rest (ragged bf16 shapes, f32) run ``matmul_tiled`` (WMMA bf16 tiles,
 CUDA-core f32 tiles). All are B1; the source says why each shape is
 bound where it is.
 
+A fused :class:`~repro_torch.axe.program.Epilogue` (``ctx.epilogue``,
+the tail of an ``axe.passes`` fusion) runs as the JAX package runs it
+(``repro/kernels/matmul.py:80-114``), by a rule on the chain, never on
+failure: *inline* when the operands take the kernel stage (2-D, the
+``kernel`` variant) and the chain fits the kernel's descriptor
+(:func:`epilogue_fits`: every extra shaped like C, bf16 or f32, within
+the descriptor's sizes) — on the card inside every route of
+``csrc/matmul.cu`` on the f32 accumulator before the one cast
+(``csrc/epilogue.cuh``), on the CPU as :func:`matmul_epilogue_plain`;
+otherwise *functionally* on the cast result, as the JAX package's
+``finish``: cast to ``out_dtype`` first, then the chain in f32, cast
+again.
+
 Replaces ``repro/kernels/matmul.py:_tile`` (TPU launch at :138, body
-``_mac`` at :52). The fused ``Epilogue`` comes with the fusion slice.
+``_mac`` at :52, its fused branch at :60-67).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, stream_of
+from repro_torch.axe.program import (
+    EPILOGUE_FNS,
+    DeviceError,
+    Epilogue,
+    program,
+    stream_of,
+)
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -55,6 +75,8 @@ from repro_torch.kernels.ref import matmul_ref
 launches = 0
 wgmma_launches = 0
 skinny_launches = 0
+#: launches that ran a fused epilogue chain inside the kernel
+epilogue_launches = 0
 
 #: the block tile ``matmul_bf16_wgmma`` is compiled for (csrc/matmul.cu,
 #: WG_BM/WG_BN/WG_BK); the WMMA and f32 tiles of the ragged route and the
@@ -73,8 +95,30 @@ SKINNY_MAX_SPLITS = 8
 #: the most stages of the skinny kernel's ring (SK_MAX_STAGES)
 SKINNY_MAX_STAGES = 8
 #: ctypes argument codes of the C entries in csrc/matmul.cu
-SIGNATURES = {"matmul_wgmma": "ppppiiillliiip", "matmul_tiled": "pppiiillliip",
-              "matmul_skinny": "pppiiillliiiiip"}
+SIGNATURES = {"matmul_wgmma": "ppppiiillliiipp", "matmul_tiled": "pppiiillliipp",
+              "matmul_skinny": "pppiiillliiiiipp"}
+#: the epilogue descriptor's sizes (csrc/epilogue.cuh, EPI_MAX_*): steps
+#: of a chain, operands of a step, extra tensors of a chain. The chains
+#: the fusion passes build have one step and at most one extra.
+EPI_MAX_STEPS = EPI_MAX_OPERANDS = EPI_MAX_EXTRAS = 4
+#: operands each function takes (``add`` any number, up to the descriptor's)
+_EPI_ARITY = {"add": None, "swiglu": 2, "mul_silu": 2, "gelu": 1}
+
+
+class _EpiDesc(ctypes.Structure):
+    """``struct Epi`` of csrc/epilogue.cuh, field for field."""
+
+    _fields_ = [
+        ("steps", ctypes.c_int),
+        ("kind", ctypes.c_int),
+        ("fn", ctypes.c_int * EPI_MAX_STEPS),
+        ("nops", ctypes.c_int * EPI_MAX_STEPS),
+        ("op", (ctypes.c_int * EPI_MAX_OPERANDS) * EPI_MAX_STEPS),
+        ("nx", ctypes.c_int),
+        ("x", ctypes.c_void_p * EPI_MAX_EXTRAS),
+        ("ld", ctypes.c_int64 * EPI_MAX_EXTRAS),
+        ("dtype", ctypes.c_int * EPI_MAX_EXTRAS),
+    ]
 
 matmul_program = program(
     "matmul", doc="C[M,N] = A[M,K] @ B[K,N] with f32 accumulation"
@@ -84,6 +128,55 @@ matmul_program = program(
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """The plain torch version of the kernel (f32 accumulate, one cast)."""
     return matmul_ref(a, b, out_dtype)
+
+
+def matmul_epilogue_plain(a: torch.Tensor, b: torch.Tensor, epi: Epilogue,
+                          out_dtype=None) -> torch.Tensor:
+    """The plain torch version of the kernel with a fused epilogue, the
+    inline semantics: the f32 product, the chain in f32 on the extras
+    upcast to f32, one cast."""
+    return epi.body(matmul_ref(a, b, torch.float32)).to(out_dtype or a.dtype)
+
+
+def epilogue_fits(epi: Epilogue, m: int, n: int) -> bool:
+    """The rule that runs ``epi`` inline: every extra an ``[m, n]``
+    tensor of bf16 or f32 (the JAX package's own rule: extras shaped like
+    C, ``repro/kernels/matmul.py:96-105``), and the chain within the
+    kernel's descriptor (:data:`EPI_MAX_STEPS` steps of at most
+    :data:`EPI_MAX_OPERANDS` operands, :data:`EPI_MAX_EXTRAS` extras, each
+    function at its arity)."""
+    if len(epi.steps) > EPI_MAX_STEPS or len(epi.args) > EPI_MAX_EXTRAS:
+        return False
+    for fn, ops in epi.steps:
+        arity = _EPI_ARITY[fn]
+        if not 0 < len(ops) <= EPI_MAX_OPERANDS or (arity and len(ops) != arity):
+            return False
+    return all(isinstance(x, torch.Tensor) and tuple(x.shape) == (m, n)
+               and x.dtype in DTYPE_CODES for x in epi.args)
+
+
+#: one-step chains of one extra with a code path of their own in the
+#: kernel (csrc/epilogue.cuh, ``EpiKind``); ``add`` commutes exactly
+EPI_KINDS = {("add", (-1, 0)): 1, ("add", (0, -1)): 1, ("swiglu", (0, -1)): 2,
+             ("swiglu", (-1, 0)): 3, ("mul_silu", (-1, 0)): 4, ("mul_silu", (0, -1)): 5,
+             ("gelu", (-1,)): 6}
+
+
+def _epi_desc(epi: Epilogue, extras) -> _EpiDesc:
+    """The kernel's descriptor of ``epi`` over the ``extras`` (rows
+    unit-strided, on the card)."""
+    d = _EpiDesc()
+    d.steps = len(epi.steps)
+    d.kind = EPI_KINDS.get(epi.steps[0], 0) if len(epi.steps) == 1 else 0
+    for i, (fn, ops) in enumerate(epi.steps):
+        d.fn[i] = EPILOGUE_FNS.index(fn)
+        d.nops[i] = len(ops)
+        for j, o in enumerate(ops):
+            d.op[i][j] = o
+    d.nx = len(extras)
+    for i, x in enumerate(extras):
+        d.x[i], d.ld[i], d.dtype[i] = x.data_ptr(), x.stride(0), DTYPE_CODES[x.dtype]
+    return d
 
 
 def matmul_library(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -224,11 +317,25 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
     variants=("kernel", "xla"),
 )
 def _tile(ctx, a, b, *, out_dtype=None):
-    global launches, wgmma_launches, skinny_launches
+    global launches, wgmma_launches, skinny_launches, epilogue_launches
+    epi = ctx.epilogue
+
+    def finish(out):
+        """The chain applied functionally on the cast result (the JAX
+        package's ``finish``, ``repro/kernels/matmul.py:85-92``)."""
+        if epi is None:
+            return out
+        return epi.body(out.float()).to(out_dtype or a.dtype)
+
     # the JAX package's fallbacks to its plain body (matmul.py:92-114):
     # operands that are not 2-D and the xla variant, on any device
-    if a.ndim != 2 or b.ndim != 2 or ctx.impl != "kernel" or not ctx.on_card(a, b):
-        return ctx.run("dot", a, b, out_dtype=out_dtype)
+    if a.ndim != 2 or b.ndim != 2 or ctx.impl != "kernel":
+        return finish(ctx.run("dot", a, b, out_dtype=out_dtype))
+    inline = epi is not None and epilogue_fits(epi, a.shape[0], b.shape[1])
+    if not ctx.on_card(a, b, *(epi.args if epi is not None else ())):
+        if inline:
+            return matmul_epilogue_plain(a, b, epi, out_dtype)
+        return finish(ctx.run("dot", a, b, out_dtype=out_dtype))
     blocks = {name: ctx.block(name) for name in TILE_BLOCKS}
     if blocks != TILE_BLOCKS:
         raise DeviceError(
@@ -243,6 +350,11 @@ def _tile(ctx, a, b, *, out_dtype=None):
     out_dtype = out_dtype or a.dtype
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr())
+    # the chain's extras are read by their leading stride: a view whose
+    # rows are not unit-strided is copied first, as the operands are
+    extras = tuple(_rows_unit(x) for x in epi.args) if inline else ()
+    desc = _epi_desc(epi, extras) if inline else None
+    epi_ptr = ctypes.addressof(desc) if inline else 0
     route = tile_route(a, b)
     if route == "wgmma":
         splits, kchunk = tile_plan(m, k, n, sm_count(a.device))
@@ -251,7 +363,8 @@ def _tile(ctx, a, b, *, out_dtype=None):
         ctx.launch(
             "matmul", "matmul_wgmma", SIGNATURES["matmul_wgmma"],
             *ptrs, ws.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), n, splits, kchunk, DTYPE_CODES[out_dtype], stream_of(a),
+            a.stride(0), b.stride(0), n, splits, kchunk, DTYPE_CODES[out_dtype], epi_ptr,
+            stream_of(a),
         )
         wgmma_launches += 1
     elif route == "skinny":
@@ -259,15 +372,18 @@ def _tile(ctx, a, b, *, out_dtype=None):
         ctx.launch(
             "matmul", "matmul_skinny", SIGNATURES["matmul_skinny"],
             *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype],
-            DTYPE_CODES[out_dtype], splits, kchunk, stages, stream_of(a),
+            DTYPE_CODES[out_dtype], splits, kchunk, stages, epi_ptr, stream_of(a),
         )
         skinny_launches += 1
     else:
         ctx.launch(
             "matmul", "matmul_tiled", SIGNATURES["matmul_tiled"],
             *ptrs, m, n, k, a.stride(0), b.stride(0), n, DTYPE_CODES[a.dtype],
-            DTYPE_CODES[out_dtype], stream_of(a),
+            DTYPE_CODES[out_dtype], epi_ptr, stream_of(a),
         )
     launches += 1
-    return c
+    if inline:
+        epilogue_launches += 1
+        return c
+    return finish(c)
 

@@ -9,6 +9,7 @@ the JAX package::
     y = programs.rmsnorm(x, w, eps=1e-6)
     o = programs.flash_decode(q, k_cache, v_cache, pos, ring=False)
     h = programs.moe_gemm(buf, w)                   # [E,C,d] @ [E,d,f]
+    y = programs.matmul(a, b, epilogue=Epilogue("add", (("add", (-1, 0)),), (res,)))
 
 On CUDA tensors each program launches its hand-written Hopper kernel
 (``repro_torch/csrc``) or raises; on CPU tensors it runs the kernel's
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.axe.program import Epilogue as Epilogue
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import moe_gemm as _moe
@@ -79,6 +81,7 @@ def reset_launch_counts() -> None:
     _mm.launches = 0
     _mm.wgmma_launches = 0
     _mm.skinny_launches = 0
+    _mm.epilogue_launches = 0
     _rn.launches = 0
     _fa.attend_launches = 0
     _fa.attend_wgmma_launches = 0
@@ -91,6 +94,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "ALL_PROGRAMS",
+    "Epilogue",
     "bulk_counts",
     "flash_attention",
     "flash_decode",

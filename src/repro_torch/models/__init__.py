@@ -1,4 +1,5 @@
-# Dense decoder model of the port (models.transformer), its building
-# blocks (models.common, models.attention) and the model API
-# (models.model_zoo). The MoE, SSM, hybrid and enc-dec families come with
-# later slices (ROADMAP.md, queue A12-A13).
+# Decoder models of the port (models.transformer: the dense, MoE, SSM and
+# hybrid families), their building blocks (models.common,
+# models.attention, models.moe, models.ssm) and the model API
+# (models.model_zoo). The enc-dec and VLM families come with a later
+# slice (ROADMAP.md, queue A13).

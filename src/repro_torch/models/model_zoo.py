@@ -1,5 +1,5 @@
-"""Unified model API of the port — the dense and MoE families of
-``repro/models/model_zoo.py``."""
+"""Unified model API of the port — the dense, MoE, SSM and hybrid
+families of ``repro/models/model_zoo.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,7 +25,7 @@ class ModelAPI:
 def build_model(cfg: ModelConfig, *,
                 device: Optional[Union[str, torch.device]] = None) -> ModelAPI:
     """The model API on ``device`` (default ``cuda``; raises without a
-    card unless ``device="cpu"``). Dense and MoE families
+    card unless ``device="cpu"``). Dense, MoE, SSM and hybrid families
     (``transformer.FAMILIES``)."""
     tf_mod.check_family(cfg)
     dev = resolve_device(device)

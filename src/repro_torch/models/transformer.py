@@ -1,18 +1,20 @@
-"""Decoder-only LM assembly for the dense and MoE families — the serving
-half of ``repro/models/transformer.py``.
+"""Decoder-only LM assembly for the dense, MoE, SSM and hybrid families —
+the serving half of ``repro/models/transformer.py``.
 
 Parameters keep the JAX package's super-block structure: a leaf under
 ``blocks/l{slot}`` is stacked over super-blocks on its first axis, and
 layer ``i`` is super-block ``i // per``, slot ``i % per`` (gemma3:
 5 local + 1 global layers per super-block, the local ones with ring
-caches). The JAX package's ``lax.scan`` over stacked params becomes a
-Python loop over super-blocks. Prefill and decode run under
-``Scope.DEVICE``, so every matmul dispatches to the ``matmul/tile``
-GRID stage — the binding the JAX package's compiled graph makes
-(``axe/compile.py:165-186``); an MoE layer's FFN is ``models/moe.py``,
-whose expert GEMMs dispatch to ``moe_gemm/expert_gemm``. The SSM,
-hybrid, enc-dec and VLM families raise ``NotImplementedError`` until
-their slice lands (``ROADMAP.md``, queue A13).
+caches; jamba: 7 SSD + 1 attention layers, every one with a MoE FFN;
+mamba2: one SSD mixer per layer and no FFN). The JAX package's
+``lax.scan`` over stacked params becomes a Python loop over
+super-blocks. Prefill and decode run under ``Scope.DEVICE``, so every
+matmul dispatches to the ``matmul/tile`` GRID stage — the binding the
+JAX package's compiled graph makes (``axe/compile.py:165-186``); an MoE
+layer's FFN is ``models/moe.py``, whose expert GEMMs dispatch to
+``moe_gemm/expert_gemm``; an SSD mixer is ``models/ssm.py``. The
+enc-dec and VLM families raise ``NotImplementedError`` until their slice
+lands (``ROADMAP.md``, queue A13).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     Params,
     dense_init,
@@ -35,23 +38,38 @@ from repro_torch.models.common import (
 )
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            f"serves the {' and '.join(FAMILIES)} families (ROADMAP.md, queue A13)"
+            f"serves the {', '.join(FAMILIES)} families (ROADMAP.md, queue A13)"
         )
 
 
 def _superblock_shape(cfg) -> Tuple[int, int]:
     """(n_super, layers_per_super)."""
-    per = cfg.local_global_ratio + 1 if cfg.local_global_ratio else 1
+    if cfg.local_global_ratio:
+        per = cfg.local_global_ratio + 1
+    elif cfg.attn_period:
+        per = cfg.attn_period
+    else:
+        per = 1
     if cfg.num_layers % per:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers not a multiple of {per}")
     return cfg.num_layers // per, per
+
+
+def _mixer_kind(cfg, i: int, per: int) -> str:
+    """The token mixer of slot ``i``: ``"ssm"`` or ``"attn"`` (jamba: the
+    last layer of each period is attention)."""
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.attn_period:
+        return "attn" if i == per - 1 else "ssm"
+    return "attn"
 
 
 def _layer_window(cfg, i: int, per: int) -> Optional[int]:
@@ -82,15 +100,18 @@ def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> 
     d = cfg.d_model
     blocks = {}
     for i in range(per):
-        blocks[f"l{i}"] = {
-            "norm1": torch.ones((n_super, d), dtype=dtype, device=gen.device),
-            "attn": attn.attn_init(gen, cfg, dtype, lead),
-            "norm2": torch.ones((n_super, d), dtype=dtype, device=gen.device),
-        }
-        if cfg.is_moe:
-            blocks[f"l{i}"]["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+        lp = blocks[f"l{i}"] = {"norm1": torch.ones((n_super, d), dtype=dtype, device=gen.device)}
+        if _mixer_kind(cfg, i, per) == "attn":
+            lp["attn"] = attn.attn_init(gen, cfg, dtype, lead)
         else:
-            blocks[f"l{i}"]["mlp"] = mlp_init(gen, cfg, dtype, lead)
+            lp["ssm"] = ssm_mod.ssd_init(gen, cfg, dtype, lead)
+        if cfg.family == "ssm":
+            continue  # mamba2: no FFN
+        lp["norm2"] = torch.ones((n_super, d), dtype=dtype, device=gen.device)
+        if cfg.is_moe:
+            lp["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+        else:
+            lp["mlp"] = mlp_init(gen, cfg, dtype, lead)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, d, dtype),
         "blocks": blocks,
@@ -106,6 +127,8 @@ def _head(params: Params, cfg) -> torch.Tensor:
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.family == "ssm":
+        return x  # mamba2: the mixer only
     h = rmsnorm(x, p["norm2"])
     if cfg.is_moe:
         return x + moe_mod.moe_apply(p["moe"], h, cfg)
@@ -120,12 +143,16 @@ def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 def cache_init(cfg, batch: int, max_seq: int, *,
                device: Union[str, torch.device] = "cpu") -> Params:
     """Per-slot caches stacked over super-blocks, as the JAX package's
-    ``cache_init`` lays them out: ``l{i}/k`` is ``[n_super, B, W, KV, hd]``."""
+    ``cache_init`` lays them out: an attention slot's ``l{i}/k`` is
+    ``[n_super, B, W, KV, hd]``, an SSD slot's ``l{i}/ssm`` ``[n_super, B,
+    H, N, P]`` (f32) and ``l{i}/conv`` ``[n_super, B, CONV_K - 1, C]``."""
     check_family(cfg)
     n_super, per = _superblock_shape(cfg)
     return {
-        f"l{i}": attn.cache_init(cfg, batch, max_seq, dtype_of(cfg), device,
-                                 window=_layer_window(cfg, i, per), lead=(n_super,))
+        f"l{i}": (ssm_mod.ssd_state_init(cfg, batch, dtype_of(cfg), device, lead=(n_super,))
+                  if _mixer_kind(cfg, i, per) == "ssm" else
+                  attn.cache_init(cfg, batch, max_seq, dtype_of(cfg), device,
+                                  window=_layer_window(cfg, i, per), lead=(n_super,)))
         for i in range(per)
     }
 
@@ -141,9 +168,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
         for sb in range(n_super):
             sp, sc = _index(params["blocks"], sb), _index(cache, sb)
             for i in range(per):
-                p = sp[f"l{i}"]
-                y, _ = attn.attn_prefill(p["attn"], rmsnorm(x, p["norm1"]), cfg, sc[f"l{i}"],
-                                         window=_layer_window(cfg, i, per))
+                p, h = sp[f"l{i}"], rmsnorm(x, sp[f"l{i}"]["norm1"])
+                if _mixer_kind(cfg, i, per) == "ssm":
+                    y, _ = ssm_mod.ssd_prefill(p["ssm"], h, cfg, sc[f"l{i}"])
+                else:
+                    y, _ = attn.attn_prefill(p["attn"], h, cfg, sc[f"l{i}"],
+                                             window=_layer_window(cfg, i, per))
                 x = _ffn(p, x + y, cfg)
         x = rmsnorm(x[:, -1:].contiguous(), params["final_norm"])
         return linear(x, _head(params, cfg)), cache
@@ -175,9 +205,12 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
         for sb in range(n_super):
             sp, sc = _index(params["blocks"], sb), _index(cache, sb)
             for i in range(per):
-                p = sp[f"l{i}"]
-                y, _ = attn.attn_decode(p["attn"], rmsnorm(x, p["norm1"]), cfg, sc[f"l{i}"],
-                                        pos, window=_layer_window(cfg, i, per))
+                p, h = sp[f"l{i}"], rmsnorm(x, sp[f"l{i}"]["norm1"])
+                if _mixer_kind(cfg, i, per) == "ssm":
+                    y, _ = ssm_mod.ssd_decode(p["ssm"], h, cfg, sc[f"l{i}"])
+                else:
+                    y, _ = attn.attn_decode(p["attn"], h, cfg, sc[f"l{i}"], pos,
+                                            window=_layer_window(cfg, i, per))
                 x = _ffn(p, x + y, cfg)
         x = rmsnorm(x, params["final_norm"])
         return linear(x, _head(params, cfg)), cache

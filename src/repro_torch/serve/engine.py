@@ -7,9 +7,13 @@ is one ``axe.compile`` executable of the model-zoo graph, and every
 decode tick of :meth:`ServeEngine.generate` runs the compiled decode-step
 executable (``decode_mode="compiled"``, the default); the prefill runs
 through the model API, and ``decode_mode="legacy"`` keeps the model
-API's own ``decode_step`` per tick. The JAX engine's mesh placement,
+API's own ``decode_step`` per tick. ``fuse=True`` runs the graph-level
+fusion passes (``axe.passes``) on both graphs before solving, so the
+elementwise glue after a matmul runs inside kernel B1 and the other
+glue inside the fused node's segments. The JAX engine's mesh placement,
 solved-layout and schedule-cache options come with the multi-GPU and
-tune slices (``ROADMAP.md`` A14, A11).
+tune slices (``ROADMAP.md`` A14, A11). :class:`~repro_torch.serve.batcher.ContinuousBatcher`
+drives the same engine with requests that join and leave mid-stream.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ class ServeEngine:
     rng_seed: int = 0
     device: Optional[Union[str, torch.device]] = None  # default: cuda
     decode_mode: str = "compiled"      # "compiled" | "legacy"
+    fuse: bool = False                 # graph-level fusion passes (axe.passes)
 
     #: compiled-executable memo bound: each entry holds a solved plan and
     #: its executable, so callers should bucket sequence lengths
@@ -92,9 +97,10 @@ class ServeEngine:
         miss solves + compiles, so bucket sequence lengths)."""
         from repro_torch.axe.compile import model_executable
 
-        b = batch or self.batch_size
-        return self._memo((b, seq, layers), lambda: model_executable(
-            self.api.cfg, None, b, seq, layers=layers, dtype=str(self.api.cfg.dtype)))
+        b, fuse = batch or self.batch_size, self.fuse
+        return self._memo((b, seq, layers, fuse), lambda: model_executable(
+            self.api.cfg, None, b, seq, layers=layers, dtype=str(self.api.cfg.dtype),
+            fuse=fuse))
 
     def compiled_decode(self, *, batch: Optional[int] = None,
                         layers: Optional[int] = None):
@@ -104,10 +110,10 @@ class ServeEngine:
         :meth:`compiled_forward`."""
         from repro_torch.axe.compile import decode_executable
 
-        b = batch or self.batch_size
-        return self._memo(("decode", b, layers), lambda: decode_executable(
+        b, fuse = batch or self.batch_size, self.fuse
+        return self._memo(("decode", b, layers, fuse), lambda: decode_executable(
             self.api.cfg, None, b, self.max_seq, layers=layers,
-            dtype=str(self.api.cfg.dtype)))
+            dtype=str(self.api.cfg.dtype), fuse=fuse))
 
     def decode_step(self, tok: torch.Tensor, cache, pos: torch.Tensor):
         """One compiled decode step: ``tok [B]`` current tokens, ``pos
@@ -119,7 +125,7 @@ class ServeEngine:
 
         b = int(tok.shape[0])
         exe = self.compiled_decode(batch=b)
-        inputs = dict(self._inputs(("decode", b, None), exe))
+        inputs = dict(self._inputs(("decode", b, None, self.fuse), exe))
         inputs.update(cache_inputs(exe.graph, self.api.cfg, cache))
         outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))
         logits = outs[exe.outputs.index("logits")]
@@ -139,7 +145,8 @@ class ServeEngine:
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         exe = self.compiled_forward(s, batch=b)
-        logits = exe(self._inputs((b, s, None), exe), tokens.reshape(-1).to(torch.int32))
+        logits = exe(self._inputs((b, s, None, self.fuse), exe),
+                     tokens.reshape(-1).to(torch.int32))
         return logits.reshape(b, s, -1)
 
     def generate(

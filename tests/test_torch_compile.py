@@ -11,7 +11,6 @@ lowering trace (equal to the JAX package's in every field but
 ``schedule``, which the port takes from the stage's declared default
 until the tune slice)."""
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -281,23 +280,18 @@ def test_op_counts_follow_the_graph():
 def test_unported_options_name_their_roadmap_item():
     _, _, _, tapi, _ = _setup("qwen3-4b")
     cfg = tapi.cfg
-    for kw, item in ((dict(fuse=True), "A10"), (dict(cotune=True), "A11"),
-                     (dict(offload=("L0.wq",)), "A14")):
+    for kw, item in ((dict(cotune=True), "A11"), (dict(offload=("L0.wq",)), "A14")):
         with pytest.raises(CompileError, match=item):
             p_compile.model_executable(cfg, None, B, S, **kw)
     with pytest.raises(CompileError, match="A14"):
         p_compile.model_executable(cfg, object(), B, S)
-    with pytest.raises(CompileError, match="A10"):
-        p_compile.decode_executable(cfg, None, B, MAX_SEQ, fuse=True)
-    mamba = tconfigs.smoke_variant(tconfigs.get_config("mamba2-2.7b"))
+    with pytest.raises(CompileError, match="A14"):
+        p_compile.decode_executable(cfg, object(), B, MAX_SEQ)
+    # fuse=True (A10) and the SSM backends (A13's SSM half) are ported
+    # (tests/test_torch_passes.py, tests/test_torch_ssm.py); enc-dec is not
+    whisper = tconfigs.smoke_variant(tconfigs.get_config("whisper-large-v3"))
     with pytest.raises(CompileError, match="A13"):
-        p_compile.model_executable(mamba, None, B, S)
-    from repro_torch.axe.propagate import OpNode
-
-    ctx = types.SimpleNamespace(node=OpNode("L0.ssm_mix", "ssm_mix", ("x",), "y"))
-    for kind in ("ssm_mix", "ssm_decode", "side_output"):
-        with pytest.raises(CompileError, match="A13"):
-            p_compile.op_backend(kind)(ctx)
+        p_compile.model_executable(whisper, None, B, S)
 
 
 def test_shape_check_refuses_a_backend_of_the_wrong_shape(monkeypatch):

@@ -567,3 +567,180 @@ def test_compiled_decode_tick_matches_legacy_on_the_card(cuda, arch):
             _close(got_cache[slot][leaf], want_cache[slot][leaf], torch.float32)
     nodes = exe.op_counts()
     assert {k: counts[k] for k in nodes} == nodes, (counts, nodes)
+
+
+# ---------------------------------------------------------------------------
+# B1's fused epilogue on every route, the fused compiled ticks, the
+# continuous batcher and the SSM / hybrid families on the card
+# ---------------------------------------------------------------------------
+
+#: one chain per function and operand order (-1: the chain value, i:
+#: extra i; each has its own code path in the kernel, matmul.EPI_KINDS),
+#: and a chain of several steps and extras, within the kernel's descriptor
+EPI_CHAINS = {
+    "add": (("add", (-1, 0)),),
+    "swiglu": (("swiglu", (0, -1)),),
+    "mul_silu": (("mul_silu", (-1, 0)),),
+    "gelu": (("gelu", (-1,)),),
+    "add, extra first": (("add", (0, -1)),),
+    "swiglu, chain first": (("swiglu", (-1, 0)),),
+    "mul_silu, extra first": (("mul_silu", (0, -1)),),
+    "add3+gelu+mul_silu": (("add", (0, -1, 1)), ("gelu", (-1,)), ("mul_silu", (-1, 1))),
+}
+#: (m, k, n, the route B1 takes): skinny with one and several K splits,
+#: wgmma whole and split-K, the WMMA and f32 tiles of the ragged route
+EPI_SHAPES = [(4, 64, 256, "skinny"), (4, 4096, 2560, "skinny"), (512, 4096, 2560, "wgmma"),
+              (512, 2560, 1024, "wgmma"), (37, 83, 45, "tiled")]
+
+
+def _epi(cuda, steps, m, n, dtype, seed=30):
+    n_extras = 1 + max(o for _, ops in steps for o in ops)
+    extras = tuple(_randn(cuda, (m, n), dtype, seed + i) for i in range(max(n_extras, 0)))
+    return programs.Epilogue("+".join(fn for fn, _ in steps), steps, extras)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chain", list(EPI_CHAINS))
+@pytest.mark.parametrize("m,k,n,route", EPI_SHAPES)
+def test_matmul_epilogue_runs_in_the_kernel_on_every_route(cuda, dtype, chain, m, k, n, route):
+    a, b = _randn(cuda, (m, k), dtype, 1), _randn(cuda, (k, n), dtype, 2, k ** -0.5)
+    if dtype == torch.float32 and route == "wgmma":
+        route = "tiled"  # f32 products of more than 8 rows take the CUDA-core tile
+    assert mm.tile_route(a, b) == route
+    epi = _epi(cuda, EPI_CHAINS[chain], m, n, dtype)
+    before, fused = mm.launches, mm.epilogue_launches
+    got = programs.matmul(a, b, epilogue=epi)
+    assert (mm.launches, mm.epilogue_launches) == (before + 1, fused + 1)
+    _close(got, mm.matmul_epilogue_plain(a, b, epi), dtype)
+
+
+def test_matmul_epilogue_after_the_split_k_sum(cuda):
+    """wgmma split-K: the chain runs in ``splitk_reduce`` on the sum, once
+    (an add per split would add the residual ``splits`` times)."""
+    a = _randn(cuda, (512, 2560), torch.bfloat16, 1)
+    b = _randn(cuda, (2560, 1024), torch.bfloat16, 2, 2560 ** -0.5)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mm.tile_plan(512, 2560, 1024, n_sm)[0] > 1
+    epi = _epi(cuda, EPI_CHAINS["add"], 512, 1024, torch.bfloat16)
+    got = programs.matmul(a, b, epilogue=epi)
+    _close(got, mm.matmul_epilogue_plain(a, b, epi), torch.bfloat16)
+    _close(got - epi.args[0], mm.matmul_plain(a, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 2560), (4, 9728, 2560), (4, 2560, 9728)])
+def test_fused_skinny_route_gives_equal_bits_on_repeat(cuda, m, k, n):
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mm.skinny_plan(m, k, n, 2, n_sm)[0] > 1  # the chain runs after the cluster's sum
+    a = _randn(cuda, (m, k), torch.bfloat16, 20)
+    b = _randn(cuda, (k, n), torch.bfloat16, 21, k ** -0.5)
+    epi = _epi(cuda, EPI_CHAINS["swiglu"], m, n, torch.bfloat16)
+    first = programs.matmul(a, b, epilogue=epi)
+    _close(first, mm.matmul_epilogue_plain(a, b, epi), torch.bfloat16)
+    for _ in range(3):
+        assert torch.equal(programs.matmul(a, b, epilogue=epi), first)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_epilogue_takes_strided_extras_and_the_other_output_type(cuda, dtype):
+    a, b = _randn(cuda, (8, 256), dtype, 1), _randn(cuda, (256, 136), dtype, 2, 1 / 16)
+    wide = _randn(cuda, (8, 200), dtype, 3)
+    for extra in (wide[:, 32:168], _randn(cuda, (136, 8), dtype, 4).t()):
+        epi = programs.Epilogue("add", EPI_CHAINS["add"], (extra,))
+        got = programs.matmul(a, b, epilogue=epi)
+        _close(got, mm.matmul_epilogue_plain(a, b, epi), dtype)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    epi = programs.Epilogue("add", EPI_CHAINS["add"], (_randn(cuda, (8, 136), other, 5),))
+    got = programs.matmul(a, b, out_dtype=other, epilogue=epi)
+    assert got.dtype == other
+    _close(got, mm.matmul_epilogue_plain(a, b, epi, other), other)
+
+
+def test_matmul_epilogue_that_does_not_fit_runs_functionally(cuda):
+    a, b = _randn(cuda, (4, 256), torch.bfloat16, 1), _randn(cuda, (256, 128), torch.bfloat16, 2)
+    row = _randn(cuda, (128,), torch.bfloat16, 3)
+    epi = programs.Epilogue("add", EPI_CHAINS["add"], (row,))
+    fused = mm.epilogue_launches
+    got = programs.matmul(a, b, epilogue=epi)
+    assert mm.epilogue_launches == fused
+    want = (mm.matmul_plain(a, b).float() + row.float()).to(torch.bfloat16)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_fused_decode_tick_matches_unfused_on_the_card(cuda, arch):
+    """A fused compiled tick against the unfused one on the same weights,
+    cache and per-slot positions (f32), with the same kernel launches."""
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32",
+                              capacity_factor=8.0)
+    api = build_model(cfg, device=cuda)
+    params = api.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    _, cache = api.prefill(params, {"tokens": prompts.to(cuda)}, api.cache_init(2, 32))
+    tok = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([20, 25], dtype=torch.int32, device=cuda)
+    out = {}
+    for fuse in (False, True):
+        eng = ServeEngine(api, batch_size=2, max_seq=32, device=cuda, fuse=fuse)
+        eng.load(params)
+        twin = {slot: {k: v.clone() for k, v in leaf.items()} for slot, leaf in cache.items()}
+        eng.compiled_decode()
+        programs.reset_launch_counts()
+        out[fuse] = eng.decode_step(tok, twin, pos), programs.launch_counts()
+    (want, want_cache), want_counts = out[False]
+    (got, got_cache), got_counts = out[True]
+    _close(got, want, torch.float32)
+    for slot in want_cache:
+        for leaf in want_cache[slot]:
+            _close(got_cache[slot][leaf], want_cache[slot][leaf], torch.float32)
+    assert got_counts == want_counts
+    assert mm.epilogue_launches > 0
+
+
+def test_batcher_on_the_card_keeps_its_invariants_and_matches_cpu(cuda):
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-4b")), dtype="float32")
+    cpu_api = build_model(cfg, device="cpu")
+    params = cpu_api.init(0)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9))),
+                    max_new_tokens=int(rng.integers(1, 6)), arrival=int(rng.integers(0, 4)))
+            for u in range(1, 8)]
+    results = {}
+    for dev, p in (("cpu", params), (cuda, tree_to(params, cuda))):
+        eng = ServeEngine(build_model(cfg, device=dev), batch_size=3, max_seq=32, device=dev,
+                          fuse=dev != "cpu")
+        eng.load(p)
+        bat = ContinuousBatcher(eng)
+        for r in reqs:
+            bat.submit(r)
+        while bat.step():
+            live = [s.uid for s in bat.slots if s.uid is not None]
+            leased = bat.pool.leased_pages()
+            assert set(leased) == set(live) and len(live) == len(set(live))
+            pages = [q for ps in leased.values() for q in ps]
+            assert len(pages) == len(set(pages))
+            assert bat.pool.available + len(pages) == bat.pool.n_pages
+        assert bat.pool.available == bat.pool.n_pages
+        results[str(dev)] = {u: list(r.tokens) for u, r in bat.results.items()}
+    assert results["cpu"] == results[str(cuda)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_ssm_families_on_card_match_cpu(cuda, arch):
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32",
+                              capacity_factor=8.0)
+    cpu_api = build_model(cfg, device="cpu")
+    params = cpu_api.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    ref = ServeEngine(cpu_api, batch_size=2, max_seq=32, device="cpu")
+    ref.load(params)
+    want = ref.generate(prompts, 6)
+    for mode in ("legacy", "compiled"):
+        eng = ServeEngine(build_model(cfg, device=cuda), batch_size=2, max_seq=32, device=cuda,
+                          decode_mode=mode)
+        eng.load(tree_to(params, cuda))
+        np.testing.assert_array_equal(eng.generate(prompts, 6), want)
+    logits = eng.score(prompts.to(cuda))
+    _close(logits, ref.score(prompts).to(cuda), torch.float32)

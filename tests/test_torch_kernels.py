@@ -83,6 +83,143 @@ def test_skinny_plan_covers_k_and_fits_shared_memory(m, k, n):
         assert stages == 8 or groups * splits > n_sm // 2
 
 
+# ---------------------------------------------------------------------------
+# B1's fused epilogue (the port of ``_mac``'s fused branch)
+# ---------------------------------------------------------------------------
+
+#: one chain per function, its operands in the step's input order (-1 the
+#: chain value, i extra i), as the fusion passes build them
+CHAINS = {
+    "add": (("add", (-1, 0)),),
+    "swiglu": (("swiglu", (0, -1)),),
+    "mul_silu": (("mul_silu", (-1, 0)),),
+    "gelu": (("gelu", (-1,)),),
+}
+
+
+def _jax_body(steps):
+    """The JAX package's epilogue body of ``steps``
+    (``repro/axe/compile.py:925-944``)."""
+    def body(tile, *xs):
+        cur = tile
+        for fn, ops in steps:
+            a = [cur if o == -1 else xs[o] for o in ops]
+            if fn == "add":
+                cur = a[0]
+                for x in a[1:]:
+                    cur = cur + x
+            elif fn == "swiglu":
+                cur = jax.nn.silu(a[0]) * a[1]
+            elif fn == "mul_silu":
+                cur = a[0] * jax.nn.silu(a[1])
+            else:
+                cur = jax.nn.gelu(a[0])
+        return cur
+    return body
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (37, 83, 45)])
+@pytest.mark.parametrize("fn", list(CHAINS))
+def test_matmul_epilogue_matches_pallas(fn, m, k, n, dtype):
+    """The JAX package's Pallas ``matmul/tile`` with the chain fused (in
+    interpret mode) against the port's CPU path, ``matmul_epilogue_plain``.
+    A chain without extras (gelu) is held to the JAX package's
+    functional application (the ``xla`` variant): its Pallas kernel
+    drops such a chain (:func:`test_jax_kernel_drops_a_chain_without_extras`)."""
+    from repro.axe.program import Epilogue as JaxEpilogue
+
+    a, b = draw(10, (m, k), dtype), draw(11, (k, n), dtype, scale=k ** -0.5)
+    steps = CHAINS[fn]
+    extras = [draw(12, (m, n), dtype)] if any(o >= 0 for _, ops in steps for o in ops) else []
+    jepi = JaxEpilogue(tag=fn, body=_jax_body(steps), args=tuple(jnp.asarray(x) for x in extras))
+    pins = (dict(impl="kernel", blocks={"bm": 128, "bn": 128, "bk": 128}) if extras
+            else dict(impl="xla"))
+    want = jprog.matmul(jnp.asarray(a), jnp.asarray(b), stage="tile", epilogue=jepi,
+                        interpret=True, **pins)
+    epi = programs.Epilogue(fn, steps, tuple(t(x) for x in extras))
+    got = programs.matmul(t(a), t(b), epilogue=epi)
+    assert got.dtype == t(a).dtype
+    assert_close(got, want, **tol(dtype))
+    assert torch.equal(got, mm.matmul_epilogue_plain(t(a), t(b), epi))
+
+
+def test_jax_kernel_drops_a_chain_without_extras():
+    """Reference state, not a port fault: the JAX package's Pallas
+    ``matmul/tile`` runs the chain only when it has extras
+    (``fused=bool(extras)``, ``repro/kernels/matmul.py:135``), so a
+    gelu-only chain comes back as the bare product on its kernel path.
+    The port runs the chain as its body says (``ROADMAP.md`` §C)."""
+    from repro.axe.program import Epilogue as JaxEpilogue
+
+    a, b = draw(13, (128, 256)), draw(14, (256, 128), scale=256 ** -0.5)
+    jepi = JaxEpilogue(tag="gelu", body=_jax_body(CHAINS["gelu"]), args=())
+    got = jprog.matmul(jnp.asarray(a), jnp.asarray(b), stage="tile", impl="kernel",
+                       blocks={"bm": 128, "bn": 128, "bk": 128}, epilogue=jepi, interpret=True)
+    assert_close(got, a @ b, **tol("float32"))
+    port = programs.matmul(t(a), t(b), epilogue=programs.Epilogue("gelu", CHAINS["gelu"]))
+    assert_close(port, jax.nn.gelu(jnp.asarray(a @ b)), **tol("float32"))
+
+
+def test_matmul_epilogue_rule_is_on_the_chain():
+    """Extras shaped like C and a chain within the descriptor run inline;
+    a broadcast extra, too many steps or a wrong arity run functionally
+    on the cast result, as the JAX package's ``finish`` does."""
+    a, b = torch.randn(6, 8), torch.randn(8, 5)
+    row = torch.randn(5)
+    assert mm.epilogue_fits(programs.Epilogue("add", CHAINS["add"], (torch.randn(6, 5),)), 6, 5)
+    assert not mm.epilogue_fits(programs.Epilogue("add", CHAINS["add"], (row,)), 6, 5)
+    assert not mm.epilogue_fits(programs.Epilogue("gelu", (("gelu", (-1,)),) * 5), 6, 5)
+    assert not mm.epilogue_fits(programs.Epilogue("swiglu", (("swiglu", (-1,)),)), 6, 5)
+    assert not mm.epilogue_fits(
+        programs.Epilogue("add", CHAINS["add"], (torch.randn(6, 5, dtype=torch.float64),)), 6, 5)
+    epi = programs.Epilogue("add", CHAINS["add"], (row,))
+    got = programs.matmul(a.bfloat16(), b.bfloat16(), epilogue=epi)
+    want = ((a.bfloat16().float() @ b.bfloat16().float()).bfloat16().float() + row).bfloat16()
+    assert torch.equal(got, want)
+    # the xla variant and operands that are not 2-D apply it functionally too
+    assert torch.equal(programs.matmul(a, b, impl="xla", epilogue=epi), a @ b + row)
+    with pytest.raises(Exception, match="not in"):
+        programs.Epilogue("relu", (("relu", (-1,)),))
+    with pytest.raises(Exception, match="extras"):
+        programs.Epilogue("add", (("add", (-1, 1)),), (row,))
+
+
+def test_epilogue_keys_its_schedule_apart_from_the_plain_launch():
+    seen = {}
+
+    @mm.matmul_program.stage("probe_tag", scope="block")
+    def _probe(ctx, a):
+        seen["tag"] = ctx.schedule_tag
+        return a
+
+    x = torch.zeros(2, 2)
+    mm.matmul_program(x, stage="probe_tag")
+    assert seen["tag"] is None
+    mm.matmul_program(x, stage="probe_tag",
+                      epilogue=programs.Epilogue("swiglu", CHAINS["swiglu"], (x,)))
+    assert seen["tag"] == "epi:swiglu"
+    del mm.matmul_program.stages["probe_tag"]
+
+
+def test_epilogue_descriptor_matches_the_kernel_struct():
+    """``_EpiDesc`` mirrors ``struct Epi`` of csrc/epilogue.cuh field for
+    field, and the function codes are ``EpiFn``'s."""
+    src = _csrc("epilogue.cuh")
+    const = lambda name: int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
+    assert (mm.EPI_MAX_STEPS, mm.EPI_MAX_OPERANDS, mm.EPI_MAX_EXTRAS) == (
+        const("EPI_MAX_STEPS"), const("EPI_MAX_OPERANDS"), const("EPI_MAX_EXTRAS"))
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct Epi \{(.*?)__device__", src, re.S).group(1))
+    fields = re.findall(r"(\w+)(?:\[\w+\])*;", body)
+    assert fields == [f for f, _ in mm._EpiDesc._fields_]
+    kinds = re.search(r"enum EpiKind : int \{(.*?)\};", src, re.S).group(1)
+    assert sorted(set(mm.EPI_KINDS.values())) == [int(k) for k in re.findall(r"= (\d+)", kinds)][1:]
+    codes = re.search(r"enum EpiFn : int \{(.*?)\}", src, re.S).group(1)
+    assert [int(c) for c in re.findall(r"= (\d+)", codes)] == list(range(len(mm.EPILOGUE_FNS)))
+    assert [c.split("_", 1)[1].lower() for c in re.findall(r"EPI_\w+", codes)] == \
+        list(mm.EPILOGUE_FNS)
+
+
 def _bf16(shape):
     return torch.empty(shape, dtype=torch.bfloat16)
 
@@ -441,7 +578,8 @@ def test_flash_decode_operand_checks():
 # the C interface: the wrappers' ctypes codes match the sources
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"const void*": "p", "void*": "p", "int": "i", "long long": "l", "float": "f"}
+_C_TYPES = {"const void*": "p", "void*": "p", "int": "i", "long long": "l", "float": "f",
+            "const Epi*": "p"}
 
 
 def _c_signature(src: str, symbol: str) -> str:

@@ -193,7 +193,7 @@ def test_launch_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_other_families_point_to_the_roadmap():
-    for arch in ("mamba2-2.7b", "jamba-1.5-large-398b"):
+    for arch in ("whisper-large-v3", "llava-next-mistral-7b"):
         cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu")

@@ -12,7 +12,7 @@ import pytest
 
 HERE = Path(__file__).resolve().parent
 FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
-         "test_torch_compile.py")
+         "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -58,6 +58,22 @@ TARGETS = {
         "axe/compile.py", "transformer.lm_forward, MoE bf16"),
     "test_compiled_decode_step_matches_jax_at_per_slot_positions": (
         "axe/compile.py", "decode_executable (mesh=None), ServeEngine.decode_step"),
+    "test_matmul_epilogue_matches_pallas": (
+        "kernels/matmul.py", "programs.matmul + Epilogue, Pallas tile (xla for gelu)"),
+    "test_jax_kernel_drops_a_chain_without_extras": ("kernels/matmul.py", "jax.nn.gelu(a @ b)"),
+    "test_fused_forward_matches_unfused_bitwise_and_jax": (
+        "axe/passes.py + compile.py", "model_executable(fuse=True) (mesh=None)"),
+    "test_fused_decode_matches_unfused_bitwise_and_jax": (
+        "axe/passes.py + compile.py", "decode_executable(fuse=True) (mesh=None)"),
+    "test_engine_fused_score_matches_unfused_and_jax": (
+        "serve/engine.py", "ServeEngine(fuse=True).score"),
+    "test_ssd_scan_matches_jax_and_the_recurrence": ("models/ssm.py", "ssm.ssd_scan, ssd_ref"),
+    "test_causal_conv_matches_jax": ("models/ssm.py", "ssm._causal_conv"),
+    "test_ssd_decode_matches_jax": ("models/ssm.py", "ssm.ssd_decode"),
+    "test_prefill_and_per_slot_decode_match_jax": (
+        "models/transformer.py", "SSM / hybrid prefill + decode_step per slot"),
+    "test_compiled_score_and_decode_match_jax_executables": (
+        "axe/compile.py", "ssm_mix / ssm_decode / side_output executables (mesh=None)"),
 }
 
 
