@@ -120,6 +120,43 @@ the hybrid family:
     layer and no 8-layer period fits one card): card against CPU
     (greedy tokens, ``score`` logits), fused against unfused.
 
+the enc-dec and VLM families, full width and depth (``phase_frontend_*``):
+
+14. whisper-large-v3 (32 encoder + 32 decoder layers, d 1280, 20 heads
+    of 64, 1500 frames, vocab 51866) — B1-B4 at every shape its path
+    gives them (the encoder's 6000 rows, the decoder's 512 and 4, the
+    51866-wide lm_head on B1's tiled route, B3 non-causal over 1500
+    frames and 128 over 1500, B4 at one query row per kv head over the
+    256-slot self cache and the 1500-slot cross cache), held and timed
+    as in phase 3; depth 2 (2 + 2 layers) card vs CPU on logits; then
+    ``generate`` of 4 x (1500 seeded frames + 128-token prompt) + 32
+    tokens with the model API's ticks (``decode_mode="legacy"``: as in
+    the JAX package, ``axe.compile`` binds no enc-dec model), launch
+    and route counters read around it as in phase 5, encode + prefill
+    ms, decode ms per tick, device busy and idle share, peak memory;
+15. llava-next-mistral-7b (32 layers, d 4096, 32 / 8 heads, 2880
+    patches) — the same at its shapes (``mm_proj`` 11520 x 1024 x 4096,
+    the 12032-row prefill, B3 over 3008 positions, B4 over 3040 slots),
+    depth 2 card vs CPU (one request), ``generate`` of 4 x 3008-token
+    prompts (patches in the first 2880 positions) + 32 tokens;
+
+the tune stack:
+
+16. tune — an untuned qwen3-4b ``generate`` first (no measured entry:
+    every node takes its built kernel), then every schedule it resolves
+    autotuned on the card (CUDA events, L2 flushed) into a cache file in
+    a temporary directory, and B5 at qwen3-moe's expert shapes;
+    ``tune.resolve`` answers each from the cache; a
+    ``ServeEngine(schedule_cache=...)`` compiled tick resolves every
+    kernel-bound node from its measured entry (``Executable.resolutions``:
+    sources counted, schedules held against the entries), its launches
+    differ from the untuned run's exactly when a winner is not the built
+    kernel, and its greedy stream equals the untuned one's under the
+    near-tie rule of phase 6; ``cotune(measure=True)`` of the qwen3-4b
+    decode graph (``mesh=None``) compiled, its iteration trace printed;
+    a service artifact written, merged with a second and loaded back,
+    the merge laws checked.
+
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -145,13 +182,18 @@ SSM_ARCH = "mamba2-2.7b"
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
 # phases of the run
-STEPS = 13
+STEPS = 16
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
+#: the kernel stages with a schedule surface
+KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
+                 "moe_gemm/expert_gemm")
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 # generate runs per decode mode, alternated, for the two modes' wall spread
 WALL_PAIRS = 10
 LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
+#: the enc-dec and VLM paths: whisper's and llava's configs
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "llava-next-mistral-7b"
 # kernel vs plain version: tests/test_program.py:_tol of the reference
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-3, atol=1e-4)}
 # whole model, kernels vs plain versions in bf16 (tests/test_serve_decode.py:141-146)
@@ -386,6 +428,58 @@ def kernel_cases(cfg, torch, F, device):
             nbytes=(live * k * n + e * c * (k + n)) * size, flops=2.0 * rows * k * n))
 
     bf16, f32 = torch.bfloat16, torch.float32
+
+    # B3: [B, S, H, hd] projections as [B, H, S, hd] views; causal with the
+    # queries right-aligned against the keys, or (the enc-dec encoder and
+    # cross-attention) every key for every query
+    def attend_case(label, batch, seq, skv=None, causal=True):
+        skv = skv or seq
+        q = randn((batch, seq, h, hd), bf16).transpose(1, 2)
+        k = randn((batch, skv, kv, hd), bf16).transpose(1, 2)
+        vv = randn((batch, skv, kv, hd), bf16).transpose(1, 2)
+        pairs = batch * h * (seq * (seq + 1) / 2 + seq * (skv - seq) if causal else seq * skv)
+        cases.append(dict(
+            kernel="flash_attention/attend",
+            label=f"{label} B{batch} H{h}/{kv} S{seq}" + (f"x{skv}" if skv != seq else "")
+                  + f" D{hd} " + ("causal" if causal else "non-causal"),
+            dtype=bf16, cuda_kernel="flash_attend_wgmma",
+            run=lambda: programs.flash_attention(q, k, vv, causal=causal),
+            plain=lambda: fa.attention_plain(q, k, vv, causal=causal),
+            # SDPA's is_causal aligns top-left; with Sq == Skv it is the same mask
+            library=lambda: F.scaled_dot_product_attention(q, k, vv, is_causal=causal,
+                                                           enable_gqa=True),
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * pairs))
+
+    # B4: the [B, W, KV, hd] cache through strides, one position per slot
+    def decode_case(label, w, pos):
+        g = h // kv
+        qd = randn((BATCH, kv, g, hd), bf16)
+        kc, vc = randn((BATCH, w, kv, hd), bf16), randn((BATCH, w, kv, hd), bf16)
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        live = (torch.arange(w, device=device)[None, :] <= pos[:, None].long())
+        mask = live[:, None, None, :]
+        slots = int(live.sum())
+        qh = qd.reshape(BATCH, h, 1, hd)
+        splits = fa.decode_plan(BATCH * kv, w, n_sm)[0]
+        cases.append(dict(
+            kernel="flash_attention/decode", label=f"{label} B{BATCH} KV{kv} G{g} W{w} D{hd}",
+            dtype=bf16, cuda_kernel=f"flash_decode_split ({splits} splits, one launch)",
+            run=lambda: programs.flash_decode(qd, kt, vt, pos),
+            plain=lambda: fa.decode_plain(qd, kt, vt, pos),
+            library=lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
+                                                           enable_gqa=True),
+            nbytes=2 * (2 * qd.numel() + 2 * slots * kv * hd) + 4 * BATCH,
+            flops=4.0 * hd * g * kv * slots))
+
+    def spread(first, last):
+        """``BATCH`` positions from ``first`` to ``last``, spread over the slots."""
+        return (first + torch.arange(BATCH, device=device) * (last - first)
+                // max(BATCH - 1, 1)).int()
+
+    if cfg.family in ("encdec", "vlm"):
+        frontend_cases(cfg, matmul_case, rmsnorm_case, attend_case, decode_case, spread, bf16)
+        return cases
+
     if cfg.family == "ssm":  # mamba2: the mixer's projections and norms, no attention
         di, n, hs = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
         for rows, when in ((t, "prefill"), (BATCH, "decode")):
@@ -436,48 +530,50 @@ def kernel_cases(cfg, torch, F, device):
         rmsnorm_case("prefill norm", t, d, f32)
         rmsnorm_case("prefill q-norm", t * h, hd, f32)
 
-    # B3: [B, S, H, hd] projections as [B, H, S, hd] views, causal; at the
-    # path's shape and, for the dense config, over one long sequence
-    def attend_case(label, batch, seq):
-        q = randn((batch, seq, h, hd), bf16).transpose(1, 2)
-        k = randn((batch, seq, kv, hd), bf16).transpose(1, 2)
-        vv = randn((batch, seq, kv, hd), bf16).transpose(1, 2)
-        pairs = batch * h * seq * (seq + 1) / 2
-        cases.append(dict(
-            kernel="flash_attention/attend", label=f"{label} B{batch} H{h}/{kv} S{seq} D{hd} causal",
-            dtype=bf16, cuda_kernel="flash_attend_wgmma",
-            run=lambda: programs.flash_attention(q, k, vv, causal=True),
-            plain=lambda: fa.attention_plain(q, k, vv, causal=True),
-            library=lambda: F.scaled_dot_product_attention(q, k, vv, is_causal=True,
-                                                           enable_gqa=True),
-            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * pairs))
-
     attend_case("prefill", BATCH, PROMPT)
     if not cfg.is_moe:
         attend_case("long sequence (not a path shape)", 1, LONG_SEQ)
-
-    # B4: the [B, W, KV, hd] cache through strides, slots at mixed depths
-    g = h // kv
-    qd = randn((BATCH, kv, g, hd), bf16)
-    kc, vc = randn((BATCH, MAX_SEQ, kv, hd), bf16), randn((BATCH, MAX_SEQ, kv, hd), bf16)
-    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     # first to last decode position of the generate run, spread over the slots
-    pos = (PROMPT + torch.arange(BATCH, device=device) * (NEW - 2) // max(BATCH - 1, 1)).int()
-    live = (torch.arange(MAX_SEQ, device=device)[None, :] <= pos[:, None].long())
-    mask = live[:, None, None, :]
-    slots = int(live.sum())
-    qh = qd.reshape(BATCH, h, 1, hd)
-    splits = fa.decode_plan(BATCH * kv, MAX_SEQ, n_sm)[0]
-    cases.append(dict(
-        kernel="flash_attention/decode", label=f"decode B{BATCH} KV{kv} G{g} W{MAX_SEQ} D{hd}",
-        dtype=bf16, cuda_kernel=f"flash_decode_split ({splits} splits, one launch)",
-        run=lambda: programs.flash_decode(qd, kt, vt, pos),
-        plain=lambda: fa.decode_plain(qd, kt, vt, pos),
-        library=lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
-                                                       enable_gqa=True),
-        nbytes=2 * (2 * qd.numel() + 2 * slots * kv * hd) + 4 * BATCH,
-        flops=4.0 * hd * g * kv * slots))
+    decode_case("decode", MAX_SEQ, spread(PROMPT, PROMPT + NEW - 2))
     return cases
+
+
+def frontend_cases(cfg, matmul_case, rmsnorm_case, attend_case, decode_case, spread, bf16):
+    """The cases of phases 14 and 15: every shape whisper's and llava's
+    serving paths give B1-B4 (``generate`` of ``BATCH`` requests; whisper:
+    1500 frames + a ``PROMPT``-token prompt, llava: 2880 patches +
+    ``PROMPT`` tokens)."""
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qkv = cfg.num_heads * cfg.head_dim
+    kvw = cfg.num_kv_heads * cfg.head_dim
+    if cfg.family == "encdec":
+        se = cfg.encoder_seq
+        rows = (("encoder", BATCH * se), ("prefill", BATCH * PROMPT), ("decode", BATCH))
+        for when, m in rows:
+            for label, k, n in (("q|k|v|o", d, qkv), ("up", d, ff), ("down", ff, d)):
+                matmul_case(f"{when} {label}", m, k, n, bf16)
+            rmsnorm_case(f"{when} norm", m, d, bf16)
+        matmul_case("lm_head", BATCH, d, v, bf16)
+        matmul_case("lm_head (not a path shape)", BATCH * PROMPT, d, v, bf16)
+        attend_case("encoder", BATCH, se, causal=False)
+        attend_case("decoder prefill", BATCH, PROMPT)
+        attend_case("cross", BATCH, PROMPT, se, causal=False)
+        decode_case("self decode", MAX_SEQ, spread(PROMPT, PROMPT + NEW - 2))
+        decode_case("cross decode", se, spread(se - 1, se - 1))
+        return
+    prompt = cfg.num_patches + PROMPT
+    max_seq = prompt + NEW
+    for when, m in (("prefill", BATCH * prompt), ("decode", BATCH)):
+        for label, k, n in (("q|o", d, qkv), ("k|v", d, kvw), ("gate|up", d, ff),
+                            ("down", ff, d)):
+            matmul_case(f"{when} {label}", m, k, n, bf16)
+        rmsnorm_case(f"{when} norm", m, d, bf16)
+    from repro_torch.models.transformer import PATCH_DIM
+
+    matmul_case("mm_proj", BATCH * cfg.num_patches, PATCH_DIM, d, bf16)
+    matmul_case("lm_head", BATCH, d, v, bf16)
+    attend_case("prefill", BATCH, prompt)
+    decode_case("decode", max_seq, spread(prompt, prompt + NEW - 2))
 
 
 def phase_kernels(cfg, torch, F, device):
@@ -1644,6 +1740,451 @@ def phase_ssm_full(cfg, torch, device):
     return counts, stats, dict(engine=engine, prompts=prompts, out=out)
 
 
+def frontend_shape(cfg, batch):
+    """(prompt length, max_seq) of a ``generate`` of ``cfg``'s path: a
+    ``PROMPT``-token prompt after llava's patch positions, ``NEW`` tokens."""
+    prompt = cfg.num_patches + PROMPT if cfg.family == "vlm" else PROMPT
+    return prompt, max(MAX_SEQ, prompt + NEW)
+
+
+def phase_frontend_depth2(cfg, torch, device, *, batch):
+    """whisper / llava cut to 2 layers (whisper: 2 encoder + 2 decoder),
+    bf16, weights drawn on the card and copied to the CPU: the frontend
+    stub's seeded inputs (1500 frames / 2880 patches), prefill and
+    ``DEPTH2_DECODE`` decode steps on the CPU (plain versions) and on the
+    card (kernels), fed the same tokens, logits within ``LOGIT_TOL``."""
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.model_zoo import build_model
+
+    cut = dict(num_layers=DEPTH2_LAYERS)
+    if cfg.family == "encdec":
+        cut["encoder_layers"] = DEPTH2_LAYERS
+    cfg2 = dataclasses.replace(cfg, **cut)
+    cpu, card = build_model(cfg2, device="cpu"), build_model(cfg2, device=device)
+    card_params = card.init(SEED)
+    cpu_params = tree_to(card_params, "cpu")
+    prompt, max_seq = frontend_shape(cfg, batch)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    extra = card.frontend_inputs(batch, seed=SEED + 2)
+
+    def run(api, params, inputs, tokens):
+        cache = api.cache_init(batch, max_seq)
+        logits, cache = api.prefill(params, {"tokens": prompts.to(api.device), **inputs}, cache)
+        out, fed = [logits[:, -1].float().cpu()], []
+        for i in range(DEPTH2_DECODE):
+            tok = tokens[i] if tokens is not None else out[-1].argmax(-1)
+            fed.append(tok)
+            logits, cache = api.decode_step(params, tok.to(api.device)[:, None], cache,
+                                            prompt + i)
+            out.append(logits[:, -1].float().cpu())
+        return torch.stack(out), fed
+
+    t0 = time.perf_counter()
+    want, fed = run(cpu, cpu_params, tree_to(extra, "cpu"), None)
+    cpu_s = time.perf_counter() - t0
+    got, _ = run(card, card_params, extra, fed)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **LOGIT_TOL))
+    log(f"  depth-2 logits ({batch} x {prompt} prompt"
+        + (f", {cfg.encoder_seq} frames" if cfg.family == "encdec" else
+           f", {cfg.num_patches} patches") + f"), card (kernels) vs CPU (plain), prefill + "
+        f"{DEPTH2_DECODE} decode steps: max |diff| {err:.4g} (tolerance {LOGIT_TOL}"
+        f"{'' if ok else ': outside'}); logit scale {float(want.abs().max()):.3g}; CPU side "
+        f"{cpu_s:.1f} s")
+    check(bool(torch.isfinite(got).all()), f"{cfg.name} depth-2 logits: non-finite on the card")
+    check(ok, f"{cfg.name} depth-2 logits: card vs CPU max |diff| {err} outside {LOGIT_TOL}")
+    return err
+
+
+def phase_frontend_full(cfg, torch, device):
+    """whisper / llava at full width and depth through
+    ``ServeEngine.generate`` with ``extra_inputs`` (seeded frames or
+    patches) and the model API's ticks (``decode_mode="legacy"``: the
+    JAX package's ``axe.compile`` binds no model of these families):
+    ``BATCH`` requests, a ``PROMPT``-token prompt (llava: after its 2880
+    patch positions), ``NEW`` tokens, greedy. Launch counters zeroed
+    just before that run and read just after, with the route checks of
+    ``phase_full``; encode + prefill ms, decode ms per tick, device busy
+    and idle share of a tick and of the prefill, peak memory."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    prompt, max_seq = frontend_shape(cfg, BATCH)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    log(f"  init {cfg.num_layers} layers ({cfg.param_count() / 1e9:.2f} B params) on the card: "
+        f"{time.perf_counter() - t0:.3f} s")
+    engine = ServeEngine(api, batch_size=BATCH, max_seq=max_seq, device=device,
+                         decode_mode="legacy")
+    engine.load(params)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt), device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED + 1))
+    extra = api.frontend_inputs(BATCH, seed=SEED + 2)
+    engine.generate(prompts, 2, extra_inputs=extra)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    programs.reset_launch_counts()
+    with RouteProbe(torch, programs, mm) as probe:
+        out = engine.generate(prompts, NEW, extra_inputs=extra)
+    counts, wgmma, bulk = programs.launch_counts(), programs.wgmma_counts(), programs.bulk_counts()
+    timing = engine.last_timing
+    check(out.shape == (BATCH, NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{cfg.name} tokens {out.shape} wrong or out of range")
+    for name, n in counts.items():
+        if name != "moe_gemm/expert_gemm":
+            check(n > 0, f"{cfg.name}: kernel {name} was not launched on the main path")
+    check(counts["moe_gemm/expert_gemm"] == 0, f"{cfg.name} launched B5: {counts}")
+    check(probe.tiles > 0 and wgmma["matmul/tile"] == probe.tiles,
+          f"B1: {wgmma['matmul/tile']} wgmma launches for {probe.tiles} bf16 matmuls of more "
+          f"than {mm.SKINNY_MAX_M} rows")
+    check(probe.attends > 0 and wgmma["flash_attention/attend"] == probe.attends ==
+          counts["flash_attention/attend"], f"B3: {wgmma['flash_attention/attend']} wgmma "
+          f"launches, {counts['flash_attention/attend']} launches, {probe.attends} attends")
+    check(probe.skinny > 0 and bulk["matmul/tile"] == probe.skinny,
+          f"B1: {bulk['matmul/tile']} skinny launches for {probe.skinny} skinny products")
+    check(probe.decodes > 0 and bulk["flash_attention/decode"] == probe.decodes ==
+          counts["flash_attention/decode"], f"B4: {bulk['flash_attention/decode']} split-KV "
+          f"launches, {counts['flash_attention/decode']} launches, {probe.decodes} decodes")
+    batch = {"tokens": prompts, **extra}
+    logits, _ = api.prefill(params, batch, api.cache_init(BATCH, max_seq))
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite prefill logits")
+    check(bool((logits[:, -1].argmax(-1).cpu().numpy() == out[:, 0]).all()),
+          f"{cfg.name}: first generated token is not the prefill logits' argmax")
+    stats = dict(
+        prefill_ms=timing["prefill_s"] * 1e3,
+        decode_ms_per_step=timing["decode_s"] * 1e3 / timing["decode_steps"],
+        tokens_per_s=BATCH * NEW / (timing["prefill_s"] + timing["decode_s"]),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+        launches=counts,
+    )
+    log(f"  generate {BATCH} x ({prompt} prompt"
+        + (f" + {cfg.encoder_seq} frames" if cfg.family == "encdec" else
+           f", {cfg.num_patches} of it patches") + f") -> {NEW} tokens, legacy ticks: "
+        f"encode + prefill {stats['prefill_ms']:.2f} ms, decode "
+        f"{stats['decode_ms_per_step']:.3f} ms/step, {stats['tokens_per_s']:.1f} tokens/s, peak "
+        f"memory {stats['max_memory_allocated_gib']:.2f} GiB")
+    log(f"  launches in that run: {counts}; through wgmma: {wgmma}, through the bulk-copy "
+        f"kernels: {bulk} (the model issued {probe.tiles} bf16 matmuls of more than "
+        f"{mm.SKINNY_MAX_M} rows, {probe.skinny} skinny products, {probe.attends} attends, "
+        f"{probe.decodes} decode attends)")
+    log(f"  first tokens: {out[:, :8].tolist()}")
+    cache = api.cache_init(BATCH, max_seq)
+    busy, top = device_busy_ms(torch, lambda: api.prefill(params, batch, cache))
+    stats["prefill_device_busy_ms"] = busy
+    log(f"  encode + prefill: device busy {busy:.2f} ms of {stats['prefill_ms']:.2f} ms wall "
+        f"(idle share {1 - busy / stats['prefill_ms']:.3f}); by kernel: {top}")
+    tok = torch.from_numpy(out[:, 0]).to(device)
+    pos = torch.full((BATCH,), prompt, dtype=torch.int32, device=device)
+    busy, top = device_busy_ms(torch, lambda: engine.legacy_decode_step(tok, cache, pos))
+    stats["decode_device_busy_ms_per_step"] = busy
+    log(f"  decode step: device busy {busy:.3f} ms of {stats['decode_ms_per_step']:.3f} ms "
+        f"wall (idle share {1 - busy / stats['decode_ms_per_step']:.3f}); by kernel: {top}")
+    return counts, stats
+
+
+class StageCalls:
+    """Records, while active, every kernel-stage call that resolves its
+    schedule through the tune layer (``Program._resolve_schedule``): the
+    program, stage, operands, options and operand specs, so that each
+    can be autotuned on its own operands. Its key is the program's own
+    (``Program.schedule_query``)."""
+
+    def __init__(self):
+        from repro_torch.axe import program
+
+        self.cls, self.calls = program.Program, []
+
+    def __enter__(self):
+        orig = self.orig = self.cls._resolve_schedule
+        calls = self.calls
+
+        def resolve(prog, st, args, kw, opts):
+            if st.tunable:
+                calls.append(dict(prog=prog, stage=st.name, args=args, kw=kw,
+                                  arg_specs=opts.arg_specs))
+            return orig(prog, st, args, kw, opts)
+
+        self.cls._resolve_schedule = resolve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._resolve_schedule = self.orig
+
+    def by_key(self):
+        """The first call of each distinct schedule key."""
+        from repro_torch.tune.schedule import schedule_key
+
+        out = {}
+        for c in self.calls:
+            q = c["prog"].schedule_query(c["stage"], *c["args"], arg_specs=c["arg_specs"],
+                                         **c["kw"])
+            out.setdefault(schedule_key(**q), dict(c, query=q))
+        return out
+
+
+def resolution_sources(exe):
+    """``{op: {source: nodes}}`` of what the compiled nodes resolved."""
+    out = {}
+    for _, op, res in exe.resolutions():
+        src = out.setdefault(op, {})
+        src[res.source] = src.get(res.source, 0) + 1
+    return out
+
+
+def greedy_logits(engine, prompts, n, **kw):
+    """``engine.generate(prompts, n)`` and the logits it sampled each token from."""
+    seen, sample = [], engine._sample
+
+    def rec(logits, gen, **k):
+        seen.append(logits.float().cpu())
+        return sample(logits, gen, **k)
+
+    engine._sample = rec
+    try:
+        out = engine.generate(prompts, n, **kw)
+    finally:
+        del engine._sample
+    return out, seen
+
+
+def phase_tune(torch, device):
+    """The tune stack on the card, into a cache file in a temporary
+    directory. The untuned reference runs first, before any measurement
+    exists: qwen3-4b's greedy ``generate`` with every stage at its built
+    kernel. Then every schedule that ``generate`` resolves (the
+    model API's prefill, 4 x 128 tokens: B1, B2, B3; the compiled decode
+    tick: B1, B2; B4 has no schedule surface, as in the JAX package)
+    autotuned (``tune.autotune_program`` with the call's own operands,
+    options and ``arg_specs``: each candidate the planner offers timed by
+    CUDA events, L2 flushed), and B5 at qwen3-moe's four expert shapes
+    (``tune.autotune_moe_gemm``); ``tune.resolve`` then answers each key
+    from the cache. A ``ServeEngine(schedule_cache=...)`` resolves every
+    kernel-bound node of its compiled tick from its measured entry (read
+    back from the executable), its launches differ from the untuned
+    run's exactly when some winner is not the built kernel, and its
+    greedy stream equals the untuned one's but where the untuned run's
+    top-2 logit gap is within ``LOGIT_TOL``. Then ``cotune(measure=True)`` of the
+    qwen3-4b decode graph (``mesh=None``) compiled from its result, with its
+    iteration trace, and a service artifact written, merged with a second
+    one and loaded back under the merge laws."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import tune
+    from repro_torch.axe.compile import compile as axe_compile
+    from repro_torch.axe.cotune import cotune
+    from repro_torch.axe.graphs import decode_graph
+    from repro_torch.axe.spec import PhysicalSpace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import programs
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tune import planner, service
+    from repro_torch.tune.cache import ScheduleCache
+    from repro_torch.tune.feedback import parse_key
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "schedules.json"
+        cfg = get_config(ARCH)
+        api = build_model(cfg, device=device)
+        params = api.init(SEED)
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=device,
+                                generator=torch.Generator(device=device).manual_seed(SEED + 1))
+        # the untuned reference first, under the memory-only cache of
+        # phases 1-15: no persisted entry, so every stage takes its
+        # built kernel (``tune.settled``)
+        check(all(tune.settled(op) for op in KERNEL_STAGES),
+              "the untuned run's cache holds measured entries")
+        base = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device)
+        base.load(params)
+        base.generate(prompts, 2)
+        programs.reset_launch_counts()
+        want_tok, want_logits = greedy_logits(base, prompts, NEW)
+        base_counts = programs.launch_counts()
+        base_exe = base.compiled_decode()
+        base_src = resolution_sources(base_exe)
+        check(all(set(v) == {"planned"} for v in base_src.values()),
+              f"the untuned compiled tick resolved {base_src}")
+        with StageCalls() as seen:
+            base.generate(prompts, 2)  # the prefill and one compiled tick
+        unique = seen.by_key()
+        log(f"  qwen3-4b generate (prefill + 1 compiled tick) resolved {len(seen.calls)} "
+            f"schedules, {len(unique)} distinct keys; the untuned run's launches "
+            f"{base_counts}")
+        cache = tune.use_cache(path)
+        q = torch.zeros((BATCH, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                         cfg.head_dim), dtype=torch.bfloat16, device=device)
+        kv = torch.zeros((BATCH, cfg.num_kv_heads, MAX_SEQ, cfg.head_dim), dtype=torch.bfloat16,
+                         device=device)
+        try:
+            tune.autotune_program(programs.flash_attention, q, kv, kv,
+                                  torch.zeros((BATCH,), dtype=torch.int32, device=device),
+                                  stage="decode")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "no schedule surface" in refused,
+              "B4 (flash_attention/decode) has a schedule surface the JAX package's lacks")
+        log(f"  B4: {refused} (as in the JAX package: one kernel, nothing to choose)")
+
+        t0 = time.perf_counter()
+        reports = {}
+        for key, c in unique.items():
+            reports[key] = tune.autotune_program(c["prog"], *c["args"], stage=c["stage"],
+                                                 arg_specs=c["arg_specs"], iters=5, **c["kw"])
+        cfg_moe = get_config(MOE_ARCH)
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        for label, tokens in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+            c = moe.capacity(tokens, cfg_moe)
+            for part, (k, n) in (("gate|up", (cfg_moe.d_model, cfg_moe.moe_d_ff)),
+                                 ("down", (cfg_moe.moe_d_ff, cfg_moe.d_model))):
+                x = torch.randn((cfg_moe.num_experts, c, k), generator=gen,
+                                device=device).to(torch.bfloat16)
+                w = (torch.randn((cfg_moe.num_experts, k, n), generator=gen, device=device)
+                     * k ** -0.5).to(torch.bfloat16)
+                rep = tune.autotune_moe_gemm(x, w, iters=5)
+                reports[tune.schedule_key(**programs.moe_gemm.schedule_query(
+                    "expert_gemm", x, w))] = rep
+                del x, w
+        tune_s = time.perf_counter() - t0
+        rows = []
+        for key, rep in reports.items():
+            op, shapes, _, sig, _ = parse_key(key)
+            shp = ";".join("x".join(map(str, x)) for x in shapes)
+            layout = "dense" if sig == "dense" else "solved specs" if "axe[" in sig else sig
+            hit = cache.get(key)
+            check(hit is not None and hit.source == "measured" and hit.schedule == rep.schedule,
+                  f"autotuned {key} is not a measured cache entry")
+            check(planner.runnable(rep.schedule), f"autotune handed {key} {rep.schedule}")
+            rows.append(dict(op=op, shapes=shp, layout=layout, winner=rep.schedule.describe(),
+                             us=dict(rep.measurements)))
+            log(f"  autotune {op} {shp} [{layout}]: "
+                + ", ".join(f"{n} {us:.2f} us" for n, us in rep.measurements)
+                + f" -> {rep.schedule.describe()}")
+        stats["autotuned"] = rows
+        stats["autotune_s"] = tune_s
+        winners = {}
+        for r in rows:
+            impl = r["winner"].split(":")[0]
+            winners[impl] = winners.get(impl, 0) + 1
+        log(f"  {len(reports)} keys autotuned in {tune_s:.1f} s into {path.name}; winners by "
+            f"impl: {winners}")
+        for key, c in unique.items():
+            res = tune.resolve(**c["query"])
+            check(res.source == "cached" and res.key == key
+                  and res.schedule == cache.get(key).schedule,
+                  f"resolve({key}) -> {res}, not the cached {cache.get(key).schedule}")
+        log(f"  resolve answers each of the {len(unique)} keys from its cached entry")
+
+        tuned = ServeEngine(api, batch_size=BATCH, max_seq=MAX_SEQ, device=device,
+                            schedule_cache=str(path))
+        tuned.load(params)
+        exe = tuned.compiled_decode()
+        nodes = exe.op_counts()
+        cache_now = tune.default_cache()
+        check(len(cache_now) >= len(reports), "the tuned engine's cache lost entries")
+        programs.reset_launch_counts()
+        got, got_logits = greedy_logits(tuned, prompts, NEW)
+        tuned_counts = programs.launch_counts()
+        # every kernel-bound node of the tuned tick took the schedule its
+        # key's measured entry holds
+        res = exe.resolutions()
+        src = resolution_sources(exe)
+        want = {"matmul/tile": nodes["matmul/tile"], "rmsnorm/rows": nodes["rmsnorm/rows"]}
+        check({k: sum(v.values()) for k, v in src.items()} == want
+              and all(set(v) == {"cached"} for v in src.values())
+              and all(cache_now.get(r.key) is not None
+                      and cache_now.get(r.key).schedule == r.schedule for _, _, r in res),
+              f"the tuned compiled tick resolved {src}; its kernel-bound nodes are {want}")
+        changed = sum(r.schedule != b.schedule
+                      for (_, _, r), (_, _, b) in zip(res, base_exe.resolutions()))
+        differs = any(rep.schedule != tune.schedule.default_schedule(parse_key(k)[0])
+                      for k, rep in reports.items() if k in unique)
+        check(differs == (tuned_counts != base_counts),
+              f"the tuned run's schedules differ from the built ones: {differs}; its launches "
+              f"{tuned_counts} against the untuned run's {base_counts}")
+        log(f"  tuned engine (schedule_cache): its compiled tick resolved {src} — every "
+            f"kernel-bound node of the tick ({want}) from its measured entry; {changed} of "
+            f"{len(res)} nodes took another schedule than the untuned tick")
+        stats["tuned_tick_sources"] = src
+        stats["tuned_tick_nodes_changed"] = changed
+        diverged = []
+        for r in range(BATCH):
+            bad = np.nonzero(got[r] != want_tok[r])[0]
+            if not len(bad):
+                continue
+            j = int(bad[0])
+            lg = want_logits[j][r]
+            gap = float(lg[int(want_tok[r, j])] - lg[int(got[r, j])])
+            bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * float(lg[int(want_tok[r, j])].abs())
+            diverged.append((r, j, gap))
+            check(gap <= bound, f"tuned vs untuned request {r} parts at token {j} by a logit "
+                                f"gap {gap} > {bound}")
+        stats["tuned_vs_untuned_divergences"] = diverged
+        log(f"  tuned vs untuned greedy streams ({BATCH} x {NEW}): "
+            + ("equal" if not diverged else f"{len(diverged)} requests part within the near-tie "
+                                            f"rule {diverged}")
+            + f"; launches of the tuned run {tuned_counts}, of the untuned run {base_counts}")
+
+        t0 = time.perf_counter()
+        gs = decode_graph(cfg, BATCH, MAX_SEQ, PhysicalSpace(()), dtype=cfg.dtype)
+        ct = cotune(gs, backend=planner.backend_of(prompts), measure=True, max_iters=4)
+        cexe = axe_compile(gs, None, ct.result)
+        cexe.cotune_report = ct
+        cot_s = time.perf_counter() - t0
+        objs = [it.objective_s for it in ct.iterations]
+        check(ct.converged and ct.tuned > 0 and all(b <= a * (1 + 1e-12) for a, b in
+                                                     zip(objs, objs[1:])),
+              f"cotune: converged {ct.converged}, tuned {ct.tuned}, objectives {objs}")
+        check(cexe.op_counts() == nodes, f"cotune's executable binds {cexe.op_counts()}")
+        log(f"  cotune(measure=True) of the qwen3-4b decode graph (mesh=None), then compile: "
+            f"{cot_s:.1f} s; {ct.describe()}")
+        for it in ct.iterations:
+            log(f"    iteration {json.dumps(it.to_dict())}")
+        stats["cotune"] = ct.to_dict()
+
+        art = service.ServiceArtifact.from_cache(tune.default_cache())
+        moe_keys = {k for k in art.entries if k.startswith("moe_gemm/")}
+        a = service.ServiceArtifact({k: e for k, e in art.entries.items() if k not in moe_keys})
+        newer = {k: dataclasses.replace(e, updated_at=(e.updated_at or 0) + 1.0,
+                                        us=e.us * 2) for k, e in list(a.entries.items())[:3]}
+        b = service.ServiceArtifact({**{k: art.entries[k] for k in moe_keys}, **newer})
+        pa, pb = a.save(Path(tmp) / "a.json"), b.save(Path(tmp) / "b.json")
+        la, lb = service.ServiceArtifact.load(pa), service.ServiceArtifact.load(pb)
+
+        def pay(x):
+            return json.dumps(x.payload(), sort_keys=True)
+
+        merged = service.merge_artifacts(la, lb)
+        check(pay(merged) == pay(service.merge_artifacts(lb, la)) and
+              pay(service.merge_artifacts(la, la)) == pay(service.merge_artifacts(la)) and
+              pay(service.merge_artifacts(service.merge_artifacts(la, lb), la)) ==
+              pay(service.merge_artifacts(la, service.merge_artifacts(lb, la))),
+              "service merge: not commutative, idempotent and associative")
+        check(all(merged.entries[k].us == newer[k].us for k in newer),
+              "service merge: the newer measurement did not win")
+        mpath = merged.save(Path(tmp) / "merged.json")
+        fresh = ScheduleCache()
+        adopted = service.load_into(fresh, mpath)
+        check(adopted == len(merged) == len(set(a.entries) | set(b.entries)) and
+              service.load_into(fresh, mpath) == 0, f"load_into adopted {adopted} of "
+                                                    f"{len(merged)}")
+        log(f"  service: artifacts of {len(a)} and {len(b)} entries ({len(newer)} re-measured "
+            f"later) merged into {len(merged)}: commutative, idempotent, associative, the newer "
+            f"measurement wins; loaded back: {adopted} adopted, then 0; device "
+            f"{next(iter(merged.entries.values())).device}")
+        tune.use_cache(None)
+    return stats
+
+
 def phase_jamba_smoke(torch, device):
     """jamba's smoke width (8 layers: 7 SSD + 1 attention, a 4-expert MoE
     FFN in each, f32, drop-free capacity) on the card against the CPU:
@@ -1696,6 +2237,10 @@ def main() -> int:
         raise SmokeError("no CUDA device: chip_smoke.py runs on an NVIDIA card")
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
+
+    from repro_torch import tune
+
+    tune.use_cache(None)  # memory-only: phases 1-15 read no schedule file
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -1817,6 +2362,24 @@ def main() -> int:
     # width, so one card holds no whole 8-layer period; its smoke width runs
     log(f"[13/{STEPS}] hybrid family (jamba-1.5-large-398b, smoke width) on the card:")
     stats["jamba-smoke"] = {"fused_vs_unfused_score_max_abs_diff": phase_jamba_smoke(torch, device)}
+
+    # the enc-dec and VLM families at full width and depth, decode ticks
+    # through the model API (axe.compile binds neither family's model)
+    for step, arch, depth2_batch in ((14, ENCDEC_ARCH, BATCH), (15, VLM_ARCH, 1)):
+        cfg = get_config(arch)
+        log(f"[{step}/{STEPS}] {cfg.name} ({cfg.family}) at full width and depth: kernels at "
+            f"its shapes, depth {DEPTH2_LAYERS} card vs CPU, generate:")
+        rows = phase_kernels(cfg, torch, F, device)
+        phase_frontend_depth2(cfg, torch, device, batch=depth2_batch)
+        release()
+        counts, stats[cfg.name] = phase_frontend_full(cfg, torch, device)
+        release()
+        add_rows(rows, cfg, counts)
+
+    log(f"[16/{STEPS}] the tune stack on the card (autotuner, cache, planned and cached "
+        f"schedules, cotune, service):")
+    stats["tune"] = phase_tune(torch, device)
+    release()
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

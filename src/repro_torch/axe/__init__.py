@@ -1,3 +1,5 @@
-# The kernel DSL of the port: scope-tagged stages (axe.stages) composed
-# into programs (axe.program). The layout algebra, graphs and compiler
-# come with later slices (ROADMAP.md, queue A6-A8).
+# The kernel DSL of the port (axe.stages, axe.program), the layout
+# algebra's specs (axe.spec), graphs, propagation, solver and compiler
+# (axe.graphs, axe.propagate, axe.rules, axe.solve, axe.compile), the
+# fusion passes (axe.passes), the on-device tile lowering (axe.lower) and
+# the solve <-> tune loop (axe.cotune).

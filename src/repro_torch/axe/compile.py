@@ -33,9 +33,17 @@ any other fused node runs its base backend and then each absorbed
 step's backend (:meth:`Executable._run_fused`). Either way it is
 resolved once, when the executable is built.
 
-Not in this slice, each refused with a :class:`CompileError` that names
-its roadmap item (``ROADMAP.md``): a concrete ``mesh`` and ``offload``
-(A14) and ``cotune`` (A11).
+Every program call passes the op's solved operand specs
+(``arg_specs=ctx.in_specs``), so each stage resolves its schedule
+through ``repro_torch.tune.get_schedule`` keyed on the solved layout's
+canonical signature, once per node at its first call (the node's
+``resolved`` slot, :meth:`Executable.resolutions`), as the JAX package
+resolves once per trace; the lowering trace's ``schedule`` column is
+planned from the same specs (``tune.planner.plan_from_specs``).
+``model_executable(cotune=True)`` runs the solve ↔ tune loop
+(``axe.cotune``) instead of a one-shot solve. Not in this slice, each
+refused with a :class:`CompileError` that names its roadmap item
+(``ROADMAP.md``): a concrete ``mesh`` and ``offload`` (A14).
 
 ``model_inputs`` maps the port's model params (``models.transformer``
 layout: stacked super-blocks) onto graph inputs + the auxiliary tensors
@@ -64,7 +72,7 @@ from repro_torch.axe.propagate import (
 from repro_torch.axe.solve import SolveResult, evaluate_env, finalize_entries, solve
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace
 from repro_torch.core.scopes import Scope, scope
-from repro_torch.tune import schedule as tsched
+from repro_torch.tune.planner import stage_key_for
 
 
 class CompileError(ValueError):
@@ -122,7 +130,8 @@ class ExecCtx:
     refuses the others)."""
 
     def __init__(self, node: OpNode, entry: PlanEntry, in_specs, aux, side, *,
-                 out_local: Tuple[int, ...], out_spec: Optional[AxeSpec] = None):
+                 out_local: Tuple[int, ...], out_spec: Optional[AxeSpec] = None,
+                 resolved: Optional[Dict[str, Any]] = None):
         self.node = node
         self.entry = entry
         self.in_specs = in_specs
@@ -132,6 +141,9 @@ class ExecCtx:
         self.out_local = out_local
         self._aux = aux
         self.side = side
+        #: the node's slot of schedule resolutions (the programs'
+        #: ``resolved=``): filled at its first call, reused after
+        self.resolved = resolved
 
     def attr(self, key: str, default=None):
         return self.node.attr(key, default)
@@ -163,8 +175,8 @@ def _exec_matmul(ctx: ExecCtx, a, b):
     from repro_torch.kernels import programs
 
     if b.ndim == 3:
-        return programs.moe_gemm(a, b)
-    return programs.matmul(a, b)
+        return programs.moe_gemm(a, b, arg_specs=ctx.in_specs, resolved=ctx.resolved)
+    return programs.matmul(a, b, arg_specs=ctx.in_specs, resolved=ctx.resolved)
 
 
 @register_op_backend("norm")
@@ -174,7 +186,7 @@ def _exec_norm(ctx: ExecCtx, x):
     w = ctx.aux(ctx.attr("weight"), required=False)
     if w is None:
         w = torch.ones((x.shape[-1],), dtype=x.dtype, device=x.device)
-    return programs.rmsnorm(x, w)
+    return programs.rmsnorm(x, w, arg_specs=ctx.in_specs[:1], resolved=ctx.resolved)
 
 
 @register_op_backend("elementwise")
@@ -200,7 +212,7 @@ def _heads(ctx: ExecCtx, y, positions):
 
     w = ctx.aux(ctx.attr("norm_weight"), required=False)
     if w is not None:
-        y = rmsnorm(y, w)
+        y = rmsnorm(y, w, resolved=ctx.resolved)
     theta = ctx.attr("rope_theta")
     if theta:
         y = rope(y, positions, theta)
@@ -236,6 +248,7 @@ def _exec_attention(ctx: ExecCtx, q, k, v):
 
     return programs.flash_attention(
         q, k, v, causal=bool(ctx.attr("causal", True)), window=ctx.attr("window"),
+        resolved=ctx.resolved,
     )
 
 
@@ -425,16 +438,6 @@ def _backend_name(node: OpNode, in_specs: Sequence[AxeSpec] = ()) -> str:
     return base
 
 
-def stage_key_for(kind: str, in_specs: Sequence[AxeSpec]) -> Optional[str]:
-    """The tunable ``program/stage`` key one graph node dispatches under
-    (None for kinds with no tunable stage) — the keys the JAX package's
-    planner plans under (``repro/tune/planner.py``, ``stage_key_for``)."""
-    if kind == "matmul":
-        grouped = len(in_specs) > 1 and len(in_specs[1].shape) == 3
-        return "moe_gemm/expert_gemm" if grouped else "matmul/tile"
-    return {"attention": "flash_attention/attend", "norm": "rmsnorm/rows"}.get(kind)
-
-
 #: attr keys whose values name auxiliary (replicated) input tensors
 _AUX_ATTRS = ("weight", "norm_weight", "router", "dt_bias", "A_log", "D", "conv_w")
 
@@ -450,16 +453,19 @@ class _Segment:
     in_specs: Tuple[AxeSpec, ...]
     out_spec: AxeSpec
     want: Tuple[int, ...]
+    resolved: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class _KernelChain:
     """A fused 2-D matmul whose chain B1 runs (:meth:`Executable._kernel_epilogue`):
-    the operands' names, the extras' names in the order the descriptor
-    indexes them, the descriptor's steps, its tag and the output type."""
+    the operands' names and solved specs, the extras' names in the
+    order the descriptor indexes them, the descriptor's steps, its tag
+    and the output type."""
 
     a: str
     b: str
+    specs: Tuple[AxeSpec, AxeSpec]
     extras: Tuple[str, ...]
     steps: Tuple[Tuple[str, Tuple[int, ...]], ...]
     tag: str
@@ -482,6 +488,9 @@ class _Step:
     release: Tuple[str, ...] = ()
     chain: Optional[_KernelChain] = None
     segments: Tuple[_Segment, ...] = ()
+    #: the schedules this node's stages resolved at its first call
+    #: (``Program.__call__(resolved=)``)
+    resolved: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False)
 
 
 def _kernel_chain(node: OpNode, in_specs: Sequence[AxeSpec],
@@ -517,7 +526,8 @@ def _kernel_chain(node: OpNode, in_specs: Sequence[AxeSpec],
                 ops.append(extras.index(nm))
         desc.append((fn, tuple(ops)))
         cur = s.out
-    return _KernelChain(node.inputs[0], node.inputs[1], tuple(extras), tuple(desc),
+    return _KernelChain(node.inputs[0], node.inputs[1], (in_specs[0], in_specs[1]),
+                        tuple(extras), tuple(desc),
                         "+".join(fn for fn, _ in desc), getattr(torch, out_dtype))
 
 
@@ -598,26 +608,28 @@ class Executable:
                 _segments(e.op, plan) if fused and chain is None else ()))
         self._steps: Tuple[_Step, ...] = tuple(steps)
         #: the FusionReport when the graph came through ``fuse_graph``
-        #: (set by ``compile(..., fuse=True)``); the cotune trace comes
-        #: with A11
+        #: (set by ``compile(..., fuse=True)``) and the
+        #: ``axe.cotune.CotuneResult`` of ``model_executable(cotune=True)``
         self.fusion_report = None
         self.cotune_report = None
 
     # -- introspection ---------------------------------------------------
     def _lower_entry(self, entry: PlanEntry) -> LoweredOp:
-        """One trace row. ``schedule`` is the stage's declared default
-        (a pin, when the caller forces one, is resolved by the stage at
-        call time); the tune slice's planner (A11) will plan it from the
-        solved specs as the JAX package's does."""
+        """One trace row. ``schedule`` is planned from the solved specs
+        (``tune.planner.plan_from_specs``) for the card — the local
+        problem and layout signature the stage's dispatch resolves under
+        (a forced or cached schedule, when one applies, is resolved by
+        the stage at call time)."""
+        from repro_torch.tune import planner
+
         node = entry.op
         sched = None
         in_specs: Tuple[AxeSpec, ...] = ()
         if node.kind != "finalize":
             in_specs = entry.input_specs(self.plan.env)
-            op = stage_key_for(node.kind, in_specs)
-            default = tsched.default_schedule(op) if op is not None else None
-            if default is not None:
-                sched = f"{op}={default.describe()}"
+            sp = planner.plan_from_specs(node.kind, in_specs)
+            if sp is not None and sp.schedule is not None:
+                sched = f"{sp.op}={sp.schedule.describe()}"
         return LoweredOp(
             op=node.name,
             kind=node.kind,
@@ -675,6 +687,19 @@ class Executable:
                     counts["rmsnorm/rows"] += 1
         return counts
 
+    def resolutions(self) -> List[Tuple[str, str, Any]]:
+        """``(node, op, tune.Resolution)`` of every schedule the graph's
+        nodes resolved so far (each at its first call), in plan order:
+        the schedule, its source and its cache key."""
+        out = []
+        for st in self._steps:
+            slots = [(st.entry.op.name, st.resolved)] + [
+                (seg.node.name, seg.resolved) for seg in st.segments]
+            for name, slot in slots:
+                for res in slot.values():
+                    out.append((name, res.schedule.op, res))
+        return out
+
     # -- execution -------------------------------------------------------
     def _ordered_inputs(self, params: Mapping[str, Any], acts: Sequence[Any]):
         if len(acts) != len(self.activation_names):
@@ -711,11 +736,12 @@ class Executable:
             for st in self._steps:
                 node = st.entry.op
                 if st.chain is not None:
-                    out = self._kernel_epilogue(st.chain, env)
+                    out = self._kernel_epilogue(st.chain, env, st.resolved)
                 elif st.segments:
                     out = self._run_fused(st, env, aux, side)
                 else:
-                    ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want)
+                    ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want,
+                                  resolved=st.resolved)
                     out = st.backend(ctx, *[env[nm] for nm in node.inputs])
                 if tuple(out.shape) != st.want:
                     raise CompileError(
@@ -737,7 +763,7 @@ class Executable:
         chain's intermediates live only during the node."""
         for seg in st.segments:
             ctx = ExecCtx(seg.node, st.entry, seg.in_specs, aux, side, out_local=seg.want,
-                          out_spec=seg.out_spec)
+                          out_spec=seg.out_spec, resolved=seg.resolved)
             out = seg.backend(ctx, *[env[nm] for nm in seg.node.inputs])
             env[seg.node.out] = out
         for seg in st.segments[:-1]:
@@ -745,7 +771,7 @@ class Executable:
         return out
 
     @staticmethod
-    def _kernel_epilogue(chain: _KernelChain, env: Dict[str, Any]):
+    def _kernel_epilogue(chain: _KernelChain, env: Dict[str, Any], resolved: Dict[str, Any]):
         """A fused 2-D matmul with its elementwise chain handed to B1 as
         an :class:`~repro_torch.axe.program.Epilogue` (the JAX package's
         ``_kernel_epilogue``, ``repro/axe/compile.py:889-955``): inside the
@@ -754,8 +780,8 @@ class Executable:
         from repro_torch.kernels import programs
 
         epi = programs.Epilogue(chain.tag, chain.steps, tuple(env[nm] for nm in chain.extras))
-        return programs.matmul(env[chain.a], env[chain.b], out_dtype=chain.out_dtype,
-                               epilogue=epi)
+        return programs.matmul(env[chain.a], env[chain.b], arg_specs=chain.specs,
+                               out_dtype=chain.out_dtype, epilogue=epi, resolved=resolved)
 
     def apply(self, params: Mapping[str, Any], *activations):
         """Run the graph eagerly on the tensors' device."""
@@ -807,6 +833,7 @@ def compile(  # noqa: A001 - the paper-facing API name
     mesh=None,
     plan=None,
     *,
+    schedule_cache: Optional[str] = None,
     beam: int = 4,
     fuse: bool = False,
     overlap: bool = False,
@@ -818,6 +845,9 @@ def compile(  # noqa: A001 - the paper-facing API name
     ``name → AxeSpec`` input assignment, or None — in which case the
     layout solver runs (``beam`` and ``overlap`` forwarded: without
     collectives ``overlap`` changes only the solver's objective).
+    ``schedule_cache`` pins the process-wide schedule cache
+    (``repro_torch.tune.use_cache``) so the executable's stages reuse
+    autotuned schedules.
 
     ``fuse=True`` rewrites the graph through
     :func:`repro_torch.axe.passes.fuse_graph` first (epilogue fusion,
@@ -828,6 +858,10 @@ def compile(  # noqa: A001 - the paper-facing API name
     *fused* graph (:func:`plan_covers`), else :class:`CompileError`."""
     if mesh is not None:
         raise _not_ported("compiling for a device mesh", "A14")
+    if schedule_cache is not None:
+        from repro_torch import tune
+
+        tune.use_cache(schedule_cache)
     fusion_report = None
     if fuse:
         from repro_torch.axe.passes import fuse_graph
@@ -914,7 +948,7 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
     if cfg.family not in SUPPORTED_FAMILIES:
         raise CompileError(
             f"family {cfg.family!r} has no model binding "
-            f"(supported: {SUPPORTED_FAMILIES}; the others come with ROADMAP.md A13)"
+            f"(supported: {SUPPORTED_FAMILIES})"
         )
     per = _period(cfg)
     out: Dict[str, Any] = {
@@ -959,17 +993,11 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
     return out
 
 
-def _check_model(cfg, mesh, **unported) -> None:
+def _check_model(mesh, offload=()) -> None:
     if mesh is not None:
         raise _not_ported("compiling for a device mesh", "A14")
-    for flag, item in (("cotune", "A11"), ("offload", "A14")):
-        if unported.get(flag):
-            raise _not_ported(f"{flag}={unported[flag]!r}", item)
-    if cfg.family not in SUPPORTED_FAMILIES:
-        raise CompileError(
-            f"family {cfg.family!r} has no model binding "
-            f"(supported: {SUPPORTED_FAMILIES}; the others come with ROADMAP.md A13)"
-        )
+    if offload:
+        raise _not_ported(f"offload={tuple(offload)!r}", "A14")
 
 
 def model_executable(
@@ -980,12 +1008,16 @@ def model_executable(
     *,
     plan=None,
     layers: Optional[int] = None,
+    schedule_cache: Optional[str] = None,
     beam: int = 4,
     dtype: Optional[str] = None,
     fuse: bool = False,
     offload: Sequence[str] = (),
     overlap: bool = False,
     cotune: bool = False,
+    cotune_iters: int = 4,
+    cotune_measure: bool = False,
+    cost_model=None,
 ) -> Executable:
     """The consumer-facing constructor: build the model-zoo graph for
     ``cfg`` at (batch, seq) over the mesh-free space and compile it.
@@ -993,12 +1025,22 @@ def model_executable(
     *different* graph shape does not cover this graph: it is dropped
     with a warning and the layout is re-solved. ``fuse=True`` runs the
     fusion passes before solving (:func:`compile`); a plan solved on the
-    unfused graph does not cover the fused one."""
+    unfused graph does not cover the fused one.
+
+    ``cotune=True`` runs the solve ↔ tune fixed-point loop
+    (``repro_torch.axe.cotune``) instead of a one-shot solve: measured
+    schedule timings from the ambient cache (or an explicit
+    ``cost_model``) correct the solver's rooflines and the layout is
+    re-solved until the plan stops changing (≤ ``cotune_iters``
+    solves). With no measurements the loop is exactly the one-shot
+    solve. ``cotune_measure=True`` also autotunes the measurable local
+    problems in the loop, on the card. The trace lands on
+    ``executable.cotune_report``."""
     import warnings
 
     from repro_torch.axe.graphs import model_graph
 
-    _check_model(cfg, mesh, cotune=cotune, offload=tuple(offload))
+    _check_model(mesh, offload)
     gs = model_graph(
         cfg, batch, seq, PhysicalSpace(()),
         dtype=dtype or cfg.dtype,
@@ -1012,7 +1054,20 @@ def model_executable(
             UserWarning, stacklevel=2,
         )
         plan = None
-    return compile(gs, mesh, plan, beam=beam, fuse=fuse, overlap=overlap)
+    cotune_report = None
+    if plan is None and cotune:
+        # the pre-rewrite graph and the solve arguments compile() would
+        # use, so an empty table gives the one-shot solve's plan
+        from repro_torch.axe.cotune import cotune as _cotune
+
+        cotune_report = _cotune(gs, beam=beam, max_iters=cotune_iters, cost_model=cost_model,
+                                measure=cotune_measure, overlap=overlap)
+        plan = ({n: cotune_report.assignment[n] for n in _fused_view(gs, fuse).inputs}
+                if fuse else cotune_report.result)
+    exe = compile(gs, mesh, plan, schedule_cache=schedule_cache, beam=beam, fuse=fuse,
+                  overlap=overlap)
+    exe.cotune_report = cotune_report
+    return exe
 
 
 def _fused_view(gs: GraphSpec, fuse: bool) -> GraphSpec:
@@ -1098,6 +1153,7 @@ def decode_executable(
     *,
     plan=None,
     layers: Optional[int] = None,
+    schedule_cache: Optional[str] = None,
     beam: int = 4,
     dtype: Optional[str] = None,
     fuse: bool = False,
@@ -1114,7 +1170,7 @@ def decode_executable(
 
     from repro_torch.axe.graphs import decode_graph
 
-    _check_model(cfg, mesh)
+    _check_model(mesh)
     gs = decode_graph(
         cfg, batch, max_seq, PhysicalSpace(()),
         dtype=dtype or cfg.dtype,
@@ -1128,7 +1184,8 @@ def decode_executable(
             UserWarning, stacklevel=2,
         )
         plan = None
-    return compile(gs, mesh, plan, beam=beam, fuse=fuse, overlap=overlap)
+    return compile(gs, mesh, plan, schedule_cache=schedule_cache, beam=beam, fuse=fuse,
+                   overlap=overlap)
 
 
 __all__ = [

@@ -16,10 +16,17 @@ The device rule takes the place of the JAX package's ``interpret`` flag:
   nothing on the card falls back to the plain body, and a BLOCK (plain)
   stage refuses CUDA tensors (:func:`require_host`).
 
-Schedules attach per stage under ``program_name/stage_name``. In this
-slice a stage resolves to an explicit pin (``schedule=`` / ``schedules=``
-/ ``blocks=`` / ``impl=``) or else to its declared default; the planner
-and autotuner come with the tune slice (``ROADMAP.md``). MESH
+Schedules attach per stage: a tunable stage resolves its
+:class:`~repro_torch.tune.schedule.Schedule` under the key
+``program_name/stage_name`` — an explicit pin (``schedule=`` /
+``schedules=`` / ``blocks=`` / ``impl=``), or else through the one
+planner/cache path (``repro_torch.tune.get_schedule``: forced → disabled →
+cached → planned), keyed on the operands' shapes and dtypes, the
+canonical layout signature of ``arg_specs`` (the operand AxeSpecs
+``axe.compile`` hands its programs) and the operands' device. Resolution
+is lazy: a stage that never reads ``ctx.schedule`` never plans, and a
+caller that keeps a ``resolved=`` slot (``axe.compile``, one per graph
+node) resolves each stage once. MESH
 ``shard_map`` lowering comes with the multi-GPU slice. A fused
 :class:`Epilogue` (the tail of an ``axe.passes`` epilogue fusion) rides
 on the call options as in the JAX package: ``program(..., epilogue=epi)``
@@ -55,6 +62,7 @@ import torch
 
 from repro_torch.axe.stages import Stage, StageError, normalize_blocks
 from repro_torch.core.scopes import Scope, current_scope, scope
+from repro_torch import tune
 from repro_torch.tune import schedule as tsched
 
 ScheduleLike = Union[str, "tsched.Schedule"]
@@ -176,9 +184,12 @@ class _CallOptions:
     """Per-invocation options threaded through the stage graph."""
 
     schedules: Tuple[Tuple[str, ScheduleLike], ...] = ()  # stage name → override
+    arg_specs: Tuple[Any, ...] = ()                       # operand AxeSpecs
     epilogue: Optional[Epilogue] = None
     # entry-stage-only overrides: (stage_name, schedule, blocks, impl)
     entry: Optional[Tuple[str, Optional[Any], Optional[Dict[str, int]], Optional[str]]] = None
+    # the caller's slot of resolutions by stage name (``resolved=``)
+    resolved: Optional[Dict[str, Any]] = None
 
     def schedule_override(self, stage_name: str):
         return dict(self.schedules).get(stage_name)
@@ -193,9 +204,11 @@ class StageContext:
     """Handed to every stage body as its first argument: the resolved
     schedule surface plus the helpers a stage lowers through."""
 
-    def __init__(self, program: "Program", stage: Stage, opts: _CallOptions):
+    def __init__(self, program: "Program", stage: Stage, args, kw, opts: _CallOptions):
         self.program = program
         self.stage = stage
+        self._args = args
+        self._kw = kw
         self._opts = opts
         self._schedule: Optional[tsched.Schedule] = None
         self._resolved = False
@@ -208,9 +221,11 @@ class StageContext:
 
     @property
     def schedule(self) -> Optional[tsched.Schedule]:
-        """The stage's resolved :class:`~repro_torch.tune.schedule.Schedule`."""
+        """The stage's resolved :class:`~repro_torch.tune.schedule.Schedule`
+        (lazy: the planner only runs if a body asks)."""
         if not self._resolved:
-            self._schedule = self.program._resolve_schedule(self.stage, self._opts)
+            self._schedule = self.program._resolve_schedule(
+                self.stage, self._args, self._kw, self._opts)
             self._resolved = True
         return self._schedule
 
@@ -218,6 +233,11 @@ class StageContext:
     def impl(self) -> Optional[str]:
         s = self.schedule
         return s.impl if s is not None else None
+
+    @property
+    def arg_specs(self) -> Tuple[Any, ...]:
+        """The operand AxeSpecs of this call (``arg_specs=``), or ()."""
+        return self._opts.arg_specs
 
     @property
     def epilogue(self) -> Optional[Epilogue]:
@@ -236,9 +256,9 @@ class StageContext:
     def pinned(self) -> bool:
         """True when this stage's schedule was explicitly supplied by
         the caller (``schedule=`` / ``schedules=`` / ``blocks=`` /
-        ``impl=``) rather than taken from the stage's declared default.
-        A pinned schedule the kernel cannot run raises; an unpinned one
-        is always the kernel's own default."""
+        ``impl=``) rather than resolved by the tune layer. A pinned
+        schedule the kernel cannot run raises; a resolved one is always
+        one the kernel can run (``tune.planner.runnable``)."""
         if self._opts.schedule_override(self.stage.name) is not None:
             return True
         e = self._opts.entry
@@ -322,6 +342,7 @@ class Program:
         scope: Union[Scope, str],
         blocks: Sequence[Tuple[str, int]] = (),
         variants: Sequence[str] = (),
+        key: Optional[Callable] = None,
         entry: bool = False,
         dispatch: Sequence[Union[Scope, str]] = (),
     ) -> Callable:
@@ -329,15 +350,14 @@ class Program:
         default stage (else: first registered). ``dispatch`` lists the
         execution scopes that select this stage when the *program* is
         called. Tunable stages (blocks or variants) are registered with
-        the schedule registry under ``program_name/stage_name``. (The
-        JAX package's ``key=``/``flops=`` hooks feed its planner and
-        come with the tune slice.)"""
+        the tune layer under ``program_name/stage_name``; ``key``
+        overrides the schedule-key extraction (``Stage.key_fn``)."""
         scope_ = Scope(scope) if isinstance(scope, str) else scope
         blocks_ = normalize_blocks(blocks)
         variants_ = tuple(variants)
 
         def deco(fn: Callable) -> Callable:
-            st = Stage(name, scope_, fn, blocks_, variants_)
+            st = Stage(name, scope_, fn, blocks_, variants_, key)
             self.stages[name] = st
             if entry or self._entry is None:
                 self._entry = name
@@ -374,23 +394,33 @@ class Program:
         schedules: Optional[Mapping[str, ScheduleLike]] = None,
         blocks: Optional[Mapping[str, int]] = None,
         impl: Optional[str] = None,
+        arg_specs: Sequence[Any] = (),
         epilogue: Optional[Epilogue] = None,
+        resolved: Optional[Dict[str, Any]] = None,
         **kw,
     ):
         """Run the program on ``args``.
 
+        ``arg_specs`` — the operands' ``AxeSpec`` objects: they key the
+        schedule cache (canonical layout signature).
         ``schedule`` pins the dispatched stage's schedule; ``schedules``
         pins per stage by name; ``blocks`` overrides individual block
         sizes (forcing the kernel variant); ``impl`` restricts the
         dispatched stage to one variant; ``epilogue`` fuses an
         elementwise chain onto the result (stages that take one read
-        ``ctx.epilogue``).
+        ``ctx.epilogue``); ``resolved`` is a dict the caller keeps for one
+        call site: each stage's unpinned resolution
+        (a ``tune.Resolution``) is stored there under the stage's name at
+        the first call and reused by later ones, as a trace fixes its
+        schedules (``axe.compile`` keeps one per graph node).
         """
         name = stage or self.dispatch_stage()
         opts = _CallOptions(
             schedules=tuple((schedules or {}).items()),
+            arg_specs=tuple(arg_specs or ()),
             epilogue=epilogue,
             entry=(name, schedule, dict(blocks) if blocks else None, impl),
+            resolved=resolved,
         )
         return self._run(name, args, kw, opts)
 
@@ -402,15 +432,37 @@ class Program:
                 f"(stages: {sorted(self.stages)})"
             )
         st.validate_entry(current_scope(), self.name)
-        ctx = StageContext(self, st, opts)
+        ctx = StageContext(self, st, args, kw, opts)
         with scope(st.scope):
             return st.body(ctx, *args, **kw)
 
     # -- schedule resolution --------------------------------------------
-    def _resolve_schedule(self, st: Stage, opts: _CallOptions):
-        """An explicit pin, else the stage's declared default (the JAX
-        package's ``program.py:370-415`` with the tune layer's planner
-        and cache left to the tune slice)."""
+    def schedule_query(self, stage_name: str, *args, arg_specs: Sequence[Any] = (),
+                       epilogue: Optional[Epilogue] = None, **kw) -> Dict[str, Any]:
+        """The ``tune.get_schedule`` arguments one call of ``stage_name``
+        resolves under (``op``, ``shapes``, ``dtypes``, ``layout_sig``,
+        ``backend``): the one place a call's schedule key is formed."""
+        opts = _CallOptions(arg_specs=tuple(arg_specs or ()), epilogue=epilogue)
+        return self._query(self.stages[stage_name], args, kw, opts)
+
+    def _query(self, st: Stage, args, kw, opts: _CallOptions) -> Dict[str, Any]:
+        parts = st.schedule_key_parts(args, kw, opts.arg_specs)
+        tag = parts.get("tag")
+        if opts.epilogue is not None:
+            # a fused launch is a different kernel: its schedule entry
+            # must never collide with the plain op's
+            tag = f"{tag}+epi:{opts.epilogue.tag}" if tag else f"epi:{opts.epilogue.tag}"
+        return dict(op=self.stage_key(st.name), shapes=parts["shapes"], dtypes=parts["dtypes"],
+                    layout_sig=tsched.layout_signature(*opts.arg_specs, tag=tag),
+                    backend=tune.planner.backend_of(*args))
+
+    def _resolve_schedule(self, st: Stage, args, kw, opts: _CallOptions):
+        """An explicit pin, else ``tune.resolve`` for these operands
+        (the JAX package's ``program.py:370-415``), kept in the caller's
+        ``resolved`` slot when it gave one. A settled op
+        (``tune.settled``: no forced spec, no persisted entry) takes its
+        declared default, which is what the planner would rank first,
+        without building a key."""
         if not st.tunable:
             return None
         op = self.stage_key(st.name)
@@ -426,18 +478,31 @@ class Program:
             return as_schedule(sched)
         if override is not None:
             return as_schedule(override)
-        default = tsched.default_schedule(op)
         if blocks:
-            # explicit block sizes force the kernel variant; the rest of
-            # the blocks keep the stage's declared defaults
+            # explicit block sizes force the kernel variant; missing
+            # blocks come from the resolved kernel schedule for these shapes
             impl = impl or ("kernel" if "kernel" in st.variants or not st.variants
                             else st.variants[0])
             merged = st.default_blocks()
+            if set(blocks) != set(merged):
+                base = tune.get_schedule(**self._query(st, args, kw, opts), impl=impl)
+                merged.update(base.blocks_dict)
             merged.update(blocks)
             return tsched.Schedule(op, impl, tuple(merged.items()))
-        if impl is not None:
-            return tsched.Schedule(op, impl, default.blocks)
-        return default
+
+        slot = opts.resolved
+        if slot is None:
+            if impl is None and tune.settled(op):
+                return tsched.default_schedule(op)
+            return tune.resolve(**self._query(st, args, kw, opts), impl=impl).schedule
+        res = slot.get(st.name)
+        if res is None:
+            if impl is None and tune.settled(op):
+                res = tune.Resolution(tsched.default_schedule(op), "planned")
+            else:
+                res = tune.resolve(**self._query(st, args, kw, opts), impl=impl)
+            slot[st.name] = res
+        return res.schedule
 
     # -- kernel launchers -------------------------------------------------
     def _launcher(self, source: str, symbol: str, signature: str) -> Callable:

@@ -16,8 +16,8 @@ hierarchy in ``core.scopes``::
 The axis names and canonical signatures are the JAX package's, so a
 layout signature means the same in both packages (schedules and plans
 compare on it). The inter-device lowering to a concrete mesh comes with
-the multi-GPU slice; the on-device tile lowering with the tune slice
-(``ROADMAP.md`` A14, A11). Propagation over op graphs lives in
+the multi-GPU slice (``ROADMAP.md`` A14); the on-device tile lowering is
+``repro_torch.axe.lower``. Propagation over op graphs lives in
 ``repro_torch.axe.propagate``; the sharding rule engine in
 ``repro_torch.axe.rules``.
 """
@@ -295,12 +295,18 @@ class AxeSpec:
     def signature(self) -> str:
         """Canonical string identity: equal specs (semantically — layouts
         that canonicalize equal, same shape/space/partial) produce equal
-        signatures. This is the layout key the tune cache uses."""
-        shp = "x".join(str(s) for s in self.shape)
-        parts = [f"axe[{shp}]", repr(canonicalize(self.layout)), self.space.signature()]
-        if self.partial:
-            parts.append("partial:" + ",".join(sorted(self.partial)))
-        return "|".join(parts)
+        signatures. This is the layout key the tune cache uses, read on
+        every stage call of an executable, so it is computed once per
+        (immutable) spec."""
+        sig = self.__dict__.get("_signature")
+        if sig is None:
+            shp = "x".join(str(s) for s in self.shape)
+            parts = [f"axe[{shp}]", repr(canonicalize(self.layout)), self.space.signature()]
+            if self.partial:
+                parts.append("partial:" + ",".join(sorted(self.partial)))
+            sig = "|".join(parts)
+            object.__setattr__(self, "_signature", sig)
+        return sig
 
     def equivalent(self, other: "AxeSpec") -> bool:
         return (

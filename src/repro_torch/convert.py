@@ -3,7 +3,7 @@ numpy arrays) and the port's tensors, so both packages compute on the
 same weights. The port imports nothing of JAX: the caller turns a JAX
 pytree into numpy first (``jax.tree.map(np.asarray, tree)``).
 
-Parameters: the JAX LM (dense, MoE, SSM and hybrid families) keeps ``blocks/l{slot}``
+Parameters: the JAX LM (dense, MoE, SSM, hybrid and VLM families) keeps ``blocks/l{slot}``
 stacked over super-blocks (layer ``i`` is super-block ``i // per``, slot
 ``i % per``), and so does the port. Only the attention projections
 change shape: the port's are 2-D with head-major columns —
@@ -14,9 +14,14 @@ stacked ``[n_super, d, E]`` (router, f32) and ``[n_super, E, d, f]`` /
 ``[n_super, E, f, d]`` (experts) shapes, which kernel B5 takes; so do
 an SSD mixer's ``ssm/{wx, wz, wB, wC, wdt, wo}`` (2-D per super-block),
 ``conv_w``, ``gate_norm`` and its f32 ``dt_bias``, ``A_log`` and ``D``.
-Caches keep their layout: an attention slot's ``l{slot}/k``
+A VLM's ``mm_proj`` ``[1024, d]`` crosses as it is. The enc-dec model
+(``models.encdec``) keeps ``enc_blocks`` (``attn``) and ``dec_blocks``
+(``self_attn``, ``cross_attn``, ``norm1-3``, ``mlp``) stacked over
+layers, beside ``enc_norm``; its three attention subtrees are reshaped
+as above. Caches keep their layout: an attention slot's ``l{slot}/k``
 ``[n_super, B, W, KV, hd]``, an SSD slot's ``l{slot}/ssm`` (f32) and
-``l{slot}/conv``.
+``l{slot}/conv``; the enc-dec cache's ``self/{k, v}`` and ``ck/cv``
+``[L, B, S_enc, KV, hd]``.
 
 bf16 arrays from JAX are ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bits, which is
@@ -32,6 +37,9 @@ import torch
 from repro_torch.models.transformer import FAMILIES
 
 _ATTN_2D = ("wq", "wk", "wv")
+#: the attention subtrees of a layer: decoder-only, enc-dec encoder,
+#: enc-dec decoder
+_ATTN_TREES = ("attn", "self_attn", "cross_attn")
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -62,33 +70,44 @@ def _attn_from_jax(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _layer_from_jax(lp: Dict[str, Any], device) -> Dict[str, Any]:
+    """One (stacked) layer's leaves: attention subtrees reshaped, the rest as they are."""
+    return {
+        name: (_attn_from_jax(sub, device) if name in _ATTN_TREES
+               else {k: to_torch(v, device) for k, v in sub.items()}
+               if isinstance(sub, dict) else to_torch(sub, device))
+        for name, sub in lp.items()
+    }
+
+
 def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str, Any]:
-    """The JAX LM's params (numpy leaves) as the port's params."""
+    """The JAX model's params (numpy leaves) as the port's params."""
+    if cfg.family == "encdec":
+        out = {name: _layer_from_jax(np_params[name], device)
+               for name in ("enc_blocks", "dec_blocks")}
+        for name in ("embed", "enc_norm", "final_norm", "lm_head"):
+            out[name] = to_torch(np_params[name], device)
+        return out
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"params_from_jax: family {cfg.family!r} is not ported")
-    blocks = {}
-    for slot, lp in np_params["blocks"].items():
-        blocks[slot] = {
-            name: (_attn_from_jax(sub, device) if name == "attn"
-                   else {k: to_torch(v, device) for k, v in sub.items()}
-                   if isinstance(sub, dict) else to_torch(sub, device))
-            for name, sub in lp.items()
-        }
+        raise ValueError(f"params_from_jax: unknown family {cfg.family!r}")
     out = {
         "embed": to_torch(np_params["embed"], device),
-        "blocks": blocks,
+        "blocks": {slot: _layer_from_jax(lp, device) for slot, lp in np_params["blocks"].items()},
         "final_norm": to_torch(np_params["final_norm"], device),
     }
-    if "lm_head" in np_params:
-        out["lm_head"] = to_torch(np_params["lm_head"], device)
+    for name in ("lm_head", "mm_proj"):
+        if name in np_params:
+            out[name] = to_torch(np_params[name], device)
     return out
 
 
 def cache_from_jax(np_cache: Dict[str, Any], *, device="cpu") -> Dict[str, Any]:
-    """``{l{slot}: {k, v}}`` numpy caches as the port's tensors."""
-    return {slot: {k: to_torch(a, device) for k, a in c.items()} for slot, c in np_cache.items()}
+    """A nested dict of numpy caches (``{l{slot}: {k, v}}``; enc-dec
+    ``{self: {k, v}, ck, cv}``) as the port's tensors."""
+    return {k: cache_from_jax(a, device=device) if isinstance(a, dict) else to_torch(a, device)
+            for k, a in np_cache.items()}
 
 
 def cache_to_jax(cache: Dict[str, Any]) -> Dict[str, Any]:
     """The port's caches as numpy arrays in the JAX package's layout."""
-    return {slot: {k: to_numpy(t) for k, t in c.items()} for slot, c in cache.items()}
+    return {k: cache_to_jax(t) if isinstance(t, dict) else to_numpy(t) for k, t in cache.items()}

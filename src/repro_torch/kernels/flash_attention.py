@@ -176,10 +176,16 @@ def tma_ready(x) -> bool:
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in tma_strides(x))
 
 
+def _fa_key(args, kw, arg_specs=()):
+    """The schedule key's tag, the JAX package's: causal attention keys apart."""
+    return {"tag": "causal" if kw.get("causal") else None}
+
+
 @flash_attention_program.stage(
     "attend", scope=Scope.GRID, entry=True,
     blocks=tuple(ATTEND_BLOCKS.items()),
     variants=("kernel",),
+    key=_fa_key,
 )
 def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
             scale: Optional[float] = None):

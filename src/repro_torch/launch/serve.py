@@ -8,6 +8,9 @@ generation through the hand-written kernels.
     python -m repro_torch.launch.serve --arch mamba2-2.7b --fuse
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --smoke --device cpu
     python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu --batcher 8
+    python -m repro_torch.launch.serve --arch whisper-large-v3
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b --prompt-len 3008 \
+        --max-seq 3040
 
 ``--layers`` cuts the depth (full width): qwen3-moe-235b-a22b's 94
 layers hold ~470 GB of bf16 weights, one 80 GB card about 14 of them;
@@ -16,7 +19,12 @@ take 19.3 GB a layer). ``--fuse`` runs the fusion passes on the compiled
 graphs (``ServeEngine(fuse=True)``). ``--batcher N`` serves N requests
 of seeded random prompt lengths and arrival steps through the
 ``ContinuousBatcher`` (``--batch`` slots) instead of one ``generate``.
-The dense, MoE, SSM (mamba2) and hybrid (jamba) archs are served.
+Every arch is served: the dense, MoE, SSM (mamba2) and hybrid (jamba)
+ones through compiled decode ticks, whisper (enc-dec) and llava (VLM)
+through the model API's ticks (``decode_mode="legacy"``): ``axe.compile``
+binds no model of their families, in the JAX package either. Their frontend stubs
+get ones as inputs (``frames [B, 1500, d]``, ``patches [B, 2880, 1024]``
+in the first 2880 prompt positions), as the JAX launcher builds them.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.axe.compile import SUPPORTED_FAMILIES
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
 from repro_torch.kernels import programs
 from repro_torch.models.model_zoo import build_model
@@ -57,7 +66,8 @@ def main(argv=None):
     api = build_model(cfg, device=args.device)
     params = api.init(0)
     engine = ServeEngine(api, batch_size=args.batch, max_seq=args.max_seq,
-                         temperature=args.temperature, device=api.device, fuse=args.fuse)
+                         temperature=args.temperature, device=api.device, fuse=args.fuse,
+                         decode_mode="compiled" if cfg.family in SUPPORTED_FAMILIES else "legacy")
     engine.load(params)
     programs.reset_launch_counts()
     if args.batcher:
@@ -82,7 +92,8 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=api.device)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.new_tokens)
+    out = engine.generate(prompts, args.new_tokens,
+                          extra_inputs=api.frontend_inputs(args.batch) or None)
     dt = time.perf_counter() - t0
     print(f"{args.batch}x{args.new_tokens} tokens in {dt:.2f}s "
           f"({args.batch * args.new_tokens / dt:.1f} tok/s) on {api.device}")

@@ -1,12 +1,19 @@
-"""GQA attention: prefill and single-token decode against a static KV
-cache — the serving half of ``repro/models/attention.py``.
+"""GQA attention: full-sequence self-attention, prefill and single-token
+decode against a static KV cache, and the enc-dec cross-attention — the
+serving half of ``repro/models/attention.py``.
 
 Projections run through kernel B1 as 2-D products
-(``[B·S, d] @ [d, H·hd]`` with head-major columns), prefill attention
-through kernel B3 and decode attention through kernel B4; the
-``[B, W, KV, hd]`` cache is handed to B4 through strides. Unlike the
-JAX package, the cache is updated in place (the stacked cache tensors
-are written through views), which saves a full copy per layer and tick.
+(``[B·S, d] @ [d, H·hd]`` with head-major columns), full-sequence and
+prefill attention through kernel B3 and decode attention through kernel
+B4; the ``[B, W, KV, hd]`` cache is handed to B4 through strides. Unlike
+the JAX package, the cache is updated in place (the stacked cache
+tensors are written through views), which saves a full copy per layer
+and tick.
+
+The JAX package switches to a KV-blocked ``lax.scan`` (``_gqa_blocked``)
+above 8192 tokens to bound its memory; B3 is itself a blocked online
+softmax on the card and computes the same function at every length, so
+the port has one path.
 """
 from __future__ import annotations
 
@@ -48,6 +55,27 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+def _attend(q, k, v, *, causal: bool, window: Optional[int] = None) -> torch.Tensor:
+    """``[B, S, H, hd]`` queries over ``[B, Skv, KV, hd]`` keys/values
+    through B3 (transposed views, no copies); the ``[B·S, H·hd]`` rows
+    the output projection takes."""
+    b, s, h, hd = q.shape
+    out = programs.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window,
+    )  # [B, H, S, hd], a view of [B, S, H, hd] memory
+    return out.transpose(1, 2).reshape(b * s, h * hd)
+
+
+def attn_apply(p: Params, x: torch.Tensor, cfg, *, causal: bool = True,
+               window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence self-attention (the enc-dec encoder runs it with
+    ``causal=False``), rope at positions ``0..S-1``."""
+    b, s, d = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return programs.matmul(_attend(q, k, v, causal=causal, window=window), p["wo"]).view(b, s, d)
+
+
 # ---------------------------------------------------------------------------
 # KV cache: prefill + decode
 # ---------------------------------------------------------------------------
@@ -83,10 +111,7 @@ def attn_prefill(p: Params, x: torch.Tensor, cfg, cache: Params, *,
     b, s, d = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = programs.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window,
-    )  # [B, H, S, hd]
-    out = out.transpose(1, 2).reshape(b * s, cfg.num_heads * cfg.head_dim)
+    out = _attend(q, k, v, causal=True, window=window)
     _ring_store(cache["k"], k)
     _ring_store(cache["v"], v)
     return programs.matmul(out, p["wo"]).view(b, s, d), cache
@@ -116,3 +141,42 @@ def attn_decode(
         qg, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), pos, ring=is_ring,
     )
     return programs.matmul(out.reshape(b, h * hd), p["wo"]).view(b, 1, d), cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_kv(p: Params, enc: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output ``enc [B, Se, d]`` projected to the cross
+    keys and values ``[B, Se, KV, hd]`` (no rope, no qk-norm)."""
+    b, se, _ = enc.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return (linear(enc, p["wk"]).view(b, se, kv, hd), linear(enc, p["wv"]).view(b, se, kv, hd))
+
+
+def cross_attn_apply(p: Params, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     cfg) -> torch.Tensor:
+    """``x [B, Sq, d]`` attends to the encoder's keys and values
+    ``ck/cv [B, Se, KV, hd]`` (:func:`cross_kv`) through B3: no mask, no
+    rope. The JAX package's ``cross_attn_apply`` projects them from the
+    encoder output itself; the port's prefill projects them once, for
+    this and for the cross cache."""
+    b, s, d = x.shape
+    q = linear(x, p["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
+    return programs.matmul(_attend(q, ck, cv, causal=False), p["wo"]).view(b, s, d)
+
+
+def cross_attn_decode(p: Params, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      cfg) -> torch.Tensor:
+    """One decoder token ``x [B, 1, d]`` over every encoder position of
+    the cross cache ``ck/cv [B, Se, KV, hd]`` through B4: each slot's
+    position is ``Se - 1``, so every key is live — the softmax over all
+    encoder positions the JAX package's ``_cross_decode`` takes."""
+    b, _, d = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = linear(x, p["wq"]).view(b, kvh, h // kvh, hd)
+    pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.int32, device=x.device)
+    out = programs.flash_decode(qg, ck.transpose(1, 2), cv.transpose(1, 2), pos)
+    return programs.matmul(out.reshape(b, h * hd), p["wo"]).view(b, 1, d)

@@ -40,8 +40,9 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
     return dense_init(gen, (vocab, d), d, dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    return programs.rmsnorm(x, w, eps=eps)
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, **kw) -> torch.Tensor:
+    """Kernel B2; ``kw`` goes to the program (``resolved=``)."""
+    return programs.rmsnorm(x, w, eps=eps, **kw)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""Unified model API of the port — the dense, MoE, SSM and hybrid
-families of ``repro/models/model_zoo.py``."""
+"""Unified model API of the port — ``repro/models/model_zoo.py`` for
+serving: the decoder-only families (dense, MoE, SSM, hybrid, VLM) through
+``models.transformer``, the enc-dec family through ``models.encdec``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.common import dtype_of
 
 
 @dataclasses.dataclass
@@ -21,15 +24,41 @@ class ModelAPI:
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
 
+    def frontend_inputs(self, b: int, *, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The frontend stubs' inputs a prefill batch carries besides
+        ``tokens`` (the JAX package's ``_frontend_specs``) on the model's
+        device, in its dtype: a VLM's ``patches [B, P, 1024]``, an enc-dec
+        model's ``frames [B, S_enc, d]``; ones, as the JAX package's
+        ``make_train_batch`` and ``launch/serve.py`` build them, or
+        standard normal draws from ``seed``."""
+        if self.cfg.family == "vlm":
+            name, shape = "patches", (b, self.cfg.num_patches, tf_mod.PATCH_DIM)
+        elif self.cfg.family == "encdec":
+            name, shape = "frames", (b, self.cfg.encoder_seq, self.cfg.d_model)
+        else:
+            return {}
+        if seed is None:
+            return {name: torch.ones(shape, dtype=dtype_of(self.cfg), device=self.device)}
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return {name: torch.randn(shape, generator=gen, device=self.device).to(dtype_of(self.cfg))}
+
 
 def build_model(cfg: ModelConfig, *,
                 device: Optional[Union[str, torch.device]] = None) -> ModelAPI:
     """The model API on ``device`` (default ``cuda``; raises without a
-    card unless ``device="cpu"``). Dense, MoE, SSM and hybrid families
-    (``transformer.FAMILIES``)."""
-    tf_mod.check_family(cfg)
+    card unless ``device="cpu"``)."""
     dev = resolve_device(device)
-
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: encdec_mod.encdec_init(cfg, seed=seed, device=dev),
+            cache_init=lambda batch, max_seq: encdec_mod.cache_init(cfg, batch, max_seq,
+                                                                    device=dev),
+            prefill=lambda p, batch, c: encdec_mod.prefill(p, batch, c, cfg),
+            decode_step=lambda p, t, c, pos: encdec_mod.decode_step(p, t, c, pos, cfg),
+        )
+    tf_mod.check_family(cfg)
     return ModelAPI(
         cfg=cfg,
         device=dev,

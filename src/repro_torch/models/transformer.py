@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense, MoE, SSM and hybrid families —
-the serving half of ``repro/models/transformer.py``.
+"""Decoder-only LM assembly for the dense, MoE, SSM, hybrid and VLM
+families — the serving half of ``repro/models/transformer.py``.
 
 Parameters keep the JAX package's super-block structure: a leaf under
 ``blocks/l{slot}`` is stacked over super-blocks on its first axis, and
@@ -12,9 +12,11 @@ super-blocks. Prefill and decode run under ``Scope.DEVICE``, so every
 matmul dispatches to the ``matmul/tile`` GRID stage — the binding the
 JAX package's compiled graph makes (``axe/compile.py:165-186``); an MoE
 layer's FFN is ``models/moe.py``, whose expert GEMMs dispatch to
-``moe_gemm/expert_gemm``; an SSD mixer is ``models/ssm.py``. The
-enc-dec and VLM families raise ``NotImplementedError`` until their slice
-lands (``ROADMAP.md``, queue A13).
+``moe_gemm/expert_gemm``; an SSD mixer is ``models/ssm.py``. The VLM
+family's vision frontend is a stub, as in the JAX package: precomputed
+patch embeddings ``patches [B, P, 1024]`` are projected through
+``mm_proj`` (kernel B1) and take the prompt's first P positions. The
+enc-dec family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -38,14 +40,17 @@ from repro_torch.models.common import (
 )
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+#: width of the VLM frontend stub's patch embeddings (``mm_proj`` rows)
+PATCH_DIM = 1024
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            f"serves the {', '.join(FAMILIES)} families (ROADMAP.md, queue A13)"
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family!r} family is not a decoder-only LM; this module "
+            f"serves the {', '.join(FAMILIES)} families (enc-dec: models.encdec)"
         )
 
 
@@ -119,7 +124,27 @@ def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> 
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dtype)
+    if cfg.family == "vlm":
+        p["mm_proj"] = dense_init(gen, (PATCH_DIM, d), PATCH_DIM, dtype)
     return p
+
+
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    """Token embeddings; a VLM's ``patches [B, P, 1024]`` projected
+    through ``mm_proj`` (B1) take the first P positions, as the JAX
+    package's ``concatenate`` places them. A prompt shorter than P is
+    refused: the JAX package would return a sequence of another length."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm" and "patches" in batch:
+        n = batch["patches"].shape[1]
+        if x.shape[1] < n:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than its {n} "
+                f"patches; the patches take the prompt's first {n} positions"
+            )
+        proj = linear(batch["patches"], params["mm_proj"])
+        x = torch.cat([proj.to(x.dtype), x[:, n:]], dim=1)
+    return x
 
 
 def _head(params: Params, cfg) -> torch.Tensor:
@@ -162,9 +187,9 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     """Run the prompt, fill the caches (in place), return the last
     position's logits ``[B, 1, V]``."""
     check_family(cfg)
-    x = params["embed"][batch["tokens"]]
     n_super, per = _superblock_shape(cfg)
     with scope(Scope.DEVICE):
+        x = _embed_inputs(params, batch, cfg)
         for sb in range(n_super):
             sp, sc = _index(params["blocks"], sb), _index(cache, sb)
             for i in range(per):

@@ -294,7 +294,8 @@ class ContinuousBatcher:
         # batched compiled decode)
         one = eng.api.cache_init(1, eng.max_seq)
         tokens = torch.as_tensor(prompt[None, :], device=eng.device).long()
-        logits, one = eng.api.prefill(eng.params, {"tokens": tokens}, one)
+        with eng._scheduled():
+            logits, one = eng.api.prefill(eng.params, {"tokens": tokens}, one)
         tok = self._sample_one(req.uid, len(prompt) - 1, logits[0, -1])
         self._write_slot(slot.index, one)
         slot.uid = req.uid

@@ -10,16 +10,31 @@ through the model API, and ``decode_mode="legacy"`` keeps the model
 API's own ``decode_step`` per tick. ``fuse=True`` runs the graph-level
 fusion passes (``axe.passes``) on both graphs before solving, so the
 elementwise glue after a matmul runs inside kernel B1 and the other
-glue inside the fused node's segments. The JAX engine's mesh placement,
-solved-layout and schedule-cache options come with the multi-GPU and
-tune slices (``ROADMAP.md`` A14, A11). :class:`~repro_torch.serve.batcher.ContinuousBatcher`
+glue inside the fused node's segments.
+
+Every kernel stage the engine calls resolves its schedule through
+``repro_torch.tune`` (forced → cached → planned). ``schedule_cache``
+pins the process-wide schedule cache to a server-local file, so the
+stages reuse schedules an autotune run measured on this card (keyed
+``program/stage`` and backend ``gpu``); ``tune_service`` folds a service
+artifact (``tune.service``) into that cache under the measured-beats-
+planned / newest-wins merge rules; ``force_schedule`` is the serve-time
+escape hatch — a ``Schedule.parse`` spec applied to every dispatch, or a
+mapping pinning single stages (``{"matmul/tile": "xla"}``), held around
+every prefill, tick and score of this engine. A compiled executable
+resolves each node at its first call and keeps it, as a JAX trace does,
+so the cache and the forced spec in force then are the ones its nodes
+run. The JAX engine's mesh
+placement and solved-layout options come with the multi-GPU slice
+(``ROADMAP.md`` A14). :class:`~repro_torch.serve.batcher.ContinuousBatcher`
 drives the same engine with requests that join and leave mid-stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -40,6 +55,9 @@ class ServeEngine:
     device: Optional[Union[str, torch.device]] = None  # default: cuda
     decode_mode: str = "compiled"      # "compiled" | "legacy"
     fuse: bool = False                 # graph-level fusion passes (axe.passes)
+    schedule_cache: Optional[str] = None       # schedule cache file (tune.use_cache)
+    tune_service: Optional[str] = None         # service artifact folded into it
+    force_schedule: Optional[Union[str, Mapping[str, str]]] = None
 
     #: compiled-executable memo bound: each entry holds a solved plan and
     #: its executable, so callers should bucket sequence lengths
@@ -51,6 +69,14 @@ class ServeEngine:
             raise ValueError(f"engine on {self.device}, model API on {self.api.device}")
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {self.decode_mode!r} not in {DECODE_MODES}")
+        from repro_torch import tune
+
+        if self.schedule_cache is not None:
+            tune.use_cache(self.schedule_cache)
+        if self.tune_service is not None:
+            # entries replace local ones only when they win the merge
+            # order (measured beats planned, newest measurement wins)
+            tune.load_into(tune.default_cache(), self.tune_service)
         self.params = None
         self._compiled: Dict[tuple, Any] = {}
         #: graph inputs bound to the loaded params, per memoized executable
@@ -62,6 +88,14 @@ class ServeEngine:
     def load(self, params) -> None:
         self.params = params
         self._bound.clear()
+
+    def _scheduled(self):
+        """The ``force_schedule`` context of this engine's calls."""
+        if self.force_schedule is None:
+            return contextlib.nullcontext()
+        from repro_torch import tune
+
+        return tune.force_schedule(self.force_schedule)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -127,14 +161,16 @@ class ServeEngine:
         exe = self.compiled_decode(batch=b)
         inputs = dict(self._inputs(("decode", b, None, self.fuse), exe))
         inputs.update(cache_inputs(exe.graph, self.api.cfg, cache))
-        outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))
+        with self._scheduled():
+            outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))
         logits = outs[exe.outputs.index("logits")]
         return logits, decode_cache(exe.graph, self.api.cfg, outs, cache)
 
     def legacy_decode_step(self, tok: torch.Tensor, cache, pos: torch.Tensor):
         """One decode step through the model API's ``decode_step``
         (``decode_mode="legacy"``); same contract as :meth:`decode_step`."""
-        logits, cache = self.api.decode_step(self.params, tok[:, None], cache, pos)
+        with self._scheduled():
+            logits, cache = self.api.decode_step(self.params, tok[:, None], cache, pos)
         return logits[:, -1], cache
 
     def score(self, tokens) -> torch.Tensor:
@@ -145,8 +181,9 @@ class ServeEngine:
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         exe = self.compiled_forward(s, batch=b)
-        logits = exe(self._inputs((b, s, None, self.fuse), exe),
-                     tokens.reshape(-1).to(torch.int32))
+        with self._scheduled():
+            logits = exe(self._inputs((b, s, None, self.fuse), exe),
+                         tokens.reshape(-1).to(torch.int32))
         return logits.reshape(b, s, -1)
 
     def generate(
@@ -156,9 +193,12 @@ class ServeEngine:
         *,
         temperature: Optional[float] = None,
         top_k: Optional[int] = None,
+        extra_inputs: Optional[Dict[str, Any]] = None,
     ) -> np.ndarray:
         """Greedy / temperature / top-k sampling for a fixed batch: the
-        first token comes from the prefill logits (model API), then
+        first token comes from the prefill logits (model API, fed the
+        prompts and ``extra_inputs`` — a VLM's ``patches``, an enc-dec
+        model's ``frames``, ``ModelAPI.frontend_inputs``), then
         ``max_new_tokens - 1`` decode ticks follow, each through the
         compiled decode executable or, with ``decode_mode="legacy"``,
         the model API's ``decode_step``. ``temperature``/
@@ -177,7 +217,11 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(self.rng_seed)
         t0 = time.perf_counter()
         cache = self.api.cache_init(b, self.max_seq)
-        logits, cache = self.api.prefill(self.params, {"tokens": prompts}, cache)
+        batch = {"tokens": prompts}
+        if extra_inputs:
+            batch.update(extra_inputs)
+        with self._scheduled():
+            logits, cache = self.api.prefill(self.params, batch, cache)
         tok = self._sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         outs = [tok]
         self._sync()

@@ -1,34 +1,48 @@
-"""Schedule objects: the unit of choice a stage is executed under.
+"""Schedule objects: the unit of choice the planner/autotuner works in.
 
 A *schedule* names one concrete way to execute an operator dispatch
-(paper §3.2): which implementation to use (the hand-written CUDA kernel
-or the plain torch body) and the block sizes that parameterize it.
-Schedules are immutable, hashable, and have a compact string form (``"kernel:bm=128,bn=128,bk=32"``).
-
-This slice ports the schedule objects and the stage registry only; the
-planner, the schedule cache and the autotuner come with the tune slice
-(``ROADMAP.md``, queue A11), so a stage resolves to an explicit pin or
-to its declared default.
+(paper §3.2): which implementation to use (the hand-written CUDA kernel,
+``"kernel"``, or the library call the JAX package's ``"xla"`` names —
+``torch.matmul``, ``F.rms_norm``, ``torch.bmm`` on the card, the plain
+torch body on the CPU — or a collective strategy) and the block sizes
+that parameterize it. Schedules are immutable, hashable,
+JSON-serializable, and have a compact string form
+(``"kernel:bm=128,bn=128,bk=64"``) used by the ``REPRO_FORCE_SCHEDULE``
+escape hatch. Schedule keys (:func:`schedule_key`) are the JAX
+package's, character for character, so a schedule file carries over.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+#: implementations a schedule may name, per op (legacy bare-op names;
+#: ``axe.program`` stages register their ``program/stage`` keys below)
+IMPLS = {
+    "matmul": ("kernel", "xla"),
+    "flash_attention": ("kernel",),
+    "moe_gemm": ("kernel", "xla"),
+    "mha_blocked": ("xla",),
+    "collective_matmul": ("ring", "psum_scatter"),
+}
 
 #: ``program_name/stage_name`` → allowed impls, populated by
 #: ``repro_torch.axe.program`` when a tunable stage is registered.
 STAGE_IMPLS: Dict[str, Tuple[str, ...]] = {}
 
 #: ``program_name/stage_name`` → the stage's declared default schedule
-#: (first variant + declared block defaults) — what an unpinned stage
-#: runs under in this slice.
+#: (first variant + declared block defaults) — what ``get_schedule``
+#: returns under ``REPRO_TUNE_DISABLE=1`` and as the last resort. The
+#: port's kernel stages declare as their default the one block their
+#: CUDA kernel is built for.
 STAGE_DEFAULTS: Dict[str, "Schedule"] = {}
 
 
 def allowed_impls(op: str) -> Optional[Tuple[str, ...]]:
-    """Valid impls for a ``program/stage`` key; None when the op is
-    unknown (validation is skipped for unknown ops)."""
-    return STAGE_IMPLS.get(op)
+    """Valid impls for ``op`` (legacy name or program/stage key); None
+    when the op is unknown (validation is skipped for unknown ops so
+    cache files survive renames)."""
+    return IMPLS.get(op) or STAGE_IMPLS.get(op)
 
 
 def register_stage_op(
@@ -47,14 +61,17 @@ def register_stage_op(
 
 
 def default_schedule(op: str) -> Optional["Schedule"]:
-    """The declared default for ``op``; None for unregistered ops."""
+    """The declared default for ``op`` — stage registry for program
+    keys, None for unregistered ops (legacy defaults live in
+    ``repro_torch.tune.DEFAULT_SCHEDULES``)."""
     return STAGE_DEFAULTS.get(op)
 
 
 class InvalidImplError(ValueError):
-    """The named impl exists but is not valid for this op — e.g. an
-    ``"xla"`` spec reaching a flash_attention dispatch. Distinct from a
-    malformed spec."""
+    """The named impl exists but is not valid for this op — e.g. a
+    forced ``"xla"`` spec reaching a flash_attention dispatch. Distinct
+    from a malformed spec so ``get_schedule`` can treat a forced spec
+    as "does not apply to this op"."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +130,39 @@ class Schedule:
                 f"(expected 'impl' or 'impl:name=int,...', e.g. "
                 f"'kernel:bm=128,bn=128,bk=256'): {e}"
             ) from e
+
+    # -- JSON -----------------------------------------------------------
+    def to_dict(self) -> Dict:
+        return {"op": self.op, "impl": self.impl, "blocks": [list(b) for b in self.blocks]}
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "Schedule":
+        return Schedule(
+            str(d["op"]), str(d["impl"]),
+            tuple((str(k), int(v)) for k, v in d.get("blocks", [])),
+        )
+
+
+def dtype_name(d) -> str:
+    """``"float32"`` / ``"bfloat16"`` for a torch dtype, a numpy or JAX
+    dtype, or a name — the JAX package's spelling in schedule keys."""
+    name = getattr(d, "name", None)
+    return str(name) if isinstance(name, str) else str(d).removeprefix("torch.")
+
+
+def schedule_key(
+    op: str,
+    shapes: Sequence[Sequence[int]],
+    dtypes: Sequence,
+    layout_sig: str = "dense",
+    backend: str = "cpu",
+) -> str:
+    """The cache key: (op, operand shapes, dtypes, layout signature,
+    backend). Stable across processes; human-greppable in the JSON
+    file; the port's card keys its entries ``gpu``."""
+    shp = ";".join("x".join(str(int(d)) for d in s) for s in shapes)
+    dts = ",".join(dtype_name(d) for d in dtypes)
+    return f"{op}|{shp}|{dts}|{layout_sig}|{backend}"
 
 
 def layout_signature(*layouts, tag: Optional[str] = None) -> str:

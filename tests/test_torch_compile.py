@@ -280,18 +280,29 @@ def test_op_counts_follow_the_graph():
 def test_unported_options_name_their_roadmap_item():
     _, _, _, tapi, _ = _setup("qwen3-4b")
     cfg = tapi.cfg
-    for kw, item in ((dict(cotune=True), "A11"), (dict(offload=("L0.wq",)), "A14")):
-        with pytest.raises(CompileError, match=item):
-            p_compile.model_executable(cfg, None, B, S, **kw)
+    with pytest.raises(CompileError, match="A14"):
+        p_compile.model_executable(cfg, None, B, S, offload=("L0.wq",))
+    # cotune (A11) is ported: tests/test_torch_cotune.py
+    assert p_compile.model_executable(cfg, None, B, S, cotune=True).cotune_report is not None
     with pytest.raises(CompileError, match="A14"):
         p_compile.model_executable(cfg, object(), B, S)
     with pytest.raises(CompileError, match="A14"):
         p_compile.decode_executable(cfg, object(), B, MAX_SEQ)
-    # fuse=True (A10) and the SSM backends (A13's SSM half) are ported
-    # (tests/test_torch_passes.py, tests/test_torch_ssm.py); enc-dec is not
-    whisper = tconfigs.smoke_variant(tconfigs.get_config("whisper-large-v3"))
-    with pytest.raises(CompileError, match="A13"):
-        p_compile.model_executable(whisper, None, B, S)
+    # fuse=True (A10), the SSM backends and the enc-dec / VLM models
+    # (A13) are ported; as in the JAX package, axe.compile builds their
+    # graphs but binds no enc-dec or VLM model: its model_inputs raises
+    # the JAX package's own CompileError
+    from repro.axe.compile import CompileError as JaxCompileError
+    from repro.axe.compile import model_inputs as jax_model_inputs
+
+    for arch in ("whisper-large-v3", "llava-next-mistral-7b"):
+        tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+        exe = p_compile.model_executable(tcfg, None, B, S)
+        with pytest.raises(CompileError, match="no model binding") as got:
+            p_compile.model_inputs(exe.graph, tcfg, {})
+        with pytest.raises(JaxCompileError) as want:
+            jax_model_inputs(exe.graph, smoke_variant(get_config(arch)), {})
+        assert str(got.value) == str(want.value)
 
 
 def test_shape_check_refuses_a_backend_of_the_wrong_shape(monkeypatch):

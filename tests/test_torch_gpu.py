@@ -744,3 +744,123 @@ def test_ssm_families_on_card_match_cpu(cuda, arch):
         np.testing.assert_array_equal(eng.generate(prompts, 6), want)
     logits = eng.score(prompts.to(cuda))
     _close(logits, ref.score(prompts).to(cuda), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and VLM shapes (whisper-large-v3, llava-next-mistral-7b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (128, 1500), (1, 1500), (77, 1500)])
+def test_flash_attention_at_whisper_shapes(cuda, dtype, sq, skv):
+    """B3 at head dim 64 and a ragged 1500 keys, non-causal: the
+    encoder's self-attention (1500 over 1500) and the decoder's
+    cross-attention (its queries over the 1500 encoder positions)."""
+    q = _randn(cuda, (4, sq, 20, 64), dtype, 21).transpose(1, 2)
+    k = _randn(cuda, (4, skv, 20, 64), dtype, 22).transpose(1, 2)
+    v = _randn(cuda, (4, skv, 20, 64), dtype, 23).transpose(1, 2)
+    before = fa.attend_wgmma_launches
+    got = programs.flash_attention(q, k, v, causal=False)
+    assert fa.attend_wgmma_launches == before + (dtype == torch.bfloat16)
+    _close(got, fa.attention_plain(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kvh,g,w,pos", [(20, 1, 1500, (1499,) * 4), (20, 1, 256, (128, 140, 150, 159)),
+                                         (20, 1, 1500, (0, 700, 1499, 64))])
+def test_flash_decode_at_whisper_shapes(cuda, dtype, kvh, g, w, pos):
+    """B4 at one query row per kv head (G = 1) over the 1500-slot cross
+    cache, laid out ``[B, S_enc, KV, hd]`` and read through strides
+    (every slot at position 1499: all keys live), and over the self cache."""
+    q = _randn(cuda, (4, kvh, g, 64), dtype, 24)
+    kc, vc = _randn(cuda, (4, w, kvh, 64), dtype, 25), _randn(cuda, (4, w, kvh, 64), dtype, 26)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    args = (q, kc.transpose(1, 2), vc.transpose(1, 2), p)
+    before = fa.decode_split_launches
+    got = programs.flash_decode(*args)
+    assert fa.decode_split_launches == before + (dtype == torch.bfloat16)
+    _close(got, fa.decode_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("m", [4, 512])
+def test_matmul_whisper_lm_head_takes_the_tiled_route(cuda, m):
+    """N = 51866 is not a multiple of 8: TMA cannot address B's rows, so
+    both the decode (M = 4) and the prefill rows take the WMMA tiles."""
+    a = _randn(cuda, (m, 1280), torch.bfloat16, 27)
+    b = _randn(cuda, (1280, 51866), torch.bfloat16, 28, 1280 ** -0.5)
+    assert mm.tile_route(a, b) == "tiled"
+    before = mm.launches
+    got = programs.matmul(a, b)
+    assert mm.launches == before + 1
+    _close(got, mm.matmul_plain(a, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-mistral-7b"])
+def test_encdec_and_vlm_generate_on_card_match_cpu(cuda, arch):
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
+    cpu_api = build_model(cfg, device="cpu")
+    params = cpu_api.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    extra = cpu_api.frontend_inputs(2, seed=3)
+    ref = ServeEngine(cpu_api, batch_size=2, max_seq=32, device="cpu", decode_mode="legacy")
+    ref.load(params)
+    want = ref.generate(prompts, 6, extra_inputs=extra)
+    eng = ServeEngine(build_model(cfg, device=cuda), batch_size=2, max_seq=32, device=cuda,
+                      decode_mode="legacy")
+    eng.load(tree_to(params, cuda))
+    programs.reset_launch_counts()
+    got = eng.generate(prompts, 6, extra_inputs=tree_to(extra, cuda))
+    np.testing.assert_array_equal(got, want)
+    counts = programs.launch_counts()
+    assert all(n > 0 for name, n in counts.items() if name != "moe_gemm/expert_gemm"), counts
+
+
+# ---------------------------------------------------------------------------
+# the tune stack on the card
+# ---------------------------------------------------------------------------
+
+
+def test_autotuner_on_the_card_hands_no_stage_a_pin_it_raises_on(cuda, tmp_path):
+    """Every candidate the planner offers runs on the card (the kernel
+    at its built block, the library call), the winner is persisted
+    measured and keyed ``gpu``, and the stage then runs under it."""
+    from repro_torch import tune
+    from repro_torch.tune import planner
+
+    cache = tune.use_cache(tmp_path / "schedules.json")
+    try:
+        bf16 = torch.bfloat16
+        a, b = _randn(cuda, (4, 2560), bf16, 1), _randn(cuda, (2560, 4096), bf16, 2, 0.02)
+        x, w = _randn(cuda, (512, 2560), bf16, 3), 1.0 + _randn(cuda, (2560,), bf16, 4, 0.1)
+        q = _randn(cuda, (4, 128, 32, 128), bf16, 5).transpose(1, 2)
+        kv = _randn(cuda, (4, 128, 8, 128), bf16, 6).transpose(1, 2)
+        e = _randn(cuda, (8, 4, 256), bf16, 7), _randn(cuda, (8, 256, 128), bf16, 8, 1 / 16)
+        reports = [tune.autotune_matmul(a, b, iters=3),
+                   tune.autotune_program(programs.rmsnorm, x, w, iters=3),
+                   tune.autotune_flash_attention(q, kv, kv, causal=True),
+                   tune.autotune_moe_gemm(*e)]
+        for rep in reports:
+            assert rep.measurements and all(us > 0 for _, us in rep.measurements)
+            assert planner.runnable(rep.schedule)
+        assert len(reports[0].measurements) == 2 and len(reports[2].measurements) == 1
+        assert all(k.endswith("|gpu") for k in cache.keys())
+        assert all(cache.get(k).device["backend"] == "gpu" for k in cache.keys())
+        programs.reset_launch_counts()
+        outs = [programs.matmul(a, b), programs.rmsnorm(x, w),
+                programs.flash_attention(q, kv, kv, causal=True), programs.moe_gemm(*e)]
+        torch.cuda.synchronize()
+        for got, rep in zip(outs, reports):
+            assert torch.isfinite(got.float()).all()
+        counts = programs.launch_counts()
+        for op, rep in zip(("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
+                            "moe_gemm/expert_gemm"), reports):
+            assert counts[op] == (rep.schedule.impl == "kernel"), (op, rep.schedule, counts)
+        # a forced spec of another block falls through unless addressed by name
+        with tune.force_schedule("kernel:bm=64,bn=64,bk=32"):
+            _close(programs.matmul(a, b), mm.matmul_plain(a, b), bf16)
+        with tune.force_schedule({"matmul/tile": "kernel:bm=64,bn=64,bk=32"}):
+            with pytest.raises(tune.TilingError, match="built for"):
+                programs.matmul(a, b)
+    finally:
+        tune.use_cache(None)

@@ -193,10 +193,18 @@ def test_launch_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_other_families_point_to_the_roadmap():
-    for arch in ("whisper-large-v3", "llava-next-mistral-7b"):
+    """Every family is served since A13: whisper through
+    ``models.encdec``, llava through ``models.transformer``; a family
+    outside both is refused by name."""
+    for arch, fam in (("whisper-large-v3", "encdec"), ("llava-next-mistral-7b", "vlm")):
         cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+        api = build_model(cfg, device="cpu")
+        assert api.cfg.family == fam and set(api.frontend_inputs(1)) == (
+            {"frames"} if fam == "encdec" else {"patches"})
+    bad = dataclasses.replace(tconfigs.smoke_variant(tconfigs.get_config("qwen3-4b")),
+                              family="retnet")
+    with pytest.raises(ValueError, match="'retnet' family"):
+        build_model(bad, device="cpu")
 
 
 def test_model_binds_every_op_to_its_kernel_stage(monkeypatch):

@@ -12,7 +12,8 @@ import pytest
 
 HERE = Path(__file__).resolve().parent
 FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
-         "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py")
+         "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py",
+         "test_torch_encdec.py", "test_torch_vlm.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -74,6 +75,17 @@ TARGETS = {
         "models/transformer.py", "SSM / hybrid prefill + decode_step per slot"),
     "test_compiled_score_and_decode_match_jax_executables": (
         "axe/compile.py", "ssm_mix / ssm_decode / side_output executables (mesh=None)"),
+    "test_encdec_encode_matches_jax": ("models/encdec.py", "encdec.encode"),
+    "test_attention_pieces_match_jax": ("models/attention.py",
+                                        "attn_apply, cross_attn_apply"),
+    "test_cross_decode_matches_jax": ("models/attention.py", "encdec._cross_decode"),
+    "test_encdec_prefill_logits_and_cache_match_jax": ("models/encdec.py", "encdec.prefill"),
+    "test_encdec_decode_steps_per_slot_match_jax": ("models/encdec.py",
+                                                    "encdec.decode_step, per slot"),
+    "test_vlm_embed_inputs_match_jax": ("models/transformer.py",
+                                        "transformer._embed_inputs (patches)"),
+    "test_vlm_prefill_and_decode_with_patches_match_jax": (
+        "models/transformer.py", "VLM prefill + decode_step per slot"),
 }
 
 
