@@ -157,6 +157,28 @@ the tune stack:
     a service artifact written, merged with a second and loaded back,
     the merge laws checked.
 
+training:
+
+17. train — qwen3-4b at the training shapes of a global batch of 4 x
+    512 tokens: (a) B1 at every product of a train step — the forward,
+    and the backward's ``dA = dC · wᵀ`` and ``dB = xᵀ · dC``, each
+    launch timed alone on the copied transposed operand and the copy
+    apart (``copy_ms``), with ``torch.matmul`` on the transposed view as
+    the yardstick — B2 on the d-wide and q/k-norm rows and B3 causal, as
+    phase 3; (b) depth 2, full width, bf16: one ``value_and_grad`` of the
+    model loss from one seeded state on the card and on the CPU (loss
+    within ``LOGIT_TOL``, grad norm, each leaf's relative error within
+    ``GRAD_REL_BOUND``), the compiled loss (``compiled_loss_fn``, unfused
+    and fused) against the model's on the card, and a ``Trainer`` restart
+    from a checkpoint against straight steps, bit for bit; (c) full
+    depth: step 1's grads nonzero and finite on every leaf, ``Trainer.run``
+    of 6 steps (``AdamW(warmup_cosine(3e-4, 2, 6))``, remat ``"full"``)
+    with every kernel's launch counter read around it and held to the
+    model's structure, B1's and B3's wgmma counters covering all of
+    theirs, step walls, device busy and idle share of a step, tokens/s,
+    peak memory under 80 GiB, then 4 steps on one repeated batch at a
+    constant lr, the loss falling by ``OVERFIT_MARGIN``.
+
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -165,8 +187,10 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
+import math
 import resource
 import statistics
 import subprocess
@@ -182,7 +206,7 @@ SSM_ARCH = "mamba2-2.7b"
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
 # phases of the run
-STEPS = 16
+STEPS = 17
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
@@ -192,6 +216,20 @@ DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 WALL_PAIRS = 10
 LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
+#: phase 17, training qwen3-4b: global batch x sequence, Trainer steps and
+#: peak learning rate of the full-depth run
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 6, 3e-4
+#: bound on each leaf's ‖g_card − g_cpu‖ / ‖g_cpu‖ at depth 2 in bf16: a
+#: bf16 rounding is 2^-9 relative; card and CPU round the activations, the
+#: attention probabilities and each product's output at other places, and
+#: a backward through two layers and the lm_head compounds some tens of
+#: such roundings
+GRAD_REL_BOUND = 0.05
+#: the loss after 4 steps on one repeated batch at a constant lr must be
+#: this far below the first step's: the first Adam steps move each
+#: lm_head entry by ~lr, raising each gold logit by ~lr·Σ|h| ≈ 0.6 a step
+#: at d 2560
+OVERFIT_MARGIN = 0.5
 #: the enc-dec and VLM paths: whisper's and llava's configs
 ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "llava-next-mistral-7b"
 # kernel vs plain version: tests/test_program.py:_tol of the reference
@@ -576,10 +614,16 @@ def frontend_cases(cfg, matmul_case, rmsnorm_case, attend_case, decode_case, spr
     decode_case("decode", max_seq, spread(prompt, prompt + NEW - 2))
 
 
-def phase_kernels(cfg, torch, F, device):
+def phase_kernels(cfg, torch, F, device, cases=None):
+    """Each case (``kernel_cases`` unless given) held against its plain
+    version and timed beside it and the library yardstick. A case with a
+    ``copy`` (B1's backward products: the transposed operand the wrapper
+    copies) times the launch alone on the copied operand (``timed``) and
+    the copy apart (``copy_ms``); its check runs the wrapper as the path
+    calls it."""
     timer = Timer(torch, device)
     rows = []
-    for c in kernel_cases(cfg, torch, F, device):
+    for c in cases if cases is not None else kernel_cases(cfg, torch, F, device):
         dtype = str(c["dtype"]).removeprefix("torch.")
         got = c["run"]()
         torch.cuda.synchronize()
@@ -588,17 +632,21 @@ def phase_kernels(cfg, torch, F, device):
         tol = TOL[dtype]
         ok = bool(torch.allclose(got.float(), want.float(), **tol))
         check(ok, f"{c['kernel']} {c['label']} {dtype}: max |diff| {err} outside {tol}")
-        ms, plain_ms, lib_ms = timer(c["run"]), timer(c["plain"]), timer(c["library"])
+        del got, want
+        timed = c.get("timed", c["run"])
+        ms, plain_ms, lib_ms = timer(timed), timer(c["plain"]), timer(c["library"])
         b_ms, b_by = bound_ms(c["nbytes"], c["flops"], dtype)
         if "live_experts" in c:
             c["cuda_kernel"] += f", {c['live_experts']} live experts"
+        extra = {"copy_ms": timer(c["copy"])} if "copy" in c else {}
         rows.append(dict(kernel=c["kernel"], shape=c["label"], dtype=dtype,
                          cuda_kernel=c["cuda_kernel"], max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by, **extra))
+        copy = f"  copy {extra['copy_ms']:.4f} ms" if extra else ""
         log(f"  {c['kernel']:<24} {c['label']:<40} {dtype:<8} [{c['cuda_kernel']}] max|d| {err:.3g}  "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library {lib_ms:.4f}  "
-            f"bound {b_ms:.4f} ({b_by})  host {host_us(torch, c['run']):.1f} us/call")
+            f"bound {b_ms:.4f} ({b_by}){copy}  host {host_us(torch, timed):.1f} us/call")
     return rows
 
 
@@ -2228,6 +2276,361 @@ def phase_jamba_smoke(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+def b1_train_cases(cfg, torch, device):
+    """Phase 17(a), B1: every product of a qwen3-4b train step at global
+    batch x sequence tokens, as the path gives it to B1 — the forward
+    ``x @ w`` (and its recompute), and the backward's ``dA = dC · wᵀ`` and
+    ``dB = xᵀ · dC``, whose transposed operand the wrapper copies before
+    the launch: the launch is timed alone on the copied operand, the
+    copy apart, the library call on the transposed view."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import programs
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if torch.device(device).type == "cuda" else 132)  # 132: an H100, to rehearse on a CPU
+    d, h, kv, hd, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                           cfg.d_ff, cfg.vocab_size)
+    t = TRAIN_BATCH * TRAIN_SEQ
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(bf16)
+
+    cases = []
+
+    def case(label, a, b, copy=None):
+        """``a @ b``; ``copy`` names the transposed operand ("a" or "b")."""
+        m, k = a.shape
+        n = b.shape[1]
+        a_c = a.contiguous() if copy == "a" else a
+        b_c = b.contiguous() if copy == "b" else b
+        entry = dict(
+            kernel="matmul/tile", label=f"{label} {m}x{k}x{n}", dtype=bf16,
+            cuda_kernel=b1_kernel(mm, a_c, b_c, n_sm),
+            run=lambda: programs.matmul(a, b), timed=lambda: programs.matmul(a_c, b_c),
+            plain=lambda: mm.matmul_plain(a_c, b_c), library=lambda: torch.matmul(a, b),
+            nbytes=(m * k + k * n + m * n) * 2, flops=2.0 * m * n * k)
+        if copy is not None:
+            entry["copy"] = (lambda: a.contiguous()) if copy == "a" else (lambda: b.contiguous())
+            entry["cuda_kernel"] += f" (after a copy of {copy}ᵀ)"
+        cases.append(entry)
+
+    for label, k, n in train_products(d, h, kv, hd, ff, v):
+        x, w, dc = randn((t, k)), randn((k, n), k ** -0.5), randn((t, n), n ** -0.5)
+        case(f"train fwd {label}", x, w)
+        case(f"train dA {label}", dc, w.t(), copy="b")
+        case(f"train dB {label}", x.t(), dc, copy="a")
+    return cases
+
+
+def train_products(d, h, kv, hd, ff, v):
+    """(label, K, N) of each distinct product of a dense layer (q, k|v, o,
+    gate|up, down) and of the lm_head."""
+    return [("q", d, h * hd), ("k|v", d, kv * hd), ("o", h * hd, d), ("gate|up", d, ff),
+            ("down", ff, d), ("lm_head", d, v)]
+
+
+#: how often each distinct product of ``train_products`` occurs in a layer
+#: (the lm_head: once a step)
+TRAIN_PRODUCTS_PER_LAYER = {"q": 1, "k|v": 2, "o": 1, "gate|up": 2, "down": 1}
+
+
+def copy_ms_per_step(rows, layers: int) -> float:
+    """The transposed-operand copies of one train step's backward, from
+    phase 17(a)'s timed copies: each product's dA and dB copy times the
+    product's count in a step."""
+    total = 0.0
+    for r in rows:
+        if "copy_ms" in r:
+            label = r["shape"].split()[2]
+            total += r["copy_ms"] * (TRAIN_PRODUCTS_PER_LAYER[label] * layers
+                                     if label in TRAIN_PRODUCTS_PER_LAYER else 1)
+    return total
+
+
+def train_norm_attend_cases(cfg, torch, F, device):
+    """Phase 17(a), B2 and B3 at the training shapes: the d-wide norms and
+    the q/k-norm rows of global batch x sequence tokens, and causal
+    attention over [B, H/KV, S, hd] (their backward is torch: B2's VJP,
+    B3's oracle recompute)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import programs
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    bf16 = torch.bfloat16
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = TRAIN_BATCH * TRAIN_SEQ
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(bf16)
+
+    cases = []
+    for label, rows, width in (("train norm", t, d), ("train q-norm", t * h, hd),
+                               ("train k-norm", t * kv, hd)):
+        x, w = randn((rows, width)), 1.0 + randn((width,), 0.1)
+        plan = rn.rows_plan(rows, width)
+        cases.append(dict(
+            kernel="rmsnorm/rows", label=f"{label} {rows}x{width}", dtype=bf16,
+            cuda_kernel=f"rows_kernel ({plan['cls']}: {plan['blocks']} blocks of "
+                        f"{plan['rows_per_block']} rows, {plan['threads']} threads)",
+            run=functools.partial(programs.rmsnorm, x, w),
+            plain=functools.partial(rn.rmsnorm_plain, x, w),
+            library=functools.partial(F.rms_norm, x, (width,), w, 1e-6),
+            nbytes=(2 * rows * width + width) * 2, flops=4.0 * rows * width))
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q = randn((b, s, h, hd)).transpose(1, 2)
+    k, vv = randn((b, s, kv, hd)).transpose(1, 2), randn((b, s, kv, hd)).transpose(1, 2)
+    cases.append(dict(
+        kernel="flash_attention/attend", label=f"train B{b} H{h}/{kv} S{s} D{hd} causal",
+        dtype=bf16, cuda_kernel="flash_attend_wgmma",
+        run=lambda: programs.flash_attention(q, k, vv, causal=True),
+        plain=lambda: fa.attention_plain(q, k, vv, causal=True),
+        library=lambda: F.scaled_dot_product_attention(q, k, vv, is_causal=True,
+                                                       enable_gqa=True),
+        nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * b * h * s * (s + 1) / 2))
+    return cases
+
+
+def rel_err(got, want) -> float:
+    """``‖got − want‖ / ‖want‖`` in f32 (0 when both are 0)."""
+    num = float((got.float() - want.float()).norm())
+    den = float(want.float().norm())
+    return num / den if den else num
+
+
+def grads_rel_errors(got, want) -> dict:
+    """Each leaf's relative error, keyed by its path."""
+    from repro_torch.core.tree import leaves_with_paths
+
+    ref = dict(leaves_with_paths(want))
+    return {"/".join(p): rel_err(g.to(ref[p].device), ref[p]) for p, g in leaves_with_paths(got)}
+
+
+def phase_train_depth2(cfg, torch, device):
+    """Phase 17(b): ``cfg`` cut to 2 layers, full width, bf16: one
+    ``value_and_grad`` of the model loss from one seeded state on the
+    card (kernels) and on the CPU (plain versions): the loss within
+    ``LOGIT_TOL``, the grad norm, and each leaf's grad within
+    ``GRAD_REL_BOUND`` relative error; on the card the compiled loss
+    (``compiled_loss_fn``, unfused and fused) against the model API's
+    loss and grads; a ``Trainer`` restart (save after 2 steps, restore,
+    2 more) against 4 straight steps, bit for bit."""
+    import tempfile
+
+    from repro_torch.axe.compile import compiled_loss_fn, model_executable
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, global_norm, warmup_cosine
+    from repro_torch.train.train_loop import Trainer, init_state, make_train_step, value_and_grad
+
+    out = {}
+    cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
+    cpu, card = build_model(cfg2, device="cpu"), build_model(cfg2, device=device)
+    params = card.init(SEED)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = value_and_grad(cpu.loss_fn)(tree_to(params, "cpu"), data.torch_batch_at(0))
+    cpu_s = time.perf_counter() - t0
+    batch = data.torch_batch_at(0, device)
+    loss, grads = value_and_grad(card.loss_fn)(params, batch)
+    norm, norm_cpu = float(global_norm(grads)), float(global_norm(g_cpu))
+    errs = grads_rel_errors(grads, g_cpu)
+    worst = max(errs, key=errs.get)
+    ok = bool(torch.allclose(loss.float().cpu(), loss_cpu.float(), **LOGIT_TOL))
+    log(f"  depth-2 value_and_grad, card vs CPU (bf16, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): loss "
+        f"{float(loss):.5f} vs {float(loss_cpu):.5f}; grad norm {norm:.5f} vs {norm_cpu:.5f}; "
+        f"leaf grads' relative error max {errs[worst]:.4g} ({worst}), median "
+        f"{statistics.median(errs.values()):.4g} (bound {GRAD_REL_BOUND}); CPU side {cpu_s:.1f} s")
+    check(ok, f"depth-2 loss card {float(loss)} vs CPU {float(loss_cpu)} outside {LOGIT_TOL}")
+    check(all(e <= GRAD_REL_BOUND for e in errs.values()),
+          f"depth-2 grads: {worst} relative error {errs[worst]} above {GRAD_REL_BOUND}")
+    check(abs(norm - norm_cpu) <= GRAD_REL_BOUND * norm_cpu,
+          f"depth-2 grad norm {norm} vs CPU {norm_cpu}")
+    out.update(depth2_loss=float(loss), depth2_loss_cpu=float(loss_cpu), depth2_grad_norm=norm,
+               depth2_grad_norm_cpu=norm_cpu, depth2_grad_rel_err_max=errs[worst])
+    del g_cpu
+
+    for fuse in (False, True):
+        exe = model_executable(cfg2, None, TRAIN_BATCH, TRAIN_SEQ, fuse=fuse)
+        closs, cgrads = value_and_grad(compiled_loss_fn(exe, cfg2))(params, batch)
+        cerrs = grads_rel_errors(cgrads, grads)
+        cw = max(cerrs, key=cerrs.get)
+        name = "fused" if fuse else "unfused"
+        log(f"  compiled loss ({name}) vs the model API on the card: loss {float(closs):.5f} vs "
+            f"{float(loss):.5f}; leaf grads' relative error max {cerrs[cw]:.4g} ({cw})")
+        check(bool(torch.allclose(closs.float(), loss.float(), **LOGIT_TOL)),
+              f"compiled ({name}) loss {float(closs)} vs model {float(loss)}")
+        check(all(e <= GRAD_REL_BOUND for e in cerrs.values()),
+              f"compiled ({name}) grads: {cw} relative error {cerrs[cw]}")
+        out[f"depth2_compiled_{name}_grad_rel_err_max"] = cerrs[cw]
+        del exe, cgrads
+    del grads
+
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, 4))
+    step = make_train_step(card.loss_fn, opt)
+    fresh = lambda: init_state(tree_map(torch.clone, params), opt)
+    straight, hist = Trainer(step, data).run(fresh(), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        s, first = Trainer(step, data, checkpoint_manager=mgr, checkpoint_every=2).run(fresh(), 2)
+        del s
+        gc.collect()
+        t0 = time.perf_counter()
+        s = Trainer(step, data, checkpoint_manager=mgr).restore_or_init(fresh())
+        restore_s = time.perf_counter() - t0
+        s, rest = Trainer(step, data).run(s, 2)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(straight), leaves(s)))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in
+               zip(leaves(straight.params), leaves(s.params)))
+    losses = [h["loss"] for h in hist]
+    log(f"  Trainer restart (save at step 2, restore in {restore_s:.1f} s, 2 more) against 4 "
+        f"straight steps: {'equal bit for bit' if same else f'max |diff| {diff:.4g}'}; losses "
+        f"{losses} vs {[h['loss'] for h in first + rest]}")
+    check(same, f"restart vs straight: state differs (params max |diff| {diff})")
+    check(all(math.isfinite(x) for x in losses), f"depth-2 train losses {losses}")
+    out.update(depth2_restart_equal=same, depth2_losses=losses)
+    return out
+
+
+def phase_train_full(cfg, torch, device):
+    """Phase 17(c): ``cfg`` at full width and depth, bf16, random weights
+    from a seed on the card: step 1's grads nonzero and finite on every
+    leaf; ``Trainer.run`` of ``TRAIN_STEPS`` steps of ``SyntheticLMData``
+    with ``AdamW(warmup_cosine(...))``, one microbatch, remat ``"full"``,
+    launch counters zeroed just before and read just after (per step
+    B1 ``4P - 1``, P = 7 products a layer + the lm_head; B2 ``8L + 1``;
+    B3 ``2L``; every B1 and B3 launch on their wgmma kernels); the step
+    wall, device busy and idle share of a step under the profiler,
+    tokens/s and peak memory; then 4 steps on one repeated batch at a
+    constant lr, the loss after them below the first by
+    ``OVERFIT_MARGIN``."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import Trainer, init_state, make_train_step, value_and_grad
+
+    api = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {sum(p.numel() for _, p in leaves_with_paths(params)) / 1e9:.3f} B "
+        f"params drawn on the card in {time.perf_counter() - t0:.1f} s; remat "
+        f"{tf.REMAT_POLICY!r}")
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    _, grads = value_and_grad(api.loss_fn)(params, data.torch_batch_at(0, device))
+    bad = [("/".join(p), float(g.float().abs().max())) for p, g in leaves_with_paths(grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.ne(0).any())]
+    log(f"  step 1's grads: {len(leaves_with_paths(grads)) - len(bad)} of "
+        f"{len(leaves_with_paths(grads))} leaves nonzero and finite")
+    check(not bad, f"step 1's grads zero or non-finite at {bad}")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
+    state = init_state(params, opt)
+    step = make_train_step(api.loss_fn, opt)
+    trainer = Trainer(step, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    programs.reset_launch_counts()
+    state, hist = trainer.run(state, TRAIN_STEPS)
+    counts, wgmma = programs.launch_counts(), programs.wgmma_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = [h["sec"] for h in hist]
+    wall = statistics.median(walls[1:])
+    n = cfg.num_layers
+    p = 7 * n + 1
+    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 8 * n + 1,
+                "flash_attention/attend": 2 * n, "flash_attention/decode": 0,
+                "moe_gemm/expert_gemm": 0}
+    log(f"  Trainer.run, {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens: losses "
+        f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 5) for h in hist]}; step walls {[round(w, 4) for w in walls]} s, "
+        f"median of steps 2-{TRAIN_STEPS} {wall:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / wall:.0f} "
+        f"tokens/s; peak memory {peak:.2f} GiB")
+    log(f"  launches in the run {counts} (per step {per_step}); wgmma {wgmma}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+          f"non-finite loss or grad norm: {hist}")
+    check(peak < 80, f"peak memory {peak:.2f} GiB")
+    for op, k in per_step.items():
+        check(counts[op] == k * TRAIN_STEPS,
+              f"{op}: {counts[op]} launches in {TRAIN_STEPS} steps, the model's structure "
+              f"gives {k} a step")
+    check(wgmma["matmul/tile"] == counts["matmul/tile"],
+          f"B1: {wgmma['matmul/tile']} of {counts['matmul/tile']} launches on wgmma (every "
+          f"product of a train step is bf16 with more than 8 rows)")
+    check(wgmma["flash_attention/attend"] == counts["flash_attention/attend"],
+          "B3: an attend off the wgmma kernel")
+
+    batch = data.torch_batch_at(TRAIN_STEPS, device)
+    fwd_bwd = []
+    for _ in range(3):  # the first warms the allocator for a second grads tree
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(api.loss_fn)(state.params, batch)
+        torch.cuda.synchronize()
+        fwd_bwd.append(time.perf_counter() - t0)
+        del grads
+    fwd_bwd = statistics.median(fwd_bwd[1:])
+    busy, top = device_busy_ms(torch, lambda: step(state, batch), reps=2)
+    idle = 1 - busy / (wall * 1e3)
+    log(f"  one step under the profiler: device busy {busy:.2f} ms, idle share {idle:.4f} of the "
+        f"median wall; by kernel {top}; forward + backward alone {fwd_bwd:.4f} s (host clock, "
+        f"synced), so the grad norm and AdamW take ~{wall - fwd_bwd:.4f} s of the step")
+
+    rep_step = make_train_step(api.loss_fn, AdamW(learning_rate=TRAIN_LR))
+    batch = data.torch_batch_at(10 ** 6, device)
+    losses = []
+    for _ in range(4):
+        state, m = rep_step(state, batch)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        after = float(api.loss_fn(state.params, batch))
+    log(f"  4 steps on one repeated batch at lr {TRAIN_LR}: losses {losses}, after them "
+        f"{after:.5f} (must be below {losses[0] - OVERFIT_MARGIN:.5f})")
+    check(after < losses[0] - OVERFIT_MARGIN,
+          f"repeated batch: loss {after} not below {losses[0]} - {OVERFIT_MARGIN}")
+    return counts, dict(
+        train_losses=[h["loss"] for h in hist], train_grad_norms=[h["grad_norm"] for h in hist],
+        train_step_walls_s=walls, train_step_wall_median_s=wall,
+        train_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall, train_peak_gib=peak,
+        train_device_busy_ms=busy, train_idle_share=idle, train_top_kernels=top,
+        train_fwd_bwd_s=fwd_bwd,
+        train_launches_per_step={op: counts[op] // TRAIN_STEPS for op in counts},
+        repeated_batch_losses=losses, repeated_batch_loss_after=after)
+
+
+def phase_train(cfg, torch, F, device, release):
+    """Phase 17: (a) the kernel cases at the training shapes, (b) depth 2
+    card vs CPU, (c) full depth; returns the kernel rows, the launch
+    counts of (c)'s ``Trainer.run`` and the stats."""
+    rows = phase_kernels(cfg, torch, F, device, cases=b1_train_cases(cfg, torch, device)
+                         + train_norm_attend_cases(cfg, torch, F, device))
+    release()
+    stats = {"copy_ms_per_step": copy_ms_per_step(rows, cfg.num_layers)}
+    log(f"  the backward's transposed-operand copies, timed one by one: "
+        f"{stats['copy_ms_per_step']:.3f} ms a step")
+    stats.update(phase_train_depth2(cfg, torch, device))
+    release()
+    counts, full = phase_train_full(cfg, torch, device)
+    stats.update(full)
+    release()
+    return rows, counts, stats
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2240,7 +2643,7 @@ def main() -> int:
 
     from repro_torch import tune
 
-    tune.use_cache(None)  # memory-only: phases 1-15 read no schedule file
+    tune.use_cache(None)  # memory-only: phases 1-15 and 17 read no schedule file
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -2287,7 +2690,8 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              **({"unfused_pair_ms": r["unfused_pair_ms"], "library_pair_ms": r["library_pair_ms"]}
-                if "epilogue" in r else {})}
+                if "epilogue" in r else {}),
+             **({"copy_ms": r["copy_ms"]} if "copy_ms" in r else {})}
             for r in rows)
 
     def release():
@@ -2380,6 +2784,14 @@ def main() -> int:
         f"schedules, cotune, service):")
     stats["tune"] = phase_tune(torch, device)
     release()
+
+    # training: qwen3-4b at full width, its training state alone ~53 GB
+    cfg = get_config(ARCH)
+    log(f"[17/{STEPS}] training {cfg.name} on the card: kernels at the training shapes "
+        f"({TRAIN_BATCH}x{TRAIN_SEQ} tokens), depth {DEPTH2_LAYERS} card vs CPU, then "
+        f"{cfg.num_layers} layers through Trainer.run:")
+    rows, counts, stats["train"] = phase_train(cfg, torch, F, device, release)
+    add_rows(rows, cfg, counts)
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

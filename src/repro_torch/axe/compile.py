@@ -243,7 +243,10 @@ def _exec_reshape(ctx: ExecCtx, x):
 @register_op_backend("attention")
 def _exec_attention(ctx: ExecCtx, q, k, v):
     """Binds to the ``flash_attention/attend`` stage (B3), which reads
-    kv head ``h // (H // KV)`` by index: GQA heads are never repeated."""
+    kv head ``h // (H // KV)`` by index: GQA heads are never repeated.
+    Under autograd the program takes its differentiable route (the
+    reference's backend calls ``flash_attention_trainable``), so
+    :func:`compiled_loss_fn` differentiates through it."""
     from repro_torch.kernels import programs
 
     return programs.flash_attention(
@@ -1206,3 +1209,21 @@ __all__ = [
     "register_op_backend",
     "stage_key_for",
 ]
+
+
+def compiled_loss_fn(exe: Executable, cfg) -> Callable:
+    """Cross-entropy LM loss over the compiled forward — the function
+    ``launch/train.py --solve`` hands to ``make_train_step`` instead of
+    the model's module wiring. Under autograd each bound kernel program
+    takes its differentiable route (B1's backward products on B1; a
+    fused node's chain run functionally after B1's product), so the
+    executable differentiates."""
+    from repro_torch.models.common import cross_entropy_loss
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        logits = exe.apply(model_inputs(exe.graph, cfg, params), tokens.reshape(-1))
+        return cross_entropy_loss(logits.reshape(b, s, logits.shape[-1]), batch["labels"])
+
+    return loss_fn

@@ -30,7 +30,11 @@ node) resolves each stage once. MESH
 ``shard_map`` lowering comes with the multi-GPU slice. A fused
 :class:`Epilogue` (the tail of an ``axe.passes`` epilogue fusion) rides
 on the call options as in the JAX package: ``program(..., epilogue=epi)``
-hands it to the stages as ``ctx.epilogue``.
+hands it to the stages as ``ctx.epilogue``. A program may register a
+differentiable route (:meth:`Program.differentiable`), which a call
+takes when autograd records it (:func:`records_grad`): a
+``torch.autograd.Function`` around the stage, whose backward is the
+program's own work where the reference's kernel has one.
 
 Minimal program::
 
@@ -100,6 +104,26 @@ def require_host(op: str, *tensors: torch.Tensor) -> None:
                 f"{op}: the plain torch body runs only on CPU tensors; CUDA "
                 f"tensors go through the stage's CUDA kernel (got {t.device})"
             )
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd records a call on these operands: grad mode is
+    on and one of them requires grad. The rule that sends a program
+    call down its differentiable route (:meth:`Program.differentiable`)
+    and that B4 and B5 refuse on the card."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(op: str, item: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel that has no gradient
+    yet: a launch through ctypes returns a tensor cut off from the
+    graph, and its weights would get no grad and no error."""
+    if records_grad(*tensors):
+        raise DeviceError(
+            f"{op}: the CUDA kernel has no gradient yet ({item}); call it under "
+            f"torch.no_grad() or on operands that do not require grad"
+        )
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -278,7 +302,7 @@ class StageContext:
     def run(self, stage_name: str, *args, **kw):
         """Invoke another stage of this program (scope-validated; only
         same-or-finer scopes are reachable)."""
-        return self.program._run(stage_name, args, kw, self._opts.child())
+        return self.program.run_stage(stage_name, args, kw, self._opts.child())
 
     # -- the device rule and the launcher --------------------------------
     def on_card(self, *tensors: torch.Tensor) -> bool:
@@ -332,6 +356,7 @@ class Program:
         self._entry: Optional[str] = None
         self._dispatch: Dict[Scope, str] = {}
         self._launchers: Dict[Tuple[str, str], Callable] = {}
+        self._grad_route: Optional[Callable] = None
         PROGRAMS[name] = self
 
     # -- declaration ----------------------------------------------------
@@ -370,6 +395,19 @@ class Program:
             return fn
 
         return deco
+
+    def differentiable(self, route: Callable) -> Callable:
+        """Decorator registering the program's differentiable route,
+        ``route(program, stage_name, args, kw, opts)``: a call takes it,
+        by a rule on its operands and never on a failure, when autograd
+        records it (:func:`records_grad` over the operands and the
+        epilogue's extras). The route wraps the stage in a
+        ``torch.autograd.Function`` whose forward is :meth:`run_stage`
+        with grad mode off, so the forward is the kernel the call would
+        take without a gradient; on CPU tensors the same route runs the
+        plain bodies, so the CPU tests run the backward the card runs."""
+        self._grad_route = route
+        return route
 
     def stage_key(self, stage_name: str) -> str:
         """The schedule key prefix for one stage."""
@@ -422,9 +460,14 @@ class Program:
             entry=(name, schedule, dict(blocks) if blocks else None, impl),
             resolved=resolved,
         )
-        return self._run(name, args, kw, opts)
+        if self._grad_route is not None and records_grad(
+                *args, *(epilogue.args if epilogue is not None else ())):
+            return self._grad_route(self, name, args, kw, opts)
+        return self.run_stage(name, args, kw, opts)
 
-    def _run(self, name: str, args, kw, opts: _CallOptions):
+    def run_stage(self, name: str, args, kw, opts: _CallOptions):
+        """Run stage ``name`` with a call's options (``ctx.run`` and the
+        forward of a differentiable route come here)."""
         st = self.stages.get(name)
         if st is None:
             raise ProgramError(

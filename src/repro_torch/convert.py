@@ -23,6 +23,11 @@ as above. Caches keep their layout: an attention slot's ``l{slot}/k``
 ``l{slot}/conv``; the enc-dec cache's ``self/{k, v}`` and ``ck/cv``
 ``[L, B, S_enc, KV, hd]``.
 
+Training states cross as a whole (:func:`train_state_from_jax`,
+:func:`train_state_to_jax`): params, the AdamW moments ``mu`` and ``nu``
+(which take the attention leaves' reshapes too), ``count`` and ``step``,
+so both packages step from one state.
+
 bf16 arrays from JAX are ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bits, which is
 exact.
@@ -99,6 +104,65 @@ def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str
         if name in np_params:
             out[name] = to_torch(np_params[name], device)
     return out
+
+
+def _attn_to_jax(p: Dict[str, torch.Tensor], hd: int) -> Dict[str, Any]:
+    out = {}
+    for name, t in p.items():
+        if name in _ATTN_2D:   # [n_super, d, N*hd] -> [n_super, d, N, hd]
+            t = t.reshape(*t.shape[:-1], -1, hd)
+        elif name == "wo":     # [n_super, H*hd, d] -> [n_super, H, hd, d]
+            t = t.reshape(t.shape[0], -1, hd, t.shape[-1])
+        out[name] = to_numpy(t)
+    return out
+
+
+def params_to_jax(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """The port's params (or a tree shaped like them, such as AdamW's
+    moments) as numpy arrays in the JAX model's layout."""
+    def layer(lp):
+        return {name: (_attn_to_jax(sub, cfg.head_dim) if name in _ATTN_TREES
+                       else {k: to_numpy(v) for k, v in sub.items()}
+                       if isinstance(sub, dict) else to_numpy(sub))
+                for name, sub in lp.items()}
+
+    out = {}
+    for name, v in params.items():
+        if name in ("blocks", "enc_blocks", "dec_blocks"):
+            out[name] = (layer(v) if name != "blocks" else
+                         {slot: layer(lp) for slot, lp in v.items()})
+        else:
+            out[name] = to_numpy(v)
+    return out
+
+
+def train_state_from_jax(np_state, cfg, *, device="cpu"):
+    """A JAX ``TrainState`` with numpy leaves (``params``,
+    ``opt_state.mu/nu/count``, ``step``) as the port's
+    :class:`~repro_torch.train.train_loop.TrainState`."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.train_loop import TrainState
+
+    opt = np_state.opt_state
+    return TrainState(
+        params_from_jax(np_state.params, cfg, device=device),
+        AdamWState(params_from_jax(opt.mu, cfg, device=device),
+                   params_from_jax(opt.nu, cfg, device=device), to_torch(opt.count, device)),
+        to_torch(np_state.step, device),
+    )
+
+
+def train_state_to_jax(state, cfg):
+    """The port's ``TrainState`` with numpy leaves in the JAX package's
+    layout, field for field (``params``, ``opt_state`` as ``(mu, nu,
+    count)``, ``step``): the caller rebuilds the JAX ``TrainState`` and
+    ``AdamWState`` from them."""
+    opt = state.opt_state
+    return type(state)(
+        params_to_jax(state.params, cfg),
+        type(opt)(params_to_jax(opt.mu, cfg), params_to_jax(opt.nu, cfg), to_numpy(opt.count)),
+        to_numpy(state.step),
+    )
 
 
 def cache_from_jax(np_cache: Dict[str, Any], *, device="cpu") -> Dict[str, Any]:

@@ -43,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, require_host, stream_of
+from repro_torch.axe.program import DeviceError, program, refuse_grad, require_host, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -267,6 +267,7 @@ def _decode(ctx, q, k, v, pos, *, ring: bool = False, scale: Optional[float] = N
     global decode_launches, decode_split_launches
     if not ctx.on_card(q, k, v, pos):
         return ctx.run("decode_mac", q, k, v, pos, ring=ring, scale=scale)
+    refuse_grad(ctx.op, "B4 serves decode only: ROADMAP B4", q, k, v)
     check_decode(q, k, v, pos)
     b, kvh, g, d = q.shape
     w = k.shape[2]
@@ -305,26 +306,43 @@ def flash_decode(
 # ---------------------------------------------------------------------------
 
 
-class _FlashAttentionTrainable(torch.autograd.Function):
+class FlashAttentionGrad(torch.autograd.Function):
+    """B3 forward through the call's ``attend`` stage; the backward
+    recomputes attention through the oracle and differentiates it, as
+    ``repro/kernels/flash_attention.py:_fat_bwd`` does: only q, k and v
+    are saved. The oracle reads kv head ``h // (H // KV)`` by index, as
+    B3 does, so the kv grads sum the query heads that share a kv head
+    and no k or v is repeated."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, kw, opts):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, scale)
-        return flash_attention_program(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.kw = kw
+        return flash_attention_program.run_stage("attend", (q, k, v), kw, opts)
 
     @staticmethod
     def backward(ctx, g):
-        causal, window, scale = ctx.opts
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = attention_ref(*leaves, causal=causal, window=window, scale=scale)
+            out = attention_ref(*leaves, **ctx.kw)
             grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None, None, None)
+        return (*grads, None, None)
+
+
+@flash_attention_program.differentiable
+def _grad_route(program, stage, args, kw, opts):
+    """The ``attend`` stage under autograd goes through
+    :class:`FlashAttentionGrad`; the plain bodies are torch ops autograd
+    records, and B4 refuses a gradient on the card."""
+    if stage != "attend":
+        return program.run_stage(stage, args, kw, opts)
+    return FlashAttentionGrad.apply(*args, kw, opts)
 
 
 def flash_attention_trainable(q, k, v, causal: bool = False, window=None, scale=None):
-    """Differentiable flash attention: the ``flash_attention`` program
-    runs the forward; the backward recomputes attention through the
-    oracle (as ``repro/kernels/flash_attention.py:357-360`` does), so
-    only q/k/v are saved and no backward kernel is owed."""
-    return _FlashAttentionTrainable.apply(q, k, v, causal, window, scale)
+    """Differentiable flash attention, the JAX package's
+    ``flash_attention_trainable``: the ``attend`` stage, which under
+    autograd runs :class:`FlashAttentionGrad` (the program's
+    differentiable route, which ``programs.flash_attention`` takes too)."""
+    return flash_attention_program(q, k, v, stage="attend", causal=causal, window=window,
+                                   scale=scale)

@@ -47,12 +47,22 @@ otherwise *functionally* on the cast result, as the JAX package's
 ``finish``: cast to ``out_dtype`` first, then the chain in f32, cast
 again.
 
+Under autograd (grad mode on and an operand that requires grad,
+``axe.program.records_grad``) a call takes the program's differentiable
+route, :class:`MatmulGrad`: the forward is the same stage, and the
+backward computes ``dA = dC · Bᵀ`` and ``dB = Aᵀ · dC`` through the
+``matmul`` program again — on the card two more launches of B1, never
+``torch.matmul``. ``Bᵀ`` and ``Aᵀ`` are transposed views, whose rows the
+wrapper copies before the launch. A fused chain then runs functionally
+on the cast result (the JAX package's ``finish``), so autograd sees it.
+
 Replaces ``repro/kernels/matmul.py:_tile`` (TPU launch at :138, body
 ``_mac`` at :52, its fused branch at :60-67).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -387,3 +397,50 @@ def _tile(ctx, a, b, *, out_dtype=None):
         return c
     return finish(c)
 
+
+# ---------------------------------------------------------------------------
+# B1 with a gradient: the backward products on B1 itself
+# ---------------------------------------------------------------------------
+
+
+class MatmulGrad(torch.autograd.Function):
+    """``C = A @ B`` of 2-D operands, forward through the call's stage
+    (``stage``, resolved options ``opts``), backward through the same
+    stage of the ``matmul`` program: ``dA = dC · Bᵀ`` and ``dB = Aᵀ · dC``,
+    B1's own work (products with f32 accumulation), each only when its
+    operand needs it. The products take operands of one type, so a
+    cotangent of another output type (``out_dtype``) is cast to the
+    operands' type first; ``dA`` and ``dB`` come out in it."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype, stage, opts):
+        ctx.save_for_backward(a, b)
+        ctx.stage = stage
+        return matmul_program.run_stage(stage, (a, b), {"out_dtype": out_dtype}, opts)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype)
+        da = matmul_program(dc, b.t(), stage=ctx.stage) if ctx.needs_input_grad[0] else None
+        db = matmul_program(a.t(), dc, stage=ctx.stage) if ctx.needs_input_grad[1] else None
+        return da, db, None, None, None
+
+
+@matmul_program.differentiable
+def _grad_route(program, stage, args, kw, opts):
+    """The call under autograd: 2-D products through :class:`MatmulGrad`
+    and a fused chain applied functionally on the cast result, as the
+    JAX package's ``finish`` (``repro/kernels/matmul.py:85-92``); the
+    inline chain stays the serving path. Operands that are not 2-D take
+    the plain stage, as without a gradient, whose torch ops autograd
+    records."""
+    a, b = args
+    if a.ndim != 2 or b.ndim != 2:
+        return program.run_stage(stage, args, kw, opts)
+    out_dtype = kw.get("out_dtype")
+    epi = opts.epilogue
+    out = MatmulGrad.apply(a, b, out_dtype, stage, dataclasses.replace(opts, epilogue=None))
+    if epi is None:
+        return out
+    return epi.body(out.float()).to(out_dtype or a.dtype)

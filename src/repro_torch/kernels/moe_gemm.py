@@ -46,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, stream_of
+from repro_torch.axe.program import DeviceError, program, refuse_grad, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -178,6 +178,7 @@ def _expert_gemm(ctx, x, w, *, out_dtype=None):
     global launches, stream_launches, wgmma_launches
     if ctx.impl != "kernel" or not ctx.on_card(x, w):
         return ctx.run("einsum", x, w, out_dtype=out_dtype)
+    refuse_grad(ctx.op, "B5 with a gradient, then MoE and hybrid training: ROADMAP A15", x, w)
     # the kernel reads contiguous experts: strided views are copied first
     x, w = x.contiguous(), w.contiguous()
     check_operands(x, w, out_dtype)

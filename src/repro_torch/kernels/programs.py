@@ -20,6 +20,13 @@ wrappers keep, so a run can show which kernels it went through;
 their wgmma kernels, :func:`bulk_counts` how many of B1's, B4's and B5's
 took their bulk-copy kernels (the skinny weight stream, the split-KV
 decode, the expert weight stream).
+
+Under autograd (grad mode on and an operand that requires grad) a call
+takes its program's differentiable route (``Program.differentiable``):
+``matmul``'s backward products run on B1 itself, ``rmsnorm``'s VJP in
+torch, ``flash_attention``'s backward recomputes through its oracle;
+``flash_decode`` (B4) and ``moe_gemm`` (B5) have no gradient yet and
+raise on the card.
 """
 from __future__ import annotations
 

@@ -45,16 +45,15 @@ def attention_ref(
 ) -> torch.Tensor:
     """Multi-head attention oracle with optional causal / sliding-window
     masking. ``k``/``v`` may carry fewer (GQA) heads than ``q``: kv head
-    ``h // (H // KV)`` serves query head ``h``."""
-    d = q.shape[-1]
+    ``h // (H // KV)`` serves query head ``h``, read by index (the query
+    heads grouped over their kv head), so no k or v is repeated and the
+    gradient of a kv head sums the query heads that share it."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    g = q.shape[1] // k.shape[1]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=1)
-        v = v.repeat_interleave(g, dim=1)
     _full_f32()
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    sq, skv = q.shape[-2], k.shape[-2]
+    qg = q.float().reshape(b, kvh, h // kvh, sq, d)
+    logits = torch.einsum("bkgqd,bkpd->bkgqp", qg, k.float()) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)  # right-aligned
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -65,7 +64,8 @@ def attention_ref(
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bkgqp,bkpd->bkgqd", p, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:

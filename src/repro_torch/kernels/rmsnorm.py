@@ -18,6 +18,12 @@
   plain ``jnp`` body (the ``xla`` variant, ``repro/kernels/rmsnorm.py:51-53``),
   the library's ``F.rms_norm`` (:func:`rmsnorm_library`).
 
+Under autograd (``axe.program.records_grad``) a call takes the
+program's differentiable route, :class:`RmsnormGrad`: the same stage
+forward, and the rmsnorm VJP in explicit torch expressions backward.
+The JAX package has no backward kernel for B2 (XLA differentiates its
+body), so none is owed here.
+
 Replaces ``repro/kernels/rmsnorm.py:_rows`` (TPU launch at :72, body
 ``_normalize`` at :28). The kernel is bound by bytes; its source says
 how the design meets that.
@@ -126,3 +132,40 @@ def _rows(ctx, x, w, *, eps: float = 1e-6):
     launches += 1
     return y
 
+
+# ---------------------------------------------------------------------------
+# B2 with a gradient
+# ---------------------------------------------------------------------------
+
+
+class RmsnormGrad(torch.autograd.Function):
+    """``y = x · r · w`` with ``r = rsqrt(mean(x²) + eps)``, forward through
+    the call's stage; backward in f32 with one cast each:
+    ``dx = r · (g·w − x̂ · mean(g·w·x̂))`` with ``x̂ = x · r``, and
+    ``dw = Σ_rows g · x̂``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, stage, opts):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_program.run_stage(stage, (x, w), {"eps": eps}, opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
+        xhat = xf * r
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gw = gf * w.float()
+            dx = (r * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(0).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+@rmsnorm_program.differentiable
+def _grad_route(program, stage, args, kw, opts):
+    x, w = args
+    return RmsnormGrad.apply(x, w, kw.get("eps", 1e-6), stage, opts)

@@ -1,0 +1,131 @@
+"""Training launcher of the port (``repro/launch/train.py``): random
+weights from a seed, synthetic data, AdamW with warmup + cosine, on one
+card.
+
+    python -m repro_torch.launch.train --arch qwen3-4b --steps 100 \
+        --global-batch 4 --seq 512
+    python -m repro_torch.launch.train --arch qwen3-4b --smoke --device cpu --steps 3
+
+``--solve`` solves the layout of the model graph (the port's ``"gpu"``
+backend), compiles it and runs the forward through the executable
+(``make_compiled_train_step``); ``--fuse`` runs the fusion passes first,
+``--cotune`` the solve <-> tune loop. A mesh degree above 1 and
+``--offload-opt`` need several cards: they raise, naming ROADMAP A14.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.models.model_zoo import build_model
+from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.train.train_loop import Trainer, init_state, make_train_step
+
+
+def _solve(args, cfg):
+    """The compiled forward's executable: the model graph at the
+    per-microbatch batch, full depth, solved (or cotuned) and compiled."""
+    from repro_torch.axe.compile import compile as axe_compile
+    from repro_torch.axe.graphs import model_graph
+    from repro_torch.axe.solve import solve
+    from repro_torch.axe.spec import PhysicalSpace
+
+    if args.global_batch % max(args.microbatches, 1):
+        raise SystemExit(f"--global-batch {args.global_batch} does not split into "
+                         f"{args.microbatches} microbatches")
+    mb_batch = args.global_batch // max(args.microbatches, 1)
+    gs = model_graph(cfg, mb_batch, args.seq, PhysicalSpace(()), dtype=cfg.dtype,
+                     layers=cfg.num_layers)
+    if args.fuse:
+        from repro_torch.axe.passes import fuse_graph
+
+        gs, rep = fuse_graph(gs)
+        print(f"fusion: {len(rep.patterns_fired)} patterns fired, "
+              f"{len(rep.eliminated)} intermediates eliminated")
+    if args.cotune:
+        from repro_torch.axe.cotune import cotune
+
+        ct = cotune(gs, beam=args.solve_beam, backend="gpu", max_iters=args.cotune_iters)
+        res = ct.result
+        print(ct.describe())
+    else:
+        res = solve(gs, beam=args.solve_beam, backend="gpu")
+    print(f"layout solver: comm {(res.seeded_comm_bytes or 0) / 2**20:.1f} -> "
+          f"{res.comm_bytes / 2**20:.1f} MiB/dev "
+          f"({100 * (res.comm_improvement or 0):.1f}% saved, "
+          f"beam={res.beam}, {res.explored} states)")
+    exe = axe_compile(gs, None, plan=res)
+    print(f"compiled forward: {len(exe.plan.entries)} ops")
+    return exe
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--mesh-data", type=int, default=0, help="several cards: ROADMAP A14")
+    ap.add_argument("--mesh-model", type=int, default=1, help="several cards: ROADMAP A14")
+    ap.add_argument("--compress-pod-grads", action="store_true")
+    ap.add_argument("--solve", action="store_true",
+                    help="solve the layout (axe.solve) and run the forward through the "
+                         "compiled executable (axe.compile)")
+    ap.add_argument("--solve-beam", type=int, default=4)
+    ap.add_argument("--cotune", action="store_true",
+                    help="with --solve: the solve <-> tune fixed-point loop (axe.cotune)")
+    ap.add_argument("--cotune-iters", type=int, default=4)
+    ap.add_argument("--fuse", action="store_true",
+                    help="with --solve: the fusion passes (axe.passes) before solving")
+    ap.add_argument("--offload-opt", action="store_true", help="several cards: ROADMAP A14")
+    ap.add_argument("--device", default="cuda", help="default: cuda (raises without a card)")
+    args = ap.parse_args(argv)
+    if args.mesh_data > 1 or args.mesh_model > 1 or args.offload_opt:
+        raise SystemExit("a device mesh (--mesh-data/--mesh-model above 1) and --offload-opt "
+                         "need several cards: the multi-GPU slice, ROADMAP.md A14")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    print(f"arch={cfg.name} params={cfg.param_count()/1e9:.2f}B "
+          f"(active {cfg.active_param_count()/1e9:.2f}B)")
+
+    api = build_model(cfg, device=args.device)
+    params = api.init(0)
+    opt = AdamW(learning_rate=warmup_cosine(args.lr, 20, args.steps))
+    state = init_state(params, opt)
+    data = SyntheticLMData(
+        cfg.vocab_size, args.seq, args.global_batch,
+        frontend=cfg.frontend, num_patches=cfg.num_patches,
+        encoder_seq=cfg.encoder_seq, d_model=cfg.d_model, dtype=cfg.dtype,
+    )
+    kw = dict(microbatches=args.microbatches, compress_pod_grads=args.compress_pod_grads)
+    if args.solve:
+        from repro_torch.train.train_loop import make_compiled_train_step
+
+        step_fn = make_compiled_train_step(_solve(args, cfg), cfg, opt, **kw)
+    else:
+        step_fn = make_train_step(api.loss_fn, opt, **kw)
+    trainer = Trainer(
+        train_step=step_fn,
+        data=data,
+        checkpoint_manager=CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None,
+        checkpoint_every=args.ckpt_every,
+        step_deadline_s=600.0,
+        on_straggler=lambda s, dt: print(f"[watchdog] step {s}: {dt:.1f}s"),
+    )
+    state = trainer.restore_or_init(state)
+    state, hist = trainer.run(state, args.steps)
+    print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

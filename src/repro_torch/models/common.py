@@ -65,6 +65,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in f32: logsumexp minus the gold logit. logits
+    ``[..., V]``, labels ``[...]``."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
 def gelu_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh form
     return linear(F.gelu(linear(x, p["wi"]), approximate="tanh"), p["wo"])

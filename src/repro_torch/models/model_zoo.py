@@ -1,6 +1,7 @@
-"""Unified model API of the port — ``repro/models/model_zoo.py`` for
-serving: the decoder-only families (dense, MoE, SSM, hybrid, VLM) through
-``models.transformer``, the enc-dec family through ``models.encdec``."""
+"""Unified model API of the port — ``repro/models/model_zoo.py``: the
+decoder-only families (dense, MoE, SSM, hybrid, VLM) through
+``models.transformer``, the enc-dec family through ``models.encdec``,
+which serves but does not train yet (its ``loss_fn`` raises)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +24,17 @@ class ModelAPI:
     cache_init: Callable[[int, int], Any]      # (batch, max_seq) -> cache
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
+    loss_fn: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]  # (params, batch) -> loss
+
+    def make_train_batch(self, seed: int, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+        """A synthetic batch on the model's device: ``tokens`` and
+        ``labels`` ``[batch, seq]`` drawn uniformly from the vocabulary by a
+        ``torch.Generator`` seeded with ``seed``, and the frontend stubs'
+        inputs as ones (the JAX package's ``make_train_batch``)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        draw = lambda: torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=gen,
+                                     device=self.device, dtype=torch.int32)
+        return {"tokens": draw(), "labels": draw(), **self.frontend_inputs(batch)}
 
     def frontend_inputs(self, b: int, *, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The frontend stubs' inputs a prefill batch carries besides
@@ -57,6 +69,7 @@ def build_model(cfg: ModelConfig, *,
                                                                     device=dev),
             prefill=lambda p, batch, c: encdec_mod.prefill(p, batch, c, cfg),
             decode_step=lambda p, t, c, pos: encdec_mod.decode_step(p, t, c, pos, cfg),
+            loss_fn=_encdec_loss,
         )
     tf_mod.check_family(cfg)
     return ModelAPI(
@@ -66,4 +79,12 @@ def build_model(cfg: ModelConfig, *,
         cache_init=lambda batch, max_seq: tf_mod.cache_init(cfg, batch, max_seq, device=dev),
         prefill=lambda p, batch, c: tf_mod.prefill(p, batch, c, cfg),
         decode_step=lambda p, t, c, pos: tf_mod.decode_step(p, t, c, pos, cfg),
+        loss_fn=lambda p, batch: tf_mod.lm_loss(p, batch, cfg),
+    )
+
+
+def _encdec_loss(params, batch):
+    raise NotImplementedError(
+        "training the enc-dec family (encdec_loss, decode_train) is not ported yet: "
+        "ROADMAP.md A15"
     )

@@ -17,12 +17,21 @@ family's vision frontend is a stub, as in the JAX package: precomputed
 patch embeddings ``patches [B, P, 1024]`` are projected through
 ``mm_proj`` (kernel B1) and take the prompt's first P positions. The
 enc-dec family is ``models/encdec.py``.
+
+Training: :func:`lm_forward` / :func:`lm_loss` run the full sequence of
+every decoder-only family; under autograd each kernel program takes its
+differentiable route (B1's backward products on B1, B2's VJP in torch,
+B3 recomputed through its oracle). The dense, SSM and VLM families
+differentiate; a forward that reaches B5 (MoE, hybrid) raises on the
+card under autograd, as B5 has no gradient yet (``ROADMAP.md`` A15).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
@@ -36,6 +45,7 @@ from repro_torch.models.common import (
     linear,
     mlp_apply,
     mlp_init,
+    cross_entropy_loss,
     rmsnorm,
 )
 
@@ -158,6 +168,84 @@ def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.is_moe:
         return x + moe_mod.moe_apply(p["moe"], h, cfg)
     return x + mlp_apply(p["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# training: full-sequence forward and loss
+# ---------------------------------------------------------------------------
+
+
+#: how :func:`lm_forward` rematerialises a super-block in the backward:
+#: ``"full"`` recomputes it (``torch.utils.checkpoint``, non-reentrant),
+#: ``"none"`` keeps its activations; set by launch drivers
+REMAT_POLICY = "full"
+
+
+def set_remat_policy(policy: str) -> None:
+    """``"full"`` or ``"none"``. The JAX package's ``"dots"`` (keep the
+    matmul outputs, recompute the elementwise chains) needs a
+    checkpoint policy that saves B1's outputs, which does not exist
+    yet: it raises, naming ``ROADMAP.md`` A15."""
+    global REMAT_POLICY
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat policy 'dots' (save B1's outputs, recompute the rest) is not ported "
+            "yet: ROADMAP.md A15"
+        )
+    if policy not in ("full", "none"):
+        raise ValueError(f"remat policy {policy!r} not in ('full', 'dots', 'none')")
+    REMAT_POLICY = policy
+
+
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` super-blocks of a stacked param tree, each leaf taken
+    apart once with ``unbind(0)``: the backward then stacks each leaf's
+    grads once, where a ``v[i]`` per super-block would build a
+    zero-filled grad the size of the whole stack for every one."""
+    parts = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        for part, sub in zip(parts, _unstack(v, n) if isinstance(v, dict) else v.unbind(0)):
+            part[k] = sub
+    return parts
+
+
+def _super_apply(sp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """One super-block over the full sequence (causal; a window where
+    the slot has one)."""
+    _, per = _superblock_shape(cfg)
+    for i in range(per):
+        p = sp[f"l{i}"]
+        h = rmsnorm(x, p["norm1"])
+        if _mixer_kind(cfg, i, per) == "ssm":
+            y = ssm_mod.ssd_apply(p["ssm"], h, cfg)
+        else:
+            y = attn.attn_apply(p["attn"], h, cfg, causal=True, window=_layer_window(cfg, i, per))
+        x = _ffn(p, x + y, cfg)
+    return x
+
+
+def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
+               remat: bool = True) -> torch.Tensor:
+    """tokens ``[B, S]`` (+ patches) -> logits ``[B, S, V]``: one Python
+    loop over the super-blocks (the JAX package's ``lax.scan``), each
+    rematerialised in the backward under :data:`REMAT_POLICY` when
+    ``remat``."""
+    check_family(cfg)
+    n_super, _ = _superblock_shape(cfg)
+    body = functools.partial(_super_apply, cfg=cfg)
+    with scope(Scope.DEVICE):
+        x = _embed_inputs(params, batch, cfg)
+        for sp in _unstack(params["blocks"], n_super):
+            if remat and REMAT_POLICY == "full":
+                x = checkpoint(body, sp, x, use_reentrant=False)
+            else:
+                x = body(sp, x)
+        x = rmsnorm(x, params["final_norm"])
+        return linear(x, _head(params, cfg))
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    return cross_entropy_loss(lm_forward(params, batch, cfg), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -864,3 +864,133 @@ def test_autotuner_on_the_card_hands_no_stage_a_pin_it_raises_on(cuda, tmp_path)
                 programs.matmul(a, b)
     finally:
         tune.use_cache(None)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' gradients on the card (B1's backward products on
+# B1's routes, B2's VJP, B3's recompute at GQA), B4 and B5 refusing one, and
+# a smoke train step card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def _card_grads(fn, *xs, seed=50):
+    leaves = [x.detach().clone().requires_grad_() for x in xs]
+    out = fn(*leaves)
+    g = _randn(out.device, tuple(out.shape), out.dtype, seed)
+    return (out, *torch.autograd.grad(out, leaves, g))
+
+
+# (m, k, n, dtype, the route each of fwd, dA = dC·Bᵀ, dB = Aᵀ·dC takes)
+BACKWARD_CASES = [
+    (512, 2560, 1024, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (2048, 2560, 4096, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (37, 83, 45, torch.bfloat16, ("tiled", "tiled", "tiled")),
+    (64, 96, 128, torch.float32, ("tiled", "tiled", "tiled")),
+    # dB's A is [K, 4]: rows TMA cannot address (4 bf16), so the WMMA tiles
+    (4, 2560, 1024, torch.bfloat16, ("skinny", "skinny", "tiled")),
+    (6, 100, 40, torch.float32, ("skinny", "skinny", "tiled")),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,routes", BACKWARD_CASES)
+def test_matmul_backward_products_run_on_b1(cuda, m, k, n, dtype, routes):
+    """dA and dB are two more launches of B1, on the route their shapes
+    take (the transposed operand copied first), never torch.matmul;
+    against torch autograd of the plain formula within ``_tol``."""
+    a, b = _randn(cuda, (m, k), dtype, 1), _randn(cuda, (k, n), dtype, 2, k ** -0.5)
+    programs.reset_launch_counts()
+    got = _card_grads(programs.matmul, a, b)
+    torch.cuda.synchronize()
+    assert mm.launches == 3
+    assert mm.wgmma_launches == routes.count("wgmma"), routes
+    assert mm.skinny_launches == routes.count("skinny"), routes
+    want = _card_grads(mm.matmul_plain, a, b)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        _close(x, y, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2048, 2560), (4, 512, 32, 128), (37, 100)])
+def test_rmsnorm_backward_on_the_card(cuda, dtype, shape):
+    x = _randn(cuda, shape, dtype, 3)
+    w = 1.0 + _randn(cuda, shape[-1:], dtype, 4, 0.1)
+    programs.reset_launch_counts()
+    got = _card_grads(programs.rmsnorm, x, w)
+    assert rn.launches == 1
+    for p, q in zip(got, _card_grads(rn.rmsnorm_plain, x, w)):
+        _close(p, q, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,kvh,s,window", [(32, 8, 512, None), (4, 2, 200, 64)])
+def test_flash_attention_trainable_at_gqa_on_the_card(cuda, dtype, h, kvh, s, window):
+    """B3 forward (one launch), the oracle's recompute backward; kv
+    grads of the kv heads' shape, against autograd of the plain version."""
+    q = _randn(cuda, (2, s, h, 128), dtype, 5).transpose(1, 2)
+    k = _randn(cuda, (2, s, kvh, 128), dtype, 6).transpose(1, 2)
+    v = _randn(cuda, (2, s, kvh, 128), dtype, 7).transpose(1, 2)
+    fn = lambda q, k, v: programs.flash_attention(q, k, v, causal=True, window=window)
+    programs.reset_launch_counts()
+    got = _card_grads(fn, q, k, v)
+    assert fa.attend_launches == 1 and got[2].shape == k.shape
+    plain = lambda q, k, v: fa.attention_plain(q, k, v, causal=True, window=window)
+    for p, w in zip(got, _card_grads(plain, q, k, v)):
+        _close(p, w, dtype)
+
+
+def test_decode_and_expert_kernels_refuse_a_gradient(cuda):
+    bf16 = torch.bfloat16
+    q = _randn(cuda, (2, 2, 4, 128), bf16, 8).requires_grad_()
+    kc = _randn(cuda, (2, 2, 64, 128), bf16, 9)
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(DeviceError, match="ROADMAP B4"):
+        programs.flash_decode(q, kc, kc, pos)
+    x = _randn(cuda, (4, 8, 256), bf16, 10)
+    w = _randn(cuda, (4, 256, 128), bf16, 11).requires_grad_()
+    with pytest.raises(DeviceError, match="A15"):
+        programs.moe_gemm(x, w)
+    with torch.no_grad():  # no gradient asked: both launch
+        assert programs.flash_decode(q, kc, kc, pos).shape == (2, 2, 4, 128)
+        assert programs.moe_gemm(x, w).shape == (4, 8, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, dtype):
+    """One train step of the smoke qwen3-4b from one state on the card and
+    on the CPU: loss, grad norm and params (f32: the grads' 1e-3 / 1e-4
+    through Adam's amplification as in ``tests/test_train.py``, 2e-2 /
+    1e-4; bf16: the logits' 0.1 / 0.25 on loss, one bf16 step of lr on
+    params). Each side steps a copy of the params: the step updates its
+    state in place, and ``tree_to`` onto the CPU returns the CPU tensors
+    themselves."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim import AdamW
+    from repro_torch.train.train_loop import init_state, make_train_step
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-4b")), dtype=dtype)
+    opt = AdamW(learning_rate=1e-3)
+    states, metrics = {}, {}
+    data = SyntheticLMData(cfg.vocab_size, 64, 4, seed=2)
+    params = build_model(cfg, device="cpu").init(0)
+    for dev in ("cpu", cuda):
+        api = build_model(cfg, device=dev)
+        programs.reset_launch_counts()
+        own = tree_map(torch.clone, tree_to(params, dev))
+        state, m = make_train_step(api.loss_fn, opt)(init_state(own, opt),
+                                                     data.torch_batch_at(0, dev))
+        states[str(dev)[:4]], metrics[str(dev)[:4]] = state, m
+    counts = programs.launch_counts()
+    assert all(counts[k] > 0 for k in ("matmul/tile", "rmsnorm/rows", "flash_attention/attend"))
+    loss_tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=0.1, atol=0.25)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics["cuda"][k]), float(metrics["cpu"][k]), **loss_tol)
+    from repro_torch.core.tree import leaves
+
+    for a, b in zip(leaves(states["cuda"].params), leaves(states["cpu"].params)):
+        a = a.float().cpu().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b.numpy(), rtol=2e-2, atol=1e-4)
+        else:
+            np.testing.assert_allclose(a, b.float().numpy(), rtol=2e-2, atol=2.5e-3)

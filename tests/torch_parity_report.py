@@ -2,7 +2,9 @@
 and report, per test and tolerance, the largest |port - JAX reference|
 that its comparisons saw.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_report.py
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_report.py [test files]
+
+With file names (e.g. ``test_torch_train.py``) it runs only those.
 """
 import re
 import sys
@@ -13,7 +15,8 @@ import pytest
 HERE = Path(__file__).resolve().parent
 FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
          "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py",
-         "test_torch_encdec.py", "test_torch_vlm.py")
+         "test_torch_encdec.py", "test_torch_vlm.py", "test_torch_train.py",
+         "test_torch_train_loop.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -86,6 +89,27 @@ TARGETS = {
                                         "transformer._embed_inputs (patches)"),
     "test_vlm_prefill_and_decode_with_patches_match_jax": (
         "models/transformer.py", "VLM prefill + decode_step per slot"),
+    "test_adamw_three_updates_match_jax": ("optim/adamw.py",
+                                           "AdamW.update + apply_updates, 3 updates"),
+    "test_adamw_step_in_place_clips_and_casts_as_the_reference": (
+        "optim/adamw.py", "clip_by_global_norm + update + apply_updates, bf16"),
+    "test_clip_by_global_norm_matches_jax": ("optim/adamw.py", "clip_by_global_norm"),
+    "test_warmup_cosine_matches_jax": ("optim/schedule.py", "warmup_cosine"),
+    "test_int8_helpers_match_jax": ("optim/grad_compress.py", "int8 helpers"),
+    "test_error_feedback_matches_jax_and_reduces_bias": ("optim/grad_compress.py",
+                                                         "error_feedback_update"),
+    "test_lm_loss_and_grads_match_jax": ("models/transformer.py",
+                                         "jax.value_and_grad(lm_loss), dense"),
+    "test_ssm_and_vlm_loss_grads_match_jax": ("models/transformer.py",
+                                              "jax.value_and_grad(lm_loss), SSM / VLM"),
+    "test_lm_forward_logits_match_jax": ("models/transformer.py", "transformer.lm_forward"),
+    "test_flash_attention_gqa_grads_match_jax": ("kernels/flash_attention.py",
+                                                 "grad of flash_attention_trainable, GQA"),
+    "test_train_steps_match_jax": ("train/train_loop.py", "make_train_step (jit), 1 / 3 steps"),
+    "test_microbatch_grads_accumulate_in_f32_like_jax": ("train/train_loop.py",
+                                                         "make_train_step, 2 microbatches"),
+    "test_compiled_loss_grads_match_the_model_and_jax": (
+        "axe/compile.py", "compiled_loss_fn grads (mesh=None)"),
 }
 
 
@@ -93,7 +117,8 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import _torch_parity
 
-    rc = pytest.main(["-q", "-p", "no:cacheprovider", *(str(HERE / f) for f in FILES)])
+    files = sys.argv[1:] or FILES
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", *(str(HERE / f) for f in files)])
     worst = {}
     for test, err, rtol, atol in _torch_parity.RECORDS:
         name = re.sub(r" \(call\)$", "", test.split("::")[-1])
