@@ -177,7 +177,32 @@ training:
     model's structure, B1's and B3's wgmma counters covering all of
     theirs, step walls, device busy and idle share of a step, tokens/s,
     peak memory under 80 GiB, then 4 steps on one repeated batch at a
-    constant lr, the loss falling by ``OVERFIT_MARGIN``.
+    constant lr, the loss falling by ``OVERFIT_MARGIN``;
+18. train-moe — qwen3-moe-235b-a22b at full width, ``MOE_TRAIN_LAYERS``
+    of its 94 layers (its training state is 12 B a parameter; one layer
+    with the embedding and lm_head is 44.8 GB of it): (a) B5 at every
+    expert product of a train step of 4 x 512 tokens (forward, ``dX =
+    dY · Wᵀ``, ``dW = Xᵀ · dY``; the transposed copies timed apart, one
+    ``torch.bmm`` on the same views the yardstick); (b) one
+    ``value_and_grad`` on the card and on the CPU over
+    ``MOE_CHECK_BATCH`` x ``MOE_CHECK_SEQ`` tokens, the card's recompute
+    routing as its forward, the CPU routed as the card routed (loss
+    within ``LOGIT_TOL``, each leaf's grad within ``GRAD_REL_BOUND``),
+    every leaf's grad nonzero and finite; (c) ``Trainer.run`` as in
+    17(c), B5 held to 12 launches a MoE layer a step (the forward's,
+    the recompute's, and dX and dW of its three products), every one on
+    ``moe_expert_wgmma``, then the repeated batch;
+19. train-encdec — whisper-large-v3 at full width and depth: (a) B1 at
+    the 51866-wide lm_head's forward, dA and dB (the WMMA tiles) and
+    the encoder's up projection, B2 at the encoder's and decoder's rows,
+    B3 over the 1500 frames, the 448 tokens (causal) and the tokens over
+    the frames; (b) 2 + 2 layers card vs CPU and a ``Trainer`` restart,
+    as 17(b); (c) 32 + 32 layers through ``Trainer.run`` of 4 x 448
+    tokens + 1500 seeded frames a step, as 17(c), the launches held to
+    the model's structure (the lm_head's three products off wgmma);
+20. train-hybrid — jamba-1.5-large-398b at smoke width, f32: one
+    ``value_and_grad`` on the card against the CPU (loss 2e-4, grads
+    rtol 1e-3 / atol 1e-4), B5 launched 12 times a layer.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -186,6 +211,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -206,7 +232,7 @@ SSM_ARCH = "mamba2-2.7b"
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
 # phases of the run
-STEPS = 17
+STEPS = 20
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
@@ -219,6 +245,13 @@ SEED = 0
 #: phase 17, training qwen3-4b: global batch x sequence, Trainer steps and
 #: peak learning rate of the full-depth run
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 6, 3e-4
+#: phase 18, training qwen3-moe-235b-a22b at full width: layers kept of its
+#: 94, and the tokens of its card-vs-CPU check (batch x sequence)
+MOE_TRAIN_LAYERS = 1
+MOE_CHECK_BATCH, MOE_CHECK_SEQ = 2, 128
+#: phase 19, training whisper-large-v3: decoder tokens a row (its
+#: ``max_target_positions``); each row also carries ``encoder_seq`` frames
+ENCDEC_TRAIN_SEQ = 448
 #: bound on each leaf's ‖g_card − g_cpu‖ / ‖g_cpu‖ at depth 2 in bf16: a
 #: bf16 rounding is 2^-9 relative; card and CPU round the activations, the
 #: attention probabilities and each product's output at other places, and
@@ -2279,23 +2312,34 @@ def phase_jamba_smoke(torch, device):
 # phase 17: training
 # ---------------------------------------------------------------------------
 
-def b1_train_cases(cfg, torch, device):
-    """Phase 17(a), B1: every product of a qwen3-4b train step at global
-    batch x sequence tokens, as the path gives it to B1 — the forward
-    ``x @ w`` (and its recompute), and the backward's ``dA = dC · wᵀ`` and
-    ``dB = xᵀ · dC``, whose transposed operand the wrapper copies before
-    the launch: the launch is timed alone on the copied operand, the
-    copy apart, the library call on the transposed view."""
+def product_train_cases(torch, device, seed, products, *, experts=False):
+    """The products of a train step as the path gives them to B1 (2-D
+    operands) or, with ``experts``, to B5 (per expert, ``[E, ., .]``):
+    for each ``(label, lead, K, N)`` the forward ``x @ w`` (and its
+    recompute) of ``x [*lead, K]``, and the backward's ``dA = dC · wᵀ``
+    and ``dB = xᵀ · dC`` (``dX``/``dW`` for B5), whose transposed operand
+    the wrapper copies before the launch: the launch is timed alone on
+    the copied operand, the copy apart, the library call (``torch.matmul``,
+    ``torch.bmm`` per expert) on the transposed view. ``x`` and the
+    cotangent are drawn at unit scale and ``w`` at ``K^-0.5``, so each
+    product's values are about ``sqrt(N/K)`` (dA) or ``sqrt(rows)`` (dB),
+    well above ``TOL``'s bf16 atol: a dropped K tile shows."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_gemm as moe_k
     from repro_torch.kernels import programs
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    gen = torch.Generator(device=device).manual_seed(seed)
     n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
             if torch.device(device).type == "cuda" else 132)  # 132: an H100, to rehearse on a CPU
-    d, h, kv, hd, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                           cfg.d_ff, cfg.vocab_size)
-    t = TRAIN_BATCH * TRAIN_SEQ
     bf16 = torch.bfloat16
+    if experts:
+        kernel, names, grads = "moe_gemm/expert_gemm", "XW", ("dX", "dW")
+        call, plain, library = programs.moe_gemm, moe_k.moe_gemm_plain, torch.bmm
+        route = functools.partial(b5_kernel, moe_k)
+    else:
+        kernel, names, grads = "matmul/tile", "AB", ("dA", "dB")
+        call, plain, library = programs.matmul, mm.matmul_plain, torch.matmul
+        route = functools.partial(b1_kernel, mm)
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=device) * scale).to(bf16)
@@ -2303,28 +2347,42 @@ def b1_train_cases(cfg, torch, device):
     cases = []
 
     def case(label, a, b, copy=None):
-        """``a @ b``; ``copy`` names the transposed operand ("a" or "b")."""
-        m, k = a.shape
-        n = b.shape[1]
-        a_c = a.contiguous() if copy == "a" else a
-        b_c = b.contiguous() if copy == "b" else b
+        """``a @ b``; ``copy`` is the index of the transposed operand."""
+        k, n = b.shape[-2:]
+        ops = (a, b)
+        a_c, b_c = (t.contiguous() if i == copy else t for i, t in enumerate(ops))
+        dims = "x".join(map(str, (*a.shape[:-1], k, n)))
         entry = dict(
-            kernel="matmul/tile", label=f"{label} {m}x{k}x{n}", dtype=bf16,
-            cuda_kernel=b1_kernel(mm, a_c, b_c, n_sm),
-            run=lambda: programs.matmul(a, b), timed=lambda: programs.matmul(a_c, b_c),
-            plain=lambda: mm.matmul_plain(a_c, b_c), library=lambda: torch.matmul(a, b),
-            nbytes=(m * k + k * n + m * n) * 2, flops=2.0 * m * n * k)
+            kernel=kernel, label=f"{label} {dims}", dtype=bf16,
+            cuda_kernel=route(a_c, b_c, n_sm),
+            run=lambda: call(a, b), timed=lambda: call(a_c, b_c),
+            plain=lambda: plain(a_c, b_c), library=lambda: library(a, b),
+            nbytes=(a.numel() + b.numel() + a.numel() // k * n) * 2,
+            flops=2.0 * a.numel() * n)
         if copy is not None:
-            entry["copy"] = (lambda: a.contiguous()) if copy == "a" else (lambda: b.contiguous())
-            entry["cuda_kernel"] += f" (after a copy of {copy}ᵀ)"
+            entry["copy"] = ops[copy].contiguous
+            entry["cuda_kernel"] += f" (after a copy of {names[copy]}ᵀ)"
         cases.append(entry)
 
-    for label, k, n in train_products(d, h, kv, hd, ff, v):
-        x, w, dc = randn((t, k)), randn((k, n), k ** -0.5), randn((t, n), n ** -0.5)
+    for label, lead, k, n in products:
+        x, w, dc = randn((*lead, k)), randn((*lead[:-1], k, n), k ** -0.5), randn((*lead, n))
         case(f"train fwd {label}", x, w)
-        case(f"train dA {label}", dc, w.t(), copy="b")
-        case(f"train dB {label}", x.t(), dc, copy="a")
+        case(f"train {grads[0]} {label}", dc, w.transpose(-2, -1), copy=1)
+        case(f"train {grads[1]} {label}", x.transpose(-2, -1), dc, copy=0)
     return cases
+
+
+def b1_train_cases(cfg, torch, device, products=None):
+    """Phase 17(a), B1: every product of a qwen3-4b train step at global
+    batch x sequence tokens (or each ``(label, M, K, N)`` of
+    ``products``), by :func:`product_train_cases`."""
+    if products is None:
+        t = TRAIN_BATCH * TRAIN_SEQ
+        products = [(label, t, k, n) for label, k, n in train_products(
+            cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size)]
+    return product_train_cases(torch, device, SEED + 17,
+                               [(label, (m,), k, n) for label, m, k, n in products])
 
 
 def train_products(d, h, kv, hd, ff, v):
@@ -2411,18 +2469,20 @@ def grads_rel_errors(got, want) -> dict:
     return {"/".join(p): rel_err(g.to(ref[p].device), ref[p]) for p, g in leaves_with_paths(got)}
 
 
-def phase_train_depth2(cfg, torch, device):
-    """Phase 17(b): ``cfg`` cut to 2 layers, full width, bf16: one
-    ``value_and_grad`` of the model loss from one seeded state on the
-    card (kernels) and on the CPU (plain versions): the loss within
+def phase_train_depth2(cfg, torch, device, *, seq=TRAIN_SEQ):
+    """Phase 17(b), 19(b): ``cfg`` cut to 2 layers (enc-dec: 2 encoder +
+    2 decoder layers, seeded frames in every batch), full width, bf16:
+    one ``value_and_grad`` of the model loss from one seeded state on
+    the card (kernels) and on the CPU (plain versions): the loss within
     ``LOGIT_TOL``, the grad norm, and each leaf's grad within
-    ``GRAD_REL_BOUND`` relative error; on the card the compiled loss
-    (``compiled_loss_fn``, unfused and fused) against the model API's
-    loss and grads; a ``Trainer`` restart (save after 2 steps, restore,
-    2 more) against 4 straight steps, bit for bit."""
+    ``GRAD_REL_BOUND`` relative error; on the card, for the families
+    ``axe.compile`` binds, the compiled loss (``compiled_loss_fn``,
+    unfused and fused) against the model API's loss and grads; a
+    ``Trainer`` restart (save after 2 steps, restore, 2 more) against 4
+    straight steps, bit for bit."""
     import tempfile
 
-    from repro_torch.axe.compile import compiled_loss_fn, model_executable
+    from repro_torch.axe.compile import SUPPORTED_FAMILIES, compiled_loss_fn, model_executable
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core.tree import leaves, tree_map
     from repro_torch.data.pipeline import SyntheticLMData
@@ -2432,20 +2492,27 @@ def phase_train_depth2(cfg, torch, device):
     from repro_torch.train.train_loop import Trainer, init_state, make_train_step, value_and_grad
 
     out = {}
-    cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
+    cut = dict(num_layers=DEPTH2_LAYERS)
+    if cfg.family == "encdec":
+        cut["encoder_layers"] = DEPTH2_LAYERS
+    cfg2 = dataclasses.replace(cfg, **cut)
     cpu, card = build_model(cfg2, device="cpu"), build_model(cfg2, device=device)
     params = card.init(SEED)
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    data = SyntheticLMData(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
+    extra = card.frontend_inputs(TRAIN_BATCH, seed=SEED + 3)  # whisper: seeded frames
+    batch_at = lambda i: data.torch_batch_at(i, device) | extra  # noqa: E731
     t0 = time.perf_counter()
-    loss_cpu, g_cpu = value_and_grad(cpu.loss_fn)(tree_to(params, "cpu"), data.torch_batch_at(0))
+    loss_cpu, g_cpu = value_and_grad(cpu.loss_fn)(
+        tree_to(params, "cpu"), data.torch_batch_at(0) | tree_to(extra, "cpu"))
     cpu_s = time.perf_counter() - t0
-    batch = data.torch_batch_at(0, device)
+    batch = batch_at(0)
     loss, grads = value_and_grad(card.loss_fn)(params, batch)
     norm, norm_cpu = float(global_norm(grads)), float(global_norm(g_cpu))
     errs = grads_rel_errors(grads, g_cpu)
     worst = max(errs, key=errs.get)
     ok = bool(torch.allclose(loss.float().cpu(), loss_cpu.float(), **LOGIT_TOL))
-    log(f"  depth-2 value_and_grad, card vs CPU (bf16, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): loss "
+    log(f"  depth-2 value_and_grad, card vs CPU (bf16, {TRAIN_BATCH}x{seq} tokens"
+        + (f" + {cfg.encoder_seq} frames" if extra else "") + "): loss "
         f"{float(loss):.5f} vs {float(loss_cpu):.5f}; grad norm {norm:.5f} vs {norm_cpu:.5f}; "
         f"leaf grads' relative error max {errs[worst]:.4g} ({worst}), median "
         f"{statistics.median(errs.values()):.4g} (bound {GRAD_REL_BOUND}); CPU side {cpu_s:.1f} s")
@@ -2458,8 +2525,8 @@ def phase_train_depth2(cfg, torch, device):
                depth2_grad_norm_cpu=norm_cpu, depth2_grad_rel_err_max=errs[worst])
     del g_cpu
 
-    for fuse in (False, True):
-        exe = model_executable(cfg2, None, TRAIN_BATCH, TRAIN_SEQ, fuse=fuse)
+    for fuse in (False, True) if cfg.family in SUPPORTED_FAMILIES else ():
+        exe = model_executable(cfg2, None, TRAIN_BATCH, seq, fuse=fuse)
         closs, cgrads = value_and_grad(compiled_loss_fn(exe, cfg2))(params, batch)
         cerrs = grads_rel_errors(cgrads, grads)
         cw = max(cerrs, key=cerrs.get)
@@ -2477,16 +2544,17 @@ def phase_train_depth2(cfg, torch, device):
     opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, 4))
     step = make_train_step(card.loss_fn, opt)
     fresh = lambda: init_state(tree_map(torch.clone, params), opt)
-    straight, hist = Trainer(step, data).run(fresh(), 4)
+    straight, hist = Trainer(step, data).run(fresh(), 4, batch_fn=batch_at)
     with tempfile.TemporaryDirectory() as tmp:
         mgr = CheckpointManager(tmp, keep=1)
-        s, first = Trainer(step, data, checkpoint_manager=mgr, checkpoint_every=2).run(fresh(), 2)
+        s, first = Trainer(step, data, checkpoint_manager=mgr, checkpoint_every=2).run(
+            fresh(), 2, batch_fn=batch_at)
         del s
         gc.collect()
         t0 = time.perf_counter()
         s = Trainer(step, data, checkpoint_manager=mgr).restore_or_init(fresh())
         restore_s = time.perf_counter() - t0
-        s, rest = Trainer(step, data).run(s, 2)
+        s, rest = Trainer(step, data).run(s, 2, batch_fn=batch_at)
     same = all(torch.equal(a, b) for a, b in zip(leaves(straight), leaves(s)))
     diff = max(float((a.float() - b.float()).abs().max()) for a, b in
                zip(leaves(straight.params), leaves(s.params)))
@@ -2503,32 +2571,46 @@ def phase_train_depth2(cfg, torch, device):
 def phase_train_full(cfg, torch, device):
     """Phase 17(c): ``cfg`` at full width and depth, bf16, random weights
     from a seed on the card: step 1's grads nonzero and finite on every
-    leaf; ``Trainer.run`` of ``TRAIN_STEPS`` steps of ``SyntheticLMData``
-    with ``AdamW(warmup_cosine(...))``, one microbatch, remat ``"full"``,
-    launch counters zeroed just before and read just after (per step
-    B1 ``4P - 1``, P = 7 products a layer + the lm_head; B2 ``8L + 1``;
-    B3 ``2L``; every B1 and B3 launch on their wgmma kernels); the step
-    wall, device busy and idle share of a step under the profiler,
-    tokens/s and peak memory; then 4 steps on one repeated batch at a
-    constant lr, the loss after them below the first by
-    ``OVERFIT_MARGIN``."""
-    from repro_torch.core.tree import leaves_with_paths
+    leaf; then :func:`trainer_steps` with per step B1 ``4P - 1``, P = 7
+    products a layer + the lm_head; B2 ``8L + 1``; B3 ``2L``, every B1
+    and B3 launch on their wgmma kernels, and the forward + backward
+    timed alone."""
     from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.kernels import programs
     from repro_torch.models import transformer as tf
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.train_loop import Trainer, init_state, make_train_step, value_and_grad
 
     api = build_model(cfg, device=device)
+    params = drawn_params(api, cfg, torch, f"remat {tf.REMAT_POLICY!r}")
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    check_step1_grads(api, params, data.torch_batch_at(0, device), torch)
+    n = cfg.num_layers
+    p = 7 * n + 1
+    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 8 * n + 1,
+                "flash_attention/attend": 2 * n, "flash_attention/decode": 0,
+                "moe_gemm/expert_gemm": 0}
+    return trainer_steps(api, params, data, torch, device, per_step=per_step, fwd_bwd=True)
+
+
+def drawn_params(api, cfg, torch, note=""):
+    """``api.init(SEED)`` on the card, its size and time logged."""
+    from repro_torch.core.tree import leaves_with_paths
+
     t0 = time.perf_counter()
     params = api.init(SEED)
     torch.cuda.synchronize()
     log(f"  {cfg.name}: {sum(p.numel() for _, p in leaves_with_paths(params)) / 1e9:.3f} B "
-        f"params drawn on the card in {time.perf_counter() - t0:.1f} s; remat "
-        f"{tf.REMAT_POLICY!r}")
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
-    _, grads = value_and_grad(api.loss_fn)(params, data.torch_batch_at(0, device))
+        f"params drawn on the card in {time.perf_counter() - t0:.1f} s" + (f"; {note}" if note else ""))
+    return params
+
+
+def check_step1_grads(api, params, batch, torch, grads=None):
+    """Every leaf's grad of one ``value_and_grad`` (``grads`` if given)
+    nonzero and finite."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train.train_loop import value_and_grad
+
+    if grads is None:
+        _, grads = value_and_grad(api.loss_fn)(params, batch)
     bad = [("/".join(p), float(g.float().abs().max())) for p, g in leaves_with_paths(grads)
            if not bool(torch.isfinite(g).all()) or not bool(g.ne(0).any())]
     log(f"  step 1's grads: {len(leaves_with_paths(grads)) - len(bad)} of "
@@ -2538,6 +2620,30 @@ def phase_train_full(cfg, torch, device):
     gc.collect()
     torch.cuda.empty_cache()
 
+
+#: the kernel programs with a wgmma kernel (B1, B3, B5)
+WGMMA_OPS = ("matmul/tile", "flash_attention/attend", "moe_gemm/expert_gemm")
+
+
+def trainer_steps(api, params, data, torch, device, *, per_step, off_wgmma=None,
+                  fwd_bwd=False, extra=None):
+    """``Trainer.run`` of ``TRAIN_STEPS`` steps of ``data`` with
+    ``AdamW(warmup_cosine(...))``, one microbatch, launch counters zeroed
+    just before and read just after, each kernel's held to ``per_step``
+    launches a step and every launch of B1, B3 and B5 on their wgmma
+    kernels but ``off_wgmma`` a step (products no TMA box addresses); the
+    step wall, device busy and idle share of a step under the profiler,
+    tokens/s and peak memory (under 80 GiB); with ``fwd_bwd`` the forward
+    + backward timed alone; then 4 steps on one repeated batch at a
+    constant lr, the loss after them below the first by
+    ``OVERFIT_MARGIN``. ``extra``: the frontend stub's inputs every batch
+    carries in place of the data's (seeded frames)."""
+    from repro_torch.kernels import programs
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import Trainer, init_state, make_train_step, value_and_grad
+
+    off_wgmma = off_wgmma or {}
+    batch_at = lambda i: data.torch_batch_at(i, device) | (extra or {})  # noqa: E731
     opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
     state = init_state(params, opt)
     step = make_train_step(api.loss_fn, opt)
@@ -2545,21 +2651,17 @@ def phase_train_full(cfg, torch, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     programs.reset_launch_counts()
-    state, hist = trainer.run(state, TRAIN_STEPS)
+    state, hist = trainer.run(state, TRAIN_STEPS, batch_fn=batch_at if extra else None)
     counts, wgmma = programs.launch_counts(), programs.wgmma_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     walls = [h["sec"] for h in hist]
     wall = statistics.median(walls[1:])
-    n = cfg.num_layers
-    p = 7 * n + 1
-    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 8 * n + 1,
-                "flash_attention/attend": 2 * n, "flash_attention/decode": 0,
-                "moe_gemm/expert_gemm": 0}
-    log(f"  Trainer.run, {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens: losses "
-        f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+    tokens = data.global_batch * data.seq_len
+    log(f"  Trainer.run, {TRAIN_STEPS} steps of {data.global_batch}x{data.seq_len} tokens: "
+        f"losses {[round(h['loss'], 5) for h in hist]}, grad norms "
         f"{[round(h['grad_norm'], 5) for h in hist]}; step walls {[round(w, 4) for w in walls]} s, "
-        f"median of steps 2-{TRAIN_STEPS} {wall:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / wall:.0f} "
-        f"tokens/s; peak memory {peak:.2f} GiB")
+        f"median of steps 2-{TRAIN_STEPS} {wall:.4f} s, {tokens / wall:.0f} tokens/s; peak "
+        f"memory {peak:.2f} GiB")
     log(f"  launches in the run {counts} (per step {per_step}); wgmma {wgmma}")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
           f"non-finite loss or grad norm: {hist}")
@@ -2568,30 +2670,33 @@ def phase_train_full(cfg, torch, device):
         check(counts[op] == k * TRAIN_STEPS,
               f"{op}: {counts[op]} launches in {TRAIN_STEPS} steps, the model's structure "
               f"gives {k} a step")
-    check(wgmma["matmul/tile"] == counts["matmul/tile"],
-          f"B1: {wgmma['matmul/tile']} of {counts['matmul/tile']} launches on wgmma (every "
-          f"product of a train step is bf16 with more than 8 rows)")
-    check(wgmma["flash_attention/attend"] == counts["flash_attention/attend"],
-          "B3: an attend off the wgmma kernel")
+    for op in WGMMA_OPS:
+        want = counts[op] - off_wgmma.get(op, 0) * TRAIN_STEPS
+        check(wgmma[op] == want, f"{op}: {wgmma[op]} of {counts[op]} launches on wgmma, "
+                                 f"{want} expected (every bf16 product a TMA box addresses)")
 
-    batch = data.torch_batch_at(TRAIN_STEPS, device)
-    fwd_bwd = []
-    for _ in range(3):  # the first warms the allocator for a second grads tree
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, grads = value_and_grad(api.loss_fn)(state.params, batch)
-        torch.cuda.synchronize()
-        fwd_bwd.append(time.perf_counter() - t0)
-        del grads
-    fwd_bwd = statistics.median(fwd_bwd[1:])
+    batch = batch_at(TRAIN_STEPS)
+    out = {}
+    if fwd_bwd:
+        times = []
+        for _ in range(3):  # the first warms the allocator for a second grads tree
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, grads = value_and_grad(api.loss_fn)(state.params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del grads
+        out["train_fwd_bwd_s"] = statistics.median(times[1:])
     busy, top = device_busy_ms(torch, lambda: step(state, batch), reps=2)
     idle = 1 - busy / (wall * 1e3)
     log(f"  one step under the profiler: device busy {busy:.2f} ms, idle share {idle:.4f} of the "
-        f"median wall; by kernel {top}; forward + backward alone {fwd_bwd:.4f} s (host clock, "
-        f"synced), so the grad norm and AdamW take ~{wall - fwd_bwd:.4f} s of the step")
+        f"median wall; by kernel {top}"
+        + (f"; forward + backward alone {out['train_fwd_bwd_s']:.4f} s (host clock, synced), so "
+           f"the grad norm and AdamW take ~{wall - out['train_fwd_bwd_s']:.4f} s of the step"
+           if fwd_bwd else ""))
 
     rep_step = make_train_step(api.loss_fn, AdamW(learning_rate=TRAIN_LR))
-    batch = data.torch_batch_at(10 ** 6, device)
+    batch = batch_at(10 ** 6)
     losses = []
     for _ in range(4):
         state, m = rep_step(state, batch)
@@ -2605,11 +2710,10 @@ def phase_train_full(cfg, torch, device):
     return counts, dict(
         train_losses=[h["loss"] for h in hist], train_grad_norms=[h["grad_norm"] for h in hist],
         train_step_walls_s=walls, train_step_wall_median_s=wall,
-        train_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall, train_peak_gib=peak,
+        train_tokens_per_s=tokens / wall, train_peak_gib=peak,
         train_device_busy_ms=busy, train_idle_share=idle, train_top_kernels=top,
-        train_fwd_bwd_s=fwd_bwd,
         train_launches_per_step={op: counts[op] // TRAIN_STEPS for op in counts},
-        repeated_batch_losses=losses, repeated_batch_loss_after=after)
+        repeated_batch_losses=losses, repeated_batch_loss_after=after, **out)
 
 
 def phase_train(cfg, torch, F, device, release):
@@ -2628,6 +2732,286 @@ def phase_train(cfg, torch, F, device, release):
     stats.update(full)
     release()
     return rows, counts, stats
+
+
+# ---------------------------------------------------------------------------
+# phases 18-20: training the MoE, enc-dec and hybrid families
+# ---------------------------------------------------------------------------
+
+def b5_train_cases(cfg, torch, device):
+    """Phase 18(a), B5: the expert products of a qwen3-moe train step at
+    global batch x sequence tokens (capacity ``moe.capacity``), by
+    :func:`product_train_cases`, ``torch.bmm`` the yardstick."""
+    from repro_torch.models import moe
+
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    c = moe.capacity(TRAIN_BATCH * TRAIN_SEQ, cfg)
+    return product_train_cases(torch, device, SEED + 19,
+                               [("gate|up", (e, c), d, f), ("down", (e, c), f, d)],
+                               experts=True)
+
+
+def b5_copy_ms_per_step(rows, layers: int) -> float:
+    """B5's transposed-operand copies of one train step's backward, from
+    phase 18(a)'s timed copies: gate and up share a shape, down once."""
+    return sum(r["copy_ms"] * (2 if "gate|up" in r["shape"] else 1) * layers
+               for r in rows if "copy_ms" in r)
+
+
+@contextlib.contextmanager
+def layer_routes(torch, forced=None):
+    """Record every MoE routing call as ``(layer, own choices, choices
+    taken)``, a layer known by its router leaf (numbered in the order the
+    forward first meets them, so a checkpointed layer's recompute is the
+    same layer); with ``forced`` (one choice tensor per layer) route each
+    layer to it, with its own gates for those experts."""
+    from repro_torch.models import moe
+
+    route, layers, calls = moe.route, {}, []
+
+    def by_layer(xf, router, k):
+        layer = layers.setdefault(router.data_ptr(), len(layers))
+        gates, own = route(xf, router, k)
+        experts = own
+        if forced is not None:
+            experts = forced[layer].to(xf.device)
+            gates = torch.softmax(xf.float() @ router, dim=-1).gather(1, experts)
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        calls.append((layer, own.cpu(), experts.cpu()))
+        return gates, experts
+
+    moe.route = by_layer
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def phase_moe_train_check(cfg, api, params, torch, device):
+    """Phase 18(b): one ``value_and_grad`` of the model loss of ``cfg``
+    (full width, its cut depth) on the card and on the CPU from the same
+    params, over ``MOE_CHECK_BATCH`` x ``MOE_CHECK_SEQ`` tokens (the CPU
+    side's plain products stay within about a minute). The card's
+    recompute of each checkpointed layer must route as its forward did.
+    The CPU is routed as the card routed (a top-k choice flips where two
+    experts' router probabilities lie within the two sides' bf16
+    rounding, ``phase_depth2``), its own choices recorded; the loss
+    within ``LOGIT_TOL``, each leaf's grad within ``GRAD_REL_BOUND``.
+    Returns the stats and the card's grads."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import global_norm
+    from repro_torch.train.train_loop import value_and_grad
+
+    data = SyntheticLMData(cfg.vocab_size, MOE_CHECK_SEQ, MOE_CHECK_BATCH, seed=SEED + 1)
+    with layer_routes(torch) as card_calls:
+        loss, grads = value_and_grad(api.loss_fn)(params, data.torch_batch_at(0, device))
+    first = {}
+    for layer, _, taken in card_calls:
+        first.setdefault(layer, taken)
+    redo = [torch.equal(taken, first[layer]) for layer, _, taken in card_calls]
+    log(f"  card: {len(card_calls)} routing calls over {len(first)} MoE layers (forward and "
+        f"recompute); the recompute routes as the forward: {all(redo)}")
+    check(all(redo), "the recompute of a checkpointed MoE layer routed otherwise than its forward")
+    cpu = build_model(cfg, device="cpu")
+    t0 = time.perf_counter()
+    cpu_params = tree_to(params, "cpu")
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with layer_routes(torch, forced=[first[i] for i in range(len(first))]) as cpu_calls:
+        loss_cpu, g_cpu = value_and_grad(cpu.loss_fn)(cpu_params, data.torch_batch_at(0))
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    same = total = 0
+    for layer, own, _ in cpu_calls[:len(first)]:
+        for ra, rb in zip(own.tolist(), first[layer].tolist()):
+            same += len(set(ra) & set(rb))
+            total += len(ra)
+    norm, norm_cpu = float(global_norm(grads)), float(global_norm(g_cpu))
+    errs = grads_rel_errors(grads, g_cpu)
+    worst = max(errs, key=errs.get)
+    log(f"  depth-{cfg.num_layers} value_and_grad, card vs CPU routed as the card (bf16, "
+        f"{MOE_CHECK_BATCH}x{MOE_CHECK_SEQ} tokens): expert routings on which the CPU's own "
+        f"choice agrees {same} of {total} ({same / total:.6f}); loss {float(loss):.5f} vs "
+        f"{float(loss_cpu):.5f}; grad norm {norm:.5f} vs {norm_cpu:.5f}; leaf grads' relative "
+        f"error max {errs[worst]:.4g} ({worst}), median {statistics.median(errs.values()):.4g} "
+        f"(bound {GRAD_REL_BOUND}); params to the CPU {copy_s:.1f} s, CPU side {cpu_s:.1f} s, "
+        f"host peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f} GiB")
+    check(bool(torch.allclose(loss.float().cpu(), loss_cpu.float(), **LOGIT_TOL)),
+          f"MoE loss card {float(loss)} vs CPU {float(loss_cpu)} outside {LOGIT_TOL}")
+    check(all(e <= GRAD_REL_BOUND for e in errs.values()),
+          f"MoE grads: {worst} relative error {errs[worst]} above {GRAD_REL_BOUND}")
+    del g_cpu
+    return dict(check_loss=float(loss), check_loss_cpu=float(loss_cpu),
+                check_routings_agreeing=same / total, check_grad_rel_err_max=errs[worst],
+                check_grad_rel_err_median=statistics.median(errs.values()),
+                check_cpu_s=cpu_s), grads
+
+
+def phase_moe_train(cfg, torch, F, device, release):
+    """Phase 18: qwen3-moe-235b-a22b at full width, ``MOE_TRAIN_LAYERS``
+    of its 94 layers (the training state is 12 B a parameter — bf16
+    param and grad, f32 moments — and one layer with the embedding and
+    lm_head is 3.73 B parameters, 44.8 GB; two would leave too little
+    of the card): (a) B5's training products; (b) card vs CPU
+    (:func:`phase_moe_train_check`), step 1's grads nonzero and finite;
+    (c) :func:`trainer_steps` with per step B1 ``4P - 1`` (P = 4
+    projections a layer + the lm_head), B2 ``8L + 1``, B3 ``2L`` and B5
+    ``12L``: the three expert products of the forward, the recompute,
+    and dX and dW of each, every one on ``moe_expert_wgmma``."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+
+    rows = phase_kernels(cfg, torch, F, device, cases=b5_train_cases(cfg, torch, device))
+    release()
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    stats = {"b5_copy_ms_per_step": b5_copy_ms_per_step(rows, cfg.num_layers)}
+    log(f"  B5's transposed-operand copies, timed one by one: {stats['b5_copy_ms_per_step']:.3f} "
+        f"ms a step")
+    api = build_model(cfg, device=device)
+    params = drawn_params(api, cfg, torch, f"{cfg.num_layers} of 94 layers")
+    check_stats, grads = phase_moe_train_check(cfg, api, params, torch, device)
+    stats.update(check_stats)
+    check_step1_grads(api, params, None, torch, grads=grads)
+    del grads
+    release()
+    n = cfg.num_layers
+    p = 4 * n + 1
+    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 8 * n + 1,
+                "flash_attention/attend": 2 * n, "flash_attention/decode": 0,
+                "moe_gemm/expert_gemm": 12 * n}
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    counts, full = trainer_steps(api, params, data, torch, device, per_step=per_step)
+    stats.update(full)
+    del api, params
+    release()
+    return rows, counts, stats
+
+
+def encdec_train_cases(cfg, torch, F, device):
+    """Phase 19(a): whisper's training shapes (``TRAIN_BATCH`` x
+    ``ENCDEC_TRAIN_SEQ`` tokens, ``encoder_seq`` frames a row): B1 at the
+    51866-wide lm_head (forward, dA, dB: no TMA box addresses a row of
+    51866 bf16, so B1's WMMA tiles) and at the encoder's widest product;
+    B2 at the encoder's and the decoder's rows; B3 non-causal over the
+    frames, causal over the tokens, and the cross-attention of the tokens
+    over the frames."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import programs
+    from repro_torch.kernels import rmsnorm as rn
+
+    d, h, hd, ff, v = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    b, s, se = TRAIN_BATCH, ENCDEC_TRAIN_SEQ, cfg.encoder_seq
+    cases = b1_train_cases(cfg, torch, device, products=[
+        ("lm_head", b * s, d, v), ("encoder up", b * se, d, ff)])
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(bf16)
+
+    for label, rows in (("train encoder norm", b * se), ("train decoder norm", b * s)):
+        x, w = randn((rows, d)), 1.0 + randn((d,), 0.1)
+        plan = rn.rows_plan(rows, d)
+        cases.append(dict(
+            kernel="rmsnorm/rows", label=f"{label} {rows}x{d}", dtype=bf16,
+            cuda_kernel=f"rows_kernel ({plan['cls']}: {plan['blocks']} blocks of "
+                        f"{plan['rows_per_block']} rows, {plan['threads']} threads)",
+            run=functools.partial(programs.rmsnorm, x, w),
+            plain=functools.partial(rn.rmsnorm_plain, x, w),
+            library=functools.partial(F.rms_norm, x, (d,), w, 1e-6),
+            nbytes=(2 * rows * d + d) * 2, flops=4.0 * rows * d))
+    for label, sq, skv, causal in (("train encoder", se, se, False),
+                                   ("train decoder", s, s, True),
+                                   ("train cross", s, se, False)):
+        q = randn((b, sq, h, hd)).transpose(1, 2)
+        k, vv = randn((b, skv, h, hd)).transpose(1, 2), randn((b, skv, h, hd)).transpose(1, 2)
+        pairs = b * h * (sq * (sq + 1) / 2 if causal else sq * skv)
+        cases.append(dict(
+            kernel="flash_attention/attend",
+            label=f"{label} B{b} H{h} S{sq}" + (f"x{skv}" if skv != sq else "") + f" D{hd} "
+                  + ("causal" if causal else "non-causal"),
+            dtype=bf16, cuda_kernel="flash_attend_wgmma",
+            run=functools.partial(programs.flash_attention, q, k, vv, causal=causal),
+            plain=functools.partial(fa.attention_plain, q, k, vv, causal=causal),
+            library=functools.partial(F.scaled_dot_product_attention, q, k, vv,
+                                      is_causal=causal),
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * hd * pairs))
+    return cases
+
+
+def phase_encdec_train(cfg, torch, F, device, release):
+    """Phase 19: whisper-large-v3 at full width and depth (32 encoder + 32
+    decoder layers, no cut): (a) :func:`encdec_train_cases`; (b) depth 2
+    + 2 card vs CPU and a ``Trainer`` restart (:func:`phase_train_depth2`);
+    (c) step 1's grads nonzero and finite, then :func:`trainer_steps` of
+    ``TRAIN_BATCH`` x ``ENCDEC_TRAIN_SEQ`` tokens + seeded frames, with
+    per step B1 ``4P - 1`` (P = 6 products an encoder layer, 10 a decoder
+    layer, + the lm_head), B2 ``2(2Le + 3Ld) + 2``, B3 ``2(Le + 2Ld)``;
+    the lm_head's three products on B1's WMMA tiles, every other B1 and
+    B3 launch on wgmma."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+
+    rows = phase_kernels(cfg, torch, F, device, cases=encdec_train_cases(cfg, torch, F, device))
+    release()
+    stats = phase_train_depth2(cfg, torch, device, seq=ENCDEC_TRAIN_SEQ)
+    release()
+    api = build_model(cfg, device=device)
+    params = drawn_params(api, cfg, torch, "every layer checkpointed")
+    data = SyntheticLMData(cfg.vocab_size, ENCDEC_TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    extra = api.frontend_inputs(TRAIN_BATCH, seed=SEED + 3)
+    check_step1_grads(api, params, data.torch_batch_at(0, device) | extra, torch)
+    le, ld = cfg.encoder_layers, cfg.num_layers
+    p = 6 * le + 10 * ld + 1
+    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 2 * (2 * le + 3 * ld) + 2,
+                "flash_attention/attend": 2 * (le + 2 * ld), "flash_attention/decode": 0,
+                "moe_gemm/expert_gemm": 0}
+    counts, full = trainer_steps(api, params, data, torch, device, per_step=per_step,
+                                 off_wgmma={"matmul/tile": 3}, extra=extra)
+    stats.update(full)
+    del api, params
+    release()
+    return rows, counts, stats
+
+
+def phase_jamba_train_smoke(torch, device):
+    """Phase 20: jamba at smoke width (8 layers, 7 SSD + 1 attention, a MoE
+    FFN in each), f32: one ``value_and_grad`` of the model loss on the
+    card and on the CPU from the same params, the loss within 2e-4 and
+    every leaf's grad within rtol 1e-3 / atol 1e-4 (``tests/test_compile.py``'s
+    tolerances), B5 launched."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = smoke_variant(get_config("jamba-1.5-large-398b"))
+    params = build_model(cfg, device="cpu").init(SEED)
+    data = SyntheticLMData(cfg.vocab_size, 64, BATCH, seed=SEED)
+    loss_cpu, g_cpu = value_and_grad(build_model(cfg, device="cpu").loss_fn)(
+        params, data.torch_batch_at(0))
+    programs.reset_launch_counts()
+    loss, grads = value_and_grad(build_model(cfg, device=device).loss_fn)(
+        tree_to(params, device), data.torch_batch_at(0, device))
+    counts = programs.launch_counts()
+    want = dict(leaves_with_paths(g_cpu))
+    worst = max(float((g.float().cpu() - want[p]).abs().max()) for p, g in leaves_with_paths(grads))
+    ok = all(bool(torch.allclose(g.float().cpu(), want[p], rtol=1e-3, atol=1e-4))
+             for p, g in leaves_with_paths(grads))
+    log(f"  jamba smoke value_and_grad (f32, {BATCH}x64 tokens) on the card vs the CPU: loss "
+        f"{float(loss):.6f} vs {float(loss_cpu):.6f}; grads max |diff| {worst:.3g}; launches "
+        f"{counts}")
+    check(abs(float(loss) - float(loss_cpu)) <= 2e-4 * (1 + abs(float(loss_cpu))),
+          f"jamba smoke loss card {float(loss)} vs CPU {float(loss_cpu)}")
+    check(ok, f"jamba smoke grads: max |diff| {worst} outside rtol 1e-3 / atol 1e-4")
+    check(counts["moe_gemm/expert_gemm"] == 12 * cfg.num_layers,
+          f"jamba smoke: {counts['moe_gemm/expert_gemm']} B5 launches, 12 a layer expected")
+    return dict(loss=float(loss), loss_cpu=float(loss_cpu), grads_max_abs_diff=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -2792,6 +3176,30 @@ def main() -> int:
         f"{cfg.num_layers} layers through Trainer.run:")
     rows, counts, stats["train"] = phase_train(cfg, torch, F, device, release)
     add_rows(rows, cfg, counts)
+
+    # training the MoE family: qwen3-moe at full width, its state 12 B a
+    # parameter, so one of its 94 layers (44.8 GB of state)
+    cfg = get_config(MOE_ARCH)
+    log(f"[18/{STEPS}] training {cfg.name} on the card at full width, {MOE_TRAIN_LAYERS} of "
+        f"{cfg.num_layers} layers: B5 at the training shapes ({TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens), card vs CPU, Trainer.run:")
+    rows, counts, stats["train-moe"] = phase_moe_train(cfg, torch, F, device, release)
+    add_rows(rows, cfg, counts)
+    kernels[-len(rows):] = [dict(k, launches_per_step=counts[k["name"].split(" [")[0]]
+                                 // TRAIN_STEPS) for k in kernels[-len(rows):]]
+
+    # training the enc-dec family: whisper at full width and depth (~19 GB of state)
+    cfg = get_config(ENCDEC_ARCH)
+    log(f"[19/{STEPS}] training {cfg.name} on the card at full width and depth: kernels at "
+        f"the training shapes ({TRAIN_BATCH}x{ENCDEC_TRAIN_SEQ} tokens + {cfg.encoder_seq} "
+        f"frames), depth {DEPTH2_LAYERS} + {DEPTH2_LAYERS} card vs CPU and restart, "
+        f"Trainer.run:")
+    rows, counts, stats["train-encdec"] = phase_encdec_train(cfg, torch, F, device, release)
+    add_rows(rows, cfg, counts)
+
+    log(f"[20/{STEPS}] training the hybrid family (jamba-1.5-large-398b, smoke width) on the "
+        f"card:")
+    stats["train-jamba-smoke"] = phase_jamba_train_smoke(torch, device)
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

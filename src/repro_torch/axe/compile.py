@@ -1214,10 +1214,11 @@ __all__ = [
 def compiled_loss_fn(exe: Executable, cfg) -> Callable:
     """Cross-entropy LM loss over the compiled forward — the function
     ``launch/train.py --solve`` hands to ``make_train_step`` instead of
-    the model's module wiring. Under autograd each bound kernel program
-    takes its differentiable route (B1's backward products on B1; a
-    fused node's chain run functionally after B1's product), so the
-    executable differentiates."""
+    the model's module wiring, for every family with a model binding
+    (:data:`SUPPORTED_FAMILIES`). Under autograd each bound kernel
+    program takes its differentiable route (B1's backward products on
+    B1, an expert GEMM's on B5; a fused node's chain run functionally
+    after B1's product), so the executable differentiates."""
     from repro_torch.models.common import cross_entropy_loss
 
     def loss_fn(params, batch):

@@ -110,7 +110,7 @@ def records_grad(*tensors) -> bool:
     """True when autograd records a call on these operands: grad mode is
     on and one of them requires grad. The rule that sends a program
     call down its differentiable route (:meth:`Program.differentiable`)
-    and that B4 and B5 refuse on the card."""
+    and that B4 refuses on the card."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
@@ -124,6 +124,35 @@ def refuse_grad(op: str, item: str, *tensors: torch.Tensor) -> None:
             f"{op}: the CUDA kernel has no gradient yet ({item}); call it under "
             f"torch.no_grad() or on operands that do not require grad"
         )
+
+
+class ProductGrad(torch.autograd.Function):
+    """``C = A @ B`` through a product program's stage, batched or not:
+    the forward is the call's stage (``stage``, resolved options
+    ``opts``) and the backward runs the same stage of the same program
+    again, ``dA = dC · Bᵀ`` and ``dB = Aᵀ · dC`` over the last two dims,
+    each only when its operand needs it. B1 (``matmul``, 2-D operands)
+    and B5 (``moe_gemm``, ``[E, ., .]`` per expert) register it as their
+    differentiable route, so the backward products are the kernel's own
+    work on the card and the plain body on CPU tensors. The products take
+    operands of one type, so a cotangent of another output type
+    (``out_dtype``) is cast to the operands' type first; ``dA`` and
+    ``dB`` come out in it."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype, prog, stage, opts):
+        ctx.save_for_backward(a, b)
+        ctx.prog, ctx.stage = prog, stage
+        return prog.run_stage(stage, (a, b), {"out_dtype": out_dtype}, opts)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype)
+        prog, stage = ctx.prog, ctx.stage
+        da = prog(dc, b.transpose(-2, -1), stage=stage) if ctx.needs_input_grad[0] else None
+        db = prog(a.transpose(-2, -1), dc, stage=stage) if ctx.needs_input_grad[1] else None
+        return da, db, None, None, None, None
 
 
 def stream_of(t: torch.Tensor) -> int:

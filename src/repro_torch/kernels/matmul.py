@@ -49,7 +49,7 @@ again.
 
 Under autograd (grad mode on and an operand that requires grad,
 ``axe.program.records_grad``) a call takes the program's differentiable
-route, :class:`MatmulGrad`: the forward is the same stage, and the
+route, ``axe.program.ProductGrad``: the forward is the same stage, and the
 backward computes ``dA = dC · Bᵀ`` and ``dB = Aᵀ · dC`` through the
 ``matmul`` program again — on the card two more launches of B1, never
 ``torch.matmul``. ``Bᵀ`` and ``Aᵀ`` are transposed views, whose rows the
@@ -71,6 +71,7 @@ from repro_torch.axe.program import (
     EPILOGUE_FNS,
     DeviceError,
     Epilogue,
+    ProductGrad,
     program,
     stream_of,
 )
@@ -403,33 +404,10 @@ def _tile(ctx, a, b, *, out_dtype=None):
 # ---------------------------------------------------------------------------
 
 
-class MatmulGrad(torch.autograd.Function):
-    """``C = A @ B`` of 2-D operands, forward through the call's stage
-    (``stage``, resolved options ``opts``), backward through the same
-    stage of the ``matmul`` program: ``dA = dC · Bᵀ`` and ``dB = Aᵀ · dC``,
-    B1's own work (products with f32 accumulation), each only when its
-    operand needs it. The products take operands of one type, so a
-    cotangent of another output type (``out_dtype``) is cast to the
-    operands' type first; ``dA`` and ``dB`` come out in it."""
-
-    @staticmethod
-    def forward(ctx, a, b, out_dtype, stage, opts):
-        ctx.save_for_backward(a, b)
-        ctx.stage = stage
-        return matmul_program.run_stage(stage, (a, b), {"out_dtype": out_dtype}, opts)
-
-    @staticmethod
-    def backward(ctx, dc):
-        a, b = ctx.saved_tensors
-        dc = dc.to(a.dtype)
-        da = matmul_program(dc, b.t(), stage=ctx.stage) if ctx.needs_input_grad[0] else None
-        db = matmul_program(a.t(), dc, stage=ctx.stage) if ctx.needs_input_grad[1] else None
-        return da, db, None, None, None
-
-
 @matmul_program.differentiable
 def _grad_route(program, stage, args, kw, opts):
-    """The call under autograd: 2-D products through :class:`MatmulGrad`
+    """The call under autograd: 2-D products through
+    :class:`~repro_torch.axe.program.ProductGrad`
     and a fused chain applied functionally on the cast result, as the
     JAX package's ``finish`` (``repro/kernels/matmul.py:85-92``); the
     inline chain stays the serving path. Operands that are not 2-D take
@@ -440,7 +418,8 @@ def _grad_route(program, stage, args, kw, opts):
         return program.run_stage(stage, args, kw, opts)
     out_dtype = kw.get("out_dtype")
     epi = opts.epilogue
-    out = MatmulGrad.apply(a, b, out_dtype, stage, dataclasses.replace(opts, epilogue=None))
+    out = ProductGrad.apply(a, b, out_dtype, program, stage,
+                            dataclasses.replace(opts, epilogue=None))
     if epi is None:
         return out
     return epi.body(out.float()).to(out_dtype or a.dtype)

@@ -37,7 +37,16 @@ expert that received no token (``models/moe.py``, ``local_combine``), so
 the model's output is the same either way.
 
 The second group GEMM (f -> d) is the same program with the weight's
-dims swapped. Replaces ``repro/kernels/moe_gemm.py:_expert_gemm`` (TPU
+dims swapped.
+
+Under autograd (grad mode on and an operand that requires grad) a call
+takes the program's differentiable route, ``axe.program.ProductGrad``
+(shared with B1): the forward is the call's stage, and the backward runs
+the same stage again for ``dX = dY · Wᵀ`` (``[E,C,f] @ [E,f,d]``) and ``dW = Xᵀ · dY``
+(``[E,d,C] @ [E,C,f]``, whose depth is the capacity), each only when its
+operand needs it: B5's own work on the card, the plain body on CPU
+tensors. The transposed operands are views the wrapper copies before
+the launch. Replaces ``repro/kernels/moe_gemm.py:_expert_gemm`` (TPU
 launch at :94, body ``_mac`` at :49).
 """
 from __future__ import annotations
@@ -46,7 +55,7 @@ import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, program, refuse_grad, stream_of
+from repro_torch.axe.program import DeviceError, ProductGrad, program, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -178,7 +187,6 @@ def _expert_gemm(ctx, x, w, *, out_dtype=None):
     global launches, stream_launches, wgmma_launches
     if ctx.impl != "kernel" or not ctx.on_card(x, w):
         return ctx.run("einsum", x, w, out_dtype=out_dtype)
-    refuse_grad(ctx.op, "B5 with a gradient, then MoE and hybrid training: ROADMAP A15", x, w)
     # the kernel reads contiguous experts: strided views are copied first
     x, w = x.contiguous(), w.contiguous()
     check_operands(x, w, out_dtype)
@@ -208,3 +216,19 @@ def _expert_gemm(ctx, x, w, *, out_dtype=None):
                    *ptrs, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], stream_of(x))
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B5 with a gradient: the backward products on B5 itself
+# ---------------------------------------------------------------------------
+
+
+@moe_gemm_program.differentiable
+def _grad_route(program, stage, args, kw, opts):
+    """Every stage of the program under autograd goes through
+    :class:`~repro_torch.axe.program.ProductGrad` (the plain ``einsum``
+    stage too: its backward products then take that stage again). Rows
+    of ``x`` the dispatch left zero add nothing to ``dW``, so an expert
+    that received no token gets a zero ``dW[e]``."""
+    x, w = args
+    return ProductGrad.apply(x, w, kw.get("out_dtype"), program, stage, opts)

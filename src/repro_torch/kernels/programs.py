@@ -23,10 +23,10 @@ decode, the expert weight stream).
 
 Under autograd (grad mode on and an operand that requires grad) a call
 takes its program's differentiable route (``Program.differentiable``):
-``matmul``'s backward products run on B1 itself, ``rmsnorm``'s VJP in
-torch, ``flash_attention``'s backward recomputes through its oracle;
-``flash_decode`` (B4) and ``moe_gemm`` (B5) have no gradient yet and
-raise on the card.
+``matmul``'s and ``moe_gemm``'s backward products run on B1 and B5
+themselves, ``rmsnorm``'s VJP in torch, ``flash_attention``'s backward
+recomputes through its oracle; ``flash_decode`` (B4) serves decode only
+and raises on the card.
 """
 from __future__ import annotations
 

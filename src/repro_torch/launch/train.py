@@ -9,12 +9,18 @@ card.
 ``--solve`` solves the layout of the model graph (the port's ``"gpu"``
 backend), compiles it and runs the forward through the executable
 (``make_compiled_train_step``); ``--fuse`` runs the fusion passes first,
-``--cotune`` the solve <-> tune loop. A mesh degree above 1 and
-``--offload-opt`` need several cards: they raise, naming ROADMAP A14.
+``--cotune`` the solve <-> tune loop. As in the JAX package's launcher,
+only the families ``axe.compile`` binds a model of (``SUPPORTED_FAMILIES``)
+compile: for the others (enc-dec, VLM), and for any family under
+``--no-compiled-forward``, ``--solve`` solves a 2-layer layout study,
+warns ``DeprecationWarning`` and trains through the model's
+``loss_fn``. A mesh degree above 1 and ``--offload-opt`` need several
+cards: they raise, naming ROADMAP A14.
 """
 from __future__ import annotations
 
 import argparse
+import warnings
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
@@ -27,7 +33,11 @@ from repro_torch.train.train_loop import Trainer, init_state, make_train_step
 
 def _solve(args, cfg):
     """The compiled forward's executable: the model graph at the
-    per-microbatch batch, full depth, solved (or cotuned) and compiled."""
+    per-microbatch batch, full depth, solved (or cotuned) and compiled;
+    ``None`` where the forward is not compiled (a family ``axe.compile``
+    binds no model of, or ``--no-compiled-forward``), after solving the
+    2-layer layout study in its place."""
+    from repro_torch.axe.compile import SUPPORTED_FAMILIES
     from repro_torch.axe.compile import compile as axe_compile
     from repro_torch.axe.graphs import model_graph
     from repro_torch.axe.solve import solve
@@ -36,9 +46,10 @@ def _solve(args, cfg):
     if args.global_batch % max(args.microbatches, 1):
         raise SystemExit(f"--global-batch {args.global_batch} does not split into "
                          f"{args.microbatches} microbatches")
+    compiled = not args.no_compiled_forward and cfg.family in SUPPORTED_FAMILIES
     mb_batch = args.global_batch // max(args.microbatches, 1)
     gs = model_graph(cfg, mb_batch, args.seq, PhysicalSpace(()), dtype=cfg.dtype,
-                     layers=cfg.num_layers)
+                     layers=cfg.num_layers if compiled else 2)
     if args.fuse:
         from repro_torch.axe.passes import fuse_graph
 
@@ -57,6 +68,13 @@ def _solve(args, cfg):
           f"{res.comm_bytes / 2**20:.1f} MiB/dev "
           f"({100 * (res.comm_improvement or 0):.1f}% saved, "
           f"beam={res.beam}, {res.explored} states)")
+    if not compiled:
+        warnings.warn(
+            "training on the module-wired forward under --solve is deprecated; the "
+            "compiled executable (axe.compile) is the supported path",
+            DeprecationWarning, stacklevel=1,
+        )
+        return None
     exe = axe_compile(gs, None, plan=res)
     print(f"compiled forward: {len(exe.plan.entries)} ops")
     return exe
@@ -85,6 +103,9 @@ def main(argv=None):
     ap.add_argument("--cotune-iters", type=int, default=4)
     ap.add_argument("--fuse", action="store_true",
                     help="with --solve: the fusion passes (axe.passes) before solving")
+    ap.add_argument("--no-compiled-forward", action="store_true",
+                    help="with --solve: keep the model's forward and only solve the "
+                         "layout study (deprecated path)")
     ap.add_argument("--offload-opt", action="store_true", help="several cards: ROADMAP A14")
     ap.add_argument("--device", default="cuda", help="default: cuda (raises without a card)")
     args = ap.parse_args(argv)
@@ -108,10 +129,11 @@ def main(argv=None):
         encoder_seq=cfg.encoder_seq, d_model=cfg.d_model, dtype=cfg.dtype,
     )
     kw = dict(microbatches=args.microbatches, compress_pod_grads=args.compress_pod_grads)
-    if args.solve:
+    exe = _solve(args, cfg) if args.solve else None
+    if exe is not None:
         from repro_torch.train.train_loop import make_compiled_train_step
 
-        step_fn = make_compiled_train_step(_solve(args, cfg), cfg, opt, **kw)
+        step_fn = make_compiled_train_step(exe, cfg, opt, **kw)
     else:
         step_fn = make_train_step(api.loss_fn, opt, **kw)
     trainer = Trainer(

@@ -20,18 +20,34 @@ per decoder layer ``self/{k, v}`` ``[B, W, KV, hd]`` and the cross
 ``ck/cv`` ``[B, S_enc, KV, hd]``, stacked over layers — and is written
 in place; the cross keys and values are projected once, at prefill, and
 read by B4 through strides on every tick, never copied head-major.
-``decode_train`` and ``encdec_loss`` are training (``ROADMAP.md`` A15).
+
+Training: :func:`encdec_loss` is :func:`encode` then
+:func:`decode_train` (the decoder over the whole sequence, its cross
+keys and values projected from the encoder output through B1 in every
+layer) and the cross entropy, as the JAX package's ``encdec_loss``.
+With ``remat`` each encoder and each decoder layer is one
+``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps
+each scanned layer body in the JAX package; it does not follow the
+decoder-only models' ``REMAT_POLICY``. Under autograd every kernel
+program takes its differentiable route: B1's backward products on B1,
+B2's VJP, and B3's backward (the encoder's non-causal self-attention,
+the decoder's causal self-attention and its cross-attention)
+recomputed through the oracle.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+import functools
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     Params,
+    cross_entropy_loss,
     dense_init,
     dtype_of,
     embed_init,
@@ -40,14 +56,16 @@ from repro_torch.models.common import (
     mlp_init,
     rmsnorm,
 )
-from repro_torch.models.transformer import _index, slot_positions
+from repro_torch.models.transformer import _index, _unstack, slot_positions
 
 
-def encdec_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> Params:
-    """Random weights from a seeded ``torch.Generator`` on ``device``,
+def encdec_init(cfg, *, seed: int = 0,
+                device: Optional[Union[str, torch.device]] = None) -> Params:
+    """Random weights from a seeded ``torch.Generator`` on ``device``
+    (default: the card, :func:`~repro_torch.core.device.resolve_device`),
     each leaf drawn in its stacked ``[layers, ...]`` shape."""
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     d, le, ld = cfg.d_model, (cfg.encoder_layers,), (cfg.num_layers,)
 
     def ones(lead):
@@ -70,16 +88,55 @@ def encdec_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu")
     }
 
 
-def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _enc_layer(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = x + attn.attn_apply(p["attn"], rmsnorm(x, p["norm1"]), cfg, causal=False)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]), cfg)
+
+
+def _dec_layer(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg) -> torch.Tensor:
+    x = x + attn.attn_apply(p["self_attn"], rmsnorm(x, p["norm1"]), cfg, causal=True)
+    ck, cv = attn.cross_kv(p["cross_attn"], enc, cfg)
+    x = x + attn.cross_attn_apply(p["cross_attn"], rmsnorm(x, p["norm2"]), ck, cv, cfg)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm3"]), cfg)
+
+
+def _run_layers(layer, stacked: Params, n: int, x: torch.Tensor, *args,
+                remat: bool) -> torch.Tensor:
+    """``x`` through the ``n`` layers of a stacked tree, each leaf taken
+    apart once (``_unstack``), each layer one checkpoint with ``remat``."""
+    for p in _unstack(stacked, n):
+        x = checkpoint(layer, p, x, *args, use_reentrant=False) if remat else layer(p, x, *args)
+    return x
+
+
+def encode(params: Params, frames: torch.Tensor, cfg, *, remat: bool = True) -> torch.Tensor:
     """``frames [B, S_enc, d]`` through the encoder stack (non-causal
-    self-attention, rope at ``0..S_enc-1``) and ``enc_norm``."""
-    x = frames
+    self-attention, rope at ``0..S_enc-1``) and ``enc_norm``; with
+    ``remat`` each layer is recomputed in the backward."""
     with scope(Scope.DEVICE):
-        for i in range(cfg.encoder_layers):
-            p = _index(params["enc_blocks"], i)
-            x = x + attn.attn_apply(p["attn"], rmsnorm(x, p["norm1"]), cfg, causal=False)
-            x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]), cfg)
+        x = _run_layers(functools.partial(_enc_layer, cfg=cfg), params["enc_blocks"],
+                        cfg.encoder_layers, frames, remat=remat)
         return rmsnorm(x, params["enc_norm"])
+
+
+def decode_train(params: Params, tokens: torch.Tensor, enc: torch.Tensor, cfg, *,
+                 remat: bool = True) -> torch.Tensor:
+    """The decoder over the whole of ``tokens [B, S]`` (causal
+    self-attention, cross-attention to ``enc [B, S_enc, d]``) -> logits
+    ``[B, S, V]``; with ``remat`` each layer is recomputed in the
+    backward. ``enc`` feeds every layer, so its grad sums theirs."""
+    x = params["embed"][tokens]
+    with scope(Scope.DEVICE):
+        x = _run_layers(functools.partial(_dec_layer, cfg=cfg), params["dec_blocks"],
+                        cfg.num_layers, x, enc, remat=remat)
+        return linear(rmsnorm(x, params["final_norm"]), params["lm_head"])
+
+
+def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    """The cross entropy of :func:`decode_train` over :func:`encode` of
+    ``batch["frames"]``, against ``batch["labels"]``."""
+    enc = encode(params, batch["frames"], cfg)
+    return cross_entropy_loss(decode_train(params, batch["tokens"], enc, cfg), batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +167,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cache: Params,
     if "frames" not in batch:
         raise ValueError(f"{cfg.name}: the enc-dec prefill needs batch['frames'] "
                          f"[B, {cfg.encoder_seq}, {cfg.d_model}]")
-    enc = encode(params, batch["frames"], cfg)
+    enc = encode(params, batch["frames"], cfg, remat=False)
     x = params["embed"][batch["tokens"]]
     with scope(Scope.DEVICE):
         for i in range(cfg.num_layers):

@@ -1,7 +1,6 @@
 """Unified model API of the port — ``repro/models/model_zoo.py``: the
 decoder-only families (dense, MoE, SSM, hybrid, VLM) through
-``models.transformer``, the enc-dec family through ``models.encdec``,
-which serves but does not train yet (its ``loss_fn`` raises)."""
+``models.transformer``, the enc-dec family through ``models.encdec``."""
 from __future__ import annotations
 
 import dataclasses
@@ -69,7 +68,7 @@ def build_model(cfg: ModelConfig, *,
                                                                     device=dev),
             prefill=lambda p, batch, c: encdec_mod.prefill(p, batch, c, cfg),
             decode_step=lambda p, t, c, pos: encdec_mod.decode_step(p, t, c, pos, cfg),
-            loss_fn=_encdec_loss,
+            loss_fn=lambda p, batch: encdec_mod.encdec_loss(p, batch, cfg),
         )
     tf_mod.check_family(cfg)
     return ModelAPI(
@@ -80,11 +79,4 @@ def build_model(cfg: ModelConfig, *,
         prefill=lambda p, batch, c: tf_mod.prefill(p, batch, c, cfg),
         decode_step=lambda p, t, c, pos: tf_mod.decode_step(p, t, c, pos, cfg),
         loss_fn=lambda p, batch: tf_mod.lm_loss(p, batch, cfg),
-    )
-
-
-def _encdec_loss(params, batch):
-    raise NotImplementedError(
-        "training the enc-dec family (encdec_loss, decode_train) is not ported yet: "
-        "ROADMAP.md A15"
     )

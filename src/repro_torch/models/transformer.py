@@ -21,9 +21,10 @@ enc-dec family is ``models/encdec.py``.
 Training: :func:`lm_forward` / :func:`lm_loss` run the full sequence of
 every decoder-only family; under autograd each kernel program takes its
 differentiable route (B1's backward products on B1, B2's VJP in torch,
-B3 recomputed through its oracle). The dense, SSM and VLM families
-differentiate; a forward that reaches B5 (MoE, hybrid) raises on the
-card under autograd, as B5 has no gradient yet (``ROADMAP.md`` A15).
+B3 recomputed through its oracle, B5's backward products on B5). Every
+decoder-only family differentiates. The loss is the cross entropy alone:
+the MoE layers' auxiliary losses stay out of it, as in the JAX
+package's ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -103,13 +105,15 @@ def _index(tree: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def lm_init(cfg, *, seed: int = 0, device: Union[str, torch.device] = "cpu") -> Params:
-    """Random weights from a seeded ``torch.Generator`` on ``device``,
+def lm_init(cfg, *, seed: int = 0,
+            device: Optional[Union[str, torch.device]] = None) -> Params:
+    """Random weights from a seeded ``torch.Generator`` on ``device``
+    (default: the card, :func:`~repro_torch.core.device.resolve_device`),
     each drawn in its stacked ``[n_super, ...]`` shape (expert weights a
     few experts at a time, ``moe.moe_init``)."""
     check_family(cfg)
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     n_super, per = _superblock_shape(cfg)
     lead = (n_super,)
     d = cfg.d_model

@@ -11,6 +11,18 @@ import torch
 from repro_torch.convert import to_numpy, to_torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops of a module on one thread (a module that imports
+    this fixture). Under several pytest workers a pool of intra-op threads
+    in each oversubscribes the cores and spins; one thread each keeps the
+    module's time its own. The previous count is restored afterwards."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def draw(seed, shape, dtype="float32", scale=1.0):
     """Standard-normal numpy input; bf16 as ``ml_dtypes.bfloat16`` so JAX
     and torch get the same bits."""

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from _hyp import given, settings, st
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro.configs import get_config, smoke_variant
 from repro.models.model_zoo import build_model as jax_build_model
 from repro.serve import ContinuousBatcher as JaxBatcher

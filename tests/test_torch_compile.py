@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro import axe as r_axe
 from repro.configs import get_config, smoke_variant
 from repro.models.model_zoo import build_model as jax_build_model

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close, draw, t, tol
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro.configs import get_config, smoke_variant
 from repro.models import attention as jattn
 from repro.models import encdec as jencdec

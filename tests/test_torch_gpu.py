@@ -868,8 +868,8 @@ def test_autotuner_on_the_card_hands_no_stage_a_pin_it_raises_on(cuda, tmp_path)
 
 # ---------------------------------------------------------------------------
 # training: the kernels' gradients on the card (B1's backward products on
-# B1's routes, B2's VJP, B3's recompute at GQA), B4 and B5 refusing one, and
-# a smoke train step card vs CPU
+# B1's routes, B5's on B5's, B2's VJP, B3's recompute at GQA), B4 refusing
+# one, and smoke train steps card vs CPU
 # ---------------------------------------------------------------------------
 
 
@@ -940,6 +940,8 @@ def test_flash_attention_trainable_at_gqa_on_the_card(cuda, dtype, h, kvh, s, wi
 
 
 def test_decode_and_expert_kernels_refuse_a_gradient(cuda):
+    """B4 serves decode only and refuses a gradient; B5 no longer does:
+    under autograd it takes its differentiable route and launches."""
     bf16 = torch.bfloat16
     q = _randn(cuda, (2, 2, 4, 128), bf16, 8).requires_grad_()
     kc = _randn(cuda, (2, 2, 64, 128), bf16, 9)
@@ -948,11 +950,78 @@ def test_decode_and_expert_kernels_refuse_a_gradient(cuda):
         programs.flash_decode(q, kc, kc, pos)
     x = _randn(cuda, (4, 8, 256), bf16, 10)
     w = _randn(cuda, (4, 256, 128), bf16, 11).requires_grad_()
-    with pytest.raises(DeviceError, match="A15"):
-        programs.moe_gemm(x, w)
+    programs.reset_launch_counts()
+    out = programs.moe_gemm(x, w)
+    assert out.requires_grad and moe_k.launches == 1
     with torch.no_grad():  # no gradient asked: both launch
         assert programs.flash_decode(q, kc, kc, pos).shape == (2, 2, 4, 128)
         assert programs.moe_gemm(x, w).shape == (4, 8, 128)
+
+
+# (e, c, d, f, dtype, the route each of fwd, dX = dY·Wᵀ, dW = Xᵀ·dY takes):
+# qwen3-moe-235b-a22b's training shapes (4 x 512 tokens: capacity 160, so
+# dW's depth is 160, no multiple of the wgmma tile's 64), capacities 40
+# and 168 (a ragged last depth step), a decode-sized capacity (the stream
+# forward, dW's 8-deep product on wgmma) and f32 on the tiles
+MOE_BACKWARD_CASES = [
+    (128, 160, 4096, 1536, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (128, 160, 1536, 4096, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (16, 40, 512, 256, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (16, 168, 256, 384, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (8, 8, 1024, 512, torch.bfloat16, ("stream", "stream", "wgmma")),
+    (4, 40, 96, 136, torch.float32, ("tiled", "tiled", "tiled")),
+]
+
+
+@pytest.mark.parametrize("e,c,d,f,dtype,routes", MOE_BACKWARD_CASES)
+def test_moe_gemm_backward_products_run_on_b5(cuda, e, c, d, f, dtype, routes):
+    """dX and dW are two more launches of B5 on the route their shapes
+    take (the transposed operand copied first), never torch.bmm; against
+    torch autograd of the plain formula within ``_tol``."""
+    x = _randn(cuda, (e, c, d), dtype, 12)
+    w = _randn(cuda, (e, d, f), dtype, 13, d ** -0.5)
+    assert moe_k.expert_route(x, w) == routes[0]
+    programs.reset_launch_counts()
+    got = _card_grads(programs.moe_gemm, x, w)
+    torch.cuda.synchronize()
+    assert moe_k.launches == 3
+    assert moe_k.wgmma_launches == routes.count("wgmma"), routes
+    assert moe_k.stream_launches == routes.count("stream"), routes
+    want = _card_grads(moe_k.moe_gemm_plain, x, w)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "jamba-1.5-large-398b",
+                                  "whisper-large-v3"])
+def test_smoke_value_and_grad_on_card_matches_cpu(cuda, arch):
+    """f32 ``value_and_grad`` of the model loss of the smoke MoE, hybrid
+    and enc-dec models on the card (B1, B2, B3 and B5's routes) and on
+    the CPU from one set of params: loss 1e-4, every leaf's grad at the
+    grads' rtol 1e-3 / atol 1e-4 (``tests/test_compile.py``)."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = smoke_variant(get_config(arch))
+    params = build_model(cfg, device="cpu").init(0)
+    data = SyntheticLMData(cfg.vocab_size, 32, 2, seed=3, frontend=cfg.frontend,
+                           encoder_seq=cfg.encoder_seq, d_model=cfg.d_model)
+    out = {}
+    for dev in ("cpu", cuda):
+        programs.reset_launch_counts()
+        out[str(dev)[:4]] = value_and_grad(build_model(cfg, device=dev).loss_fn)(
+            tree_to(params, dev), data.torch_batch_at(0, dev))
+    counts = programs.launch_counts()
+    assert counts["matmul/tile"] > 0 and counts["rmsnorm/rows"] > 0
+    assert counts["flash_attention/attend"] > 0
+    assert (counts["moe_gemm/expert_gemm"] > 0) == cfg.is_moe
+    np.testing.assert_allclose(float(out["cuda"][0]), float(out["cpu"][0]), rtol=1e-4, atol=1e-4)
+    want = dict(leaves_with_paths(out["cpu"][1]))
+    for path, g in leaves_with_paths(out["cuda"][1]):
+        np.testing.assert_allclose(g.cpu().numpy(), want[path].numpy(), rtol=1e-3, atol=1e-4,
+                                   err_msg=str(path))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

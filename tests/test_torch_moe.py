@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close, draw, t, tol
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro.axe import graphs as jgraphs
 from repro.configs import get_config, smoke_variant
 from repro.kernels import programs as jprog

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro import axe as r_axe
 from repro.axe import passes as r_passes
 from repro.axe.graphs import decode_graph as r_decode_graph

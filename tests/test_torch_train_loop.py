@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro import axe as r_axe
 from repro.checkpoint.manager import CheckpointManager as JaxManager
 from repro.configs import get_config, smoke_variant

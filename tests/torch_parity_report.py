@@ -16,7 +16,8 @@ HERE = Path(__file__).resolve().parent
 FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
          "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py",
          "test_torch_encdec.py", "test_torch_vlm.py", "test_torch_train.py",
-         "test_torch_train_loop.py")
+         "test_torch_train_loop.py", "test_torch_train_moe.py", "test_torch_train_moe_steps.py",
+         "test_torch_train_encdec.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -110,6 +111,26 @@ TARGETS = {
                                                          "make_train_step, 2 microbatches"),
     "test_compiled_loss_grads_match_the_model_and_jax": (
         "axe/compile.py", "compiled_loss_fn grads (mesh=None)"),
+    "test_moe_gemm_grad_route_matches_autograd_of_the_plain_formula": (
+        "kernels/moe_gemm.py", "autograd of moe_gemm_plain (fwd, dX, dW)"),
+    "test_dispatch_and_combine_grads_match_jax_with_drops_and_empty_experts": (
+        "models/moe.py", "jax.grad of local_dispatch + einsum + local_combine"),
+    "test_moe_and_hybrid_loss_and_grads_match_jax": (
+        "models/transformer.py", "jax.value_and_grad(lm_loss), MoE / hybrid"),
+    "test_moe_and_hybrid_bf16_loss_and_grads_routed_as_jax": (
+        "models/transformer.py", "jitted value_and_grad(lm_loss), bf16, routed as JAX"),
+    "test_moe_train_steps_match_jax": ("train/train_loop.py",
+                                       "make_train_step (jit), MoE, 1 / 3 steps"),
+    "test_moe_compiled_loss_grads_match_the_model_and_jax": (
+        "axe/compile.py", "compiled_loss_fn grads, MoE (mesh=None)"),
+    "test_hybrid_compiled_loss_grads_match_the_model": (
+        "axe/compile.py", "the port's lm_loss grads, hybrid"),
+    "test_encode_and_decode_train_match_jax": ("models/encdec.py",
+                                               "encdec.encode, encdec.decode_train"),
+    "test_encdec_loss_and_grads_match_jax": ("models/encdec.py",
+                                             "jax.value_and_grad(encdec_loss)"),
+    "test_whisper_train_steps_match_jax": ("train/train_loop.py",
+                                           "make_train_step (jit), whisper, 1 / 3 steps"),
 }
 
 
