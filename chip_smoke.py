@@ -204,6 +204,35 @@ training:
     ``value_and_grad`` on the card against the CPU (loss 2e-4, grads
     rtol 1e-3 / atol 1e-4), B5 launched 12 times a layer.
 
+the rest of one-card training and the dry runs:
+
+21. dots   — qwen3-4b at full width under remat ``"dots"`` (the outputs
+    of the 2-D products kept, everything else recomputed): depth 2,
+    ``"dots"`` against ``"full"`` on the card (loss within
+    ``LOGIT_TOL``, each leaf's grad within ``GRAD_REL_BOUND``, B1 launched
+    3P against 4P - 1 times); then full depth through ``Trainer.run`` as
+    17(c), B1 held to 3P = 759 launches a step (the recompute runs none)
+    and B2 and B3 to phase 17's counts, its step wall, device busy, idle
+    share and peak memory printed beside phase 17's;
+22. long   — qwen3-4b at 1 x 9216 tokens, above the 8192-token threshold
+    of the blocked attention: B3's forward at ``[1, 32 / 8, 9216, 128]``
+    with the full oracle backward and with the blocked one (1024-key
+    chunks), grads within ``TOL`` of each other and the blocked one's
+    peak memory below the oracle's; then ``Trainer.run`` of
+    ``LONG_STEPS`` steps at full width and depth (remat ``"full"``), the
+    launches held to the model's structure, peak memory under 80 GiB,
+    and one step's split: the blocked backward's device span (CUDA
+    events) and device busy, idle share and time by kernel (profiler);
+23. dryrun — ``python -m repro_torch.launch.dryrun --arch A --solve
+    --execute`` on the card for qwen3-4b and qwen3-moe-235b-a22b (their
+    smoke configs compiled from the solved plan, logits against the
+    model forward), then the cost counter over one qwen3-4b
+    ``value_and_grad`` at phase 17's shapes: B1's flops held to the
+    model's products (4F - F_head under remat ``"full"``), their ratio
+    to ``model_flops``, and the step's model-flops share of the dense
+    bf16 peak at phase 17's median wall, beside the card's name and
+    power limit.
+
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -232,7 +261,7 @@ SSM_ARCH = "mamba2-2.7b"
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
 # phases of the run
-STEPS = 20
+STEPS = 23
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
@@ -299,7 +328,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
+#: the script's start: each phase header prints the seconds since
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):
+        msg += f" ({time.perf_counter() - T0:.0f} s in)"
     print(msg, flush=True)
 
 
@@ -1976,9 +2011,9 @@ class StageCalls:
     (``Program.schedule_query``)."""
 
     def __init__(self):
-        from repro_torch.axe import program
+        from repro_torch.axe.program import Program
 
-        self.cls, self.calls = program.Program, []
+        self.cls, self.calls = Program, []
 
     def __enter__(self):
         orig = self.orig = self.cls._resolve_schedule
@@ -2568,13 +2603,28 @@ def phase_train_depth2(cfg, torch, device, *, seq=TRAIN_SEQ):
     return out
 
 
+def dense_products(cfg) -> int:
+    """P, the B1 products of one forward of a dense model: q, k, v, o,
+    gate, up and down a layer, and the lm_head."""
+    return 7 * cfg.num_layers + 1
+
+
+def dense_per_step(cfg, b1: int) -> dict:
+    """Launches a train step of a dense model: B1 ``b1``, B2 ``8L + 1``
+    (each layer's two norms and q/k-norm, forward and recompute, and the
+    final norm), B3 ``2L`` (forward and recompute)."""
+    n = cfg.num_layers
+    return {"matmul/tile": b1, "rmsnorm/rows": 8 * n + 1, "flash_attention/attend": 2 * n,
+            "flash_attention/decode": 0, "moe_gemm/expert_gemm": 0}
+
+
 def phase_train_full(cfg, torch, device):
     """Phase 17(c): ``cfg`` at full width and depth, bf16, random weights
     from a seed on the card: step 1's grads nonzero and finite on every
-    leaf; then :func:`trainer_steps` with per step B1 ``4P - 1``, P = 7
-    products a layer + the lm_head; B2 ``8L + 1``; B3 ``2L``, every B1
-    and B3 launch on their wgmma kernels, and the forward + backward
-    timed alone."""
+    leaf; then :func:`trainer_steps` with per step B1 ``4P - 1`` (the
+    forward, the recompute but the lm_head, dA and dB), B2 and B3 as
+    :func:`dense_per_step`, every B1 and B3 launch on their wgmma
+    kernels, and the forward + backward timed alone."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models import transformer as tf
     from repro_torch.models.model_zoo import build_model
@@ -2583,11 +2633,7 @@ def phase_train_full(cfg, torch, device):
     params = drawn_params(api, cfg, torch, f"remat {tf.REMAT_POLICY!r}")
     data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
     check_step1_grads(api, params, data.torch_batch_at(0, device), torch)
-    n = cfg.num_layers
-    p = 7 * n + 1
-    per_step = {"matmul/tile": 4 * p - 1, "rmsnorm/rows": 8 * n + 1,
-                "flash_attention/attend": 2 * n, "flash_attention/decode": 0,
-                "moe_gemm/expert_gemm": 0}
+    per_step = dense_per_step(cfg, 4 * dense_products(cfg) - 1)
     return trainer_steps(api, params, data, torch, device, per_step=per_step, fwd_bwd=True)
 
 
@@ -3015,6 +3061,273 @@ def phase_jamba_train_smoke(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phases 21-23: remat "dots", long context, dryrun and the cost counter
+# ---------------------------------------------------------------------------
+
+
+def phase_train_dots(cfg, torch, device, release, full):
+    """Phase 21: remat ``"dots"`` (the outputs of the 2-D products kept,
+    the rest recomputed) on qwen3-4b at full width: (a) depth 2, one
+    ``value_and_grad`` under ``"full"`` and under ``"dots"`` from one
+    state on the card, the loss within ``LOGIT_TOL`` and each leaf's grad
+    within ``GRAD_REL_BOUND`` of ``"full"``'s, B1 launched 4P - 1 and 3P
+    times; (b) full depth through :func:`trainer_steps` with B1 held to
+    3P launches a step (the recompute runs none) and B2 and B3 to
+    ``"full"``'s counts, beside phase 17's ``"full"`` run (``full``)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg2 = dataclasses.replace(cfg, num_layers=DEPTH2_LAYERS)
+    api = build_model(cfg2, device=device)
+    params = api.init(SEED)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    batch = data.torch_batch_at(0, device)
+    res = {}
+    try:
+        for policy in ("full", "dots"):
+            tf.set_remat_policy(policy)
+            programs.reset_launch_counts()
+            loss, grads = value_and_grad(api.loss_fn)(params, batch)
+            res[policy] = (loss, grads, programs.launch_counts()["matmul/tile"])
+    finally:
+        tf.set_remat_policy("full")
+    p2 = dense_products(cfg2)
+    errs = grads_rel_errors(res["dots"][1], res["full"][1])
+    worst = max(errs, key=errs.get)
+    log(f"  depth {DEPTH2_LAYERS}, remat 'dots' vs 'full' on the card: loss "
+        f"{float(res['dots'][0]):.5f} vs {float(res['full'][0]):.5f}; leaf grads' relative "
+        f"error max {errs[worst]:.4g} ({worst}); B1 launches {res['dots'][2]} vs "
+        f"{res['full'][2]} (3P = {3 * p2}, 4P - 1 = {4 * p2 - 1})")
+    check(bool(torch.allclose(res["dots"][0].float(), res["full"][0].float(), **LOGIT_TOL)),
+          f"remat dots loss {float(res['dots'][0])} vs full {float(res['full'][0])}")
+    check(errs[worst] <= GRAD_REL_BOUND, f"remat dots grads: {worst} relative error "
+                                         f"{errs[worst]} above {GRAD_REL_BOUND}")
+    check(res["dots"][2] == 3 * p2 and res["full"][2] == 4 * p2 - 1,
+          f"depth-2 B1 launches: dots {res['dots'][2]}, full {res['full'][2]}")
+    out = {"depth2_dots_grad_rel_err_max": errs[worst], "depth2_dots_b1": res["dots"][2]}
+    del api, params, res, batch
+    release()
+
+    api = build_model(cfg, device=device)
+    tf.set_remat_policy("dots")
+    try:
+        params = drawn_params(api, cfg, torch, "remat 'dots'")
+        counts, stats = trainer_steps(api, params, data, torch, device,
+                                      per_step=dense_per_step(cfg, 3 * dense_products(cfg)),
+                                      fwd_bwd=True)
+    finally:
+        tf.set_remat_policy("full")
+    log(f"  remat 'dots' against phase 17's 'full' (this run): step wall "
+        f"{stats['train_step_wall_median_s']:.4f} vs {full['train_step_wall_median_s']:.4f} s; "
+        f"device busy {stats['train_device_busy_ms']:.2f} vs {full['train_device_busy_ms']:.2f} ms; "
+        f"idle share {stats['train_idle_share']:.4f} vs {full['train_idle_share']:.4f}; peak "
+        f"memory {stats['train_peak_gib']:.2f} vs {full['train_peak_gib']:.2f} GiB")
+    del api, params
+    release()
+    return counts, dict(out, **stats)
+
+
+#: phase 22: qwen3-4b at 1 x LONG_SEQ_TRAIN tokens, above the 8192-token
+#: threshold of the blocked attention and a multiple of its 1024-key chunk
+LONG_SEQ_TRAIN, LONG_STEPS = 9216, 3
+
+
+def phase_long_context(cfg, torch, device, release):
+    """Phase 22: attention past 8192 tokens. (a) Alone: B3's forward on
+    the card at ``[1, H, LONG_SEQ_TRAIN, hd]`` (causal, qwen3-4b's 32
+    query over 8 kv heads) and its backward, once through the full
+    oracle (``[1, H, S, S]`` f32 logits) and once blocked over 1024-key
+    chunks: grads within ``TOL`` of each other, peak memory above the
+    inputs of each, seconds of each (host clock, synced). (b)
+    ``Trainer.run`` of ``LONG_STEPS`` steps of one ``LONG_SEQ_TRAIN``-token
+    row at full width and depth, remat ``"full"``: the attention runs
+    blocked past the threshold; finite losses and grad norms, launches a
+    step held to the model's structure, step walls, peak memory under
+    80 GiB; then one step with the blocked backward's device span (CUDA
+    events around each call) and one under the profiler (device busy,
+    idle share, time by kernel)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import programs
+    from repro_torch.models.attention import BLOCKED_CHUNK
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import Trainer, init_state, make_train_step
+
+    s, hd = LONG_SEQ_TRAIN, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    draw = lambda heads: torch.randn((1, heads, s, hd), generator=gen,  # noqa: E731
+                                     device=device).to(torch.bfloat16)
+    q, k, v, g = draw(cfg.num_heads), draw(cfg.num_kv_heads), draw(cfg.num_kv_heads), \
+        draw(cfg.num_heads)
+
+    def run(chunk):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fa.flash_attention_trainable(*leaves, True, chunk=chunk)
+        out.backward(g)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return out.detach(), [t.grad for t in leaves], sec, peak
+
+    programs.reset_launch_counts()
+    o_full, g_full, s_full, m_full = run(None)
+    o_blk, g_blk, s_blk, m_blk = run(BLOCKED_CHUNK)
+    attends = programs.launch_counts()["flash_attention/attend"]
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(g_blk, g_full)]
+    ok = all(bool(torch.allclose(a.float(), b.float(), **TOL["bfloat16"]))
+             for a, b in zip(g_blk, g_full))
+    log(f"  B3 forward + backward at [1, {cfg.num_heads} / {cfg.num_kv_heads}, {s}, {hd}] "
+        f"bf16 causal: full oracle backward {s_full:.3f} s, peak {m_full:.2f} GiB above the "
+        f"inputs; blocked ({BLOCKED_CHUNK}-key chunks) {s_blk:.3f} s, peak {m_blk:.2f} GiB; "
+        f"dq / dk / dv max |diff| {errs}; B3 forward launches {attends}")
+    check(ok, f"blocked backward vs the full oracle: max |diff| {errs} outside {TOL['bfloat16']}")
+    check(torch.equal(o_full, o_blk), "the two B3 forwards differ")
+    check(attends == 2, f"{attends} B3 launches for the two forwards")
+    check(m_blk < m_full, f"blocked backward peak {m_blk:.2f} GiB not below the oracle's "
+                          f"{m_full:.2f}")
+    out = dict(long_full_oracle_s=s_full, long_full_oracle_peak_gib=m_full,
+               long_blocked_s=s_blk, long_blocked_peak_gib=m_blk, long_grad_max_abs_diff=errs)
+    del q, k, v, g, o_full, g_full, o_blk, g_blk
+    release()
+
+    api = build_model(cfg, device=device)
+    params = drawn_params(api, cfg, torch, f"1 x {s} tokens, remat 'full'")
+    data = SyntheticLMData(cfg.vocab_size, s, 1, seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 1, LONG_STEPS))
+    step = make_train_step(api.loss_fn, opt)
+    state = init_state(params, opt)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    programs.reset_launch_counts()
+    state, hist = Trainer(step, data).run(state, LONG_STEPS)
+    counts = programs.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = [h["sec"] for h in hist]
+    per_step = dense_per_step(cfg, 4 * dense_products(cfg) - 1)
+    log(f"  Trainer.run, {LONG_STEPS} steps of 1 x {s} tokens, {cfg.num_layers} layers: losses "
+        f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 5) for h in hist]}; step walls {[round(w, 4) for w in walls]} s "
+        f"({s / statistics.median(walls[1:]):.0f} tokens/s after the first); peak memory "
+        f"{peak:.2f} GiB; launches {counts}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+          f"long context: non-finite loss or grad norm {hist}")
+    check(peak < 80, f"long context: peak memory {peak:.2f} GiB")
+    for op, n in per_step.items():
+        check(counts[op] == n * LONG_STEPS, f"long context {op}: {counts[op]} launches, "
+                                            f"{n} a step expected")
+
+    # where a step's time goes: one step with the blocked backward's
+    # device span read by CUDA events around each of its calls (one a
+    # layer), then one under the profiler (busy, idle share, by kernel)
+    batch = data.torch_batch_at(LONG_STEPS, device)
+    spans, inner = [], fa.attention_blocked_grad
+
+    def spanned(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        grads = inner(*args, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return grads
+
+    fa.attention_blocked_grad = spanned
+    try:
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fa.attention_blocked_grad = inner
+    blocked_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    check(len(spans) == cfg.num_layers,
+          f"long context: {len(spans)} blocked backwards in a step, {cfg.num_layers} layers")
+    wall = statistics.median(walls[1:])
+    busy, top = device_busy_ms(torch, lambda: step(state, batch), reps=1)
+    idle = 1 - busy / (wall * 1e3)
+    log(f"  one step: the blocked attention backward's device span {blocked_ms:.1f} ms over "
+        f"{len(spans)} calls (CUDA events); under the profiler device busy {busy:.2f} ms, idle "
+        f"share {idle:.4f} of the median wall; by kernel {top}")
+    del state, api
+    release()
+    return dict(out, long_losses=[h["loss"] for h in hist], long_step_walls_s=walls,
+                long_peak_gib=peak, long_launches_per_step={k: v // LONG_STEPS
+                                                            for k, v in counts.items()},
+                long_blocked_backward_ms=blocked_ms, long_device_busy_ms=busy,
+                long_idle_share=idle, long_top_kernels=top)
+
+
+def phase_dryrun_cost(cfg, torch, device, release, full, smi):
+    """Phase 23: ``python -m repro_torch.launch.dryrun --arch A --solve
+    --execute`` on the card for qwen3-4b and qwen3-moe (the smoke config
+    compiled from its solved plan, logits against the model forward,
+    no collective), the kernels it launched counted; then the cost
+    counter (``launch/hlo_cost.py``) over one ``value_and_grad`` of
+    qwen3-4b at phase 17's shapes: B1's flops held to ``4F - F_head``
+    (forward, recompute but the lm_head, dA and dB), their ratio to
+    ``model_flops(cfg, "train", 4, 512)``, and a step's model-flops share
+    of the card's dense bf16 peak at phase 17's median wall (``full``)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.launch import dryrun, hlo_cost, roofline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    out = {}
+    for arch, ops in ((ARCH, ("matmul/tile", "rmsnorm/rows", "flash_attention/attend")),
+                      (MOE_ARCH, ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
+                                  "moe_gemm/expert_gemm"))):
+        programs.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", arch, "--solve", "--execute"])
+        counts = programs.launch_counts()
+        log(f"  dryrun --arch {arch} --solve --execute on the card: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+        check(rc == 0, f"dryrun --execute {arch} exited {rc}")
+        check(all(counts[op] > 0 for op in ops), f"dryrun --execute {arch}: launches {counts}")
+        out[f"dryrun_{arch}_launches"] = counts
+    release()
+
+    api = build_model(cfg, device=device)
+    params = drawn_params(api, cfg, torch, "the cost counter's step")
+    batch = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).torch_batch_at(
+        0, device)
+    t0 = time.perf_counter()
+    cost = hlo_cost.analyze(value_and_grad(api.loss_fn), params, batch)
+    count_s = time.perf_counter() - t0
+    del params
+    release()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d, hq, hkv, ff = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim, \
+        cfg.d_ff
+    head = 2.0 * tokens * d * cfg.vocab_size
+    fwd = 2.0 * tokens * cfg.num_layers * (2 * d * hq + 2 * d * hkv + 3 * d * ff) + head
+    b1 = cost.op_flops("matmul/")
+    mf = roofline.model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    wall = full["train_step_wall_median_s"]
+    share = mf / (wall * PEAK_FLOPS["bfloat16"])
+    terms = roofline.derive_terms(cost=cost, n_chips=1, model_flops_total=mf)
+    log(f"  cost counter, one qwen3-4b value_and_grad at {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+        f"(remat 'full', counted in {count_s:.1f} s): B1 {b1:.6g} flops (4F - F_head = "
+        f"{4 * fwd - head:.6g}), B3 {cost.op_flops('flash_attention/'):.6g}, aten products "
+        f"{cost.op_flops('aten.'):.6g}, all {cost.flops:.6g} flops, {cost.bytes:.6g} bytes; "
+        f"model_flops {mf:.6g}; B1 / model_flops {b1 / mf:.4f}, all / model_flops "
+        f"{cost.flops / mf:.4f}; roofline terms compute {terms.compute_s * 1e3:.2f} ms, memory "
+        f"{terms.memory_s * 1e3:.2f} ms")
+    log(f"  model-flops share of a step: {mf:.6g} flops / ({wall:.4f} s x "
+        f"{PEAK_FLOPS['bfloat16']:.4g} FLOP/s dense bf16) = {share:.4f} on {smi}")
+    check(b1 == 4 * fwd - head, f"cost counter: B1 {b1} flops, 4F - F_head = {4 * fwd - head}")
+    return dict(out, cost_b1_flops=b1, cost_flops=cost.flops, cost_bytes=cost.bytes,
+                model_flops=mf, b1_over_model_flops=b1 / mf, model_flops_share=share)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3200,6 +3513,19 @@ def main() -> int:
     log(f"[20/{STEPS}] training the hybrid family (jamba-1.5-large-398b, smoke width) on the "
         f"card:")
     stats["train-jamba-smoke"] = phase_jamba_train_smoke(torch, device)
+    release()
+
+    cfg = get_config(ARCH)
+    log(f"[21/{STEPS}] remat 'dots' ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): depth "
+        f"{DEPTH2_LAYERS} against 'full' on the card, then {cfg.num_layers} layers through "
+        f"Trainer.run:")
+    _, stats["train-dots"] = phase_train_dots(cfg, torch, device, release, stats["train"])
+    log(f"[22/{STEPS}] long context ({cfg.name}, 1x{LONG_SEQ_TRAIN} tokens): B3 with the full "
+        f"and the blocked backward, then {cfg.num_layers} layers through Trainer.run:")
+    stats["train-long"] = phase_long_context(cfg, torch, device, release)
+    log(f"[23/{STEPS}] dryrun --solve --execute on the card, and the cost counter over a "
+        f"{cfg.name} train step:")
+    stats["cost"] = phase_dryrun_cost(cfg, torch, device, release, stats["train"], smi)
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,12 @@ hands it to the stages as ``ctx.epilogue``. A program may register a
 differentiable route (:meth:`Program.differentiable`), which a call
 takes when autograd records it (:func:`records_grad`): a
 ``torch.autograd.Function`` around the stage, whose backward is the
-program's own work where the reference's kernel has one.
+program's own work where the reference's kernel has one. :func:`kernel`
+is the decorator sugar for a program of one GRID stage. Two hooks sit
+off the serving path: under remat ``"dots"`` a 2-D product's
+:class:`ProductGrad` keeps its output and hands it back in the recompute
+(:class:`SavedProducts`), and while the cost counter
+(``launch/hlo_cost.py``) runs, :data:`COST_HOOK` sees every stage call.
 
 Minimal program::
 
@@ -137,13 +142,18 @@ class ProductGrad(torch.autograd.Function):
     work on the card and the plain body on CPU tensors. The products take
     operands of one type, so a cotangent of another output type
     (``out_dtype``) is cast to the operands' type first; ``dA`` and
-    ``dB`` come out in it."""
+    ``dB`` come out in it. Inside a :class:`SavedProducts` region a 2-D
+    product keeps its output in the forward and hands it back, with no
+    launch, in the recompute."""
 
     @staticmethod
     def forward(ctx, a, b, out_dtype, prog, stage, opts):
         ctx.save_for_backward(a, b)
         ctx.prog, ctx.stage = prog, stage
-        return prog.run_stage(stage, (a, b), {"out_dtype": out_dtype}, opts)
+        run = lambda: prog.run_stage(stage, (a, b), {"out_dtype": out_dtype}, opts)  # noqa: E731
+        if _SAVED is not None and a.dim() == 2:
+            return _SAVED.product(run, a, b)
+        return run()
 
     @staticmethod
     def backward(ctx, dc):
@@ -153,6 +163,94 @@ class ProductGrad(torch.autograd.Function):
         da = prog(dc, b.transpose(-2, -1), stage=stage) if ctx.needs_input_grad[0] else None
         db = prog(a.transpose(-2, -1), dc, stage=stage) if ctx.needs_input_grad[1] else None
         return da, db, None, None, None, None
+
+
+def product_flops(args, kw) -> float:
+    """``2·|C|·K`` of ``C = A @ B`` over the last two dims (the
+    reference's dot count; batch dims multiply out): B1's and B5's
+    stages size their calls with it."""
+    a, b = args[0], args[1]
+    return 2.0 * a.numel() * b.shape[-1]
+
+
+def _run_body(st: Stage, ctx: "StageContext", args, kw):
+    with scope(st.scope):
+        return st.body(ctx, *args, **kw)
+
+
+#: the cost counter's hook around every stage call,
+#: ``COST_HOOK(program, stage, args, kw, run)``: ``launch/hlo_cost.py``
+#: installs it while it counts one call of a function; None otherwise
+COST_HOOK: Optional[Callable] = None
+
+
+class SavedProducts:
+    """The outputs of the 2-D products of one checkpointed region, kept
+    under remat ``"dots"`` (the JAX package's
+    ``dots_with_no_batch_dims_saveable``): :meth:`recording` while the
+    region's forward runs, :meth:`replaying` while the backward
+    recomputes it, where each 2-D :class:`ProductGrad` hands back the
+    output it kept, in call order, and launches nothing. Batched
+    products (B5's ``[E, ., .]``) are recomputed, as the reference's
+    rule saves no product with batch dims. ``torch.utils.checkpoint``
+    takes the pair as its ``context_fn``. Each kept output is handed
+    back once, and only to a product of the same weight (``b``'s
+    storage) and shape whose output was not changed in place since; any
+    other, or a second backward through the region, raises."""
+
+    def __init__(self):
+        self.outs = []
+        self.taken = None  # the index of the next output to hand back, when replaying
+
+    def recording(self) -> "_Active":
+        return _Active(self, None)
+
+    def replaying(self) -> "_Active":
+        """Entered again by each recompute of the region (the checkpoint
+        keeps the one context), so a second backward reaches
+        :meth:`product` and its error."""
+        return _Active(self, 0)
+
+    def product(self, run, a, b):
+        """The output of the 2-D product ``a @ b``: run and kept while
+        recording, the kept one while replaying."""
+        if self.taken is None:
+            out = run()
+            self.outs.append((out.detach(), b.data_ptr(), out._version))
+            return out
+        i, self.taken = self.taken, self.taken + 1
+        if i >= len(self.outs) or self.outs[i] is None:
+            raise ProgramError(f"remat 'dots': product {i} of the region was handed back "
+                               f"already; a second backward through a 'dots' region "
+                               f"(retain_graph) is not supported")
+        (out, weight, version), self.outs[i] = self.outs[i], None
+        if out.shape != (a.shape[0], b.shape[1]) or b.data_ptr() != weight:
+            raise ProgramError(f"remat 'dots': the recompute's product {i} "
+                               f"{tuple(a.shape)} @ {tuple(b.shape)} is not the forward's")
+        if out._version != version:
+            raise ProgramError(f"remat 'dots': the kept output of product {i} was "
+                               f"changed in place after the forward")
+        return out
+
+
+class _Active:
+    """A re-enterable context that makes ``saved`` the region running
+    now, recording (``taken`` None) or replaying from ``taken``."""
+
+    def __init__(self, saved: SavedProducts, taken: Optional[int]):
+        self.saved, self.taken, self.prev = saved, taken, None
+
+    def __enter__(self):
+        global _SAVED
+        self.prev, _SAVED, self.saved.taken = _SAVED, self.saved, self.taken
+
+    def __exit__(self, *exc):
+        global _SAVED
+        _SAVED = self.prev
+
+
+#: the :class:`SavedProducts` of the region running now, or None
+_SAVED: Optional[SavedProducts] = None
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -397,6 +495,7 @@ class Program:
         blocks: Sequence[Tuple[str, int]] = (),
         variants: Sequence[str] = (),
         key: Optional[Callable] = None,
+        flops: Optional[Callable] = None,
         entry: bool = False,
         dispatch: Sequence[Union[Scope, str]] = (),
     ) -> Callable:
@@ -405,13 +504,15 @@ class Program:
         execution scopes that select this stage when the *program* is
         called. Tunable stages (blocks or variants) are registered with
         the tune layer under ``program_name/stage_name``; ``key``
-        overrides the schedule-key extraction (``Stage.key_fn``)."""
+        overrides the schedule-key extraction (``Stage.key_fn``);
+        ``flops(args, kw)`` sizes one call (``Stage.flops_fn``: the cost
+        counter, ``launch/hlo_cost.py``, reads it)."""
         scope_ = Scope(scope) if isinstance(scope, str) else scope
         blocks_ = normalize_blocks(blocks)
         variants_ = tuple(variants)
 
         def deco(fn: Callable) -> Callable:
-            st = Stage(name, scope_, fn, blocks_, variants_, key)
+            st = Stage(name, scope_, fn, blocks_, variants_, key, flops)
             self.stages[name] = st
             if entry or self._entry is None:
                 self._entry = name
@@ -505,6 +606,8 @@ class Program:
             )
         st.validate_entry(current_scope(), self.name)
         ctx = StageContext(self, st, args, kw, opts)
+        if COST_HOOK is not None:
+            return COST_HOOK(self, st, args, kw, lambda: _run_body(st, ctx, args, kw))
         with scope(st.scope):
             return st.body(ctx, *args, **kw)
 
@@ -609,3 +712,34 @@ class Program:
 def program(name: str, doc: Optional[str] = None) -> Program:
     """Create (and register) a new empty :class:`Program`."""
     return Program(name, doc)
+
+
+def kernel(
+    name: str,
+    *,
+    blocks: Sequence[Tuple[str, int]] = (),
+    variants: Sequence[str] = ("kernel",),
+    key: Optional[Callable] = None,
+    flops: Optional[Callable] = None,
+) -> Callable[[Callable], Program]:
+    """Decorator sugar for a single-GRID-stage program::
+
+        @axe.kernel("scale_rows", blocks=(("bt", 256),))
+        def scale_rows(ctx, x): ...
+
+    The decorated function becomes the program's ``kernel`` stage (its
+    schedule key is ``<name>/kernel``) and the returned object is the
+    callable :class:`Program`. The body follows the device rule as any
+    GRID stage: a kernel launch on CUDA tensors, its plain torch
+    version on CPU tensors.
+    """
+
+    def deco(fn: Callable) -> Program:
+        prog = Program(name, doc=fn.__doc__)
+        prog.stage(
+            "kernel", scope=Scope.GRID, blocks=blocks, variants=variants,
+            key=key, flops=flops, entry=True,
+        )(fn)
+        return prog
+
+    return deco

@@ -48,6 +48,8 @@ _ATTN_TREES = ("attn", "self_attn", "cross_attn")
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)  # a writable, contiguous copy torch may own
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -86,7 +88,8 @@ def _layer_from_jax(lp: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str, Any]:
-    """The JAX model's params (numpy leaves) as the port's params."""
+    """The JAX model's params (numpy leaves, or torch tensors in its
+    layout) as the port's params."""
     if cfg.family == "encdec":
         out = {name: _layer_from_jax(np_params[name], device)
                for name in ("enc_blocks", "dec_blocks")}
@@ -106,24 +109,27 @@ def params_from_jax(np_params: Dict[str, Any], cfg, *, device="cpu") -> Dict[str
     return out
 
 
-def _attn_to_jax(p: Dict[str, torch.Tensor], hd: int) -> Dict[str, Any]:
+def _attn_to_jax(p: Dict[str, torch.Tensor], hd: int, leaf) -> Dict[str, Any]:
     out = {}
     for name, t in p.items():
         if name in _ATTN_2D:   # [n_super, d, N*hd] -> [n_super, d, N, hd]
             t = t.reshape(*t.shape[:-1], -1, hd)
         elif name == "wo":     # [n_super, H*hd, d] -> [n_super, H, hd, d]
             t = t.reshape(t.shape[0], -1, hd, t.shape[-1])
-        out[name] = to_numpy(t)
+        out[name] = leaf(t)
     return out
 
 
-def params_to_jax(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+def params_to_jax(params: Dict[str, Any], cfg, *, numpy: bool = True) -> Dict[str, Any]:
     """The port's params (or a tree shaped like them, such as AdamW's
-    moments) as numpy arrays in the JAX model's layout."""
+    moments) as numpy arrays in the JAX model's layout; with
+    ``numpy=False`` as torch tensors (reshaped views, on their device)."""
+    leaf = to_numpy if numpy else (lambda t: t)
+
     def layer(lp):
-        return {name: (_attn_to_jax(sub, cfg.head_dim) if name in _ATTN_TREES
-                       else {k: to_numpy(v) for k, v in sub.items()}
-                       if isinstance(sub, dict) else to_numpy(sub))
+        return {name: (_attn_to_jax(sub, cfg.head_dim, leaf) if name in _ATTN_TREES
+                       else {k: leaf(v) for k, v in sub.items()}
+                       if isinstance(sub, dict) else leaf(sub))
                 for name, sub in lp.items()}
 
     out = {}
@@ -132,7 +138,7 @@ def params_to_jax(params: Dict[str, Any], cfg) -> Dict[str, Any]:
             out[name] = (layer(v) if name != "blocks" else
                          {slot: layer(lp) for slot, lp in v.items()})
         else:
-            out[name] = to_numpy(v)
+            out[name] = leaf(v)
     return out
 
 

@@ -47,7 +47,7 @@ from repro_torch.axe.program import DeviceError, program, refuse_grad, require_h
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_blocked, attention_blocked_grad, attention_ref
 
 #: launches of the CUDA kernels since the last reset (kernels.programs);
 #: ``attend_wgmma_launches`` counts the bf16 attends that took the wgmma
@@ -110,8 +110,10 @@ def decode_plain(q, k, v, pos, *, ring: bool = False,
 
 
 @flash_attention_program.stage("softmax_mac", scope=Scope.BLOCK)
-def _softmax_mac(ctx, q, k, v, *, causal=False, window=None, scale=None):
+def _softmax_mac(ctx, q, k, v, *, causal=False, window=None, scale=None, chunk=None):
     require_host(ctx.op, q, k, v)
+    if chunk is not None:
+        return attention_blocked(q, k, v, causal=causal, window=window, scale=scale, chunk=chunk)
     return attention_plain(q, k, v, causal=causal, window=window, scale=scale)
 
 
@@ -181,17 +183,37 @@ def _fa_key(args, kw, arg_specs=()):
     return {"tag": "causal" if kw.get("causal") else None}
 
 
+def attend_flops(args, kw) -> float:
+    """``QKᵀ`` and ``PV`` over the full ``Sq x Skv``, as the reference's
+    einsums count them: ``4·B·H·Sq·Skv·D``."""
+    (b, h, sq, d), skv = args[0].shape, args[1].shape[2]
+    return 4.0 * b * h * sq * skv * d
+
+
+def decode_flops(args, kw) -> float:
+    """``4·B·KV·G·W·D``: the grouped queries over every cache slot."""
+    (b, kvh, g, d), w = args[0].shape, args[1].shape[2]
+    return 4.0 * b * kvh * g * w * d
+
+
 @flash_attention_program.stage(
     "attend", scope=Scope.GRID, entry=True,
     blocks=tuple(ATTEND_BLOCKS.items()),
     variants=("kernel",),
     key=_fa_key,
+    flops=attend_flops,
 )
 def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
-            scale: Optional[float] = None):
+            scale: Optional[float] = None, chunk: Optional[int] = None):
+    """``chunk`` asks for the JAX package's blocked softmax over KV
+    chunks of that many keys (above 8192 tokens): the plain body and the
+    backward (:class:`FlashAttentionGrad`) then run blocked; B3 is a
+    blocked online softmax itself, so the card's forward is the same
+    launch."""
     global attend_launches, attend_wgmma_launches
     if not ctx.on_card(q, k, v):
-        return ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale)
+        return ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale,
+                       chunk=chunk)
     check_attend(q, k, v, window, {name: ctx.block(name) for name in ATTEND_BLOCKS})
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -259,7 +281,7 @@ def decode_plan(bkv: int, w: int, n_sm: int):
     return -(-tiles // chunk_tiles), chunk_tiles * DECODE_BK
 
 
-@flash_attention_program.stage("decode", scope=Scope.GRID)
+@flash_attention_program.stage("decode", scope=Scope.GRID, flops=decode_flops)
 def _decode(ctx, q, k, v, pos, *, ring: bool = False, scale: Optional[float] = None):
     """Flash decode: grouped single-token queries ``q [B, KV, G, d]``
     attend over the cache ``k/v [B, KV, W, d]`` at per-slot positions
@@ -312,7 +334,10 @@ class FlashAttentionGrad(torch.autograd.Function):
     ``repro/kernels/flash_attention.py:_fat_bwd`` does: only q, k and v
     are saved. The oracle reads kv head ``h // (H // KV)`` by index, as
     B3 does, so the kv grads sum the query heads that share a kv head
-    and no k or v is repeated."""
+    and no k or v is repeated. A call with ``chunk`` (the blocked
+    softmax, above 8192 tokens) runs the backward chunk by chunk
+    (:func:`~repro_torch.kernels.ref.attention_blocked_grad`), where the
+    full oracle would hold ``[B, H, Sq, Skv]`` f32 logits."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, opts):
@@ -322,9 +347,13 @@ class FlashAttentionGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        kw = dict(ctx.kw)
+        if kw.get("chunk") is not None:
+            return (*attention_blocked_grad(*ctx.saved_tensors, g, **kw), None, None)
+        kw.pop("chunk", None)
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = attention_ref(*leaves, **ctx.kw)
+            out = attention_ref(*leaves, **kw)
             grads = torch.autograd.grad(out, leaves, g)
         return (*grads, None, None)
 
@@ -339,10 +368,12 @@ def _grad_route(program, stage, args, kw, opts):
     return FlashAttentionGrad.apply(*args, kw, opts)
 
 
-def flash_attention_trainable(q, k, v, causal: bool = False, window=None, scale=None):
+def flash_attention_trainable(q, k, v, causal: bool = False, window=None, scale=None,
+                              chunk=None):
     """Differentiable flash attention, the JAX package's
     ``flash_attention_trainable``: the ``attend`` stage, which under
     autograd runs :class:`FlashAttentionGrad` (the program's
-    differentiable route, which ``programs.flash_attention`` takes too)."""
+    differentiable route, which ``programs.flash_attention`` takes too).
+    ``chunk`` runs the plain body and the backward blocked."""
     return flash_attention_program(q, k, v, stage="attend", causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, chunk=chunk)

@@ -72,6 +72,7 @@ from repro_torch.axe.program import (
     DeviceError,
     Epilogue,
     ProductGrad,
+    product_flops,
     program,
     stream_of,
 )
@@ -201,7 +202,8 @@ def matmul_library(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Te
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
-@matmul_program.stage("dot", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,))
+@matmul_program.stage("dot", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,),
+                      flops=product_flops)
 def _dot(ctx, a, b, *, out_dtype=None):
     if ctx.on_card(a, b):
         return matmul_library(a, b, out_dtype)
@@ -326,6 +328,7 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
     dispatch=(Scope.MESH, Scope.DEVICE, Scope.GRID),
     blocks=tuple(TILE_BLOCKS.items()),
     variants=("kernel", "xla"),
+    flops=product_flops,
 )
 def _tile(ctx, a, b, *, out_dtype=None):
     global launches, wgmma_launches, skinny_launches, epilogue_launches

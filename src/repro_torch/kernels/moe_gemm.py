@@ -55,7 +55,7 @@ import functools
 
 import torch
 
-from repro_torch.axe.program import DeviceError, ProductGrad, program, stream_of
+from repro_torch.axe.program import DeviceError, ProductGrad, product_flops, program, stream_of
 from repro_torch.core.device import sm_count
 from repro_torch.core.scopes import Scope
 from repro_torch.kernels._build import DTYPE_CODES
@@ -101,7 +101,8 @@ def moe_gemm_library(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.
     return torch.bmm(x.float(), w.float()).to(out_dtype)
 
 
-@moe_gemm_program.stage("einsum", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,))
+@moe_gemm_program.stage("einsum", scope=Scope.BLOCK, dispatch=(Scope.BLOCK,),
+                        flops=product_flops)
 def _einsum(ctx, x, w, *, out_dtype=None):
     if ctx.on_card(x, w):
         return moe_gemm_library(x, w, out_dtype)
@@ -182,6 +183,7 @@ def expert_route(x: torch.Tensor, w: torch.Tensor) -> str:
     dispatch=(Scope.MESH, Scope.DEVICE, Scope.GRID),
     blocks=tuple(EXPERT_BLOCKS.items()),
     variants=("kernel", "xla"),
+    flops=product_flops,
 )
 def _expert_gemm(ctx, x, w, *, out_dtype=None):
     global launches, stream_launches, wgmma_launches

@@ -11,6 +11,7 @@ generation through the hand-written kernels.
     python -m repro_torch.launch.serve --arch whisper-large-v3
     python -m repro_torch.launch.serve --arch llava-next-mistral-7b --prompt-len 3008 \
         --max-seq 3040
+    python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu --ckpt-dir DIR
 
 ``--layers`` cuts the depth (full width): qwen3-moe-235b-a22b's 94
 layers hold ~470 GB of bf16 weights, one 80 GB card about 14 of them;
@@ -25,6 +26,13 @@ through the model API's ticks (``decode_mode="legacy"``): ``axe.compile``
 binds no model of their families, in the JAX package either. Their frontend stubs
 get ones as inputs (``frames [B, 1500, d]``, ``patches [B, 2880, 1024]``
 in the first 2880 prompt positions), as the JAX launcher builds them.
+
+``--ckpt-dir`` serves the latest checkpoint there, as the JAX launcher
+does (``CheckpointManager(dir).restore_latest(params)``, the bare params
+tree the template): a params checkpoint in the JAX package's format and
+layout (:func:`restore_params`). A ``Trainer`` checkpoint holds a whole
+``TrainState`` (leaves ``params/embed``, ``opt_state/mu/embed``, ...)
+and raises ``KeyError`` there, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,10 +44,25 @@ import numpy as np
 import torch
 
 from repro_torch.axe.compile import SUPPORTED_FAMILIES
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
 from repro_torch.kernels import programs
 from repro_torch.models.model_zoo import build_model
+from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine
+
+
+def restore_params(ckpt_dir: str, params, cfg):
+    """``(params, step)`` of the latest checkpoint under ``ckpt_dir``, or
+    ``(None, None)`` when it holds none: the JAX launcher's
+    ``restore_latest(params)``, the template the model's params in the
+    JAX model's layout (the one a JAX params checkpoint holds), restored
+    on their device and converted to the port's."""
+    mgr = CheckpointManager(ckpt_dir)
+    got = mgr.restore_latest(params_to_jax(params, cfg, numpy=False))
+    if got is None:
+        return None, None
+    return params_from_jax(got, cfg, device=params["embed"].device), mgr.latest_step()
 
 
 def main(argv=None):
@@ -56,6 +79,7 @@ def main(argv=None):
     ap.add_argument("--batcher", type=int, default=0, metavar="N",
                     help="serve N requests through the ContinuousBatcher")
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    ap.add_argument("--ckpt-dir", default=None, help="serve the latest params checkpoint there")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -65,6 +89,11 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     api = build_model(cfg, device=args.device)
     params = api.init(0)
+    if args.ckpt_dir:
+        restored, step = restore_params(args.ckpt_dir, params, cfg)
+        if restored is not None:
+            params = restored
+            print(f"loaded checkpoint step {step}")
     engine = ServeEngine(api, batch_size=args.batch, max_seq=args.max_seq,
                          temperature=args.temperature, device=api.device, fuse=args.fuse,
                          decode_mode="compiled" if cfg.family in SUPPORTED_FAMILIES else "legacy")
@@ -87,7 +116,7 @@ def main(argv=None):
         print(f"kernel launches: {programs.launch_counts()}")
         for uid in sorted(results)[:4]:
             print(uid, results[uid].tokens[:12])
-        return
+        return results
     gen = torch.Generator(device=api.device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=api.device)
@@ -99,6 +128,7 @@ def main(argv=None):
           f"({args.batch * args.new_tokens / dt:.1f} tok/s) on {api.device}")
     print(f"kernel launches: {programs.launch_counts()}")
     print(out[:, :12])
+    return {"prompts": prompts, "tokens": out}
 
 
 if __name__ == "__main__":

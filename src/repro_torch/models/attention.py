@@ -10,10 +10,15 @@ the JAX package, the cache is updated in place (the stacked cache
 tensors are written through views), which saves a full copy per layer
 and tick.
 
-The JAX package switches to a KV-blocked ``lax.scan`` (``_gqa_blocked``)
-above 8192 tokens to bound its memory; B3 is itself a blocked online
-softmax on the card and computes the same function at every length, so
-the port has one path.
+Above ``blocked_threshold`` tokens (8192) the JAX package switches to
+an online softmax over KV chunks of 1024 keys (``_gqa_blocked``) to
+bound its memory. The port hands B3 that chunk: on the card the
+forward is the same launch (B3 is a blocked online softmax at every
+length), while on CPU tensors the plain body is :func:`gqa_blocked`'s
+and, under autograd, the backward runs chunk by chunk
+(``kernels.ref.attention_blocked_grad``) instead of through the full
+``[B, H, S, S]`` f32 oracle. At or below the threshold the plain body
+and the backward are the full oracle, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,7 +27,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import programs
+from repro_torch.kernels.ref import attention_blocked
 from repro_torch.models.common import Params, dense_init, linear, rmsnorm, rope
+
+#: above this many tokens the attention runs blocked over KV chunks
+#: (``repro/models/attention.py:attn_apply``'s ``blocked_threshold``)
+BLOCKED_THRESHOLD = 8192
+#: keys per chunk of the blocked softmax (``_gqa_blocked``'s ``chunk``)
+BLOCKED_CHUNK = 1024
 
 
 def attn_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
@@ -55,25 +67,48 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def _attend(q, k, v, *, causal: bool, window: Optional[int] = None) -> torch.Tensor:
+def gqa_blocked(q, k, v, cfg=None, *, causal: bool, window: Optional[int],
+                chunk: int = BLOCKED_CHUNK) -> torch.Tensor:
+    """The JAX package's ``_gqa_blocked``: ``q [B, Sq, H, hd]`` over
+    ``k/v [B, Skv, KV, hd]`` as an online softmax over KV chunks of
+    ``chunk`` keys, ``[B, Sq, H, hd]`` out; the plain torch body B3 runs
+    on CPU tensors above the threshold (``cfg`` is unused, as there).
+    Unlike the reference, whose reshape raises, a ``Skv`` that ``chunk``
+    does not divide takes a ragged last chunk."""
+    out = attention_blocked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=causal, window=window, chunk=chunk)
+    return out.transpose(1, 2)
+
+
+def _attend(q, k, v, *, causal: bool, window: Optional[int] = None,
+            chunk: Optional[int] = None) -> torch.Tensor:
     """``[B, S, H, hd]`` queries over ``[B, Skv, KV, hd]`` keys/values
-    through B3 (transposed views, no copies); the ``[B·S, H·hd]`` rows
-    the output projection takes."""
+    through B3 (transposed views, no copies), blocked over KV chunks of
+    ``chunk`` keys when given; the ``[B·S, H·hd]`` rows the output
+    projection takes."""
     b, s, h, hd = q.shape
     out = programs.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window,
+        chunk=chunk,
     )  # [B, H, S, hd], a view of [B, S, H, hd] memory
     return out.transpose(1, 2).reshape(b * s, h * hd)
 
 
+def _chunk(s: int, blocked_threshold: int) -> Optional[int]:
+    return BLOCKED_CHUNK if s > blocked_threshold else None
+
+
 def attn_apply(p: Params, x: torch.Tensor, cfg, *, causal: bool = True,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None,
+               blocked_threshold: int = BLOCKED_THRESHOLD) -> torch.Tensor:
     """Full-sequence self-attention (the enc-dec encoder runs it with
-    ``causal=False``), rope at positions ``0..S-1``."""
+    ``causal=False``), rope at positions ``0..S-1``; blocked over KV
+    chunks above ``blocked_threshold`` tokens."""
     b, s, d = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    return programs.matmul(_attend(q, k, v, causal=causal, window=window), p["wo"]).view(b, s, d)
+    out = _attend(q, k, v, causal=causal, window=window, chunk=_chunk(s, blocked_threshold))
+    return programs.matmul(out, p["wo"]).view(b, s, d)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +146,7 @@ def attn_prefill(p: Params, x: torch.Tensor, cfg, cache: Params, *,
     b, s, d = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _attend(q, k, v, causal=True, window=window)
+    out = _attend(q, k, v, causal=True, window=window, chunk=_chunk(s, BLOCKED_THRESHOLD))
     _ring_store(cache["k"], k)
     _ring_store(cache["v"], v)
     return programs.matmul(out, p["wo"]).view(b, s, d), cache

@@ -1,6 +1,8 @@
 """Unified model API of the port — ``repro/models/model_zoo.py``: the
 decoder-only families (dense, MoE, SSM, hybrid, VLM) through
-``models.transformer``, the enc-dec family through ``models.encdec``."""
+``models.transformer``, the enc-dec family through ``models.encdec``;
+and the reference's grid of input shapes the dry runs plan for
+(:data:`SHAPES`, :func:`shape_applicable`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +15,33 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import dtype_of
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str       # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Assignment rules: long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k":
+        if cfg.family in ("ssm", "hybrid"):
+            return True, "SSM/hybrid: O(1)-state decode"
+        if cfg.local_global_ratio:
+            return True, "5:1 sliding-window local attention"
+        return False, "pure full-attention arch at 500k ctx (per assignment)"
+    return True, ""
 
 
 @dataclasses.dataclass

@@ -21,8 +21,9 @@ enc-dec family is ``models/encdec.py``.
 Training: :func:`lm_forward` / :func:`lm_loss` run the full sequence of
 every decoder-only family; under autograd each kernel program takes its
 differentiable route (B1's backward products on B1, B2's VJP in torch,
-B3 recomputed through its oracle, B5's backward products on B5). Every
-decoder-only family differentiates. The loss is the cross entropy alone:
+B3 recomputed through its oracle, chunk by chunk past 8192 tokens, B5's
+backward products on B5), each super-block rematerialised under
+:data:`REMAT_POLICY`. Every decoder-only family differentiates. The loss is the cross entropy alone:
 the MoE layers' auxiliary losses stay out of it, as in the JAX
 package's ``lm_loss``.
 """
@@ -34,6 +35,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.axe.program import SavedProducts
 from repro_torch.core.device import resolve_device
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
@@ -181,24 +183,36 @@ def _ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 #: how :func:`lm_forward` rematerialises a super-block in the backward:
 #: ``"full"`` recomputes it (``torch.utils.checkpoint``, non-reentrant),
-#: ``"none"`` keeps its activations; set by launch drivers
+#: ``"dots"`` keeps its 2-D products' outputs (B1's) and recomputes the
+#: rest, ``"none"`` keeps its activations; set by the launchers
 REMAT_POLICY = "full"
 
 
 def set_remat_policy(policy: str) -> None:
-    """``"full"`` or ``"none"``. The JAX package's ``"dots"`` (keep the
-    matmul outputs, recompute the elementwise chains) needs a
-    checkpoint policy that saves B1's outputs, which does not exist
-    yet: it raises, naming ``ROADMAP.md`` A15."""
+    """``"full"``, ``"dots"`` or ``"none"``, the JAX package's policies.
+    ``"dots"`` is its ``jax.checkpoint`` under
+    ``dots_with_no_batch_dims_saveable``: the outputs of products with
+    no batch dims (every B1 product: the projections and the MLP) are
+    saved in the forward and handed back in the recompute
+    (:class:`~repro_torch.axe.program.SavedProducts`), so the recompute
+    launches no B1; the norms, B3's attention and B5's batched expert
+    products are recomputed."""
     global REMAT_POLICY
-    if policy == "dots":
-        raise NotImplementedError(
-            "remat policy 'dots' (save B1's outputs, recompute the rest) is not ported "
-            "yet: ROADMAP.md A15"
-        )
-    if policy not in ("full", "none"):
+    if policy not in ("full", "dots", "none"):
         raise ValueError(f"remat policy {policy!r} not in ('full', 'dots', 'none')")
     REMAT_POLICY = policy
+
+
+def _remat(body, *args):
+    """``body(*args)``, rematerialised in the backward under
+    :data:`REMAT_POLICY`."""
+    if REMAT_POLICY == "none":
+        return body(*args)
+    if REMAT_POLICY == "dots":
+        saved = SavedProducts()
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=lambda: (saved.recording(), saved.replaying()))
+    return checkpoint(body, *args, use_reentrant=False)
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -240,10 +254,7 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     with scope(Scope.DEVICE):
         x = _embed_inputs(params, batch, cfg)
         for sp in _unstack(params["blocks"], n_super):
-            if remat and REMAT_POLICY == "full":
-                x = checkpoint(body, sp, x, use_reentrant=False)
-            else:
-                x = body(sp, x)
+            x = _remat(body, sp, x) if remat else body(sp, x)
         x = rmsnorm(x, params["final_norm"])
         return linear(x, _head(params, cfg))
 

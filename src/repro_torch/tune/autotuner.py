@@ -20,6 +20,7 @@ as runnable, so a failure is a fault, not a reason to pick another.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import statistics
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -199,15 +200,20 @@ def autotune_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 def autotune_mha_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = False, cache: Optional[ScheduleCache] = None,
                          top_k: int = 4, iters: int = 3) -> TuneReport:
-    """The JAX package's chunk tuner of its blocked-softmax attention
-    (``_gqa_blocked``, above 8192 tokens). No path of the port runs a
-    blocked softmax (B3 is one at every length on the card), so there is
-    nothing to time: raises until ``ROADMAP.md`` A15 brings the CPU's
-    blocked path. ``planner.plan_mha_blocked`` still plans the chunk."""
-    raise NotImplementedError(
-        "autotune_mha_blocked: the port runs no blocked-softmax attention to time "
-        "(the JAX package's _gqa_blocked above 8192 tokens comes with ROADMAP.md A15)"
-    )
+    """Tune the chunk size of the blocked-softmax attention (the JAX
+    package's ``_gqa_blocked`` above 8192 tokens; ``[B, S, H, D]``
+    operands): the port's blocked body,
+    ``models.attention.gqa_blocked``, timed at each chunk the planner
+    offers (``planner.plan_mha_blocked``)."""
+    def make(sched: Schedule) -> Callable:
+        from repro_torch.models import attention as attn_mod
+
+        return functools.partial(attn_mod.gqa_blocked, cfg=None, causal=causal, window=None,
+                                 chunk=sched.block("chunk", 256))
+
+    return _tune("mha_blocked", (q.shape, k.shape), (q.dtype, k.dtype), make, (q, k, v),
+                 layout_sig="causal" if causal else "dense", cache=cache, top_k=top_k,
+                 iters=iters)
 
 
 def autotune_moe_gemm(x: torch.Tensor, w: torch.Tensor, *,

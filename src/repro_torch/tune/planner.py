@@ -21,12 +21,14 @@ Axe lowering is asked for (``axe.lower``).
 Ranking is the three-term roofline of ``launch.roofline.schedule_time``
 with the peaks of the default device class (``axe.hetero``: the H100's
 datasheet figures, ``launch.mesh``) for backend ``"gpu"``, never a TPU
-figure. The JAX package refines its ``xla`` candidate through XLA's HLO
-cost analysis (``launch/hlo_cost.py``, which comes with ``ROADMAP.md``
-A15); until then the port prices the library call by the roofline of
-the same work — each operand read once, the output written once — as it
-prices the kernel. Analytically the two tie, and a tie ranks the
-hand-written kernel first (its describe string sorts first, the JAX
+figure. The library call is priced by the roofline of the same work as
+the kernel — each operand read once, the output written once. Those are
+the bytes the cost counter (``launch/hlo_cost.py``) gives one
+``torch.matmul`` (``tests/test_torch_cost.py`` holds the two equal), so
+the JAX package's ``use_hlo`` refinement through its HLO analysis has
+nothing to refine here: the keyword is kept for the reference's
+signature and changes nothing. The two candidates tie, and a tie ranks
+the hand-written kernel first (its describe string sorts first, the JAX
 package's tie rule); only a measurement (``tune.autotuner``) can rank the
 library call above it.
 
@@ -151,13 +153,16 @@ def plan_matmul(
     dtype=torch.float32,
     *,
     backend: Optional[str] = None,
+    use_hlo: bool = False,
     op_name: str = "matmul",
 ) -> List[Candidate]:
     """Candidates for ``C[M,N] = A[M,K] @ B[K,N]``: the library product
     and B1 at its built tile (the kernel masks ragged edges, so the tile
     need not divide the shape). Both are priced at the work's roofline:
     2MKN operations over each operand read once and C written once (the
-    50 MB L2 holds the panels a tile re-reads)."""
+    50 MB L2 holds the panels a tile re-reads), the cost counter's
+    bytes for the product. ``use_hlo`` changes nothing (module doc)."""
+    del use_hlo
     backend = _backend(backend)
     item = itemsize(dtype)
     flops = 2.0 * m * k * n
@@ -207,8 +212,8 @@ def plan_mha_blocked(
     """Chunk-size candidates for the JAX package's blocked online-softmax
     attention (``_gqa_blocked``). Logit traffic is chunk-independent;
     the cost difference is the per-chunk dispatch overhead, so bigger
-    chunks rank first. No path of the port runs a blocked softmax yet
-    (``ROADMAP.md`` A15), so nothing reads this chunk."""
+    chunks rank first. ``autotune_mha_blocked`` times the port's blocked
+    body (``models.attention.gqa_blocked``) at these chunks."""
     backend = _backend(backend)
     item = itemsize(dtype)
     flops = 4.0 * b * h * s * s * d
@@ -319,6 +324,7 @@ def plan(
     shapes: Sequence[Sequence[int]],
     dtypes: Sequence,
     backend: Optional[str] = None,
+    use_hlo: bool = False,
     impl: Optional[str] = None,
     top_k: Optional[int] = None,
 ) -> List[Candidate]:
@@ -333,7 +339,7 @@ def plan(
     dtype = dtypes[0] if dtypes else torch.float32
     if base == "matmul":
         (m, k), (_k2, n) = shapes[0], shapes[1]
-        cands = plan_matmul(m, k, n, dtype, backend=backend, op_name=op)
+        cands = plan_matmul(m, k, n, dtype, backend=backend, use_hlo=use_hlo, op_name=op)
     elif base == "flash_attention":
         b, h, sq, d = shapes[0]
         cands = plan_flash_attention(b, h, sq, shapes[1][2], d, dtype, backend=backend,

@@ -11,6 +11,7 @@ lowering trace (equal to the JAX package's in every field but
 ``schedule``, which the port takes from the stage's declared default
 until the tune slice)."""
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +26,14 @@ from repro.configs import get_config, smoke_variant
 from repro.models.model_zoo import build_model as jax_build_model
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch import configs as tconfigs
-from repro_torch.axe import compile as p_compile
 from repro_torch.axe.compile import CompileError
 from repro_torch.convert import cache_from_jax, cache_to_jax, params_from_jax
 from repro_torch.kernels import programs
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve.engine import ServeEngine
+
+# ``repro_torch.axe`` exports a function ``compile`` that shadows the submodule
+p_compile = importlib.import_module("repro_torch.axe.compile")
 
 ARCHS = ("qwen3-4b", "gemma3-12b", "starcoder2-7b", "qwen3-moe-235b-a22b")
 # a 20-token prompt overflows gemma3's 16-slot smoke ring: its decode

@@ -9,6 +9,7 @@ plan signatures, comm bytes, hit counts and objectives (floats equal
 exactly). ``compile(cotune=True)`` ships the one-shot plan on an empty
 ambient cache and carries its trace."""
 import dataclasses
+import importlib
 
 import pytest
 
@@ -19,14 +20,17 @@ from repro.axe.spec import PhysicalSpace as RSpace
 from repro.tune import feedback as r_feedback
 from repro.tune import planner as r_planner
 from repro_torch import tune
-from repro_torch.axe import compile as p_compile
 from repro_torch.axe import graphs as p_graphs
 from repro_torch.axe import hetero as p_hetero
-from repro_torch.axe import solve as p_solve
 from repro_torch.axe.cotune import cotune
 from repro_torch.axe.spec import PhysicalSpace
 from repro_torch.tune import feedback, planner
 from test_torch_plan import V5E, _cfgs
+
+# ``repro_torch.axe`` exports the functions ``compile`` and ``solve``,
+# which shadow the submodules
+p_compile = importlib.import_module("repro_torch.axe.compile")
+p_solve = importlib.import_module("repro_torch.axe.solve")
 
 SPACE = {"data": 2, "model": 4}
 

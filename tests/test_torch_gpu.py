@@ -1063,3 +1063,82 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, dtype):
             np.testing.assert_allclose(a, b.numpy(), rtol=2e-2, atol=1e-4)
         else:
             np.testing.assert_allclose(a, b.float().numpy(), rtol=2e-2, atol=2.5e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,chunk,window", [(512, 128, None), (300, 64, 100), (1040, 256, None)])
+def test_blocked_attention_backward_on_the_card(cuda, dtype, s, chunk, window):
+    """B3 forward with a chunk (one launch, the same kernel) and the
+    chunk-by-chunk backward on CUDA tensors, against autograd of the full
+    oracle; a chunk that does not divide S leaves a ragged last one."""
+    q = _randn(cuda, (1, s, 8, 128), dtype, 11).transpose(1, 2)
+    k = _randn(cuda, (1, s, 2, 128), dtype, 12).transpose(1, 2)
+    v = _randn(cuda, (1, s, 2, 128), dtype, 13).transpose(1, 2)
+    fn = lambda q, k, v: programs.flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
+                                                  chunk=chunk)
+    programs.reset_launch_counts()
+    got = _card_grads(fn, q, k, v)
+    assert fa.attend_launches == 1
+    plain = lambda q, k, v: fa.attention_plain(q, k, v, causal=True, window=window)  # noqa: E731
+    for p, w in zip(got, _card_grads(plain, q, k, v)):
+        _close(p, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_dots_on_the_card(cuda, dtype):
+    """Smoke qwen3-4b on the card: ``"dots"`` gives ``"full"``'s loss and
+    grads, with 3P B1 launches against 4P - 1 (the recompute launches no
+    B1) and the same B2 and B3 launches."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-4b")), dtype=dtype)
+    api = build_model(cfg, device=cuda)
+    params = api.init(0)
+    batch = SyntheticLMData(cfg.vocab_size, 64, 2, seed=3).torch_batch_at(0, cuda)
+    out = {}
+    try:
+        for policy in ("full", "dots"):
+            tf.set_remat_policy(policy)
+            programs.reset_launch_counts()
+            loss, grads = value_and_grad(api.loss_fn)(params, batch)
+            out[policy] = (loss, dict(leaves_with_paths(grads)), programs.launch_counts())
+    finally:
+        tf.set_remat_policy("full")
+    p = 7 * cfg.num_layers + 1
+    assert out["dots"][2]["matmul/tile"] == 3 * p and out["full"][2]["matmul/tile"] == 4 * p - 1
+    for op in ("rmsnorm/rows", "flash_attention/attend"):
+        assert out["dots"][2][op] == out["full"][2][op]
+    assert torch.equal(out["dots"][0], out["full"][0])
+    for path, g in out["dots"][1].items():
+        assert torch.equal(g, out["full"][1][path]), path
+
+
+def test_cost_counter_counts_kernel_launches_once(cuda):
+    """On CUDA tensors a program call is counted at its dispatch (the
+    kernel launches through ctypes, which aten never sees) and the
+    wrapper's own allocations inside it are not counted again."""
+    from repro_torch.launch import hlo_cost
+
+    a, b = _randn(cuda, (512, 256), torch.bfloat16, 1), _randn(cuda, (256, 384), torch.bfloat16, 2)
+    before = mm.launches
+    cost = hlo_cost.analyze(lambda: torch.tanh(programs.matmul(a, b)))
+    assert mm.launches == before + 1
+    assert cost.by_op["matmul/tile"] == [1, 2.0 * 512 * 256 * 384, (512 * 256 + 256 * 384
+                                                                     + 512 * 384) * 2]
+    assert set(cost.by_op) == {"matmul/tile", "aten.tanh"}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-moe-235b-a22b"])
+def test_dryrun_execute_on_the_card(cuda, arch):
+    from repro_torch.launch import dryrun
+
+    programs.reset_launch_counts()
+    rec = dryrun.execute_cell(arch, batch=2, seq=16, beam=2, verbose=False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["collectives"] == 0
+    counts = programs.launch_counts()
+    assert counts["matmul/tile"] > 0 and counts["flash_attention/attend"] > 0
+    assert (counts["moe_gemm/expert_gemm"] > 0) == (arch != "qwen3-4b")

@@ -30,5 +30,6 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 for f in files}
     assert expected == set(result["imported"])
     assert {"repro_torch.serve.engine", "repro_torch.serve.batcher", "repro_torch.axe.passes",
-            "repro_torch.models.ssm"} <= set(result["imported"])
+            "repro_torch.models.ssm", "repro_torch.launch.hlo_cost", "repro_torch.launch.dryrun",
+            "repro_torch.launch.report"} <= set(result["imported"])
     assert result["bad"] == []

@@ -11,6 +11,7 @@ segments, on the same torch ops), as the JAX package holds its own;
 against the JAX package's fused ``mesh=None`` executables the port is
 held to ``tests/test_compile.py``'s f32 tolerance, 2e-4."""
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +30,6 @@ from repro.configs import get_config, smoke_variant
 from repro.models.model_zoo import build_model as jax_build_model
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch import configs as tconfigs
-from repro_torch.axe import compile as p_compile
 from repro_torch.axe import passes
 from repro_torch.axe.compile import CompileError
 from repro_torch.axe.graphs import GraphSpec, OpNode, TensorMeta, decode_graph, model_graph
@@ -38,6 +38,9 @@ from repro_torch.axe.spec import PhysicalSpace
 from repro_torch.convert import cache_from_jax, params_from_jax
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve.engine import ServeEngine
+
+# ``repro_torch.axe`` exports a function ``compile`` that shadows the submodule
+p_compile = importlib.import_module("repro_torch.axe.compile")
 
 ARCHS = ("qwen3-4b", "qwen3-moe-235b-a22b", "mamba2-2.7b", "jamba-1.5-large-398b")
 B, S, MAX_SEQ = 2, 16, 16

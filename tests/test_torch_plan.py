@@ -24,13 +24,14 @@ from repro_torch import configs as tconfigs
 from repro_torch.axe import graphs as p_graphs
 from repro_torch.axe import hetero as p_hetero
 from repro_torch.axe import rules
-from repro_torch.axe import solve as p_solve
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace
 from repro_torch.launch import mesh as p_mesh
 from repro_torch.models import moe as p_moe
 
-# ``repro.axe`` exports a function ``solve`` that shadows the submodule
+# ``repro.axe`` and ``repro_torch.axe`` export a function ``solve`` that
+# shadows the submodule
 r_solve = importlib.import_module("repro.axe.solve")
+p_solve = importlib.import_module("repro_torch.axe.solve")
 
 ARCHS = ("qwen3-4b", "gemma3-12b", "starcoder2-7b", "qwen3-moe-235b-a22b")
 MESHES = {"empty": {}, "2x4": {"data": 2, "model": 4}}
@@ -44,6 +45,7 @@ V5E = p_hetero.ClassTable(classes=(
     p_hetero.DeviceClass("host", peak_flops=0.0, mem_bw=100e9, link_bw=16e9,
                          capacity=math.inf),
 ))
+
 
 
 def _cfgs(arch):

@@ -16,6 +16,7 @@ holds here too (Adam's rsqrt amplifies reduction-order noise where
 import dataclasses
 import filecmp
 import functools
+import importlib
 import os
 
 import jax
@@ -36,7 +37,6 @@ from repro.optim.adamw import AdamWState as JaxAdamWState
 from repro.train import train_loop as jtrain
 from repro_torch import configs as tconfigs
 from repro_torch import tune
-from repro_torch.axe import compile as p_compile
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.convert import (params_from_jax, to_numpy, to_torch, train_state_from_jax,
                                  train_state_to_jax)
@@ -47,6 +47,9 @@ from repro_torch.optim.adamw import AdamW, clip_scale, global_norm
 from repro_torch.optim.grad_compress import quantize_dequantize
 from repro_torch.train.train_loop import (Trainer, init_state, make_compiled_train_step,
                                           make_train_step, value_and_grad)
+
+# ``repro_torch.axe`` exports a function ``compile`` that shadows the submodule
+p_compile = importlib.import_module("repro_torch.axe.compile")
 
 LR = 3e-3
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -8,6 +8,7 @@ rtol 1e-3 / atol 1e-4 (``tests/test_compile.py``'s grad tolerance);
 train steps ``tests/test_torch_train_loop.py``'s."""
 import filecmp
 import functools
+import importlib
 import os
 
 import jax
@@ -25,7 +26,6 @@ from repro.models.model_zoo import build_model as jax_build_model
 from repro.optim.adamw import AdamW as JaxAdamW
 from repro.optim.adamw import AdamWState as JaxAdamWState
 from repro.train import train_loop as jtrain
-from repro_torch.axe import compile as p_compile
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.convert import (params_from_jax, to_numpy, to_torch, train_state_from_jax,
                                  train_state_to_jax)
@@ -35,6 +35,9 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.train_loop import make_compiled_train_step, make_train_step, value_and_grad
 from test_torch_train_moe import F32_GRADS, F32_LOSS, _cfgs, _jax_params, _torch_batch
+
+# ``repro_torch.axe`` exports a function ``compile`` that shadows the submodule
+p_compile = importlib.import_module("repro_torch.axe.compile")
 
 LR = 3e-3
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -17,7 +17,7 @@ FILES = ("test_torch_kernels.py", "test_torch_serve.py", "test_torch_moe.py",
          "test_torch_compile.py", "test_torch_passes.py", "test_torch_ssm.py",
          "test_torch_encdec.py", "test_torch_vlm.py", "test_torch_train.py",
          "test_torch_train_loop.py", "test_torch_train_moe.py", "test_torch_train_moe_steps.py",
-         "test_torch_train_encdec.py")
+         "test_torch_train_encdec.py", "test_torch_remat.py", "test_torch_blocked_attention.py")
 
 #: test -> (port module, reference function it is held to)
 TARGETS = {
@@ -131,6 +131,13 @@ TARGETS = {
                                              "jax.value_and_grad(encdec_loss)"),
     "test_whisper_train_steps_match_jax": ("train/train_loop.py",
                                            "make_train_step (jit), whisper, 1 / 3 steps"),
+    "test_dots_grads_match_jax_dots_and_the_port_full_and_none": (
+        "models/transformer.py", "jax.value_and_grad(lm_loss), remat dots"),
+    "test_blocked_body_and_grads_match_jax": ("kernels/ref.py", "_gqa_blocked and its vjp"),
+    "test_blocked_grad_equals_the_full_oracle": ("kernels/ref.py",
+                                                 "autograd of the full oracle"),
+    "test_attn_apply_blocked_matches_jax_with_grads": (
+        "models/attention.py", "attn_apply past blocked_threshold, vjp"),
 }
 
 
