@@ -233,6 +233,31 @@ the rest of one-card training and the dry runs:
     bf16 peak at phase 17's median wall, beside the card's name and
     power limit.
 
+serving across ranks:
+
+24. mesh   — the mesh (1, 4) ("data", "model") as 4 ranks sharing the
+    card over gloo (``launch.mesh.spawn``, the kernels built here
+    first; transfers staged through the host, so no time here forecasts
+    several cards). The parent first runs the single-rank references on
+    the card and frees it. Each rank: (a) every plan step and
+    ``ring_all_gather`` on CUDA tensors in bf16 and f32, bit-equal for
+    data movement and within ``TOL`` for sums; (b) ``collective_matmul``
+    at qwen3-4b's tensor-parallel down projection (``[2048, 2432] @
+    [2432, 2560]`` a rank), ``ring`` and ``psum_scatter`` within ``TOL``
+    of ``torch.matmul``, their partials on B1 (4 and 1 launches a rank,
+    wgmma), CUDA-event ms of each, the partial alone and its bound;
+    (c) qwen3-4b at full width and depth on ``ServeEngine(mesh)``
+    (weights drawn leaf by leaf, each rank keeping its shard): ``score``
+    of 4 x 128 tokens within ``LOGIT_TOL`` of the single rank's,
+    ``generate`` of 4 x 32-token prompts (fed tick by tick) + 16 tokens
+    under the near-tie rule and equal on every rank, issued == planned,
+    one launch per kernel-bound node per tick and per ``score``, the
+    plan's placements, peak memory, wall per tick and
+    ``collective_counts()``; (d) qwen3-moe-235b-a22b at full width, 2
+    layers, 4 compiled ticks within ``LOGIT_TOL`` of the single rank's,
+    B5 at the rank's experts. It also prints which calls gloo takes
+    directly on this torch.
+
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -261,7 +286,7 @@ SSM_ARCH = "mamba2-2.7b"
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
 # phases of the run
-STEPS = 23
+STEPS = 24
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
@@ -3330,6 +3355,463 @@ def phase_dryrun_cost(cfg, torch, device, release, full, smi):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 24: serving across ranks — 4 ranks share the card over gloo
+# ---------------------------------------------------------------------------
+
+#: the mesh of phase 24, and qwen3-4b's tensor-parallel down projection:
+#: the ``collective_matmul`` of M tokens, K = d_ff split over the ranks
+MESH24_SHAPE, MESH24_AXES = (1, 4), ("data", "model")
+MESH24_PROMPT, MESH24_NEW, MESH24_SCORE = 32, 16, 128
+MESH24_MOE_LAYERS, MESH24_MOE_TICKS = 2, 4
+CM_M = 2048
+#: the plan steps phase 24 runs on CUDA tensors: (name, step, fields,
+#: each rank's input) — ``"row"`` its row block of x, ``"whole"`` all of
+#: x, ``"scaled"`` (rank + 1) x, the operands of a sum
+MESH24_STEPS = (
+    ("AllGather", "AllGather", ("model", 0), "row"),
+    ("ring_all_gather", "ring", ("model", 0), "row"),
+    ("pending_gather", "pending", ("model", 0), "row"),
+    ("AllToAll", "AllToAll", ("model", 0, 1), "row"),
+    ("DynamicSlice", "DynamicSlice", ("model", 1), "whole"),
+    ("Transfer.gather", "Transfer", ("model", 0, "gather"), "row"),
+    ("Transfer.slice", "Transfer", ("model", 1, "slice"), "whole"),
+    ("ReduceScatter", "ReduceScatter", ("model", 1), "scaled"),
+    ("AllReduce", "AllReduce", ("model",), "scaled"),
+)
+
+
+def gloo_probe(mesh, torch) -> dict:
+    """Which ``torch.distributed`` calls gloo takes directly on this
+    machine's torch (the port's transport uses ``all_gather``,
+    ``all_reduce`` and the tensor reduce-scatter in the operand's dtype,
+    ``all_to_all_single`` and ``batch_isend_irecv``, on host tensors)."""
+    import torch.distributed as dist
+
+    g, p = mesh.group("model"), mesh.axis_size("model")
+    ranks = mesh.group_ranks("model")
+    me = mesh.axis_index("model")
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = "yes"
+        except Exception as e:  # noqa: BLE001 - the probe reports every refusal
+            out[name] = f"no ({type(e).__name__}: {str(e).splitlines()[0][:90]})"
+
+    def p2p():
+        recv = torch.empty(4)
+        for r in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, torch.ones(4), ranks[(me + 1) % p], g),
+                dist.P2POp(dist.irecv, recv, ranks[(me - 1) % p], g)]):
+            r.wait()
+
+    cuda = mesh.device
+    attempt("all_gather (list, f32, host)",
+            lambda: dist.all_gather([torch.empty(4) for _ in range(p)], torch.ones(4), group=g))
+    attempt("all_reduce (f32, host)", lambda: dist.all_reduce(torch.ones(4), group=g))
+    attempt("all_to_all_single (uint8, host)",
+            lambda: dist.all_to_all_single(torch.empty(4 * p, dtype=torch.uint8),
+                                           torch.ones(4 * p, dtype=torch.uint8), group=g))
+    attempt("batch_isend_irecv (f32, host)", p2p)
+    attempt("all_reduce (bf16, host)",
+            lambda: dist.all_reduce(torch.ones(4, dtype=torch.bfloat16), group=g))
+    attempt("all_gather_into_tensor (f32, host)",
+            lambda: dist.all_gather_into_tensor(torch.empty(4 * p), torch.ones(4), group=g))
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    for dt in ("float32", "bfloat16"):
+        attempt(f"{scatter.__name__} ({dt}, host)",
+                lambda dt=getattr(torch, dt): scatter(torch.empty(4, dtype=dt),
+                                                      torch.ones(4 * p, dtype=dt), group=g))
+    attempt("all_reduce (f32, card)", lambda: dist.all_reduce(torch.ones(4, device=cuda), group=g))
+    attempt("all_gather (list, f32, card)",
+            lambda: dist.all_gather([torch.empty(4, device=cuda) for _ in range(p)],
+                                    torch.ones(4, device=cuda), group=g))
+    return out
+
+
+def mesh_steps_on_card(mesh, torch) -> dict:
+    """(a) Each plan step and ``ring_all_gather`` on CUDA tensors in bf16
+    and f32, against the tensor assembled from the global input on the
+    same card: bit-equal for data movement, ``TOL`` for sums."""
+    from repro_torch.core import collective as coll
+
+    dev, p, r = mesh.device, mesh.axis_size("model"), mesh.axis_index("model")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(SEED + 24)
+        x = torch.randn((16 * p, 64 * p), generator=g, device=dev).to(dt)
+        rows, cols = x.shape[0] // p, x.shape[1] // p
+        total = (x.float() * (p * (p + 1) // 2)).to(dt)   # sum over ranks of (rank + 1) x
+        for name, step, fields, given in MESH24_STEPS:
+            local = {"row": x[r * rows:(r + 1) * rows], "whole": x,
+                     "scaled": (x.float() * (r + 1)).to(dt)}[given]
+            if step == "ring":
+                got = coll.ring_all_gather(local, *fields)
+            elif step == "pending":
+                got = coll.Pending(local, [coll.AllGather(*fields)]).wait()
+            else:
+                got = coll.lower_step(local, getattr(coll, step)(*fields))
+            want = {"AllGather": x, "ring": x, "pending": x,
+                    "AllToAll": x[:, r * cols:(r + 1) * cols],
+                    "DynamicSlice": x[:, r * cols:(r + 1) * cols],
+                    "Transfer": x if fields[-1] == "gather" else x[:, r * cols:(r + 1) * cols],
+                    "ReduceScatter": total[:, r * cols:(r + 1) * cols],
+                    "AllReduce": total}[step]
+            check(got.device == x.device and got.dtype == dt and got.shape == want.shape,
+                  f"{name} {dtype}: {got.device} {got.dtype} {tuple(got.shape)}")
+            if step in ("ReduceScatter", "AllReduce"):
+                err = float((got.float() - want.float()).abs().max())
+                check(bool(torch.allclose(got.float(), want.float(), **TOL[dtype])),
+                      f"{name} {dtype} on the card: max |diff| {err}")
+            else:
+                err = 0.0
+                check(bool(torch.equal(got, want)), f"{name} {dtype} on the card is not bit-equal")
+            out[f"{name}/{dtype}"] = err
+    return out
+
+
+def mesh_collective_matmul(mesh, torch) -> dict:
+    """(b) ``collective_matmul`` at qwen3-4b's tensor-parallel down
+    projection: a rank holds ``a [CM_M, d_ff / P]`` and ``b [d_ff / P,
+    d]`` in bf16 and gets ``[CM_M / P, d]``; ``ring`` and
+    ``psum_scatter`` against ``torch.matmul`` of the full operands
+    within ``TOL``, their partials launched on B1 (wgmma; P launches under
+    ``ring``, one under ``psum_scatter``); then each variant's CUDA-event
+    ms, the partial product's alone, and its bound."""
+    from repro_torch.core import collective as coll
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import programs
+
+    cfg = get_config(ARCH)
+    dev, p, r = mesh.device, mesh.axis_size("model"), mesh.axis_index("model")
+    k, n, m = cfg.d_ff, cfg.d_model, CM_M
+    kl, rows = k // p, m // p
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=dev) * k ** -0.5).to(torch.bfloat16)
+    oracle = torch.matmul(a, b)[r * rows:(r + 1) * rows]
+    al, bl = a[:, r * kl:(r + 1) * kl].contiguous(), b[r * kl:(r + 1) * kl].contiguous()
+    del a, b
+    out = {"shape": f"a [{m}, {kl}] @ b [{kl}, {n}] -> [{rows}, {n}] a rank, bf16"}
+    timer = Timer(torch, dev, reps=10, warmup=2)
+    for impl in ("ring", "psum_scatter"):
+        programs.reset_launch_counts()
+        got = programs.collective_matmul(al, bl, axis_name="model", impl=impl)
+        launches, wg = programs.launch_counts()["matmul/tile"], programs.wgmma_counts()["matmul/tile"]
+        want_n = p if impl == "ring" else 1
+        check(launches == want_n and wg == want_n,
+              f"collective_matmul {impl}: B1 launched {launches} times ({wg} wgmma), not {want_n}")
+        err = float((got.float() - oracle.float()).abs().max())
+        check(tuple(got.shape) == (rows, n) and bool(
+            torch.allclose(got.float(), oracle.float(), **TOL["bfloat16"])),
+            f"collective_matmul {impl} against torch.matmul: max |diff| {err}")
+        coll.reset_collective_counts()
+        ms = timer(lambda impl=impl: programs.collective_matmul(al, bl, axis_name="model",
+                                                                impl=impl))
+        out[impl] = {"max_abs_err": err, "b1_launches": launches, "ms": ms,
+                     "collectives": coll.collective_counts()}
+    out["partial_ms"] = timer(lambda: programs.matmul(al, bl, out_dtype=torch.float32))
+    nbytes = (m * kl + kl * n) * 2 + m * n * 4
+    out["partial_bound_ms"], out["partial_bound_by"] = bound_ms(nbytes, 2.0 * m * kl * n,
+                                                                "bfloat16")
+    return out
+
+
+def _placements(exe) -> dict:
+    """``{input kind: placement}`` of a plan's sharded graph inputs."""
+    out = {}
+    for name, spec in sorted(exe.assignment.items()):
+        pl = spec.placement()
+        if any(pl):
+            out.setdefault(name.rsplit(".", 1)[-1], str(tuple(tuple(a) for a in pl)))
+    return out
+
+
+def mesh_dense(mesh, torch, job) -> dict:
+    """(c) qwen3-4b at full width and depth on ``ServeEngine(mesh)``:
+    ``score`` and ``generate`` of the parent's inputs, one launch per
+    kernel-bound node per call or tick, issued == planned."""
+    from repro_torch.axe.rules import map_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.core import collective as coll
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, dev = get_config(ARCH), mesh.device
+    eng = ServeEngine(build_model(cfg, device=dev), batch_size=BATCH, max_seq=job["max_seq"],
+                      device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    eng.load(seed=SEED)
+    torch.cuda.synchronize(dev)
+    stats = {"load_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    dexe = eng.compiled_decode()
+    fexe = eng.compiled_forward(MESH24_SCORE)
+    stats["solve_compile_s"] = time.perf_counter() - t0
+    stats["placements"] = _placements(dexe)
+    kept = []
+    map_with_path(lambda _p, t: kept.append(t.numel() * t.element_size()), eng.params)
+    stats["param_gib"] = sum(kept) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    tokens = torch.from_numpy(job["score_tokens"]).to(dev)
+    eng.score(tokens)   # warm-up: binds the inputs
+    torch.cuda.synchronize(dev)
+    coll.reset_collective_counts()
+    before = (programs.wgmma_counts(), programs.bulk_counts())
+    t0 = time.perf_counter()
+    logits, launches = launch_deltas(programs, lambda: eng.score(tokens))
+    torch.cuda.synchronize(dev)
+    stats["score_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["score_collectives"] = coll.collective_counts()
+    wg = {k: v - before[0][k] for k, v in programs.wgmma_counts().items()}
+    check(launches == fexe.op_counts(), f"mesh score launched {launches}, the forward graph "
+                                        f"binds {fexe.op_counts()}")
+    check(wg["matmul/tile"] == launches["matmul/tile"]
+          and wg["flash_attention/attend"] == launches["flash_attention/attend"],
+          f"mesh score: {wg} of {launches} launches took wgmma")
+    check(fexe.observed_collectives == fexe.collective_sequence(),
+          "mesh score issued other collectives than its plan")
+    ref = job["ref_score"]
+    diff = (logits.float().cpu() - ref.float()).abs()
+    stats["score_max_abs_diff"] = float(diff.max())
+    check(bool(torch.allclose(logits.float().cpu(), ref.float(), **LOGIT_TOL)),
+          f"mesh score logits against the single rank's: max |diff| {float(diff.max())}")
+    del logits, diff
+
+    eng.generate(torch.from_numpy(job["prompts"][:, :2]).to(dev), 2)   # warm-up
+    tick_launches, counted = counted_ticks(eng, programs)
+    before = (programs.wgmma_counts(), programs.bulk_counts())
+    coll.reset_collective_counts()
+    try:
+        out = eng.generate(torch.from_numpy(job["prompts"]).to(dev), MESH24_NEW)
+    finally:
+        del eng.decode_step
+    ticks = counted[0]
+    check(ticks == MESH24_PROMPT + MESH24_NEW - 1, f"{ticks} mesh ticks")
+    nodes = dexe.op_counts()
+    check(tick_launches == {k: v * ticks for k, v in nodes.items()},
+          f"mesh ticks launched {tick_launches}, decode-graph nodes {nodes} x {ticks}")
+    bulk = {k: v - before[1][k] for k, v in programs.bulk_counts().items()}
+    check(bulk["matmul/tile"] == tick_launches["matmul/tile"]
+          and bulk["flash_attention/decode"] == tick_launches["flash_attention/decode"],
+          f"mesh ticks: {bulk} of {tick_launches} launches took the skinny / split-KV kernels")
+    check(dexe.observed_collectives == dexe.collective_sequence(),
+          "a mesh tick issued other collectives than its plan")
+    timing = eng.last_timing
+    stats.update(
+        tokens=out, ticks=ticks, nodes_per_tick=nodes,
+        prefill_ticks_s=timing["prefill_s"],
+        decode_ms_per_tick=timing["decode_s"] * 1e3 / timing["decode_steps"],
+        collectives_per_tick=len(dexe.collective_sequence()),
+        generate_collectives=coll.collective_counts(),
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        b4_heads=dexe.input_spec("L0.wq").local_shape()[1] // cfg.head_dim,
+        lm_head_columns=dexe.input_spec("lm_head").local_shape()[1])
+    return stats
+
+
+def moe_ticks(eng, toks, torch, device) -> list:
+    """Compiled decode ticks of ``toks [B, T]`` at positions 0..T-1 from
+    an empty cache: each tick's logits on the host."""
+    cache = eng.api.cache_init(toks.shape[0], eng.max_seq)
+    if eng.mesh is not None:
+        cache = eng._place_cache(cache)
+    out = []
+    for t in range(toks.shape[1]):
+        pos = torch.full((toks.shape[0],), t, dtype=torch.int32, device=device)
+        logits, cache = eng.decode_step(torch.from_numpy(toks[:, t]).to(device), cache, pos)
+        out.append(logits.float().cpu())
+    return out
+
+
+def mesh_moe(mesh, torch, job) -> dict:
+    """(d) qwen3-moe-235b-a22b at full width, 2 of 94 layers: compiled
+    decode ticks on the mesh against the single rank's, B5 at this
+    rank's experts where the plan shards them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH24_MOE_LAYERS)
+    dev = mesh.device
+    eng = ServeEngine(build_model(cfg, device=dev), batch_size=BATCH, max_seq=job["max_seq"],
+                      device=dev, mesh=mesh)
+    eng.load(seed=SEED)
+    dexe = eng.compiled_decode()
+    programs.reset_launch_counts()
+    got = moe_ticks(eng, job["moe_toks"], torch, dev)
+    launches = programs.launch_counts()
+    nodes = dexe.op_counts()
+    check(launches == {k: v * MESH24_MOE_TICKS for k, v in nodes.items()},
+          f"MoE mesh ticks launched {launches}, nodes {nodes} x {MESH24_MOE_TICKS}")
+    diffs = []
+    for t, (g, w) in enumerate(zip(got, job["moe_ref"])):
+        diffs.append(float((g - w).abs().max()))
+        check(bool(torch.allclose(g, w, **LOGIT_TOL)),
+              f"MoE mesh tick {t} against the single rank's: max |diff| {diffs[-1]}")
+    seq = dexe.collective_sequence()
+    return {"max_abs_diff_per_tick": diffs,
+            "experts_local": dexe.input_spec("L0.moe_wg").local_shape()[0],
+            "experts": cfg.num_experts,
+            "moe_placement": str(dexe.input_spec("L0.moe_wg").placement()),
+            "dispatch_steps": sorted({s for op, _, steps in seq if "moe" in op or "dispatch" in op
+                                      for s in steps}),
+            "all_to_all_issued": any("AllToAll" in steps for _, _, steps in seq),
+            "b5_launches_per_tick": nodes["moe_gemm/expert_gemm"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def mesh_rank(mesh, job) -> dict:
+    """What every rank of phase 24 runs: (a) - (d), then the probe."""
+    import torch
+
+    from repro_torch import tune
+
+    tune.use_cache(None)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)}
+    t0 = time.perf_counter()
+    out["steps"] = mesh_steps_on_card(mesh, torch)
+    out["cm"] = mesh_collective_matmul(mesh, torch)
+    torch.cuda.empty_cache()
+    out["dense"] = mesh_dense(mesh, torch, job)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = mesh_moe(mesh, torch, job)
+    out["probe"] = gloo_probe(mesh, torch)
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh(torch, device, release) -> dict:
+    """Phase 24: the mesh ``(1, 4)`` ``("data", "model")`` as 4 ranks on
+    the one card over gloo (``launch.mesh.spawn``; the kernels built here
+    first). The parent runs the single-rank references on the card —
+    qwen3-4b's ``score`` of 4 x 128 tokens and ``generate`` of 4 x 32-token
+    prompts + 16 tokens, qwen3-moe's compiled ticks at 2 layers — and
+    frees the card; the ranks then run ``mesh_rank``, and the parent holds
+    the mesh's tokens to the single rank's under the near-tie rule."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(SEED + 24)
+    max_seq = MESH24_PROMPT + MESH24_NEW
+    job = {"score_tokens": rng.integers(0, cfg.vocab_size, (BATCH, MESH24_SCORE)),
+           "prompts": rng.integers(0, cfg.vocab_size, (BATCH, MESH24_PROMPT)),
+           "max_seq": max_seq}
+    t0 = time.perf_counter()
+    eng = ServeEngine(build_model(cfg, device=device), batch_size=BATCH, max_seq=max_seq,
+                      device=device)
+    eng.load(seed=SEED)
+    job["ref_score"] = eng.score(torch.from_numpy(job["score_tokens"]).to(device)).cpu()
+    ref_tokens, ref_logits = greedy_logits(eng, torch.from_numpy(job["prompts"]).to(device),
+                                           MESH24_NEW)
+    del eng
+    release()
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH24_MOE_LAYERS)
+    job["moe_toks"] = rng.integers(0, moe_cfg.vocab_size, (BATCH, MESH24_MOE_TICKS))
+    eng = ServeEngine(build_model(moe_cfg, device=device), batch_size=BATCH, max_seq=max_seq,
+                      device=device)
+    eng.load(seed=SEED)
+    job["moe_ref"] = moe_ticks(eng, job["moe_toks"], torch, device)
+    del eng
+    release()
+    ref_s = time.perf_counter() - t0
+    log(f"  single-rank references on the card ({ref_s:.1f} s); the card freed, "
+        f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB held here")
+
+    t0 = time.perf_counter()
+    ranks = meshmod.spawn(mesh_rank, MESH24_SHAPE, MESH24_AXES, device="cuda", timeout_s=900,
+                          args=(job,))
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    check(len(ranks) == 4 and all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+                                  for r in ranks),
+          f"phase 24 ranks: {[(r['backend'], r['device']) for r in ranks]}")
+    log(f"  4 ranks on one card ({', '.join(r['device'] for r in ranks)}), backend gloo, "
+        f"world {world_s:.1f} s (rank 0's body {r0['rank_s']:.1f} s); gloo on this torch "
+        f"({torch.__version__}) takes directly: {json.dumps(r0['probe'])}")
+    log(f"  (a) plan steps on CUDA tensors, bf16 and f32, against the assembled global tensor: "
+        f"all {len(r0['steps'])} bit-equal for data movement, the sums within TOL (max |diff| "
+        f"{max(r0['steps'].values()):.3g})")
+    note = "comm staged through the host (gloo, one card)"
+    cm = r0["cm"]
+    log(f"  (b) collective_matmul at qwen3-4b's down projection, {cm['shape']} [{note}; 4 "
+        f"ranks share the card, so no multi-card forecast]: ring {cm['ring']['ms']:.3f} ms "
+        f"({cm['ring']['b1_launches']} B1 launches a rank, max |diff| "
+        f"{cm['ring']['max_abs_err']:.3g}), psum_scatter {cm['psum_scatter']['ms']:.3f} ms "
+        f"({cm['psum_scatter']['b1_launches']} launch, max |diff| "
+        f"{cm['psum_scatter']['max_abs_err']:.3g}); the partial product alone "
+        f"{cm['partial_ms']:.3f} ms, its bound {cm['partial_bound_ms']:.4f} ms "
+        f"({cm['partial_bound_by']}); per rank ring/psum_scatter ms "
+        f"{[(round(r['cm']['ring']['ms'], 3), round(r['cm']['psum_scatter']['ms'], 3)) for r in ranks]}")
+
+    d0 = r0["dense"]
+    for r in ranks[1:]:
+        check(np.array_equal(r["dense"]["tokens"], d0["tokens"]),
+              f"rank {r['rank']}'s tokens differ from rank 0's")
+    got = d0["tokens"]
+    diverged = []
+    for b in range(BATCH):
+        bad = np.nonzero(got[b] != ref_tokens[b])[0]
+        if not len(bad):
+            continue
+        j = int(bad[0])
+        lg = ref_logits[j][b]
+        gap = float(lg[int(ref_tokens[b, j])] - lg[int(got[b, j])])
+        bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * float(lg[int(ref_tokens[b, j])].abs())
+        diverged.append((b, j, gap))
+        check(gap <= bound, f"mesh generate request {b} parts from the single rank at token {j} "
+                            f"by a logit gap {gap} > {bound}")
+    log(f"  (c) {cfg.name} at full width and depth on ServeEngine(mesh): plan placements "
+        f"{d0['placements']}; B4 at {d0['b4_heads']} query heads a rank, lm_head "
+        f"{d0['lm_head_columns']} columns a rank; load {d0['load_s']:.1f} s, solve + compile "
+        f"{d0['solve_compile_s']:.1f} s")
+    log(f"      score {BATCH}x{MESH24_SCORE}: max |diff| {d0['score_max_abs_diff']:.4g} against "
+        f"the single rank (rtol 0.1 / atol 0.25), {d0['score_ms']:.1f} ms wall, collectives "
+        f"{d0['score_collectives']}")
+    log(f"      generate {BATCH}x{MESH24_PROMPT} prompt (fed tick by tick) -> {MESH24_NEW}: "
+        f"tokens {'equal to the single rank' if not diverged else f'part within the near-tie rule {diverged}'}"
+        f", every rank's equal; {d0['ticks']} ticks, one launch per kernel-bound node a tick "
+        f"({d0['nodes_per_tick']}), {d0['collectives_per_tick']} collectives a tick, issued == "
+        f"planned on every rank")
+    log(f"      per rank [{note}; time-sliced card]: wall per tick "
+        f"{[round(r['dense']['decode_ms_per_tick'], 2) for r in ranks]} ms, peak memory "
+        f"{[round(r['dense']['peak_gib'], 2) for r in ranks]} GiB (params kept "
+        f"{[round(r['dense']['param_gib'], 2) for r in ranks]} GiB), collective_counts of "
+        f"rank 0's generate {d0['generate_collectives']}")
+    m0 = r0["moe"]
+    sharded = m0["experts_local"] < m0["experts"]
+    log(f"  (d) {MOE_ARCH} at full width, {MESH24_MOE_LAYERS} layers, {MESH24_MOE_TICKS} "
+        f"compiled ticks on the mesh: max |diff| per tick {[round(x, 4) for x in m0['max_abs_diff_per_tick']]} "
+        f"against the single rank; B5 {m0['b5_launches_per_tick']} launches a tick at "
+        + (f"{m0['experts_local']} of {m0['experts']} experts a rank (placement "
+           f"{m0['moe_placement']})" if sharded else
+           f"all {m0['experts']} experts: the solver shards no expert (placement "
+           f"{m0['moe_placement']})")
+        + f"; dispatch exchange {m0['dispatch_steps']}, AllToAll issued: "
+        f"{m0['all_to_all_issued']}; peak {[round(r['moe']['peak_gib'], 2) for r in ranks]} GiB")
+    return {"world_s": world_s, "ref_s": ref_s, "probe": r0["probe"],
+            "steps_max_err": max(r0["steps"].values()),
+            "cm": {k: (v if not isinstance(v, dict) else {kk: vv for kk, vv in v.items()})
+                   for k, v in cm.items()},
+            "dense": {k: v for k, v in d0.items() if k != "tokens"} | {
+                "decode_ms_per_tick_by_rank": [r["dense"]["decode_ms_per_tick"] for r in ranks],
+                "peak_gib_by_rank": [r["dense"]["peak_gib"] for r in ranks],
+                "divergences": diverged},
+            "moe": m0}
+
+
 def main() -> int:
     import torch
 
@@ -3526,6 +4008,11 @@ def main() -> int:
     log(f"[23/{STEPS}] dryrun --solve --execute on the card, and the cost counter over a "
         f"{cfg.name} train step:")
     stats["cost"] = phase_dryrun_cost(cfg, torch, device, release, stats["train"], smi)
+    release()
+    log(f"[24/{STEPS}] serving across ranks: the mesh (1, 4) (\"data\", \"model\") as 4 ranks "
+        f"sharing the card over gloo — plan steps and collective_matmul on CUDA tensors, "
+        f"{cfg.name} at full width and depth, {MOE_ARCH} at {MESH24_MOE_LAYERS} layers:")
+    stats["mesh"] = phase_mesh(torch, device, release)
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

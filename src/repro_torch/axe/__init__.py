@@ -3,8 +3,9 @@ mesh to the CUDA tile, and the multi-granularity kernel DSL written
 against it — the names ``repro.axe`` exports.
 
 * ``repro_torch.axe.spec``      — :class:`AxeSpec` + :class:`PhysicalSpace`
-* ``repro_torch.axe.lower``     — the tile lowering (AxeSpec → CUDA grid,
-  tile and TMA box); the mesh half waits for ``ROADMAP.md`` A14
+* ``repro_torch.axe.lower``     — the two lowering adapters: AxeSpec →
+  mesh placement (``to_pspec``, ``to_named_sharding`` on a
+  ``launch.mesh.Mesh``) and AxeSpec → CUDA grid, tile and TMA box
 * ``repro_torch.axe.propagate`` — layout propagation over op graphs
 * ``repro_torch.axe.rules``     — the sharding rule engine
 * ``repro_torch.axe.program``   — ``axe.program`` / ``@axe.kernel``:
@@ -19,8 +20,7 @@ against it — the names ``repro.axe`` exports.
 
 As in the JAX package, the attributes ``program``, ``propagate``,
 ``solve``, ``cotune`` and ``compile`` are the functions, not the
-submodules (reach those with ``importlib.import_module``). The mesh
-adapters (:data:`MESH_ONLY`) raise, naming ``ROADMAP.md`` A14.
+submodules (reach those with ``importlib.import_module``).
 """
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace, SpecError
 from repro_torch.axe.program import (
@@ -34,7 +34,18 @@ from repro_torch.axe.program import (
     program,
 )
 from repro_torch.axe.stages import Stage, StageError
-from repro_torch.axe.lower import BlockLowering, block_lowering, spec_of_block, to_blockspec
+from repro_torch.axe.lower import (
+    BlockLowering,
+    block_lowering,
+    from_pspec,
+    from_sharding,
+    layout_of_pspec,
+    pspec_of_layout,
+    spec_of_block,
+    to_blockspec,
+    to_named_sharding,
+    to_pspec,
+)
 from repro_torch.axe.propagate import (
     LayoutPlan,
     OpNode,
@@ -93,11 +104,6 @@ from repro_torch.axe.compile import (
     register_op_backend,
 )
 
-#: the JAX package's AxeSpec <-> PartitionSpec / NamedSharding adapters
-#: (``repro/axe/lower.py``): they need a device mesh
-MESH_ONLY = ("from_pspec", "from_sharding", "layout_of_pspec", "pspec_of_layout",
-             "to_named_sharding", "to_pspec")
-
 __all__ = [
     "AxeSpec", "BlockLowering", "ClassTable", "CompileError", "CotuneIteration",
     "CotuneResult", "DeadCodeElimination", "Decision", "DeviceClass", "Epilogue",
@@ -111,13 +117,7 @@ __all__ = [
     "default_pipeline", "enumerate_specs", "fuse_graph", "get_program", "kernel",
     "model_executable", "model_graph", "model_inputs", "op_backend", "parse_classes",
     "plan_covers", "program", "register_op_backend", "solve", "use_class_table", "propagate",
-    "propagate_matmul", "redistribute", "spec_of_block", "to_blockspec",
+    "propagate_matmul", "redistribute", "spec_of_block", "to_blockspec", "from_pspec",
+    "from_sharding", "layout_of_pspec", "pspec_of_layout", "to_named_sharding", "to_pspec",
 ]
 
-
-def __getattr__(name):
-    if name in MESH_ONLY:
-        raise NotImplementedError(
-            f"repro_torch.axe.{name} lowers an AxeSpec onto a device mesh: the multi-GPU "
-            f"slice, ROADMAP.md A14")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

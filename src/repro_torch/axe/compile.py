@@ -14,15 +14,35 @@ layout into a callable. The compiler:
    bodies otherwise (the SSD mixer's ``ssm_mix`` / ``ssm_decode``
    through ``models.ssm``, as the JAX package runs them outside any
    Pallas kernel);
-3. **runs** the plan's redistributions between ops. In the mesh-free
-   space (``PhysicalSpace(())``) every plan has none.
+3. **runs** the plan's redistributions between ops
+   (``core.collective.apply_plan`` on this rank's shards), so the
+   solver's comm estimates become real transfers. In the mesh-free space
+   (``PhysicalSpace(())``) every plan has none.
 
-The JAX package jits the body into one program per call shape. PyTorch
-runs eagerly: the executable walks the plan in DEVICE scope on the
-tensors' device, so on CUDA tensors every bound op launches its
-hand-written kernel and on CPU tensors runs its plain version (the
-device rule of ``axe.program``); ``__call__`` is :meth:`Executable.apply`.
-The backend's output shape is still checked against the plan's.
+The JAX package jits the body into one program per call shape, inside
+one ``shard_map`` on a mesh. PyTorch runs eagerly: the executable walks
+the plan in DEVICE scope on the tensors' device, so on CUDA tensors
+every bound op launches its hand-written kernel and on CPU tensors runs
+its plain version (the device rule of ``axe.program``); ``__call__`` is
+:meth:`Executable.apply`. The backend's output shape is still checked
+against the plan's.
+
+On a mesh (a ``launch.mesh.Mesh``, every rank calling) each rank runs
+the body on its local shards, as the reference's ``shard_map`` body
+does: inputs in the plan's input placement (global tensors are sharded
+on entry), outputs left as local shards in the plan's output specs
+(:meth:`Executable.output_spec`, whose ``NamedSharding`` unshards
+them). The backends carry the reference's mesh arithmetic (the
+vocab-sharded embed, head offsets of attention and decode attention,
+MoE dispatch / combine with their exchange, the SSD mixer's head
+slice). ``overlap=True`` issues each overlappable redistribution one
+entry early (``solve.redist_overlappable``) and completes it at its
+consumer, bit-equal to the sync executable; ``observed_collectives``
+records what was issued, for the issued-vs-planned check. Before its
+first call every rank checks that all ranks hold the same plan. A
+sharded plan compiled with ``mesh=None`` is built (its trace and
+:meth:`Executable.collective_sequence` read deviceless) and raises when
+called, as the reference does.
 
 ``fuse=True`` rewrites the graph through ``axe.passes.fuse_graph``
 first and transfers the unfused solve's layout onto the rewrite. A
@@ -41,9 +61,9 @@ canonical signature, once per node at its first call (the node's
 resolves once per trace; the lowering trace's ``schedule`` column is
 planned from the same specs (``tune.planner.plan_from_specs``).
 ``model_executable(cotune=True)`` runs the solve ↔ tune loop
-(``axe.cotune``) instead of a one-shot solve. Not in this slice, each
-refused with a :class:`CompileError` that names its roadmap item
-(``ROADMAP.md``): a concrete ``mesh`` and ``offload`` (A14).
+(``axe.cotune``) instead of a one-shot solve. ``offload`` (a host tier)
+is refused with a :class:`CompileError` that names its roadmap item
+(``ROADMAP.md`` A14).
 
 ``model_inputs`` maps the port's model params (``models.transformer``
 layout: stacked super-blocks) onto graph inputs + the auxiliary tensors
@@ -54,6 +74,8 @@ the execution attrs name, exactly as the JAX package maps its own;
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -69,8 +91,16 @@ from repro_torch.axe.propagate import (
     epilogue_steps,
     step_node,
 )
-from repro_torch.axe.solve import SolveResult, evaluate_env, finalize_entries, solve
+from repro_torch.axe.solve import (
+    SolveResult,
+    evaluate_env,
+    finalize_entries,
+    producer_indices,
+    redist_overlappable,
+    solve,
+)
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace
+from repro_torch.core import collective as coll
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.tune.planner import stage_key_for
 
@@ -123,27 +153,32 @@ def op_backend(kind: str) -> Callable:
 
 
 class ExecCtx:
-    """What one op backend sees: the node, the operand specs, the shared
-    auxiliary tensors, and the side channel ops use to hand state to
-    later ops (MoE routing). Without a mesh every operand is whole on the
-    card and no plan has redistribution steps (:class:`Executable`
-    refuses the others)."""
+    """What one op backend sees: the node, the operand specs *after* the
+    plan's redistributions, the shared auxiliary tensors, the side
+    channel ops use to hand state to later ops (MoE routing), and the
+    mesh arithmetic helpers (this rank's coordinates on the current
+    mesh; without a mesh every extent is 1)."""
 
     def __init__(self, node: OpNode, entry: PlanEntry, in_specs, aux, side, *,
                  out_local: Tuple[int, ...], out_spec: Optional[AxeSpec] = None,
-                 resolved: Optional[Dict[str, Any]] = None):
+                 resolved: Optional[Dict[str, Any]] = None, shape_steps=(),
+                 mesh_shape: Optional[Mapping[str, int]] = None):
         self.node = node
         self.entry = entry
         self.in_specs = in_specs
         #: the entry's output spec, or a fused segment's own
         self.out_spec: AxeSpec = out_spec or entry.out_spec
-        #: the output's local (per-card) shape, as the plan says
+        #: the output's local (per-rank) shape, as the plan says
         self.out_local = out_local
         self._aux = aux
         self.side = side
         #: the node's slot of schedule resolutions (the programs'
         #: ``resolved=``): filled at its first call, reused after
         self.resolved = resolved
+        #: collective steps of the plan's shape-changing redistribution
+        #: (MoE dispatch / combine own their exchange; everything else ())
+        self.shape_steps = shape_steps
+        self.mesh_shape = mesh_shape or {}
 
     def attr(self, key: str, default=None):
         return self.node.attr(key, default)
@@ -161,6 +196,17 @@ class ExecCtx:
 
     def out_spec_dtype(self) -> torch.dtype:
         return getattr(torch, self.out_spec.dtype)
+
+    def ext(self, axes: Sequence[str]) -> int:
+        return math.prod(self.mesh_shape[a] for a in axes) if axes else 1
+
+    def axis_index(self, axes: Sequence[str]) -> int:
+        """This rank's combined shard index over ``axes`` (placement
+        order: the first axis is major, the AxeSpec iter order)."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.mesh_shape[a] + coll.axis_index(a)
+        return idx
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +248,16 @@ def _exec_elementwise(ctx: ExecCtx, *xs):
 
 @register_op_backend("embed")
 def _exec_embed(ctx: ExecCtx, tok, table):
-    """Token lookup."""
-    return table[tok]
+    """Token lookup; a vocab-sharded table answers only its own rows
+    (zeros elsewhere), producing the partial sums the spec declares."""
+    v_axes = ctx.in_specs[1].placement()[0]
+    if not v_axes:
+        return table[tok]
+    v_local = table.shape[0]
+    idx = tok.long() - ctx.axis_index(v_axes) * v_local
+    valid = (idx >= 0) & (idx < v_local)
+    rows = table[idx.clamp(0, v_local - 1)]
+    return torch.where(valid[:, None], rows, rows.new_zeros(()))
 
 
 def _heads(ctx: ExecCtx, y, positions):
@@ -240,15 +294,45 @@ def _exec_reshape(ctx: ExecCtx, x):
     return x.reshape(out_local)
 
 
+def _local_kv(ctx: ExecCtx, k, v, h_axes, kv_axes, h_l: int, g: int, dim: int):
+    """The kv heads this rank's query heads read. Sharded like the query
+    heads: as they are. Replicated while the query heads are sharded:
+    the heads of this rank's query chunk (``[start, start + h_l)`` reads
+    kv heads ``start // g`` on), a contiguous slice when the chunk covers
+    whole groups or lies inside one, else repeated per query head and
+    sliced (the reference's form). ``dim`` is the head dim of k / v."""
+    if h_axes and kv_axes and tuple(h_axes) != tuple(kv_axes):
+        raise CompileError(
+            f"{ctx.node.name}: query/kv head shardings disagree ({h_axes} vs {kv_axes})")
+    if not h_axes or kv_axes or (g == 1 and k.shape[dim] == h_l):
+        return k, v
+    start = ctx.axis_index(h_axes) * h_l
+    if h_l % g == 0 or g % h_l == 0:
+        lo, n = start // g, max(h_l // g, 1)
+        return k.narrow(dim, lo, n), v.narrow(dim, lo, n)
+    k = k.repeat_interleave(g, dim=dim).narrow(dim, start, h_l)
+    return k, v.repeat_interleave(g, dim=dim).narrow(dim, start, h_l)
+
+
 @register_op_backend("attention")
 def _exec_attention(ctx: ExecCtx, q, k, v):
     """Binds to the ``flash_attention/attend`` stage (B3), which reads
-    kv head ``h // (H // KV)`` by index: GQA heads are never repeated.
+    kv head ``h // (H // KV)`` by index: GQA heads are never repeated
+    (on a mesh, a rank whose query heads are sharded while the kv heads
+    are not reads the kv heads of its own chunk, :func:`_local_kv`).
     Under autograd the program takes its differentiable route (the
     reference's backend calls ``flash_attention_trainable``), so
     :func:`compiled_loss_fn` differentiates through it."""
     from repro_torch.kernels import programs
 
+    q_spec, k_spec = ctx.in_specs[0], ctx.in_specs[1]
+    if q_spec.placement()[2]:
+        raise CompileError(
+            f"{ctx.node.name}: sharded query sequence is not executable "
+            f"(causal masking needs local positions); got {q_spec!r}"
+        )
+    k, v = _local_kv(ctx, k, v, q_spec.placement()[1], k_spec.placement()[1], q.shape[1],
+                     q_spec.shape[1] // k_spec.shape[1], 1)
     return programs.flash_attention(
         q, k, v, causal=bool(ctx.attr("causal", True)), window=ctx.attr("window"),
         resolved=ctx.resolved,
@@ -257,24 +341,37 @@ def _exec_attention(ctx: ExecCtx, q, k, v):
 
 @register_op_backend("moe_dispatch")
 def _exec_moe_dispatch(ctx: ExecCtx, x):
-    """Capacity routing of the tokens into the ``[E, C, d]`` buffer
-    (``models.moe.local_dispatch``); the routing metadata goes on the
-    side channel for the matching combine."""
+    """Capacity routing of this rank's tokens into the ``[E, C, d]``
+    buffer (``models.moe.local_dispatch``, each token shard taking its
+    share of the capacity), then the plan's expert-axis exchange:
+    AllToAll steps swap capacity buffers with the other token shards on
+    the axis (expert parallelism), DynamicSlice steps keep only this
+    rank's expert chunk. The routing metadata goes on the side channel
+    for the matching combine."""
     from repro_torch.models import moe as moe_mod
 
+    c = int(ctx.attr("capacity")) // ctx.ext(ctx.in_specs[0].placement()[0])
     buf, meta = moe_mod.local_dispatch(
         x, ctx.aux(ctx.attr("router")),
         num_experts=int(ctx.attr("experts")),
         experts_per_tok=int(ctx.attr("experts_per_tok", 1)),
-        capacity=int(ctx.attr("capacity")),
+        capacity=c,
     )
+    for step in ctx.shape_steps:
+        if isinstance(step, coll.AllToAll):
+            buf = coll.all_to_all(buf, step.axis, 0, 1)
+        elif isinstance(step, coll.DynamicSlice):
+            buf = coll.dynamic_slice(buf, step.axis, 0)
+        else:  # pragma: no cover - the rule emits only the two above
+            raise CompileError(f"{ctx.node.name}: unexpected dispatch step {step}")
     ctx.side[ctx.node.out] = {"meta": meta, "tokens": x.shape[0], "d": x.shape[1]}
     return buf
 
 
 @register_op_backend("moe_combine")
 def _exec_moe_combine(ctx: ExecCtx, oe):
-    """Combines the tokens' expert outputs with the routing metadata the
+    """Unwinds the dispatch exchange (reverse step order), then combines
+    this rank's tokens' expert outputs with the routing metadata the
     dispatch backend stashed (``models.moe.local_combine``)."""
     from repro_torch.models import moe as moe_mod
 
@@ -285,6 +382,14 @@ def _exec_moe_combine(ctx: ExecCtx, oe):
             f"executable in a graph whose 'dispatch' attr names the "
             f"matching moe_dispatch node"
         )
+    for step in reversed(ctx.shape_steps):
+        # unwind the dispatch exchange, last step first
+        if isinstance(step, coll.AllToAll):
+            oe = coll.all_to_all(oe, step.axis, 1, 0)
+        elif isinstance(step, coll.AllGather):
+            oe = coll.all_gather(oe, step.axis, step.dim)
+        else:  # pragma: no cover
+            raise CompileError(f"{ctx.node.name}: unexpected combine step {step}")
     y = moe_mod.local_combine(oe, side["meta"], side["tokens"], side["d"])
     return y.to(ctx.out_spec_dtype())
 
@@ -318,10 +423,15 @@ def _exec_decode_attention(ctx: ExecCtx, q, k, v, pos):
     """Single-token attention over the laid-out cache, bound to the
     ``flash_attention/decode`` stage (B4): queries grouped per kv head,
     the ``[B, W, KV, hd]`` cache handed over as its ``transpose(1, 2)``
-    view, read through strides and never copied head-major."""
+    view, read through strides and never copied head-major. On a mesh
+    whose query heads are sharded over replicated kv heads a rank reads
+    its own chunk's kv heads (:func:`_local_kv`)."""
     from repro_torch.kernels import programs
 
     b_l, h_l, _one, hd = q.shape
+    q_spec, k_spec = ctx.in_specs[0], ctx.in_specs[1]
+    k, v = _local_kv(ctx, k, v, q_spec.placement()[1], k_spec.placement()[2], h_l,
+                     q_spec.shape[1] // k_spec.shape[2], 2)
     kv_l = k.shape[2]
     out = programs.flash_decode(
         q.reshape(b_l, kv_l, h_l // kv_l, hd), k.transpose(1, 2), v.transpose(1, 2),
@@ -334,21 +444,31 @@ def _exec_decode_attention(ctx: ExecCtx, q, k, v, pos):
 def _exec_ssm_mix(ctx: ExecCtx, xz, bb, cc, dt_raw):
     """The Mamba2 SSD mixer, the ``models.ssm`` math (causal conv →
     silu → chunked SSD scan → D skip) on the projected inputs, as the
-    JAX package's backend runs it with ``mesh=None`` (its head-sharded
-    slicing comes with A14)."""
+    JAX package's backend runs it. The inner dim may be head-sharded:
+    this rank computes its head chunk, slicing the replicated
+    auxiliaries (conv filter, dt bias, A, D) and ``dt`` to match."""
     from repro_torch.models import ssm as ssm_mod
 
     seq, hd = int(ctx.attr("seq")), int(ctx.attr("head_dim"))
     di, n = int(ctx.attr("d_inner")), int(ctx.attr("state"))
     t_l, di_l = xz.shape
-    b_l = t_l // seq
+    b_l, h_l = t_l // seq, di_l // hd
+    conv_w = ctx.aux(ctx.attr("conv_w"))
+    dt_bias, a_log = ctx.aux(ctx.attr("dt_bias")), ctx.aux(ctx.attr("A_log"))
+    d_skip = ctx.aux(ctx.attr("D"))
+    dt3 = dt_raw.reshape(b_l, seq, -1).float()
+    di_axes = ctx.in_specs[0].placement()[1]
+    if di_axes:
+        idx = ctx.axis_index(di_axes)
+        conv_w = torch.cat([conv_w[:, idx * di_l:(idx + 1) * di_l], conv_w[:, di:]], dim=-1)
+        dt_bias, a_log, d_skip = (t.narrow(0, idx * h_l, h_l) for t in (dt_bias, a_log, d_skip))
+        dt3 = dt3.narrow(2, idx * h_l, h_l)
     u = torch.cat([xz, bb, cc], dim=-1).reshape(b_l, seq, -1)
-    u = F.silu(ssm_mod._causal_conv(u, ctx.aux(ctx.attr("conv_w"))))
-    xs = u[..., :di].reshape(b_l, seq, di_l // hd, hd)
-    dt = F.softplus(dt_raw.reshape(b_l, seq, -1).float() + ctx.aux(ctx.attr("dt_bias")))
-    y, _ = ssm_mod.ssd_scan(xs, dt, -torch.exp(ctx.aux(ctx.attr("A_log"))),
-                            u[..., di: di + n], u[..., di + n:])
-    y = y + xs.float() * ctx.aux(ctx.attr("D"))[:, None]
+    u = F.silu(ssm_mod._causal_conv(u, conv_w))
+    xs = u[..., :di_l].reshape(b_l, seq, h_l, hd)
+    dt = F.softplus(dt3 + dt_bias)
+    y, _ = ssm_mod.ssd_scan(xs, dt, -torch.exp(a_log), u[..., di_l: di_l + n], u[..., di_l + n:])
+    y = y + xs.float() * d_skip[:, None]
     return y.reshape(t_l, di_l).to(ctx.out_spec_dtype())
 
 
@@ -456,6 +576,8 @@ class _Segment:
     in_specs: Tuple[AxeSpec, ...]
     out_spec: AxeSpec
     want: Tuple[int, ...]
+    #: the internal redistributions run on this segment's output
+    after: Tuple[Tuple[object, ...], ...] = ()
     resolved: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False)
 
 
@@ -476,21 +598,45 @@ class _KernelChain:
 
 
 @dataclasses.dataclass(frozen=True)
+class _Redist:
+    """One redistribution of a plan entry as the body runs it: ``mode``
+    ``"apply"`` (run before the op), ``"hoisted"`` (issued one entry
+    early under overlap, consumed here), ``"shape"`` (a shape-changing
+    exchange the op's backend owns) or ``"internal"`` (a fused chain
+    value's, run between segments)."""
+
+    operand: str
+    steps: Tuple[object, ...]
+    mode: str
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return tuple(type(s).__name__ for s in self.steps)
+
+
+@dataclasses.dataclass(frozen=True)
 class _Step:
     """One plan entry, resolved once at construction so a call only
     walks tensors: the backend, its operands' names and specs, the
-    output shape the plan expects, and the intermediates this entry is
-    the last to read (dropped after it, so a call holds no more of them
-    than the graph still needs). A fused node carries its chain for B1
-    (``chain``) or its segments instead."""
+    output shape the plan expects, its redistributions, the prefetches
+    issued at its slot under overlap (``(consumer index, operand,
+    steps)``), and the intermediates this entry is the last to read
+    (dropped after it, so a call holds no more of them than the graph
+    still needs). A fused node carries its chain for B1 (``chain``) or
+    its segments instead; a finalize entry only redistributes."""
 
     entry: PlanEntry
-    backend: Callable
+    backend: Optional[Callable]
     in_specs: Tuple[AxeSpec, ...]
     want: Tuple[int, ...]
     release: Tuple[str, ...] = ()
     chain: Optional[_KernelChain] = None
     segments: Tuple[_Segment, ...] = ()
+    #: the redistributions that issue a collective (empty off a mesh)
+    redists: Tuple[_Redist, ...] = ()
+    prefetch: Tuple[Tuple[int, _Redist], ...] = ()
+    #: collective steps of the shape-changing redistribution its backend owns
+    shape_steps: Tuple[object, ...] = ()
     #: the schedules this node's stages resolved at its first call
     #: (``Program.__call__(resolved=)``)
     resolved: Dict[str, Any] = dataclasses.field(default_factory=dict, compare=False)
@@ -503,7 +649,7 @@ def _kernel_chain(node: OpNode, in_specs: Sequence[AxeSpec],
     :data:`~repro_torch.axe.program.EPILOGUE_FNS`, each reading the
     chain's current value and extras — or None, and the node runs its
     segments (the JAX package's rule, ``repro/axe/compile.py:889-923``;
-    without a mesh no fused node has internal redistributions)."""
+    a node with internal redistributions never gets here)."""
     steps = [step_node(s) for s in epilogue_steps(node)]
     n_base = int(node.attr("base_inputs") or len(node.inputs))
     if (node.kind != "matmul" or n_base != 2 or any(s.kind != "elementwise" for s in steps)
@@ -534,18 +680,29 @@ def _kernel_chain(node: OpNode, in_specs: Sequence[AxeSpec],
                         "+".join(fn for fn, _ in desc), getattr(torch, out_dtype))
 
 
-def _segments(node: OpNode, plan: LayoutPlan) -> Tuple[_Segment, ...]:
+def _segments(entry: PlanEntry, plan: LayoutPlan, in_specs: Sequence[AxeSpec],
+              internal: Mapping[str, Sequence[_Redist]]) -> Tuple[_Segment, ...]:
     """A fused node's stages, base first, with the specs
-    ``compose_epilogue`` gives them."""
+    ``compose_epilogue`` gives them; a chain value with internal
+    redistributions is seen by the later segments in its redistributed
+    spec, and those steps run after its segment (``after``)."""
+    node = entry.op
     operands = tuple(plan.env[nm] for nm in node.inputs)
     _, _, segments = compose_epilogue(node, operands, plan.env)
     specs = dict(plan.env)
+    specs.update(zip(node.inputs, in_specs))
+    dst = {r.operand: r.dst for r in entry.redistributions}
     out = []
     for sub, seg_spec in segments:
+        after = tuple(r.steps for r in internal.get(sub.out, ()))
         out.append(_Segment(sub, op_backend(sub.kind), tuple(specs[nm] for nm in sub.inputs),
-                            seg_spec, tuple(seg_spec.local_shape())))
-        specs[sub.out] = seg_spec
+                            seg_spec, tuple(seg_spec.local_shape()), after))
+        specs[sub.out] = dst[sub.out] if after else seg_spec
     return tuple(out)
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
 class Executable:
@@ -556,20 +713,29 @@ class Executable:
     (role ``param`` and ``cache``) and auxiliary names to tensors;
     activations are positional, in graph declaration order. A single
     output is returned bare, several as a tuple in ``graph.outputs()``
-    order. Introspection surfaces: :attr:`lowering_trace` (deterministic
-    per plan), :meth:`collective_sequence` and :attr:`plan`.
+    order. On a mesh every rank calls it with its local shards in the
+    plan's input placement (:meth:`input_spec`), or with global tensors,
+    which it shards; the outputs are this rank's shards in
+    :meth:`output_spec`. Introspection surfaces: :attr:`lowering_trace`
+    (deterministic per plan), :meth:`collective_sequence` (the
+    redistribution steps the body issues), :attr:`observed_collectives`
+    (those the last call issued) and :attr:`plan`.
     """
 
     def __init__(self, graph: GraphSpec, mesh, plan: LayoutPlan,
                  assignment: Mapping[str, AxeSpec], *,
-                 solve_result: Optional[SolveResult] = None):
-        if mesh is not None:
-            raise _not_ported("compiling for a device mesh", "A14")
+                 solve_result: Optional[SolveResult] = None, overlap: bool = False):
+        if mesh is not None and _mesh_shape(mesh) != graph.space.mesh_shape:
+            raise CompileError(
+                f"mesh {_mesh_shape(mesh)} does not match the graph space "
+                f"{graph.space.mesh_shape}"
+            )
         self.graph = graph
-        self.mesh = None
+        self.mesh = mesh
         self.plan = plan
         self.assignment = dict(assignment)
         self.solve_result = solve_result
+        self.overlap = bool(overlap)
 
         self.activation_names = tuple(
             m.name for m in graph.inputs.values() if m.role == "activation"
@@ -587,29 +753,79 @@ class Executable:
                         aux.append(name)
         self.aux_names: Tuple[str, ...] = tuple(aux)
         self.outputs = graph.outputs()
+        # output specs: the finalize entries' resolved specs win
+        self._out_specs: Dict[str, AxeSpec] = {name: plan.env[name] for name in self.outputs}
+        for e in plan.entries:
+            if e.op.kind == "finalize":
+                self._out_specs[e.op.out] = e.out_spec
 
+        # the overlap schedule: every overlappable redistribution
+        # (solve.redist_overlappable, the predicate the solver's
+        # max(comm, compute) objective charges) is issued one entry early
+        # and consumed at its entry
+        hoisted = set()
+        prefetch: Dict[int, List[Tuple[int, _Redist]]] = {}
+        if self.overlap:
+            producer = producer_indices(graph.nodes)
+            for i, e in enumerate(plan.entries):
+                if e.op.kind == "finalize":
+                    continue
+                for r in e.redistributions:
+                    if redist_overlappable(r, i, e.op, producer):
+                        prefetch.setdefault(i - 1, []).append((i, _Redist(r.operand, r.steps,
+                                                                          "hoisted")))
+                        hoisted.add((i, r.operand))
+        self._hoisted = hoisted
         self.lowering_trace: Tuple[LoweredOp, ...] = tuple(
-            self._lower_entry(e) for e in plan.entries
+            self._lower_entry(e, i) for i, e in enumerate(plan.entries)
         )
         names = self.activation_names + self.param_names
-        if any(any(plan.env[n].placement()) for n in names) or any(
-                r.steps for e in plan.entries for r in e.redistributions):
-            raise _not_ported(
-                "this plan shards tensors / issues collectives: its execution", "A14"
-            )
-        entries = [e for e in plan.entries if e.op.kind != "finalize"]
-        produced = {e.op.out for e in entries} - set(self.outputs)
-        last_use = {nm: i for i, e in enumerate(entries) for nm in e.op.inputs if nm in produced}
+        #: whether the plan shards a tensor or issues a collective (it
+        #: then runs only on a mesh)
+        self.sharded = any(any(plan.env[n].placement()) for n in names) or any(
+            r.steps for e in plan.entries for r in e.redistributions)
+
+        produced = {e.op.out for e in plan.entries if e.op.kind != "finalize"} - set(self.outputs)
+        last_use = {nm: i for i, e in enumerate(plan.entries) for nm in e.op.inputs
+                    if nm in produced and e.op.kind != "finalize"}
         steps = []
-        for i, e in enumerate(entries):
+        for i, e in enumerate(plan.entries):
+            redists = []
+            for r in e.redistributions:
+                if e.op.kind == "finalize" or (r.operand in e.op.inputs
+                                               and r.dst.shape == r.src.shape):
+                    mode = "hoisted" if (i, r.operand) in hoisted else "apply"
+                elif r.operand in e.op.inputs:
+                    mode = "shape"
+                else:
+                    mode = "internal"
+                redists.append(_Redist(r.operand, r.steps, mode))
+            pre = tuple(prefetch.get(i, ()))
+            issuing = tuple(r for r in redists if r.steps)
+            if e.op.kind == "finalize":
+                steps.append(_Step(e, None, (), tuple(e.out_spec.local_shape()),
+                                   redists=issuing, prefetch=pre))
+                continue
             in_specs = tuple(e.input_specs(plan.env))
+            internal: Dict[str, List[_Redist]] = {}
+            for r in redists:
+                if r.mode == "internal":
+                    internal.setdefault(r.operand, []).append(r)
             fused = bool(epilogue_steps(e.op))
-            chain = _kernel_chain(e.op, in_specs, e.out_spec.dtype) if fused else None
+            chain = (_kernel_chain(e.op, in_specs, e.out_spec.dtype)
+                     if fused and not internal else None)
             steps.append(_Step(
                 e, op_backend(e.op.kind), in_specs, tuple(e.out_spec.local_shape()),
                 tuple(nm for nm, j in last_use.items() if j == i), chain,
-                _segments(e.op, plan) if fused and chain is None else ()))
+                _segments(e, plan, in_specs, internal) if fused and chain is None else (),
+                issuing, pre, next((r.steps for r in issuing if r.mode == "shape"), ())))
         self._steps: Tuple[_Step, ...] = tuple(steps)
+        #: each input's (name, global shape, local shape), checked per call
+        self._input_shapes = tuple((n, tuple(graph.inputs[n].shape),
+                                    tuple(plan.env[n].local_shape())) for n in names)
+        self._issued: List[Tuple[str, str, Tuple[str, ...]]] = []
+        self._agreed = False
+        self._pspecs: Dict[str, Tuple] = {}
         #: the FusionReport when the graph came through ``fuse_graph``
         #: (set by ``compile(..., fuse=True)``) and the
         #: ``axe.cotune.CotuneResult`` of ``model_executable(cotune=True)``
@@ -617,7 +833,7 @@ class Executable:
         self.cotune_report = None
 
     # -- introspection ---------------------------------------------------
-    def _lower_entry(self, entry: PlanEntry) -> LoweredOp:
+    def _lower_entry(self, entry: PlanEntry, idx: int) -> LoweredOp:
         """One trace row. ``schedule`` is planned from the solved specs
         (``tune.planner.plan_from_specs``) for the card — the local
         problem and layout signature the stage's dispatch resolves under
@@ -644,19 +860,98 @@ class Executable:
             ),
             comm_bytes=entry.comm_bytes,
             schedule=sched,
+            prefetched=tuple(op for (j, op) in sorted(self._hoisted) if j == idx),
         )
 
     def collective_sequence(self) -> Tuple[Tuple[str, str, Tuple[str, ...]], ...]:
         """Every redistribution the body issues, in execution order:
-        ``(op, operand, step type names)`` — empty without a mesh."""
-        return tuple(
-            (row.op, operand, steps)
-            for row in self.lowering_trace
-            for operand, steps in row.collectives
-        )
+        ``(op, operand, step type names)``. Under the overlap schedule a
+        hoisted collective appears at its issue slot (one entry early),
+        still attributed to the consuming op — the order the body
+        issues, so the issued == planned check holds in both modes."""
+        entries = self.plan.entries
+        seq: List[Tuple[str, str, Tuple[str, ...]]] = []
+        for st in self._steps:
+            for tgt, r in st.prefetch:
+                seq.append((entries[tgt].op.name, r.operand, r.names))
+            for r in st.redists:
+                if r.steps and r.mode != "hoisted":
+                    seq.append((st.entry.op.name, r.operand, r.names))
+        return tuple(seq)
+
+    @property
+    def observed_collectives(self):
+        """The collectives the last call issued, in issue order (the
+        dryrun ``--execute`` cross-check compares them with
+        :meth:`collective_sequence`)."""
+        return tuple(self._issued)
 
     def input_spec(self, name: str) -> AxeSpec:
         return self.plan.env[name]
+
+    def output_spec(self, name: str) -> AxeSpec:
+        """The spec an output leaves in; on a mesh,
+        ``axe.lower.to_named_sharding(exe.output_spec(n), mesh).unshard``
+        gathers it."""
+        return self._out_specs[name]
+
+    def input_pspec(self, name: str) -> Tuple:
+        """The per-dim mesh-axis entries the plan gives input ``name``
+        (``()``, whole, for an auxiliary tensor)."""
+        got = self._pspecs.get(name)
+        if got is None:
+            from repro_torch.axe import lower
+
+            spec = self.plan.env.get(name)
+            got = self._pspecs[name] = () if spec is None else tuple(lower.to_pspec(spec))
+        return got
+
+    def leaf_pspec(self, path: Sequence[str]) -> Tuple:
+        """How the param or cache leaf at ``path`` is placed to feed this
+        executable: as the input it feeds first (:func:`leaf_input`)
+        wants, behind its stacking dims; whole for a leaf that feeds no
+        input or an unsharded one."""
+        source = leaf_input(path)
+        if source is None:
+            return ()
+        name, lead = source
+        pspec = self.input_pspec(name)
+        return (None,) * lead + pspec if any(pspec) else ()
+
+    def as_input(self, name: str, local, pspec: Sequence) -> Any:
+        """``local`` (this rank's shard, placed per ``pspec``) in the
+        placement input ``name`` wants: as it is, or through the
+        redistribution between the two (on the executable's mesh)."""
+        from repro_torch.core.dtensor import DTensorSpec, entry_axes
+
+        want = self.input_pspec(name)
+        pad = lambda p: tuple(p) + (None,) * (local.dim() - len(p))  # noqa: E731
+        if pad(pspec) == pad(want):
+            return local
+        shape = tuple(s * math.prod(self.mesh.axis_size(a) for a in entry_axes(e))
+                      for s, e in zip(local.shape, pad(pspec)))
+        ms = self.graph.space.mesh_shape
+        steps = coll.infer_redistribution(DTensorSpec.from_pspec(shape, pspec, ms, "float32"),
+                                          DTensorSpec.from_pspec(shape, want, ms, "float32"), ms)
+        with coll.use_mesh(self.mesh):
+            return coll.apply_plan(local, steps).contiguous()
+
+    def carried(self, outs: Sequence[Any]) -> Tuple[Any, ...]:
+        """A decode tick's outputs on a mesh: the logits gathered whole,
+        each cache-out in the placement its cache input takes (what the
+        next tick binds)."""
+        from repro_torch.axe import lower
+
+        fixed = []
+        for name, out in zip(self.outputs, outs):
+            src = lower.to_named_sharding(self.output_spec(name), self.mesh)
+            if name == "logits":
+                out = src.unshard(out)
+            else:
+                base = name.rsplit(".", 1)
+                out = self.as_input(f"{base[0]}.{_CACHE_CARRIED[base[1]]}", out, src.spec)
+            fixed.append(out)
+        return tuple(fixed)
 
     def describe(self) -> str:
         lines = [
@@ -673,10 +968,12 @@ class Executable:
         ``rmsnorm/rows`` (``norm`` nodes plus the selects that qk-norm),
         ``flash_attention/attend`` (``attention`` nodes) and
         ``flash_attention/decode`` (``decode_attention`` nodes) — the
-        launches one call makes on the card."""
+        launches one call makes on the card (on each rank of a mesh)."""
         counts = dict.fromkeys(("matmul/tile", "moe_gemm/expert_gemm", "rmsnorm/rows",
                                 "flash_attention/attend", "flash_attention/decode"), 0)
         for st in self._steps:
+            if st.backend is None:
+                continue
             # a fused node launches its base's kernel and its norm steps'
             subs = ((st.entry.op, st.in_specs),) + tuple(
                 (step_node(s), ()) for s in epilogue_steps(st.entry.op))
@@ -703,7 +1000,29 @@ class Executable:
                     out.append((name, res.schedule.op, res))
         return out
 
+    def plan_digest(self) -> str:
+        """A digest of what the body will run: the lowering trace, the
+        issue order and the input placements (equal on every rank that
+        solved the same plan)."""
+        h = hashlib.sha256()
+        h.update(repr(self.lowering_trace).encode())
+        h.update(repr(self.collective_sequence()).encode())
+        h.update(repr(sorted((n, s.signature()) for n, s in self.assignment.items())).encode())
+        return h.hexdigest()
+
     # -- execution -------------------------------------------------------
+    def _local(self, name: str, arr, want: Tuple[int, ...], local: Tuple[int, ...]):
+        """``arr`` as this rank's shard of input ``name``: a local shard
+        passes, a global tensor is sharded by the plan's placement."""
+        from repro_torch.axe import lower
+
+        if tuple(arr.shape) == want and self.mesh is not None:
+            return lower.to_named_sharding(self.plan.env[name], self.mesh).shard(arr)
+        raise CompileError(
+            f"input {name!r}: expected shape {want}"
+            + (f" or its local shard {local}" if local != want else "")
+            + f", got {tuple(arr.shape)}")
+
     def _ordered_inputs(self, params: Mapping[str, Any], acts: Sequence[Any]):
         if len(acts) != len(self.activation_names):
             raise CompileError(
@@ -722,30 +1041,73 @@ class Executable:
             if name not in params:
                 raise CompileError(f"auxiliary tensor {name!r} missing from params")
             arrays.append(params[name])
-        for name, arr in zip(self.activation_names + self.param_names, arrays):
-            want = self.graph.inputs[name].shape
-            if tuple(arr.shape) != want:
-                raise CompileError(
-                    f"input {name!r}: expected shape {want}, got {tuple(arr.shape)}"
-                )
+        # off a mesh the local shape is the global one (a sharded plan
+        # refuses to run there, :meth:`_check_runnable`)
+        for i, (name, want, local) in enumerate(self._input_shapes):
+            if tuple(arrays[i].shape) != local:
+                arrays[i] = self._local(name, arrays[i], want, local)
         return arrays
+
+    def _check_runnable(self) -> None:
+        if self.mesh is None:
+            if self.sharded:
+                raise CompileError(
+                    "this plan shards tensors / issues collectives: "
+                    "pass a concrete mesh to axe.compile"
+                )
+            return
+        if not self._agreed:
+            # ranks that solved different plans would deadlock in
+            # mismatched collectives: compare digests first
+            self.mesh.all_ranks_agree(int(self.plan_digest()[:15], 16), "the executable's plan")
+            self._agreed = True
+
+    def _issue(self, op: str, r: _Redist) -> None:
+        if r.steps:
+            self._issued.append((op, r.operand, r.names))
 
     def _body(self, *arrays):
         names = self.activation_names + self.param_names
         env: Dict[str, Any] = dict(zip(names, arrays[: len(names)]))
         aux = dict(zip(self.aux_names, arrays[len(names):]))
         side: Dict[str, Any] = {}
+        self._issued.clear()
+        mesh_shape = self.graph.space.mesh_shape
+        pending: Dict[Tuple[int, str], Any] = {}
+        entries = self.plan.entries
         with scope(Scope.DEVICE):
-            for st in self._steps:
+            for i, st in enumerate(self._steps):
                 node = st.entry.op
+                # issue the collectives scheduled to hide under this
+                # entry's compute (each feeds the next entry; its input
+                # is already final, solve.redist_overlappable)
+                for tgt, r in st.prefetch:
+                    pending[(tgt, r.operand)] = coll.Pending(env[r.operand], r.steps)
+                    self._issue(entries[tgt].op.name, r)
+                if st.backend is None:  # finalize: an output's redistribution
+                    for r in st.redists:
+                        env[node.out] = coll.apply_plan(env[node.out], r.steps)
+                        self._issue(node.name, r)
+                    continue
+                vals = env
+                if st.redists:  # the operands this entry redistributes
+                    vals = {nm: env[nm] for nm in node.inputs}
+                    for r in st.redists:
+                        if r.mode == "apply":
+                            vals[r.operand] = coll.apply_plan(vals[r.operand], r.steps)
+                        elif r.mode == "hoisted":
+                            vals[r.operand] = pending.pop((i, r.operand)).wait()
+                            continue  # recorded at its issue slot
+                        self._issue(node.name, r)
                 if st.chain is not None:
-                    out = self._kernel_epilogue(st.chain, env, st.resolved)
+                    out = self._kernel_epilogue(st.chain, vals, st.resolved)
                 elif st.segments:
-                    out = self._run_fused(st, env, aux, side)
+                    out = self._run_fused(st, vals, aux, side, mesh_shape)
                 else:
                     ctx = ExecCtx(node, st.entry, st.in_specs, aux, side, out_local=st.want,
-                                  resolved=st.resolved)
-                    out = st.backend(ctx, *[env[nm] for nm in node.inputs])
+                                  resolved=st.resolved, shape_steps=st.shape_steps,
+                                  mesh_shape=mesh_shape)
+                    out = st.backend(ctx, *[vals[nm] for nm in node.inputs])
                 if tuple(out.shape) != st.want:
                     raise CompileError(
                         f"{node.name} [{node.kind}]: backend produced local "
@@ -759,22 +1121,26 @@ class Executable:
 
     # -- fused-epilogue execution (axe.passes) ---------------------------
     @staticmethod
-    def _run_fused(st: _Step, env: Dict[str, Any], aux, side):
+    def _run_fused(st: _Step, vals: Dict[str, Any], aux, side, mesh_shape):
         """A fused node's segment path: the base op's backend, then each
-        absorbed step's backend on the evolving chain value (the JAX
-        package's ``_run_fused``, ``repro/axe/compile.py:855-887``); the
-        chain's intermediates live only during the node."""
+        absorbed step's backend on the evolving chain value, with the
+        plan's internal redistributions of a chain value run after its
+        segment (the JAX package's ``_run_fused``,
+        ``repro/axe/compile.py:855-887``); the chain's intermediates live
+        only during the node."""
+        chain: Dict[str, Any] = {}
         for seg in st.segments:
             ctx = ExecCtx(seg.node, st.entry, seg.in_specs, aux, side, out_local=seg.want,
-                          out_spec=seg.out_spec, resolved=seg.resolved)
-            out = seg.backend(ctx, *[env[nm] for nm in seg.node.inputs])
-            env[seg.node.out] = out
-        for seg in st.segments[:-1]:
-            del env[seg.node.out]
+                          out_spec=seg.out_spec, resolved=seg.resolved, mesh_shape=mesh_shape)
+            out = seg.backend(ctx, *[chain[nm] if nm in chain else vals[nm]
+                                     for nm in seg.node.inputs])
+            for steps in seg.after:
+                out = coll.apply_plan(out, steps)
+            chain[seg.node.out] = out
         return out
 
     @staticmethod
-    def _kernel_epilogue(chain: _KernelChain, env: Dict[str, Any], resolved: Dict[str, Any]):
+    def _kernel_epilogue(chain: _KernelChain, vals: Dict[str, Any], resolved: Dict[str, Any]):
         """A fused 2-D matmul with its elementwise chain handed to B1 as
         an :class:`~repro_torch.axe.program.Epilogue` (the JAX package's
         ``_kernel_epilogue``, ``repro/axe/compile.py:889-955``): inside the
@@ -782,13 +1148,19 @@ class Executable:
         the result when the extras are not shaped like C."""
         from repro_torch.kernels import programs
 
-        epi = programs.Epilogue(chain.tag, chain.steps, tuple(env[nm] for nm in chain.extras))
-        return programs.matmul(env[chain.a], env[chain.b], arg_specs=chain.specs,
+        epi = programs.Epilogue(chain.tag, chain.steps, tuple(vals[nm] for nm in chain.extras))
+        return programs.matmul(vals[chain.a], vals[chain.b], arg_specs=chain.specs,
                                out_dtype=chain.out_dtype, epilogue=epi, resolved=resolved)
 
     def apply(self, params: Mapping[str, Any], *activations):
-        """Run the graph eagerly on the tensors' device."""
-        return self._body(*self._ordered_inputs(params, activations))
+        """Run the graph eagerly on the tensors' device (on this rank's
+        shards of a mesh, every rank calling)."""
+        self._check_runnable()
+        arrays = self._ordered_inputs(params, activations)
+        if self.mesh is None:
+            return self._body(*arrays)
+        with coll.use_mesh(self.mesh):
+            return self._body(*arrays)
 
     def __call__(self, params: Mapping[str, Any], *activations):
         return self.apply(params, *activations)
@@ -841,13 +1213,15 @@ def compile(  # noqa: A001 - the paper-facing API name
     fuse: bool = False,
     overlap: bool = False,
 ) -> Executable:
-    """Compile ``graph`` under ``plan`` for one GPU (``mesh=None``).
+    """Compile ``graph`` for ``mesh`` (a ``launch.mesh.Mesh``, or None for
+one GPU) under ``plan``.
 
     ``plan`` may be a :class:`~repro_torch.axe.solve.SolveResult`, a
     :class:`~repro_torch.axe.propagate.LayoutPlan`, a plain
     ``name → AxeSpec`` input assignment, or None — in which case the
-    layout solver runs (``beam`` and ``overlap`` forwarded: without
-    collectives ``overlap`` changes only the solver's objective).
+    layout solver runs (``beam`` and ``overlap`` forwarded).
+    ``overlap=True`` also makes the executable issue each overlappable
+    collective one entry early (bit-equal to the sync executable).
     ``schedule_cache`` pins the process-wide schedule cache
     (``repro_torch.tune.use_cache``) so the executable's stages reuse
     autotuned schedules.
@@ -859,8 +1233,6 @@ def compile(  # noqa: A001 - the paper-facing API name
     rewrite, as the JAX package does (fusion changes execution, never
     layout decisions); a ``plan`` handed alongside must cover the
     *fused* graph (:func:`plan_covers`), else :class:`CompileError`."""
-    if mesh is not None:
-        raise _not_ported("compiling for a device mesh", "A14")
     if schedule_cache is not None:
         from repro_torch import tune
 
@@ -910,7 +1282,8 @@ def compile(  # noqa: A001 - the paper-facing API name
             f"plan must be a SolveResult, LayoutPlan, mapping, or None; "
             f"got {type(plan).__name__}"
         )
-    exe = Executable(graph, mesh, layout, assignment, solve_result=solve_result)
+    exe = Executable(graph, mesh, layout, assignment, solve_result=solve_result,
+                     overlap=overlap)
     exe.fusion_report = fusion_report
     return exe
 
@@ -941,13 +1314,32 @@ def _graph_layers(graph: GraphSpec) -> List[int]:
     return sorted(seen)
 
 
+#: the param leaf each per-layer graph input views: (the block's
+#: sub-tree, or None for the block itself, and the leaf's key), in the
+#: order :func:`model_inputs` binds them
+_LAYER_PARAMS: Dict[str, Tuple[Optional[str], str]] = {
+    "norm1": (None, "norm1"),
+    **{n: ("attn", n) for n in ("wq", "wk", "wv", "wo", "q_norm", "k_norm")},
+    **{n: ("ssm", n) for n in ("wx", "wz", "wB", "wC", "wdt", "dt_bias", "A_log", "D",
+                               "conv_w", "gate_norm")},
+    "ssm_wo": ("ssm", "wo"),
+    "norm2": (None, "norm2"),
+    "wg": ("mlp", "wg"), "wu": ("mlp", "wu"), "wi": ("mlp", "wi"), "wo2": ("mlp", "wo"),
+    "router": ("moe", "router"), "moe_wg": ("moe", "wg"), "moe_wu": ("moe", "wu"),
+    "moe_wo": ("moe", "wo"),
+}
+_PARAM_INPUTS = {where: name for name, where in _LAYER_PARAMS.items()}
+_TOP_PARAMS = ("embed", "final_norm", "lm_head")
+
+
 def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
     """Map the port's model params (``models.transformer`` layout:
     stacked super-blocks, attention projections already 2-D with
     head-major columns) onto the graph's input tensors and auxiliary
     names — the same names and shapes the JAX package's
     ``model_inputs`` produces from its own params. Every entry is a view
-    of a param leaf: nothing is copied."""
+    of a param leaf (:func:`first_input` names the input that places
+    it): nothing is copied."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise CompileError(
             f"family {cfg.family!r} has no model binding "
@@ -962,45 +1354,49 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
     for i in _graph_layers(graph):
         sup, slot = i // per, i % per
         lp = params["blocks"][f"l{slot}"]
-        p = f"L{i}."
-        out[f"{p}norm1"] = lp["norm1"][sup]
-        if "attn" in lp:
-            ap = lp["attn"]
-            for name in ("wq", "wk", "wv", "wo"):
-                out[f"{p}{name}"] = ap[name][sup]
-            if cfg.qk_norm:
-                out[f"{p}q_norm"] = ap["q_norm"][sup]
-                out[f"{p}k_norm"] = ap["k_norm"][sup]
-        if "ssm" in lp:
-            sp = lp["ssm"]
-            for name in ("wx", "wz", "wB", "wC", "wdt",
-                         "dt_bias", "A_log", "D", "conv_w", "gate_norm"):
-                out[f"{p}{name}"] = sp[name][sup]
-            out[f"{p}ssm_wo"] = sp["wo"][sup]
-        if "norm2" in lp:
-            out[f"{p}norm2"] = lp["norm2"][sup]
-        if "mlp" in lp:
-            mp = lp["mlp"]
-            if cfg.mlp_type == "swiglu":
-                out[f"{p}wg"] = mp["wg"][sup]
-                out[f"{p}wu"] = mp["wu"][sup]
-            else:
-                out[f"{p}wi"] = mp["wi"][sup]
-            out[f"{p}wo2"] = mp["wo"][sup]
-        if "moe" in lp:
-            mo = lp["moe"]
-            out[f"{p}router"] = mo["router"][sup]
-            out[f"{p}moe_wg"] = mo["wg"][sup]
-            out[f"{p}moe_wu"] = mo["wu"][sup]
-            out[f"{p}moe_wo"] = mo["wo"][sup]
+        for name, (sub, key) in _LAYER_PARAMS.items():
+            tree = lp if sub is None else lp.get(sub)
+            if tree is not None and key in tree:
+                out[f"L{i}.{name}"] = tree[key][sup]
     return out
 
 
-def _check_model(mesh, offload=()) -> None:
-    if mesh is not None:
-        raise _not_ported("compiling for a device mesh", "A14")
+def leaf_input(path: Sequence[str]) -> Optional[Tuple[str, int]]:
+    """The graph input a param or cache leaf at ``path`` feeds first
+    (its view in the first layer of its slot: ``("blocks", "l1", "attn",
+    "wq")`` feeds ``L1.wq``, ``("l1", "k")`` feeds ``L1.k_cache``) and the
+    stacking dims in front of that view; None for a leaf no graph input
+    views."""
+    if len(path) == 1:
+        return (path[0], 0) if path[0] in _TOP_PARAMS else None
+    if path[0] != "blocks":
+        slot, key = path
+        return f"L{int(slot[1:])}.{_CACHE_INPUTS[key]}", 1
+    slot, *rest = path[1:]
+    name = _PARAM_INPUTS.get((None, rest[0]) if len(rest) == 1 else tuple(rest))
+    return None if name is None else (f"L{int(slot[1:])}.{name}", 1)
+
+
+def first_input(cfg, name: str) -> Tuple[str, bool]:
+    """The input that places the leaf behind input ``name``'s view
+    (:func:`leaf_input`), and whether the view is that leaf transposed
+    (a tied ``lm_head``)."""
+    if name == "lm_head" and cfg.tie_embeddings:
+        return "embed", True
+    if "." not in name:
+        return name, False
+    layer, base = name[1:].split(".", 1)
+    return f"L{int(layer) % _period(cfg)}.{base}", False
+
+
+def _check_model(offload=()) -> None:
     if offload:
         raise _not_ported(f"offload={tuple(offload)!r}", "A14")
+
+
+def _space(mesh) -> PhysicalSpace:
+    return PhysicalSpace.from_mesh_shape(_mesh_shape(mesh)) if mesh is not None \
+        else PhysicalSpace(())
 
 
 def model_executable(
@@ -1023,7 +1419,8 @@ def model_executable(
     cost_model=None,
 ) -> Executable:
     """The consumer-facing constructor: build the model-zoo graph for
-    ``cfg`` at (batch, seq) over the mesh-free space and compile it.
+    ``cfg`` at (batch, seq) over ``mesh``'s space (the mesh-free space
+    for None) and compile it.
     ``layers=None`` compiles the full depth. A ``plan`` solved for a
     *different* graph shape does not cover this graph: it is dropped
     with a warning and the layout is re-solved. ``fuse=True`` runs the
@@ -1043,9 +1440,9 @@ def model_executable(
 
     from repro_torch.axe.graphs import model_graph
 
-    _check_model(mesh, offload)
+    _check_model(offload)
     gs = model_graph(
-        cfg, batch, seq, PhysicalSpace(()),
+        cfg, batch, seq, _space(mesh),
         dtype=dtype or cfg.dtype,
         layers=cfg.num_layers if layers is None else layers,
     )
@@ -1098,6 +1495,11 @@ _CACHE_NAMES = {
     "attn": (("k", "k_cache", "k_cache_out"), ("v", "v_cache", "v_cache_out")),
     "ssm": (("ssm", "ssm_state", "ssm_state_out"), ("conv", "conv_state", "conv_state_out")),
 }
+
+
+#: a cache leaf's key -> its input's name in a layer, a cache-out's -> its input's
+_CACHE_INPUTS = {key: name for names in _CACHE_NAMES.values() for key, name, _ in names}
+_CACHE_CARRIED = {out: name for names in _CACHE_NAMES.values() for _, name, out in names}
 
 
 def _cache_names(leaf) -> Tuple[Tuple[str, str, str], ...]:
@@ -1163,7 +1565,7 @@ def decode_executable(
     overlap: bool = False,
 ) -> Executable:
     """Build the single-token decode-step graph for ``cfg`` (cache
-    tensors as first-class inputs/outputs) over the mesh-free space and
+    tensors as first-class inputs/outputs) over ``mesh``'s space and
     compile it — the serving twin of :func:`model_executable`. A
     ``plan`` solved for a different graph does not cover the decode
     graph and is dropped with a warning. ``fuse=True`` runs the fusion
@@ -1173,9 +1575,8 @@ def decode_executable(
 
     from repro_torch.axe.graphs import decode_graph
 
-    _check_model(mesh)
     gs = decode_graph(
-        cfg, batch, max_seq, PhysicalSpace(()),
+        cfg, batch, max_seq, _space(mesh),
         dtype=dtype or cfg.dtype,
         layers=cfg.num_layers if layers is None else layers,
     )

@@ -1,4 +1,15 @@
-"""AxeSpec → on-device tiles: the tile half of ``repro/axe/lower.py``.
+"""The two AxeSpec lowering adapters (paper §3.2/§3.4) — the port of
+``repro/axe/lower.py``.
+
+* **inter-device** — ``to_pspec`` / ``to_named_sharding``: the mesh
+  adapter. An AxeSpec becomes its per-dim mesh-axis entries (the
+  reference's ``PartitionSpec``, a plain tuple here) and, on a concrete
+  ``launch.mesh.Mesh``, a :class:`~repro_torch.core.dtensor.NamedSharding`
+  whose ``shard`` / ``unshard`` move tensors between the global and the
+  per-rank view. Layouts outside the GSPMD-expressible subset (strided
+  device placement, offsets) raise, as in the reference.
+  ``from_pspec`` / ``from_sharding`` invert it.
+* **on-device** — the tile half below.
 
 The JAX package lowers one operand of a Pallas kernel to a grid and a
 ``pl.BlockSpec``. The port's form describes a CUDA launch instead: the
@@ -7,17 +18,77 @@ each block owns and the TMA box that copies it into shared memory —
 what ``cuTensorMapEncodeTiled`` takes (box dims innermost first, the
 global strides in bytes). Validation is the one
 ``core.blockspec.check_tiling`` path, so an infeasible tile raises the
-same :class:`~repro_torch.core.blockspec.TilingError`. The mesh half
-(``to_pspec``, ``to_named_sharding``) comes with the multi-GPU slice
-(``ROADMAP.md`` A14).
+same :class:`~repro_torch.core.blockspec.TilingError`.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 from repro_torch.axe.spec import AxeSpec, PhysicalSpace
 from repro_torch.core.blockspec import TileDerivation, check_tiling, itemsize, pick_tile
+from repro_torch.core.dtensor import NamedSharding, PSpecEntry, entry_axes, pspec_of_layout
 from repro_torch.core.layout import Layout, direct_sum, strided
+
+
+# ---------------------------------------------------------------------------
+# inter-device: AxeSpec -> pspec / NamedSharding (and back)
+# ---------------------------------------------------------------------------
+
+
+def layout_of_pspec(
+    shape: Sequence[int],
+    pspec: Sequence[PSpecEntry],
+    mesh_shape: Mapping[str, int],
+) -> Layout:
+    """Axe layout of a tensor sharded per ``pspec`` on ``mesh_shape``: per
+    dim with mesh axes (a, b, ...) the iters ``(size_a, 1@a), (size_b,
+    1@b), ..., (local, stride@m)``; mesh axes no dim uses land in R
+    (replication). The construction is ``AxeSpec.sharded``."""
+    shape = tuple(int(s) for s in shape)
+    entries = tuple(pspec) + (None,) * (len(shape) - len(pspec))
+    space = PhysicalSpace.from_mesh_shape(mesh_shape)
+    placement = {i: entry_axes(e) for i, e in enumerate(entries) if entry_axes(e)}
+    return AxeSpec.sharded(shape, space, placement).layout
+
+
+def to_pspec(spec: AxeSpec) -> Tuple[PSpecEntry, ...]:
+    """AxeSpec → its per-dim mesh-axis entries (the inter-device lowering)."""
+    return pspec_of_layout(spec.layout, spec.shape, spec.space.mesh_shape)
+
+
+def _mesh_shape(mesh):
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def to_named_sharding(spec: AxeSpec, mesh) -> NamedSharding:
+    """AxeSpec → :class:`NamedSharding` on a concrete mesh."""
+    if _mesh_shape(mesh) != spec.space.mesh_shape:
+        raise ValueError(
+            f"mesh {_mesh_shape(mesh)} does not match spec space {spec.space.mesh_shape}")
+    return NamedSharding(mesh, to_pspec(spec))
+
+
+def from_pspec(
+    shape: Sequence[int],
+    pspec: Sequence[PSpecEntry],
+    space: PhysicalSpace,
+    dtype: str = "float32",
+) -> AxeSpec:
+    """pspec → AxeSpec (inverse of ``to_pspec``)."""
+    return AxeSpec(tuple(int(s) for s in shape),
+                   layout_of_pspec(shape, pspec, space.mesh_shape), space, dtype)
+
+
+def from_sharding(shape: Sequence[int], sharding: NamedSharding,
+                  dtype: str = "float32") -> AxeSpec:
+    """NamedSharding → AxeSpec (inverse of ``to_named_sharding``)."""
+    space = PhysicalSpace(tuple(_mesh_shape(sharding.mesh).items()))
+    return from_pspec(shape, tuple(sharding.spec), space, dtype)
+
+
+# ---------------------------------------------------------------------------
+# on-device: AxeSpec -> CUDA grid + tile + TMA box (and back)
+# ---------------------------------------------------------------------------
 
 
 class BlockLowering:
@@ -115,4 +186,5 @@ def spec_of_block(lowering: BlockLowering, space: PhysicalSpace) -> AxeSpec:
                    str(getattr(lowering.dtype, "name", lowering.dtype)).removeprefix("torch."))
 
 
-__all__ = ["BlockLowering", "block_lowering", "spec_of_block", "to_blockspec"]
+__all__ = ["BlockLowering", "block_lowering", "from_pspec", "from_sharding", "layout_of_pspec",
+           "pspec_of_layout", "spec_of_block", "to_blockspec", "to_named_sharding", "to_pspec"]

@@ -26,8 +26,13 @@ canonical layout signature of ``arg_specs`` (the operand AxeSpecs
 ``axe.compile`` hands its programs) and the operands' device. Resolution
 is lazy: a stage that never reads ``ctx.schedule`` never plans, and a
 caller that keeps a ``resolved=`` slot (``axe.compile``, one per graph
-node) resolves each stage once. MESH
-``shard_map`` lowering comes with the multi-GPU slice. A fused
+node) resolves each stage once. A MESH stage runs on one rank of a
+``launch.mesh.Mesh`` (``with mesh:``): its context reads the axis sizes
+and this rank's coordinates from the current mesh (the reference's
+``compat.axis_size`` / ``lax.axis_index``), and
+:meth:`Program.shard_map` is the reference's lowering onto a mesh — a
+callable from global tensors to the global result that runs the
+program on each rank's shards. A fused
 :class:`Epilogue` (the tail of an ``axe.passes`` epilogue fusion) rides
 on the call options as in the JAX package: ``program(..., epilogue=epi)``
 hands it to the stages as ``ctx.epilogue``. A program may register a
@@ -341,6 +346,7 @@ class _CallOptions:
     entry: Optional[Tuple[str, Optional[Any], Optional[Dict[str, int]], Optional[str]]] = None
     # the caller's slot of resolutions by stage name (``resolved=``)
     resolved: Optional[Dict[str, Any]] = None
+    overlap: bool = False   # MESH stages pick the ring (neighbour) collectives
 
     def schedule_override(self, stage_name: str):
         return dict(self.schedules).get(stage_name)
@@ -394,6 +400,28 @@ class StageContext:
     def epilogue(self) -> Optional[Epilogue]:
         """The fused :class:`Epilogue` of this call, or None."""
         return self._opts.epilogue
+
+    @property
+    def overlap(self) -> bool:
+        """True when the caller asked MESH stages for the ring forms of
+        their collectives (``collective.lower_step(..., overlap=True)``),
+        whose exchanges the following compute can overlap. The results
+        are bit-equal either way."""
+        return self._opts.overlap
+
+    @staticmethod
+    def axis_size(axis: str) -> int:
+        """Ranks along ``axis`` of the current mesh."""
+        from repro_torch.core import collective
+
+        return collective.axis_size(axis)
+
+    @staticmethod
+    def axis_index(axis: str) -> int:
+        """This rank's coordinate along ``axis`` of the current mesh."""
+        from repro_torch.core import collective
+
+        return collective.axis_index(axis)
 
     @property
     def schedule_tag(self) -> Optional[str]:
@@ -565,6 +593,7 @@ class Program:
         arg_specs: Sequence[Any] = (),
         epilogue: Optional[Epilogue] = None,
         resolved: Optional[Dict[str, Any]] = None,
+        overlap: bool = False,
         **kw,
     ):
         """Run the program on ``args``.
@@ -580,7 +609,9 @@ class Program:
         call site: each stage's unpinned resolution
         (a ``tune.Resolution``) is stored there under the stage's name at
         the first call and reused by later ones, as a trace fixes its
-        schedules (``axe.compile`` keeps one per graph node).
+        schedules (``axe.compile`` keeps one per graph node); ``overlap``
+        asks MESH stages for their ring collectives
+        (:attr:`StageContext.overlap`).
         """
         name = stage or self.dispatch_stage()
         opts = _CallOptions(
@@ -589,6 +620,7 @@ class Program:
             epilogue=epilogue,
             entry=(name, schedule, dict(blocks) if blocks else None, impl),
             resolved=resolved,
+            overlap=bool(overlap),
         )
         if self._grad_route is not None and records_grad(
                 *args, *(epilogue.args if epilogue is not None else ())):
@@ -678,6 +710,29 @@ class Program:
                 res = tune.resolve(**self._query(st, args, kw, opts), impl=impl)
             slot[st.name] = res
         return res.schedule
+
+    # -- mesh lowering ---------------------------------------------------
+    def shard_map(self, mesh, arg_specs: Sequence[Any], out_spec: Any, **call_kw) -> Callable:
+        """This program on ``mesh`` (a ``launch.mesh.Mesh``), the
+        reference's ``shard_map`` lowering: the returned callable takes
+        the global operands, keeps this rank's shards of them (placed by
+        ``arg_specs`` through ``axe.lower.to_named_sharding``), runs the
+        program on them under the mesh with the specs forwarded (MESH
+        stages draw their collective plans from them), and returns the
+        global result, gathered by ``out_spec``. Every rank calls it."""
+        from repro_torch.axe import lower
+
+        arg_specs = tuple(arg_specs)
+        ins = tuple(lower.to_named_sharding(s, mesh) for s in arg_specs)
+        out = lower.to_named_sharding(out_spec, mesh)
+
+        def run(*arrays):
+            with mesh:
+                local = self(*(sh.shard(a) for sh, a in zip(ins, arrays)),
+                             arg_specs=arg_specs, **call_kw)
+            return out.unshard(local)
+
+        return run
 
     # -- kernel launchers -------------------------------------------------
     def _launcher(self, source: str, symbol: str, signature: str) -> Callable:

@@ -6,8 +6,8 @@ Every rule is a *preference list of placements*; the first one the Axe
 algebra admits (exact divisibility — no silent GSPMD padding) wins, and
 the result is an :class:`~repro_torch.axe.spec.AxeSpec`, not a PartitionSpec:
 the layout is the source of truth. (The port of ``repro/axe/rules.py``;
-its tree helpers walk the port's dict trees, and the lowering onto a
-concrete mesh comes with the multi-GPU slice, ``ROADMAP.md`` A14.)
+its tree helpers walk the port's dict trees, and ``sharding_tree``
+lowers them onto a ``launch.mesh.Mesh``.)
 
 E.g. attention projections prefer head-sharding (column parallel) and
 fall back to d_model-sharding (row parallel, partial-sum outputs) when
@@ -496,9 +496,30 @@ def cache_specs(cache: Any, space: PhysicalSpace, *, plan: Any = None) -> Any:
     return map_with_path(assign, cache)
 
 
-# The lowering helpers over trees (``pspec_tree``, ``sharding_tree``)
-# place tensors on a concrete mesh: they come with the multi-GPU slice
-# (ROADMAP.md A14).
+# ---------------------------------------------------------------------------
+# lowering helpers over trees
+# ---------------------------------------------------------------------------
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, AxeSpec)
+
+
+def pspec_tree(specs: Any) -> Any:
+    """AxeSpec tree → tree of per-dim mesh-axis entries (inter-device
+    lowering)."""
+    from repro_torch.axe import lower
+
+    return map_with_path(lambda _p, s: lower.to_pspec(s), specs, is_leaf=_is_spec)
+
+
+def sharding_tree(specs: Any, mesh) -> Any:
+    """AxeSpec tree → ``NamedSharding`` tree on a concrete mesh (a
+    ``launch.mesh.Mesh``)."""
+    from repro_torch.axe import lower
+
+    return map_with_path(lambda _p, s: lower.to_named_sharding(s, mesh), specs,
+                         is_leaf=_is_spec)
 
 
 # ---------------------------------------------------------------------------

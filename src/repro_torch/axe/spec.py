@@ -15,8 +15,8 @@ hierarchy in ``core.scopes``::
 
 The axis names and canonical signatures are the JAX package's, so a
 layout signature means the same in both packages (schedules and plans
-compare on it). The inter-device lowering to a concrete mesh comes with
-the multi-GPU slice (``ROADMAP.md`` A14); the on-device tile lowering is
+compare on it). Both lowerings — onto a concrete mesh
+(``to_named_sharding``) and onto the card's tiles — are
 ``repro_torch.axe.lower``. Propagation over op graphs lives in
 ``repro_torch.axe.propagate``; the sharding rule engine in
 ``repro_torch.axe.rules``.
@@ -241,7 +241,12 @@ class AxeSpec:
         """Per-logical-dim mesh-axis placement, recovered from the
         layout by grouping. Only fully-sharded, unit-strided mesh iters
         are recognized (the GSPMD-expressible subset); anything else
-        raises — callers that want the raw layout use ``.layout``."""
+        raises — callers that want the raw layout use ``.layout``. The
+        executables' backends read it on every call, so it is computed
+        once per (immutable) spec."""
+        got = self.__dict__.get("_placement")
+        if got is not None:
+            return got
         mesh_shape = self.space.mesh_shape
         try:
             g = group(self.layout, self.shape)
@@ -257,7 +262,8 @@ class AxeSpec:
                         raise SpecError(f"mesh iter {it} is not a full unit-stride shard")
                     dim_axes.append(ax)
             out.append(tuple(dim_axes))
-        return tuple(out)
+        object.__setattr__(self, "_placement", tuple(out))
+        return self._placement
 
     def local_shape(self) -> Tuple[int, ...]:
         """Per-device logical shape after removing the mesh iters."""

@@ -12,7 +12,8 @@ the PyTorch + CUDA port the stage kinds map onto:
   or runs its plain torch version on CPU tensors.
 * **BLOCK** — a plain torch body on whole tensors (the single-tile
   form; also the ``xla``-named variant the JAX package keeps).
-* **MESH** — cross-card stages come with the multi-GPU slice.
+* **MESH** — a body on one rank of a ``launch.mesh.Mesh``: its exchanges
+  run through ``core.collective`` over the current mesh's axis groups.
 
 Scope ordering drives validation: a stage may only invoke stages at the
 same or a finer scope (``Scope.can_enter``); a program dispatched at

@@ -1,21 +1,44 @@
-"""Redistribution planning between distributed layouts (paper Fig. 8) —
-the planning half of ``repro/core/collective.py``.
+"""Redistribution between distributed layouts (paper Fig. 8) — the port
+of ``repro/core/collective.py``, planning and execution.
 
 ``infer_redistribution`` turns a source and a destination
 :class:`~repro_torch.core.dtensor.DTensorSpec` into the ordered
 collective steps that convert one placement into the other;
 ``plan_comm_bytes`` / ``plan_transfer_bytes`` price them. The solver
 (``axe.solve``) and the propagation rules (``axe.propagate``) run on
-these. The execution half — the ring all-gather and the lowering of the
-steps onto ``torch.distributed`` — comes with the multi-GPU slice
-(``ROADMAP.md`` A14); until then :func:`apply_plan` runs only the empty
-plan, which is every plan of the mesh-free space.
+these.
+
+``lower_step`` runs one step on ``torch.distributed`` over the step's
+axis group of the current mesh (:func:`use_mesh`, entered by
+``launch.mesh.spawn`` and by ``with mesh:``) — the port's twin of the
+reference's ``jax.lax`` collectives inside ``shard_map``: every rank
+holds its local shard and the steps move shards between ranks.
+:func:`ring_all_gather` is the reference's ``ppermute`` ring: P−1
+neighbour rotations with ``batch_isend_irecv``, bit-equal to the tiled
+all-gather. ``lower_step(..., overlap=True)`` selects it for gathers.
+
+One function, :func:`_transport`, holds the backend rule. Under NCCL
+the tensors go to the collective as they are. Under gloo a CUDA tensor
+is copied to the host and back in that one place, and counted
+(:func:`collective_counts`: ops, bytes, staged). Data movement travels
+as raw bytes, so every dtype moves bit for bit on any gloo build. A sum
+runs in f32 on the wire and rounds once to the operand's dtype: summed
+in bf16, the ranks' partial MoE outputs part from the single rank's by
+0.41 in a logit, against 0.039 in f32, as routing near a tie flips
+(``ROADMAP.md`` §C). A reduce-scatter is the tensor form
+(``reduce_scatter_single``, ``reduce_scatter_tensor`` before torch
+2.13): each rank gets back only its chunk, the f32 bytes the planner
+prices for ``collective_matmul``. No step changes its transport on a
+failure: a tensor on another device than the mesh's raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.core.dtensor import DTensorSpec, pspec_of_layout
 
@@ -198,15 +221,318 @@ def plan_transfer_bytes(
     return out
 
 
-def apply_plan(x, plan: Sequence[Step], *, overlap: bool = False):
-    """Run a redistribution plan on the local tensor ``x``. The mesh-free
-    space plans no steps, and that empty plan is all this slice runs;
-    a plan with steps needs the collectives of the multi-GPU slice."""
-    if plan:
-        from repro_torch.axe.compile import CompileError
+# ---------------------------------------------------------------------------
+# the mesh the steps run on
+# ---------------------------------------------------------------------------
 
-        raise CompileError(
-            f"redistribution steps {[type(s).__name__ for s in plan]} need the "
-            f"multi-GPU collectives, which are not ported yet (ROADMAP.md A14)"
-        )
+_MESHES: List[Any] = []
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh` (a
+    ``launch.mesh.Mesh``), or None outside any."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the enclosed collective steps on ``mesh`` (``with mesh:`` is
+    the same)."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def _mesh():
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError(
+            "a collective step runs on a device mesh: enter one with "
+            "`with mesh:` (launch.mesh.make_mesh / spawn)")
+    return mesh
+
+
+def axis_size(axis: str) -> int:
+    """Ranks along mesh axis ``axis`` of the current mesh (the
+    reference's ``compat.axis_size``)."""
+    return _mesh().axis_size(axis)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+    return _mesh().axis_index(axis)
+
+
+# ---------------------------------------------------------------------------
+# the transport: the one place that holds the backend rule
+# ---------------------------------------------------------------------------
+
+_COUNTS: Dict[str, Any] = {"ops": {}, "bytes": 0, "staged": 0}
+
+
+def collective_counts() -> Dict[str, Any]:
+    """Since the last reset: collectives issued per kind (``ops``), the
+    bytes this rank handed to the transport, and how many of the
+    collectives were staged through the host (CUDA tensors under gloo)."""
+    return {"ops": dict(_COUNTS["ops"]), "bytes": _COUNTS["bytes"],
+            "staged": _COUNTS["staged"]}
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.update(ops={}, bytes=0, staged=0)
+
+
+def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue):
+    """Hand ``tensors`` to ``issue`` (which runs the ``torch.distributed``
+    calls on them and returns its result tensors) under the mesh's
+    backend: as they are under NCCL and for CPU tensors, through host
+    copies for CUDA tensors under gloo — the staging happens here and
+    nowhere else. Returns ``issue``'s tensors on the operands' device,
+    and a waiter when ``issue`` returned one (``(tensors, wait)``)."""
+    dev = tensors[0].device
+    if dev.type != mesh.device.type:
+        raise RuntimeError(
+            f"{kind}: a tensor on {dev} under a mesh of {mesh.device} ranks "
+            f"(no step changes its device or transport)")
+    ops = _COUNTS["ops"]
+    ops[kind] = ops.get(kind, 0) + 1
+    _COUNTS["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    staged = dev.type == "cuda" and mesh.backend == "gloo"
+    if staged:
+        _COUNTS["staged"] += 1
+        tensors = [t.to("cpu") for t in tensors]
+    out, wait = issue(tensors)
+
+    def finish():
+        if wait is not None:
+            wait()
+        return [o.to(dev) for o in out] if staged else list(out)
+
+    return finish
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a flat byte tensor (data movement is dtype-blind)."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+    return b.view(like.dtype).reshape(shape)
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Tiled all-gather along ``dim`` over ``axis`` (rank order)."""
+    import torch.distributed as dist
+
+    mesh = _mesh()
+    p = mesh.axis_size(axis)
+    if p == 1:
+        return x
+    group = mesh.group(axis)
+
+    def issue(ts):
+        parts = [torch.empty_like(ts[0]) for _ in range(p)]
+        dist.all_gather(parts, ts[0], group=group)
+        return parts, None
+
+    parts = _transport("AllGather", mesh, [_bytes(x)], issue)()
+    return torch.cat([_from_bytes(b, x, x.shape) for b in parts], dim=dim)
+
+
+def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Sum over ``axis`` (``psum``), in f32, rounded once."""
+    import torch.distributed as dist
+
+    mesh = _mesh()
+    acc = x.to(torch.float32, copy=True).contiguous()
+    if mesh.axis_size(axis) == 1:
+        return acc.to(x.dtype)
+    group = mesh.group(axis)
+
+    def issue(ts):
+        dist.all_reduce(ts[0], op=dist.ReduceOp.SUM, group=group)
+        return ts, None
+
+    return _transport("AllReduce", mesh, [acc], issue)()[0].to(x.dtype)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Tiled reduce-scatter (``psum_scatter``): the sum over ``axis``,
+    this rank's chunk of ``dim``, in f32, rounded once."""
+    import torch.distributed as dist
+
+    mesh = _mesh()
+    p = mesh.axis_size(axis)
+    if p == 1:
+        return x.clone(memory_format=torch.contiguous_format)
+    group = mesh.group(axis)
+    # chunk j of ``dim`` goes to rank j: lay the chunks out contiguously
+    send = x.movedim(dim, 0).to(torch.float32).contiguous()
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+    def issue(ts):
+        out = ts[0].new_empty((ts[0].shape[0] // p,) + tuple(ts[0].shape[1:]))
+        scatter(out, ts[0], op=dist.ReduceOp.SUM, group=group)
+        return [out], None
+
+    got = _transport("ReduceScatter", mesh, [send], issue)()[0]
+    return got.movedim(0, dim).to(x.dtype).contiguous()
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all (``lax.all_to_all(tiled=True)``): ``x`` split into
+    P chunks along ``split_dim``, chunk j to rank j; the received chunks
+    concatenated along ``concat_dim`` in rank order."""
+    import torch.distributed as dist
+
+    mesh = _mesh()
+    p = mesh.axis_size(axis)
+    if p == 1:
+        return x
+    group = mesh.group(axis)
+    chunks = torch.chunk(x, p, dim=split_dim)
+    shape = chunks[0].shape
+    send = torch.stack([_bytes(c) for c in chunks])
+
+    def issue(ts):
+        out = torch.empty_like(ts[0])
+        dist.all_to_all_single(out, ts[0], group=group)
+        return [out], None
+
+    got = _transport("AllToAll", mesh, [send], issue)()[0]
+    return torch.cat([_from_bytes(got[j], x, shape) for j in range(p)], dim=concat_dim)
+
+
+def dynamic_slice(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``dim`` along ``axis`` (a local chop)."""
+    p = axis_size(axis)
+    chunk = x.shape[dim] // p
+    return x.narrow(dim, axis_index(axis) * chunk, chunk)
+
+
+class Rotation:
+    """One neighbour rotation over ``axis`` in flight: ``buf`` goes to the
+    next rank, the previous rank's arrives (``ppermute`` with ``i → i+1``);
+    :meth:`wait` returns what arrived. Issued with ``batch_isend_irecv``,
+    under a tag every rank draws in the same order."""
+
+    def __init__(self, buf: torch.Tensor, axis: str):
+        import torch.distributed as dist
+
+        mesh = _mesh()
+        p = mesh.axis_size(axis)
+        me = mesh.axis_index(axis)
+        ranks = mesh.group_ranks(axis)
+        group = mesh.group(axis)
+        tag = mesh.next_tag()
+        self._like, self._shape = buf, buf.shape
+
+        def issue(ts):
+            recv = torch.empty_like(ts[0])
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, ts[0], ranks[(me + 1) % p], group, tag),
+                dist.P2POp(dist.irecv, recv, ranks[(me - 1) % p], group, tag),
+            ])
+
+            def wait():
+                for r in reqs:
+                    r.wait()
+
+            return [recv], wait
+
+        self._finish = _transport("Rotation", mesh, [_bytes(buf)], issue)
+
+    def wait(self) -> torch.Tensor:
+        return _from_bytes(self._finish()[0], self._like, self._shape)
+
+
+class _RingGather:
+    """:func:`ring_all_gather` in two halves: the constructor lands the
+    own chunk and issues the first rotation, :meth:`finish` waits for it
+    and runs the rest (what an overlapped prefetch issues early and
+    completes at its consumer)."""
+
+    def __init__(self, x: torch.Tensor, axis: str, dim: int):
+        self.p, self.idx = axis_size(axis), axis_index(axis)
+        self.x, self.axis, self.dim = x, axis, dim
+        self.chunk = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = self.chunk * self.p
+        self.out = x.new_empty(shape)
+        self.out.narrow(dim, self.idx * self.chunk, self.chunk).copy_(x)
+        self.inflight = Rotation(x, axis) if self.p > 1 else None
+
+    def finish(self) -> torch.Tensor:
+        for t in range(1, self.p):
+            buf = self.inflight.wait()
+            if t < self.p - 1:
+                self.inflight = Rotation(buf, self.axis)
+            src = (self.idx - t) % self.p
+            self.out.narrow(self.dim, src * self.chunk, self.chunk).copy_(buf)
+        return self.out
+
+
+def ring_all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Ring all-gather: P−1 ``batch_isend_irecv`` neighbour rotations,
+    each chunk landed into the output as it arrives. Bit-equal to the
+    tiled :func:`all_gather` (pure data movement), issued as neighbour
+    exchanges that compute issued after the first can overlap."""
+    if axis_size(axis) == 1:
+        return x
+    return _RingGather(x, axis, dim).finish()
+
+
+def lower_step(x: torch.Tensor, step: Step, *, overlap: bool = False) -> torch.Tensor:
+    """Run one plan step on this rank's shard (the reference's
+    ``lower_step`` inside ``shard_map``)."""
+    if isinstance(step, AllGather):
+        if overlap:
+            return ring_all_gather(x, step.axis, step.dim)
+        return all_gather(x, step.axis, step.dim)
+    if isinstance(step, ReduceScatter):
+        return reduce_scatter(x, step.axis, step.dim)
+    if isinstance(step, AllReduce):
+        return all_reduce(x, step.axis)
+    if isinstance(step, AllToAll):
+        return all_to_all(x, step.axis, step.dst_dim, step.src_dim)
+    if isinstance(step, DynamicSlice):
+        return dynamic_slice(x, step.axis, step.dim)
+    if isinstance(step, Transfer):
+        # class-crossing movement runs as its homogeneous twin (the
+        # class tier mirrors the mesh); only the cost model differs
+        if step.op == "gather":
+            return all_gather(x, step.axis, step.dim)
+        return dynamic_slice(x, step.axis, step.dim)
+    raise TypeError(f"unknown step {step}")
+
+
+def apply_plan(x: torch.Tensor, plan: Sequence[Step], *, overlap: bool = False) -> torch.Tensor:
+    """Run a redistribution plan on the local shard ``x``. The empty plan
+    (every plan of the mesh-free space) returns ``x`` and needs no mesh."""
+    for step in plan:
+        x = lower_step(x, step, overlap=overlap)
     return x
+
+
+class Pending:
+    """A plan issued ahead of its consumer (the overlap schedule's
+    prefetch). A plan that opens with a gather over more than one rank
+    starts a ring gather whose first rotation is in flight until
+    :meth:`wait`; any other plan runs at issue. Either way :meth:`wait`
+    returns exactly :func:`apply_plan`'s result."""
+
+    def __init__(self, x: torch.Tensor, plan: Sequence[Step]):
+        plan = list(plan)
+        self._ring: Optional[_RingGather] = None
+        if plan and isinstance(plan[0], AllGather) and axis_size(plan[0].axis) > 1:
+            self._ring = _RingGather(x, plan[0].axis, plan[0].dim)
+            self._rest = plan[1:]
+        else:
+            self._value, self._rest = apply_plan(x, plan, overlap=True), []
+
+    def wait(self) -> torch.Tensor:
+        if self._ring is not None:
+            self._value, self._ring = self._ring.finish(), None
+        return apply_plan(self._value, self._rest, overlap=True)

@@ -6,11 +6,13 @@ mesh axes (``pod``/``data``/``model``) plus the linear memory axis ``m``.
 It is the distribution-layer signature type the collective planner
 (``core.collective``) plans over; ``AxeSpec.to_dtensor`` builds one.
 
-The JAX package also derives a ``NamedSharding`` from it for
-``jax.jit``; the port has no sharded execution until the multi-GPU
-slice (``ROADMAP.md`` A14), so ``pspec`` here returns the placement as
-a plain tuple of entries (``None``, an axis name, or a tuple of names)
-— the same entries the JAX package's ``PartitionSpec`` holds.
+``pspec`` returns the placement as a plain tuple of entries (``None``,
+an axis name, or a tuple of names) — the entries the JAX package's
+``PartitionSpec`` holds. The port's analogue of a ``NamedSharding`` is
+:class:`NamedSharding`, a ``(mesh, pspec)`` pair on a
+``launch.mesh.Mesh``: :meth:`NamedSharding.shard` takes a global tensor
+to this rank's local shard, :meth:`NamedSharding.unshard` gathers the
+shards back by their placement.
 """
 from __future__ import annotations
 
@@ -80,8 +82,17 @@ class DTensorSpec:
     layout: Layout
     dtype: str = "bfloat16"
 
+    @staticmethod
+    def from_pspec(shape, pspec, mesh_shape, dtype="bfloat16") -> "DTensorSpec":
+        from repro_torch.axe import lower
+
+        return DTensorSpec(tuple(shape), lower.layout_of_pspec(shape, pspec, mesh_shape), dtype)
+
     def pspec(self, mesh_shape: Mapping[str, int]) -> Tuple[PSpecEntry, ...]:
         return pspec_of_layout(self.layout, self.shape, mesh_shape)
+
+    def sharding(self, mesh) -> "NamedSharding":
+        return NamedSharding(mesh, self.pspec(dict(zip(mesh.axis_names, mesh.devices.shape))))
 
     def check_consistent(self, mesh_shape: Mapping[str, int]) -> None:
         """Consistency check (paper: 'compiler generates runtime checks
@@ -101,3 +112,57 @@ class DTensorSpec:
             if ax is not None and is_mesh_axis(ax):
                 shards *= it.extent
         return total // shards
+
+
+def entry_axes(entry: PSpecEntry) -> Tuple[str, ...]:
+    """The mesh axes of one pspec entry, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's placement on a concrete mesh: ``spec`` (one entry per
+    dim, major axis first) on ``mesh`` (a ``launch.mesh.Mesh``)."""
+
+    mesh: object
+    spec: Tuple[PSpecEntry, ...]
+
+    def _dims(self, ndim: int):
+        entries = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return [entry_axes(e) for e in entries]
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """The local shape of a global ``shape``."""
+        out = []
+        for s, axes in zip(shape, self._dims(len(shape))):
+            n = math.prod(self.mesh.axis_size(a) for a in axes)
+            if s % n:
+                raise ValueError(f"dim {s} does not split over {axes} ({n} ranks)")
+            out.append(s // n)
+        return tuple(out)
+
+    def shard(self, t):
+        """This rank's shard of the global tensor ``t`` (a copy of its
+        own: no view keeps the global tensor alive)."""
+        local = self.shard_shape(tuple(t.shape))
+        for dim, axes in enumerate(self._dims(t.dim())):
+            if axes:
+                idx = 0
+                for a in axes:
+                    idx = idx * self.mesh.axis_size(a) + self.mesh.axis_index(a)
+                t = t.narrow(dim, idx * local[dim], local[dim])
+        return t.contiguous().clone() if t._base is not None or not t.is_contiguous() else t
+
+    def unshard(self, local):
+        """The global tensor from this rank's shard ``local``: a tiled
+        gather along each sharded dim, minor axis first (every rank takes
+        part)."""
+        from repro_torch.core import collective as coll
+
+        with coll.use_mesh(self.mesh):
+            for dim, axes in enumerate(self._dims(local.dim())):
+                for a in reversed(axes):
+                    local = coll.all_gather(local, a, dim)
+        return local

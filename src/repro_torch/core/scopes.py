@@ -1,7 +1,7 @@
 """Execution scopes (paper §3.2): nested granularities an operator can
 be issued at. In the PyTorch + CUDA port the hierarchy is
 
-    MESH   — a program over several cards (torch.distributed; later slice)
+    MESH   — a program over the ranks of a mesh (torch.distributed)
     DEVICE — one card's body: plain torch ops between kernel launches
     GRID   — one CUDA kernel launch (a grid of thread blocks)
     BLOCK  — inside a kernel: one block's tile, or the plain torch body

@@ -9,11 +9,15 @@ the JAX package::
     y = programs.rmsnorm(x, w, eps=1e-6)
     o = programs.flash_decode(q, k_cache, v_cache, pos, ring=False)
     h = programs.moe_gemm(buf, w)                   # [E,C,d] @ [E,d,f]
+    f = programs.collective_matmul.shard_map(mesh, (sa, sb), s_out)
+    y = f(a, b)                                     # K-sharded GEMM + reduce-scatter
     y = programs.matmul(a, b, epilogue=Epilogue("add", (("add", (-1, 0)),), (res,)))
 
 On CUDA tensors each program launches its hand-written Hopper kernel
 (``repro_torch/csrc``) or raises; on CPU tensors it runs the kernel's
-plain torch version. :func:`launch_counts` reads, and
+plain torch version. ``collective_matmul`` is a MESH program with no
+kernel of its own: it runs on one rank of a mesh, its partial products
+on B1 (``matmul``) and its exchanges through ``core.collective``. :func:`launch_counts` reads, and
 :func:`reset_launch_counts` zeroes, the per-kernel launch counters the
 wrappers keep, so a run can show which kernels it went through;
 :func:`wgmma_counts` reads how many of B1's, B3's and B5's launches took
@@ -33,6 +37,10 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.axe.program import Epilogue as Epilogue
+from repro_torch.kernels.collective_matmul import (
+    collective_matmul_program as collective_matmul,
+)
+from repro_torch.kernels.collective_matmul import derive_axis_name as derive_axis_name
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import moe_gemm as _moe
@@ -45,7 +53,7 @@ from repro_torch.kernels.matmul import matmul_program as matmul
 from repro_torch.kernels.moe_gemm import moe_gemm_program as moe_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm_program as rmsnorm
 
-ALL_PROGRAMS = (matmul, flash_attention, moe_gemm, rmsnorm)
+ALL_PROGRAMS = (matmul, flash_attention, moe_gemm, rmsnorm, collective_matmul)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -103,6 +111,8 @@ __all__ = [
     "ALL_PROGRAMS",
     "Epilogue",
     "bulk_counts",
+    "collective_matmul",
+    "derive_axis_name",
     "flash_attention",
     "flash_decode",
     "launch_counts",

@@ -6,8 +6,9 @@ them to the JAX package.
 
 Their details are the reference's: f32 accumulation and then one cast,
 queries right-aligned against the keys, fully masked rows coming out as
-0, and routing slots filled in (token, choice) order. The collective
-oracle comes with its slice (``ROADMAP.md``).
+0, and routing slots filled in (token, choice) order; the K-sharded
+collective matmul's oracle sums its P partial products in the order the
+schedules do.
 """
 from __future__ import annotations
 
@@ -26,6 +27,23 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     """f32-accumulated GEMM."""
     _full_f32()
     return (a.float() @ b.float()).to(out_dtype or a.dtype)
+
+
+def collective_matmul_ref(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    """Oracle for the K-sharded collective matmul (paper §4.2): the global
+    result both schedules must reconstruct. ``a`` [M, K] / ``b`` [K, N]
+    are the logical (unsharded) operands; K splits into ``p`` local
+    slices whose f32 partial products are summed in slice order, then
+    cast once."""
+    _full_f32()
+    m, k = a.shape
+    if k % p:
+        raise ValueError(f"K={k} does not split over {p}")
+    kl = k // p
+    acc = torch.zeros((m, b.shape[1]), dtype=torch.float32, device=a.device)
+    for i in range(p):
+        acc = acc + a[:, i * kl:(i + 1) * kl].float() @ b[i * kl:(i + 1) * kl].float()
+    return acc.to(a.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

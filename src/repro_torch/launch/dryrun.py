@@ -12,16 +12,19 @@ objective (``--overlap``). None of them needs a device: the planning
 spaces carry the production mesh's axes without any card behind them.
 
 ``--execute`` compiles the solved plan of the smoke-reduced config with
-``axe.compile`` and runs it on one card (``mesh=None``; ``--device cpu``
-runs the plain bodies), holding its logits against the model forward.
-With one card the plan issues no collective: the reference's
-issued-vs-planned cross-check holds trivially, and the record says so.
-The execution paths that need a device mesh or a host tier
-(``--overlap``, ``--classes``, ``--offload`` with ``--execute``) and
-the lowering onto the 256- and 512-chip production meshes (the
-default cell, ``lower_cell``, with FSDP, ZeRO-1 and activation
-sharding) raise, naming ``ROADMAP.md`` A14. The solver prices the
-default device class, the H100 (``axe.hetero``), for backend ``"gpu"``.
+``axe.compile`` and runs it, holding its logits against the model
+forward: on one card (``--device cpu`` runs the plain bodies), or on the
+mesh of every rank when started under ``python -m torch.distributed.run
+--nproc-per-node N`` (a ``(N/4, 4)`` ``("data", "model")`` mesh, gloo on
+the CPU or when the ranks share a card). On a mesh the record carries
+the reference's cross-check of issued vs planned collectives vs the
+solver's decisions; ``--overlap`` compiles the overlap schedule. The
+paths that need a host tier (``--classes``, ``--offload`` with
+``--execute``) and the lowering onto the 256- and 512-chip production
+meshes (the default cell, ``lower_cell``, with FSDP, ZeRO-1 and
+activation sharding) raise, naming ``ROADMAP.md`` A14. The solver
+prices the default device class, the H100 (``axe.hetero``), for backend
+``"gpu"``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --layout-plan
@@ -29,6 +32,8 @@ Usage:
     python -m repro_torch.launch.dryrun --solve-compare
     python -m repro_torch.launch.dryrun --arch qwen3-4b --solve --execute
     python -m repro_torch.launch.dryrun --arch qwen3-4b --execute --device cpu --out r.jsonl
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.dryrun \
+        --arch qwen3-4b --execute --device cpu
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 import traceback
@@ -51,8 +57,7 @@ BACKEND = "gpu"
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"dryrun: {what} needs a device mesh: the multi-GPU slice, "
-                               f"ROADMAP.md A14")
+    return NotImplementedError(f"dryrun: {what} is not ported yet (ROADMAP.md A14)")
 
 
 def _mesh_shape(multi_pod: bool):
@@ -249,18 +254,27 @@ def execute_cell(
     offload: tuple = (),
     overlap: bool = False,
     device=None,
+    mesh=None,
 ):
-    """Compile the solved plan with ``axe.compile`` and *run* it on one
-    card (``mesh=None``; ``device="cpu"`` runs the plain bodies) at the
-    smoke-reduced config: the logits held against the model forward on
-    the same device (5e-4 in f32, 5e-2 in bf16, the reference's bounds).
-    The plan of one card issues no collective, so the reference's
-    issued-vs-planned-vs-decisions cross-check holds trivially (the
-    record's ``collectives`` is 0 and ``collective_check`` says why).
-    ``overlap``, ``classes`` and ``offload`` need a device mesh or a host
-    tier: they raise, naming ``ROADMAP.md`` A14."""
+    """Compile the solved plan with ``axe.compile`` and *run* it at the
+    smoke-reduced config: on ``mesh`` (a ``launch.mesh.Mesh``, every rank
+    calling; the world's own ``make_local_mesh`` when ``torch.distributed``
+    runs several ranks and none is given) or on one card (``mesh=None``;
+    ``device="cpu"`` runs the plain bodies). The logits are held against
+    the model forward on the same device (5e-4 in f32, 5e-2 in bf16, the
+    reference's bounds), and the redistribution collectives the body
+    issued against the plan and the solver's per-op Decision comm
+    accounting (on one card none is planned and none issued).
+
+    ``overlap=True`` solves under the ``max(comm, compute)`` objective and
+    compiles the overlap schedule; the record then carries the hidden /
+    exposed comm-second split, and issued == planned runs against the
+    interleaved issue order. ``classes`` and ``offload`` need a host tier:
+    they raise, naming ``ROADMAP.md`` A14."""
+    from repro_torch.axe import lower
     from repro_torch.axe.compile import SUPPORTED_FAMILIES, compile as axe_compile, model_inputs
     from repro_torch.axe.graphs import model_graph
+    from repro_torch.axe.rules import mesh_shape_of
     from repro_torch.axe.solve import solve
     from repro_torch.configs import smoke_variant
     from repro_torch.core.device import resolve_device
@@ -268,8 +282,6 @@ def execute_cell(
     from repro_torch.models import transformer as tf_mod
     from repro_torch.models.model_zoo import build_model
 
-    if overlap:
-        raise _not_ported("--overlap (prefetched collectives) with --execute")
     if classes or offload:
         raise _not_ported("--classes / --offload (a host tier) with --execute")
     cfg = smoke_variant(get_config(arch))
@@ -278,11 +290,19 @@ def execute_cell(
         record.update(status="skipped", reason=f"family {cfg.family} has no model binding")
         return record
     if cfg.is_moe:
-        # drop-free capacity: the compiled and the model routing agree
-        # exactly, so the numeric check is strict
+        # drop-free capacity: the sharded local routing and the model's
+        # global routing agree exactly, so the numeric check is strict
         cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
-    dev = resolve_device(device)
-    space = PhysicalSpace.from_mesh_shape({})
+    if mesh is None:
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            from repro_torch.launch.mesh import make_local_mesh
+
+            n = dist.get_world_size()
+            mesh = make_local_mesh(4 if n % 4 == 0 else n, device=device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    space = PhysicalSpace.from_mesh_shape(mesh_shape_of(mesh) if mesh is not None else {})
     record["mesh_shape"] = space.mesh_shape
     record["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     try:
@@ -298,8 +318,8 @@ def execute_cell(
             record["fusion"] = rep.to_dict()
             if verbose and fusion_trace:
                 print(rep.describe())
-        res = solve(graph, beam=beam, backend=BACKEND)
-        exe = axe_compile(graph, None, plan=res)
+        res = solve(graph, beam=beam, backend=BACKEND, overlap=overlap)
+        exe = axe_compile(graph, mesh, plan=res, overlap=overlap)
 
         api = build_model(cfg, device=dev)
         params = api.init(0)
@@ -310,7 +330,10 @@ def execute_cell(
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.time()
+            # global inputs: on a mesh the executable keeps each rank's shards
             logits = exe(model_inputs(graph, cfg, params), tokens.reshape(-1))
+            if mesh is not None:
+                logits = lower.to_named_sharding(exe.output_spec("logits"), mesh).unshard(logits)
             logits = logits.reshape(batch, seq, -1).float()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -325,22 +348,46 @@ def execute_cell(
             raise RuntimeError(f"compiled logits deviate from the reference forward by "
                                f"{record['max_abs_diff']:.2e} (> {tol:.0e})")
 
-        # the cross-check of issued vs planned collectives: one card,
-        # none planned and none issued
+        # --- cross-check: issued collectives == planned == decisions ---
+        observed = list(exe.observed_collectives)
         planned = list(exe.collective_sequence())
-        if planned or exe.plan.total_comm_bytes or res.comm_bytes:
+        if observed != planned:
+            raise RuntimeError(f"the body issued {len(observed)} redistributions but the "
+                               f"plan records {len(planned)}: {observed} vs {planned}")
+        decision_comm = {d.op: d.comm_bytes for d in res.trace}
+        mismatches = [(e.op.name, e.comm_bytes, decision_comm[e.op.name])
+                      for e in exe.plan.entries
+                      if e.op.name in decision_comm and e.comm_bytes != decision_comm[e.op.name]]
+        if mismatches:
+            raise RuntimeError(f"plan comm disagrees with the solver Decision trace: "
+                               f"{mismatches[:4]}")
+        if mesh is None and (planned or exe.plan.total_comm_bytes):
             raise RuntimeError(f"a mesh=None plan holds collectives: {planned[:4]}")
         record.update(
-            status="ok", fused=fuse, overlap=False, collectives=0,
-            collective_check="mesh=None: no collective planned, none issued",
+            status="ok", fused=fuse, overlap=overlap, collectives=len(planned),
+            collective_check=("issued == planned == decisions" if mesh is not None
+                              else "mesh=None: no collective planned, none issued"),
             comm_bytes=exe.plan.total_comm_bytes, solved_comm_bytes=res.comm_bytes,
             seeded_comm_bytes=res.seeded_comm_bytes,
             transfer_bytes=exe.plan.total_transfer_bytes,
         )
+        if overlap:
+            hidden_ops = [d.op for d in res.trace if d.hidden_comm_s > 0]
+            record.update(
+                hidden_comm_s=res.hidden_comm_s, exposed_comm_s=res.exposed_comm_s,
+                hidden_ops=len(hidden_ops),
+                prefetched_collectives=sum(len(row.prefetched) for row in exe.lowering_trace),
+            )
         if verbose:
+            tago = ""
+            if overlap:
+                tago = (f" hidden={res.hidden_comm_s * 1e6:.1f}us/"
+                        f"exposed={res.exposed_comm_s * 1e6:.1f}us "
+                        f"({record['hidden_ops']} ops overlap)")
             print(f"EXEC {arch}{' fused' if fuse else ''} mesh={space.signature()} "
                   f"device={record['device']} max|Δ|={record['max_abs_diff']:.2e} "
-                  f"collectives=0 (mesh=None: none planned, none issued) OK")
+                  f"collectives={len(planned)} ({record['collective_check']}) "
+                  f"comm={exe.plan.total_comm_bytes / 2**10:.1f} KiB/dev{tago} OK")
     except Exception as e:  # record an error row; never abort a sweep
         record.update(status="error", error=f"{type(e).__name__}: {e}")
         record["traceback"] = traceback.format_exc()[-2000:]
@@ -374,8 +421,9 @@ def main(argv=None):
     ap.add_argument("--solve-trace", action="store_true",
                     help="with --solve: print the per-op decision trace")
     ap.add_argument("--execute", action="store_true",
-                    help="compile the solved plan (axe.compile) and run it on one card "
-                         "(smoke-reduced config), logits against the model forward")
+                    help="compile the solved plan (axe.compile) and run it on one card or, "
+                         "under torch.distributed.run, on the world's mesh (smoke-reduced "
+                         "config), logits against the model forward")
     ap.add_argument("--device", default=None, help="--execute: default cuda; cpu runs the "
                                                    "plain bodies")
     ap.add_argument("--exec-batch", type=int, default=4)
@@ -387,7 +435,7 @@ def main(argv=None):
                     help="with --fuse: record which patterns fired (implies --fuse)")
     ap.add_argument("--overlap", dest="overlap", action="store_true", default=False,
                     help="with --solve: the max(comm, compute) objective; with --execute "
-                         "it needs a mesh (ROADMAP.md A14)")
+                         "also the overlap schedule (prefetched collectives)")
     ap.add_argument("--no-overlap", dest="overlap", action="store_false")
     ap.add_argument("--cotune", action="store_true",
                     help="with --solve: the solve<->tune fixed-point loop (implies --solve)")
@@ -431,7 +479,16 @@ def main(argv=None):
             ap.error("--arch and --shape name the cell")
         cells.append((args.arch, args.shape, args.mesh))
 
-    out_f = open(args.out, "a") if args.out else None
+    world_mesh, rank = None, 0
+    if args.execute and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # started by torch.distributed.run: every rank runs the cells on
+        # the world's mesh; rank 0 reports
+        from repro_torch.launch.mesh import make_local_mesh
+
+        n = int(os.environ["WORLD_SIZE"])
+        world_mesh = make_local_mesh(4 if n % 4 == 0 else n, device=args.device)
+        rank = world_mesh.rank
+    out_f = open(args.out, "a") if args.out and rank == 0 else None
     failures = 0
     improved = 0
     try:
@@ -441,7 +498,7 @@ def main(argv=None):
                     arch, batch=args.exec_batch, seq=args.exec_seq, beam=args.beam,
                     fuse=args.fuse, fusion_trace=args.fusion_trace, classes=args.classes,
                     host_degree=args.host_degree, offload=offload, overlap=args.overlap,
-                    device=args.device,
+                    device=args.device, mesh=world_mesh, verbose=rank == 0,
                 )
                 line = json.dumps(rec)
                 if rec["status"] == "error":

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import programs
 from repro_torch.kernels.ref import attention_blocked
-from repro_torch.models.common import Params, dense_init, linear, rmsnorm, rope
+from repro_torch.models.common import Params, dense_init, keep_as_is, linear, rmsnorm, rope
 
 #: above this many tokens the attention runs blocked over KV chunks
 #: (``repro/models/attention.py:attn_apply``'s ``blocked_threshold``)
@@ -37,17 +37,19 @@ BLOCKED_THRESHOLD = 8192
 BLOCKED_CHUNK = 1024
 
 
-def attn_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+def attn_init(gen: torch.Generator, cfg, dtype, lead=(), keep=keep_as_is) -> Params:
+    """``keep(name, leaf)`` takes each leaf as it is drawn (``lm_init``'s
+    ``place``)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, (*lead, d, h * hd), d, dtype),
-        "wk": dense_init(gen, (*lead, d, kv * hd), d, dtype),
-        "wv": dense_init(gen, (*lead, d, kv * hd), d, dtype),
-        "wo": dense_init(gen, (*lead, h * hd, d), h * hd, dtype),
+        "wq": keep("wq", dense_init(gen, (*lead, d, h * hd), d, dtype)),
+        "wk": keep("wk", dense_init(gen, (*lead, d, kv * hd), d, dtype)),
+        "wv": keep("wv", dense_init(gen, (*lead, d, kv * hd), d, dtype)),
+        "wo": keep("wo", dense_init(gen, (*lead, h * hd, d), h * hd, dtype)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=gen.device)
-        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=gen.device)
+        p["q_norm"] = keep("q_norm", torch.ones((*lead, hd), dtype=dtype, device=gen.device))
+        p["k_norm"] = keep("k_norm", torch.ones((*lead, hd), dtype=dtype, device=gen.device))
     return p
 
 

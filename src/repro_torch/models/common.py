@@ -36,6 +36,13 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype) -> torch.Tensor:
     return (w * in_dim ** -0.5).to(dtype)
 
 
+def keep_as_is(_where, leaf: torch.Tensor) -> torch.Tensor:
+    """The default ``keep`` / ``place`` hook of the init functions:
+    every drawn leaf kept whole (a sharded load passes one that keeps
+    its rank's shard)."""
+    return leaf
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
     return dense_init(gen, (vocab, d), d, dtype)
 
@@ -82,18 +89,19 @@ def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(F.silu(linear(x, p["wg"])) * linear(x, p["wu"]), p["wo"])
 
 
-def mlp_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
-    """MLP weights; ``lead`` prepends stacking dims (super-blocks)."""
+def mlp_init(gen: torch.Generator, cfg, dtype, lead=(), keep=keep_as_is) -> Params:
+    """MLP weights; ``lead`` prepends stacking dims (super-blocks);
+    ``keep(name, leaf)`` takes each leaf as it is drawn."""
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp_type == "swiglu":
         return {
-            "wg": dense_init(gen, (*lead, d, ff), d, dtype),
-            "wu": dense_init(gen, (*lead, d, ff), d, dtype),
-            "wo": dense_init(gen, (*lead, ff, d), ff, dtype),
+            "wg": keep("wg", dense_init(gen, (*lead, d, ff), d, dtype)),
+            "wu": keep("wu", dense_init(gen, (*lead, d, ff), d, dtype)),
+            "wo": keep("wo", dense_init(gen, (*lead, ff, d), ff, dtype)),
         }
     return {
-        "wi": dense_init(gen, (*lead, d, ff), d, dtype),
-        "wo": dense_init(gen, (*lead, ff, d), ff, dtype),
+        "wi": keep("wi", dense_init(gen, (*lead, d, ff), d, dtype)),
+        "wo": keep("wo", dense_init(gen, (*lead, ff, d), ff, dtype)),
     }
 
 

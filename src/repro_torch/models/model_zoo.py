@@ -48,7 +48,7 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 class ModelAPI:
     cfg: ModelConfig
     device: torch.device
-    init: Callable[[int], Any]                 # seed -> params on ``device``
+    init: Callable[..., Any]                   # (seed, place=...) -> params on ``device``
     cache_init: Callable[[int, int], Any]      # (batch, max_seq) -> cache
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
@@ -103,7 +103,7 @@ def build_model(cfg: ModelConfig, *,
     return ModelAPI(
         cfg=cfg,
         device=dev,
-        init=lambda seed=0: tf_mod.lm_init(cfg, seed=seed, device=dev),
+        init=lambda seed=0, **kw: tf_mod.lm_init(cfg, seed=seed, device=dev, **kw),
         cache_init=lambda batch, max_seq: tf_mod.cache_init(cfg, batch, max_seq, device=dev),
         prefill=lambda p, batch, c: tf_mod.prefill(p, batch, c, cfg),
         decode_step=lambda p, t, c, pos: tf_mod.decode_step(p, t, c, pos, cfg),

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.kernels import programs
-from repro_torch.models.common import Params, dense_init
+from repro_torch.models.common import Params, dense_init, keep_as_is
 
 #: experts drawn per f32 temporary in :func:`moe_init` (16 experts of
 #: qwen3-moe-235b-a22b: 0.4 GB, against 25.8 GB for a whole stacked leaf)
@@ -46,15 +46,15 @@ def _draw_experts(gen: torch.Generator, shape, in_dim: int, dtype) -> torch.Tens
     return out
 
 
-def moe_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+def moe_init(gen: torch.Generator, cfg, dtype, lead=(), keep=keep_as_is) -> Params:
     """Router (f32) and expert weights; ``lead`` prepends stacking dims
-    (super-blocks)."""
+    (super-blocks); ``keep(name, leaf)`` takes each leaf as it is drawn."""
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     return {
-        "router": dense_init(gen, (*lead, d, e), d, torch.float32),
-        "wg": _draw_experts(gen, (*lead, e, d, ff), d, dtype),
-        "wu": _draw_experts(gen, (*lead, e, d, ff), d, dtype),
-        "wo": _draw_experts(gen, (*lead, e, ff, d), ff, dtype),
+        "router": keep("router", dense_init(gen, (*lead, d, e), d, torch.float32)),
+        "wg": keep("wg", _draw_experts(gen, (*lead, e, d, ff), d, dtype)),
+        "wu": keep("wu", _draw_experts(gen, (*lead, e, d, ff), d, dtype)),
+        "wo": keep("wo", _draw_experts(gen, (*lead, e, ff, d), ff, dtype)),
     }
 
 

@@ -19,32 +19,34 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, dense_init, linear, rmsnorm
+from repro_torch.models.common import Params, dense_init, keep_as_is, linear, rmsnorm
 
 CONV_K = 4  # depthwise causal conv width
 
 
-def ssd_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+def ssd_init(gen: torch.Generator, cfg, dtype, lead=(), keep=keep_as_is) -> Params:
     """The mixer's weights, the JAX package's leaves and dtypes
     (``dt_bias``, ``A_log`` and ``D`` in f32); ``lead`` prepends stacking
-    dims (super-blocks)."""
+    dims (super-blocks); ``keep(name, leaf)`` takes each leaf as it is
+    drawn."""
     d, di, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     dev = gen.device
     a = torch.rand((*lead, h), generator=gen, device=dev, dtype=torch.float32) * 15.0 + 1.0
     conv = torch.randn((*lead, CONV_K, di + 2 * n), generator=gen, device=dev,
                        dtype=torch.float32) * 0.2
     return {
-        "wx": dense_init(gen, (*lead, d, di), d, dtype),
-        "wz": dense_init(gen, (*lead, d, di), d, dtype),
-        "wB": dense_init(gen, (*lead, d, n), d, dtype),
-        "wC": dense_init(gen, (*lead, d, n), d, dtype),
-        "wdt": dense_init(gen, (*lead, d, h), d, dtype),
-        "dt_bias": torch.full((*lead, h), -4.0, dtype=torch.float32, device=dev),  # softplus ~0.018
-        "A_log": torch.log(a),
-        "D": torch.ones((*lead, h), dtype=torch.float32, device=dev),
-        "conv_w": conv.to(dtype),
-        "gate_norm": torch.ones((*lead, di), dtype=dtype, device=dev),
-        "wo": dense_init(gen, (*lead, di, d), di, dtype),
+        "wx": keep("wx", dense_init(gen, (*lead, d, di), d, dtype)),
+        "wz": keep("wz", dense_init(gen, (*lead, d, di), d, dtype)),
+        "wB": keep("wB", dense_init(gen, (*lead, d, n), d, dtype)),
+        "wC": keep("wC", dense_init(gen, (*lead, d, n), d, dtype)),
+        "wdt": keep("wdt", dense_init(gen, (*lead, d, h), d, dtype)),
+        # softplus(-4) ~0.018
+        "dt_bias": keep("dt_bias", torch.full((*lead, h), -4.0, dtype=torch.float32, device=dev)),
+        "A_log": keep("A_log", torch.log(a)),
+        "D": keep("D", torch.ones((*lead, h), dtype=torch.float32, device=dev)),
+        "conv_w": keep("conv_w", conv.to(dtype)),
+        "gate_norm": keep("gate_norm", torch.ones((*lead, di), dtype=dtype, device=dev)),
+        "wo": keep("wo", dense_init(gen, (*lead, di, d), di, dtype)),
     }
 
 

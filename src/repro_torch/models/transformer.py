@@ -30,7 +30,7 @@ package's ``lm_loss``.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -46,6 +46,7 @@ from repro_torch.models.common import (
     dense_init,
     dtype_of,
     embed_init,
+    keep_as_is,
     linear,
     mlp_apply,
     mlp_init,
@@ -108,40 +109,51 @@ def _index(tree: Params, i: int) -> Params:
 
 
 def lm_init(cfg, *, seed: int = 0,
-            device: Optional[Union[str, torch.device]] = None) -> Params:
+            device: Optional[Union[str, torch.device]] = None,
+            place: Callable[[Tuple[str, ...], torch.Tensor], Any] = keep_as_is) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``
     (default: the card, :func:`~repro_torch.core.device.resolve_device`),
     each drawn in its stacked ``[n_super, ...]`` shape (expert weights a
-    few experts at a time, ``moe.moe_init``)."""
+    few experts at a time, ``moe.moe_init``). ``place(path, leaf)``
+    takes each leaf as it is drawn and returns what the tree keeps (a
+    rank of a mesh keeps its shard, so it never holds the whole model);
+    the draws, and so the weights, do not depend on it."""
     check_family(cfg)
     dtype = dtype_of(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     n_super, per = _superblock_shape(cfg)
     lead = (n_super,)
     d = cfg.d_model
+
+    def at(*prefix):
+        return lambda name, leaf: place(prefix + (name,), leaf)
+
     blocks = {}
     for i in range(per):
-        lp = blocks[f"l{i}"] = {"norm1": torch.ones((n_super, d), dtype=dtype, device=gen.device)}
+        keep = at("blocks", f"l{i}")
+        lp = blocks[f"l{i}"] = {
+            "norm1": keep("norm1", torch.ones((n_super, d), dtype=dtype, device=gen.device))}
         if _mixer_kind(cfg, i, per) == "attn":
-            lp["attn"] = attn.attn_init(gen, cfg, dtype, lead)
+            lp["attn"] = attn.attn_init(gen, cfg, dtype, lead, keep=at("blocks", f"l{i}", "attn"))
         else:
-            lp["ssm"] = ssm_mod.ssd_init(gen, cfg, dtype, lead)
+            lp["ssm"] = ssm_mod.ssd_init(gen, cfg, dtype, lead, keep=at("blocks", f"l{i}", "ssm"))
         if cfg.family == "ssm":
             continue  # mamba2: no FFN
-        lp["norm2"] = torch.ones((n_super, d), dtype=dtype, device=gen.device)
+        lp["norm2"] = keep("norm2", torch.ones((n_super, d), dtype=dtype, device=gen.device))
         if cfg.is_moe:
-            lp["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead)
+            lp["moe"] = moe_mod.moe_init(gen, cfg, dtype, lead, keep=at("blocks", f"l{i}", "moe"))
         else:
-            lp["mlp"] = mlp_init(gen, cfg, dtype, lead)
+            lp["mlp"] = mlp_init(gen, cfg, dtype, lead, keep=at("blocks", f"l{i}", "mlp"))
+    keep = at()
     p: Params = {
-        "embed": embed_init(gen, cfg.vocab_size, d, dtype),
+        "embed": keep("embed", embed_init(gen, cfg.vocab_size, d, dtype)),
         "blocks": blocks,
-        "final_norm": torch.ones((d,), dtype=dtype, device=gen.device),
+        "final_norm": keep("final_norm", torch.ones((d,), dtype=dtype, device=gen.device)),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, (d, cfg.vocab_size), d, dtype)
+        p["lm_head"] = keep("lm_head", dense_init(gen, (d, cfg.vocab_size), d, dtype))
     if cfg.family == "vlm":
-        p["mm_proj"] = dense_init(gen, (PATCH_DIM, d), PATCH_DIM, dtype)
+        p["mm_proj"] = keep("mm_proj", dense_init(gen, (PATCH_DIM, d), PATCH_DIM, dtype))
     return p
 
 

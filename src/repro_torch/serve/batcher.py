@@ -231,6 +231,10 @@ class ContinuousBatcher:
                  top_k: Optional[int] = None,
                  offload: bool = False,
                  host_pages: Optional[int] = None):
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the ContinuousBatcher drives an engine on one card; on a mesh it waits "
+                "for a later slice (ROADMAP.md A14)")
         self.engine = engine
         self.n_slots = engine.batch_size
         per_slot = -(-engine.max_seq // page_size)

@@ -24,15 +24,31 @@ mapping pinning single stages (``{"matmul/tile": "xla"}``), held around
 every prefill, tick and score of this engine. A compiled executable
 resolves each node at its first call and keeps it, as a JAX trace does,
 so the cache and the forced spec in force then are the ones its nodes
-run. The JAX engine's mesh
-placement and solved-layout options come with the multi-GPU slice
-(``ROADMAP.md`` A14). :class:`~repro_torch.serve.batcher.ContinuousBatcher`
-drives the same engine with requests that join and leave mid-stream.
+run. :class:`~repro_torch.serve.batcher.ContinuousBatcher` drives the
+same engine with requests that join and leave mid-stream (on one card).
+
+``mesh`` (a ``launch.mesh.Mesh``, every rank running the same calls)
+serves across the mesh's ranks through the mesh executables.
+:meth:`ServeEngine.load` places the params once, leaf by leaf: each
+rank draws (``load(seed=...)``) or converts one leaf at a time and
+keeps only its shard, so no rank ever holds the whole model. A leaf
+takes the placement the decode plan gives the graph input it feeds
+first (``Executable.leaf_pspec``; a leaf no graph input shards stays
+whole), the cache likewise (``_place_cache``); a graph input whose plan
+wants another placement is converted when it is bound
+(``Executable.as_input``). ``score`` and every decode tick run the mesh
+executables, and the logits are gathered before sampling, so every
+rank samples the same tokens from the same generator (``generate``
+checks it). The JAX engine's prefill is its model API under GSPMD; the
+port has no partitioner, so on a mesh ``generate`` feeds the prompt
+through the compiled decode tick one position at a time (per-slot
+positions): the same tokens, a slower prefill.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Any, Dict, Mapping, Optional, Union
 
@@ -58,6 +74,7 @@ class ServeEngine:
     schedule_cache: Optional[str] = None       # schedule cache file (tune.use_cache)
     tune_service: Optional[str] = None         # service artifact folded into it
     force_schedule: Optional[Union[str, Mapping[str, str]]] = None
+    mesh: Optional[Any] = None         # launch.mesh.Mesh: serve across its ranks
 
     #: compiled-executable memo bound: each entry holds a solved plan and
     #: its executable, so callers should bucket sequence lengths
@@ -69,6 +86,12 @@ class ServeEngine:
             raise ValueError(f"engine on {self.device}, model API on {self.api.device}")
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {self.decode_mode!r} not in {DECODE_MODES}")
+        if self.mesh is not None:
+            if self.device != self.mesh.device:
+                raise ValueError(f"engine on {self.device}, mesh rank on {self.mesh.device}")
+            if self.decode_mode != "compiled":
+                raise ValueError("a mesh serves through the compiled executables "
+                                 "(decode_mode='compiled')")
         from repro_torch import tune
 
         if self.schedule_cache is not None:
@@ -85,9 +108,45 @@ class ServeEngine:
         #: included) and the decode ticks, each ended by a device sync
         self.last_timing: Dict[str, float] = {}
 
-    def load(self, params) -> None:
-        self.params = params
+    def load(self, params=None, *, seed: Optional[int] = None) -> None:
+        """Take the params (a tree) or draw them from ``seed``
+        (``api.init``). On a mesh each leaf is placed as it is drawn or
+        converted, and only this rank's shard is kept."""
+        if (params is None) == (seed is None):
+            raise ValueError("load takes the params or a seed")
         self._bound.clear()
+        if self.mesh is None:
+            self.params = params if params is not None else self.api.init(seed)
+        elif params is None:
+            self.params = self.api.init(seed, place=self._keep_shard)
+        else:
+            from repro_torch.axe.rules import map_with_path
+
+            self.params = map_with_path(self._keep_shard, params)
+
+    # -- placement on a mesh: the decode executable's rule -----------------
+    def _keep_shard(self, path, leaf: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core.dtensor import NamedSharding
+
+        return NamedSharding(self.mesh, self.compiled_decode().leaf_pspec(path)).shard(leaf)
+
+    def _place_cache(self, cache):
+        """The cache tree with each leaf kept as this rank's shard."""
+        from repro_torch.axe.rules import map_with_path
+
+        return map_with_path(self._keep_shard, cache)
+
+    def _bind(self, exe, views: Mapping[str, Any]) -> Dict[str, Any]:
+        """``views`` (input name -> this rank's view of a loaded leaf) in
+        the placements ``exe``'s plan wants."""
+        from repro_torch.axe.compile import first_input
+
+        placer, out = self.compiled_decode(), {}
+        for name, view in views.items():
+            first, transposed = first_input(self.api.cfg, name)
+            pspec = placer.input_pspec(first)
+            out[name] = exe.as_input(name, view, pspec[::-1] if transposed else pspec)
+        return out
 
     def _scheduled(self):
         """The ``force_schedule`` context of this engine's calls."""
@@ -115,12 +174,16 @@ class ServeEngine:
 
     def _inputs(self, key: tuple, exe) -> Dict[str, Any]:
         """The executable's param inputs (views of the loaded params),
-        bound once per executable and params."""
+        bound once per executable and params; on a mesh each in the
+        placement the executable's plan wants (:meth:`_bind`)."""
         from repro_torch.axe.compile import model_inputs
 
         bound = self._bound.get(key)
         if bound is None:
-            bound = self._bound[key] = model_inputs(exe.graph, self.api.cfg, self.params)
+            bound = model_inputs(exe.graph, self.api.cfg, self.params)
+            if self.mesh is not None:
+                bound = self._bind(exe, bound)
+            self._bound[key] = bound
         return bound
 
     def compiled_forward(self, seq: int, *, batch: Optional[int] = None,
@@ -133,7 +196,7 @@ class ServeEngine:
 
         b, fuse = batch or self.batch_size, self.fuse
         return self._memo((b, seq, layers, fuse), lambda: model_executable(
-            self.api.cfg, None, b, seq, layers=layers, dtype=str(self.api.cfg.dtype),
+            self.api.cfg, self.mesh, b, seq, layers=layers, dtype=str(self.api.cfg.dtype),
             fuse=fuse))
 
     def compiled_decode(self, *, batch: Optional[int] = None,
@@ -146,7 +209,7 @@ class ServeEngine:
 
         b, fuse = batch or self.batch_size, self.fuse
         return self._memo(("decode", b, layers, fuse), lambda: decode_executable(
-            self.api.cfg, None, b, self.max_seq, layers=layers,
+            self.api.cfg, self.mesh, b, self.max_seq, layers=layers,
             dtype=str(self.api.cfg.dtype), fuse=fuse))
 
     def decode_step(self, tok: torch.Tensor, cache, pos: torch.Tensor):
@@ -160,9 +223,14 @@ class ServeEngine:
         b = int(tok.shape[0])
         exe = self.compiled_decode(batch=b)
         inputs = dict(self._inputs(("decode", b, None, self.fuse), exe))
-        inputs.update(cache_inputs(exe.graph, self.api.cfg, cache))
+        caches = cache_inputs(exe.graph, self.api.cfg, cache)
+        if self.mesh is not None:
+            caches = self._bind(exe, caches)
+        inputs.update(caches)
         with self._scheduled():
             outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))
+        if self.mesh is not None:
+            outs = exe.carried(outs)
         logits = outs[exe.outputs.index("logits")]
         return logits, decode_cache(exe.graph, self.api.cfg, outs, cache)
 
@@ -184,6 +252,10 @@ class ServeEngine:
         with self._scheduled():
             logits = exe(self._inputs((b, s, None, self.fuse), exe),
                          tokens.reshape(-1).to(torch.int32))
+        if self.mesh is not None:
+            from repro_torch.axe import lower
+
+            logits = lower.to_named_sharding(exe.output_spec("logits"), self.mesh).unshard(logits)
         return logits.reshape(b, s, -1)
 
     def generate(
@@ -217,11 +289,22 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(self.rng_seed)
         t0 = time.perf_counter()
         cache = self.api.cache_init(b, self.max_seq)
-        batch = {"tokens": prompts}
-        if extra_inputs:
-            batch.update(extra_inputs)
-        with self._scheduled():
-            logits, cache = self.api.prefill(self.params, batch, cache)
+        if self.mesh is not None:
+            if extra_inputs:
+                raise ValueError("a mesh serves the decoder families: no extra inputs")
+            # no partitioner runs the model API across ranks: the prompt
+            # goes through the compiled mesh tick, one position at a time
+            cache = self._place_cache(cache)
+            for i in range(s_prompt):
+                pos = torch.full((b,), i, dtype=torch.int32, device=self.device)
+                last, cache = self.decode_step(prompts[:, i], cache, pos)
+            logits = last[:, None]
+        else:
+            batch = {"tokens": prompts}
+            if extra_inputs:
+                batch.update(extra_inputs)
+            with self._scheduled():
+                logits, cache = self.api.prefill(self.params, batch, cache)
         tok = self._sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         outs = [tok]
         self._sync()
@@ -235,6 +318,10 @@ class ServeEngine:
             tok = self._sample(step_logits, gen, temperature=temperature, top_k=top_k)
             outs.append(tok)
         out = torch.stack(outs, dim=1).cpu().numpy()
+        if self.mesh is not None:
+            # every rank sampled the gathered logits with the same generator
+            digest = int.from_bytes(hashlib.sha256(out.tobytes()).digest()[:7], "little")
+            self.mesh.all_ranks_agree(digest, "the generated tokens")
         t2 = time.perf_counter()
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": max_new_tokens - 1}

@@ -268,8 +268,8 @@ def plan_collective_matmul(
     backend: Optional[str] = None,
     op_name: str = "collective_matmul",
 ) -> List[Candidate]:
-    """Rank the two schedules of the K-sharded GEMM over ``p`` cards (a
-    plan only: their execution comes with ``ROADMAP.md`` A14): the
+    """Rank the two schedules of the K-sharded GEMM over ``p`` cards
+    (``kernels/collective_matmul.py`` runs them): the
     baseline (full local GEMM, then reduce-scatter) pays compute *then*
     collective; the ring overlaps them, so its cost is the larger of the
     two terms plus one chunk step that cannot overlap. The collective

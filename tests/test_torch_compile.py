@@ -12,6 +12,7 @@ lowering trace (equal to the JAX package's in every field but
 until the tune slice)."""
 import dataclasses
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ from repro_torch.serve.engine import ServeEngine
 
 # ``repro_torch.axe`` exports a function ``compile`` that shadows the submodule
 p_compile = importlib.import_module("repro_torch.axe.compile")
+p_graphs = importlib.import_module("repro_torch.axe.graphs")
 
 ARCHS = ("qwen3-4b", "gemma3-12b", "starcoder2-7b", "qwen3-moe-235b-a22b")
 # a 20-token prompt overflows gemma3's 16-slot smoke ring: its decode
@@ -288,10 +290,14 @@ def test_unported_options_name_their_roadmap_item():
         p_compile.model_executable(cfg, None, B, S, offload=("L0.wq",))
     # cotune (A11) is ported: tests/test_torch_cotune.py
     assert p_compile.model_executable(cfg, None, B, S, cotune=True).cotune_report is not None
-    with pytest.raises(CompileError, match="A14"):
-        p_compile.model_executable(cfg, object(), B, S)
-    with pytest.raises(CompileError, match="A14"):
-        p_compile.decode_executable(cfg, object(), B, MAX_SEQ)
+    # a mesh whose shape is not the graph space's raises, as the JAX
+    # package's Executable does (repro/axe/compile.py:602-607)
+    space = p_compile.PhysicalSpace.from_mesh_shape({"data": 2, "model": 4})
+    fake = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((4, 2)))
+    for gs in (p_graphs.model_graph(cfg, B, S, space, layers=1),
+               p_graphs.decode_graph(cfg, B, MAX_SEQ, space, layers=1)):
+        with pytest.raises(CompileError, match="does not match the graph space"):
+            p_compile.compile(gs, fake)
     # fuse=True (A10), the SSM backends and the enc-dec / VLM models
     # (A13) are ported; as in the JAX package, axe.compile builds their
     # graphs but binds no enc-dec or VLM model: its model_inputs raises

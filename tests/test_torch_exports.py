@@ -1,7 +1,7 @@
 """The port's package exports and ``serve --ckpt-dir`` against the JAX
 package: every name ``repro.axe`` and ``repro.core`` export resolves in
-``repro_torch.axe`` / ``repro_torch.core`` (the mesh adapters raise,
-naming ``ROADMAP.md`` A14); ``@axe.kernel``'s single-stage program
+``repro_torch.axe`` / ``repro_torch.core`` (the mesh adapters placing
+as the reference's do); ``@axe.kernel``'s single-stage program
 (``docs/kernel-dsl.md``'s example with a torch body) runs on CPU
 tensors; and the serve launcher's ``--ckpt-dir`` serves a params
 checkpoint the JAX package wrote with the JAX engine's greedy tokens,
@@ -28,17 +28,31 @@ from repro_torch import core
 from repro_torch.launch import serve as tserve
 
 
+#: the AxeSpec <-> mesh placement adapters (``repro/axe/lower.py``)
+MESH_ADAPTERS = ("from_pspec", "from_sharding", "layout_of_pspec", "pspec_of_layout",
+                 "to_named_sharding", "to_pspec")
+
+
 @pytest.mark.parametrize("name", r_axe.__all__)
 def test_every_axe_export_resolves_or_names_a14(name):
-    if name in axe.MESH_ONLY:
-        with pytest.raises(NotImplementedError, match="A14"):
-            getattr(axe, name)
-        return
     got = getattr(axe, name)
     assert name in axe.__all__
     # the reference's functions stay functions (``program``, ``compile``,
     # ``solve``, ``cotune``, ``propagate`` shadow their submodules)
     assert callable(got) == callable(getattr(r_axe, name)), name
+    if name in MESH_ADAPTERS:
+        # the mesh adapters place as the reference's do (deviceless: the
+        # placement entries of a (2, 4) mesh; tests/test_torch_mesh.py
+        # shards and unshards on one)
+        mesh_shape = {"data": 2, "model": 4}
+        for pspec in [(None, "model"), ("data", None), (("data", "model"), None), ()]:
+            want = r_axe.from_pspec((16, 32), pspec, r_axe.PhysicalSpace.from_mesh_shape(
+                mesh_shape))
+            spec = axe.from_pspec((16, 32), pspec, axe.PhysicalSpace.from_mesh_shape(mesh_shape))
+            assert spec.signature() == want.signature()
+            assert axe.to_pspec(spec) == tuple(r_axe.to_pspec(want))
+            assert axe.pspec_of_layout(spec.layout, (16, 32), mesh_shape) == tuple(
+                r_axe.pspec_of_layout(want.layout, (16, 32), mesh_shape))
 
 
 def test_every_core_export_resolves():

@@ -1142,3 +1142,58 @@ def test_dryrun_execute_on_the_card(cuda, arch):
     counts = programs.launch_counts()
     assert counts["matmul/tile"] > 0 and counts["flash_attention/attend"] > 0
     assert (counts["moe_gemm/expert_gemm"] > 0) == (arch != "qwen3-4b")
+
+
+def _shard_rows(x, pspec, rank, p):
+    """Rank ``rank``'s block of ``x`` on a one-axis ``("model",)`` mesh."""
+    for dim, entry in enumerate(pspec):
+        if entry is not None:
+            size = x.shape[dim] // p
+            x = np.take(x, range(rank * size, (rank + 1) * size), axis=dim)
+    return x
+
+
+def test_mesh_of_two_ranks_on_one_card(cuda):
+    """Two ranks share the card over gloo (``launch.mesh.spawn``): every
+    plan step on CUDA tensors against its plain version on the host
+    (bit-equal for data movement, ``_tol`` for sums), and
+    ``collective_matmul`` ring and psum_scatter against the plain product,
+    their partials launched on B1 (P launches a rank under ``ring``, one
+    under ``psum_scatter``); the transfers staged through the host."""
+    import torch_mesh_ranks
+    from repro_torch.launch.mesh import spawn
+
+    p = 2
+    ranks = spawn(torch_mesh_ranks.gpu_checks, (p,), ("model",), device="cuda", timeout_s=300,
+                  verbose=False)
+    for r in ranks:
+        rank = r["steps"]["coords"]["model"]
+        counts = r["steps"]["counts"]
+        assert counts["staged"] > 0 and counts["staged"] == sum(counts["ops"].values())
+        for name, x, dtype, in_p, step, fields in r["cases"]:
+            got_dtype, got = r["steps"]["out"][name]
+            assert got_dtype == dtype
+            xt = torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
+            if step in ("AllGather", "ring"):
+                want = xt
+            elif step == "ReduceScatter":      # every rank held the whole x
+                want = _shard_rows(xt * p, (None, "model"), rank, p)
+            elif step == "AllReduce":
+                want = xt * p
+            elif step == "AllToAll":           # rows -> columns
+                want = _shard_rows(xt, (None, "model"), rank, p)
+            else:                              # DynamicSlice
+                want = _shard_rows(xt, (None, "model"), rank, p)
+            if step in ("ReduceScatter", "AllReduce"):
+                np.testing.assert_allclose(got, want, **tol(dtype))
+            else:
+                assert np.array_equal(got, want), name
+        cm = r["cm"]
+        for key, got in cm["out"].items():
+            dtype, impl = key.split("/")
+            a = torch.from_numpy(r["a"]).to(getattr(torch, dtype)).float()
+            b = torch.from_numpy(r["b"]).to(getattr(torch, dtype)).float()
+            rows = a.shape[0] // p
+            want = (a @ b)[cm["rank"] * rows:(cm["rank"] + 1) * rows]
+            np.testing.assert_allclose(got, want.numpy(), **tol(dtype))
+            assert cm["launches"][key] == (p if impl == "ring" else 1), key

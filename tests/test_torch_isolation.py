@@ -31,5 +31,6 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert expected == set(result["imported"])
     assert {"repro_torch.serve.engine", "repro_torch.serve.batcher", "repro_torch.axe.passes",
             "repro_torch.models.ssm", "repro_torch.launch.hlo_cost", "repro_torch.launch.dryrun",
-            "repro_torch.launch.report"} <= set(result["imported"])
+            "repro_torch.launch.report", "repro_torch.launch.mesh", "repro_torch.core.ops",
+            "repro_torch.kernels.collective_matmul"} <= set(result["imported"])
     assert result["bad"] == []
