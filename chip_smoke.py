@@ -103,7 +103,7 @@ the MoE path, qwen3-moe-235b-a22b at full width:
    by B5's expert-stream (capacity <= 8) or wgmma (larger) counter; then
    the compiled ticks and score as in phase 5;
 
-the SSM path, mamba2-2.7b at full width and depth (64 layers):
+the SSM path, mamba2-2.7b at full width, 32 of its 64 layers in phase 12:
 
 10. kernels — B1 and B2 at every shape its mixer gives them, as phase 3;
 11. depth 2 — card vs CPU as phase 4;
@@ -256,7 +256,30 @@ serving across ranks:
     ``collective_counts()``; (d) qwen3-moe-235b-a22b at full width, 2
     layers, 4 compiled ticks within ``LOGIT_TOL`` of the single rank's,
     B5 at the rank's experts. It also prints which calls gloo takes
-    directly on this torch.
+    directly on this torch (the integer sum and the maximum included).
+
+training across ranks:
+
+25. train  — the mesh (2, 2) ("data", "model") as 4 ranks sharing the
+    card over gloo, the batch's rows split over every axis, params and
+    moments sharded (FSDP, ZeRO-1), MoE layers expert-parallel over
+    ``model``. (a) smoke qwen3-moe in f32 (8 experts, capacity factor 8,
+    2 layers): the expert-parallel layer within 1e-4 of the local one,
+    the sharded step's loss within 1e-3 and each leaf's grad within 1e-2
+    of the single-rank step on the card; (b) qwen3-moe-235b-a22b at full
+    width, 1 of 94 layers, bf16, phase 18's cell (4 x 512 tokens, its
+    seed, data and schedule), each rank drawing only its shards: 2
+    sharded steps whose losses hold phase 18's single-card ones within
+    ``LOGIT_TOL``, B5 12 launches a MoE layer a step on every rank, per
+    rank the step walls, peak memory, ``collective_counts()`` and what
+    the all-to-alls moved; (c) a checkpoint saved by the (2, 2) world
+    after step 1, restored with the shardings of the ``(1, 2)`` mesh
+    ``shrink_data_axis`` gives into a world of 2 ranks, its step 2 loss
+    within 1e-5 of the uninterrupted run's; (d) ``pipeline_apply`` over
+    4 stages of qwen3-4b's super-block at full width (one layer a stage,
+    bf16, 4 microbatches of 1 x 256) on a ``("pipe",)`` mesh over the
+    same ranks: the forward within ``LOGIT_TOL`` and each stage's grads
+    within ``GRAD_REL_BOUND`` of the sequential run.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -271,6 +294,7 @@ import functools
 import gc
 import json
 import math
+import os
 import resource
 import statistics
 import subprocess
@@ -282,18 +306,19 @@ ROOT = Path(__file__).resolve().parent
 
 ARCH = "qwen3-4b"
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
-SSM_ARCH = "mamba2-2.7b"
+# phase 12's depth: half of mamba2's 64 layers, to keep the run inside its limit
+SSM_ARCH, SSM_LAYERS = "mamba2-2.7b", 32
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
-BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 16, 8
+BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 8, 8
 # phases of the run
-STEPS = 24
+STEPS = 25
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
                  "moe_gemm/expert_gemm")
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 # generate runs per decode mode, alternated, for the two modes' wall spread
-WALL_PAIRS = 10
+WALL_PAIRS = 3
 LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
 #: phase 17, training qwen3-4b: global batch x sequence, Trainer steps and
@@ -1790,7 +1815,7 @@ def phase_batcher(cfg, torch, device, engine, n_requests, *, seed=SEED + 5):
 
 
 def phase_ssm_full(cfg, torch, device):
-    """An SSM config (mamba2) at full width and depth through
+    """An SSM config (mamba2) at full width through
     ``ServeEngine.generate``: the model API's ticks (launch counters read
     around that run: B1 and B2, and no attention or expert kernel), then
     the compiled ticks unfused and fused (launches per tick = decode-graph
@@ -3362,6 +3387,17 @@ def phase_dryrun_cost(cfg, torch, device, release, full, smi):
 #: the mesh of phase 24, and qwen3-4b's tensor-parallel down projection:
 #: the ``collective_matmul`` of M tokens, K = d_ff split over the ranks
 MESH24_SHAPE, MESH24_AXES = (1, 4), ("data", "model")
+#: phase 25, training across ranks: the mesh; sharded steps of the full-width
+#: cell; the exact cell (smoke qwen3-moe in f32, drop-free) and its batch;
+#: tests/test_distributed_equiv.py's bounds; the restart's loss bound; the
+#: pipeline's microbatches (1 x PIPE_SEQ each)
+MESH25_SHAPE, MESH25_AXES = (2, 2), ("data", "model")
+MESH25_STEPS = 2
+MESH25_SMOKE = dict(num_experts=8, capacity_factor=8.0, dtype="float32", num_layers=2)
+MESH25_SMOKE_BATCH, MESH25_SMOKE_SEQ = 8, 32
+MESH25_EXACT = {"moe": 1e-4, "loss": 1e-3, "grad": 1e-2}
+MESH25_RESTART_TOL = 1e-5
+PIPE_MICRO, PIPE_SEQ = 4, 256
 MESH24_PROMPT, MESH24_NEW, MESH24_SCORE = 32, 16, 128
 MESH24_MOE_LAYERS, MESH24_MOE_TICKS = 2, 4
 CM_M = 2048
@@ -3417,6 +3453,10 @@ def gloo_probe(mesh, torch) -> dict:
     attempt("batch_isend_irecv (f32, host)", p2p)
     attempt("all_reduce (bf16, host)",
             lambda: dist.all_reduce(torch.ones(4, dtype=torch.bfloat16), group=g))
+    attempt("all_reduce (int32 sum, host)",
+            lambda: dist.all_reduce(torch.ones(4, dtype=torch.int32), group=g))
+    attempt("all_reduce (f32 max, host)",
+            lambda: dist.all_reduce(torch.ones(4), op=dist.ReduceOp.MAX, group=g))
     attempt("all_gather_into_tensor (f32, host)",
             lambda: dist.all_gather_into_tensor(torch.empty(4 * p), torch.ones(4), group=g))
     scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -3812,6 +3852,368 @@ def phase_mesh(torch, device, release) -> dict:
             "moe": m0}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: training across ranks
+# ---------------------------------------------------------------------------
+
+
+def _smoke_moe_cfg():
+    """Phase 25's exact cell: smoke qwen3-moe in f32, 8 experts, no
+    drops (capacity factor 8), ``MESH25_LAYERS`` layers."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    return dataclasses.replace(smoke_variant(get_config(MOE_ARCH)), **MESH25_SMOKE)
+
+
+def _sharded_grads(layout, api, shards, batch):
+    """One rank's loss share and grads (on its shards) of the sharded
+    step's ``value_and_grad``; the loss summed over the mesh."""
+    from repro_torch.core import collective as coll
+
+    with layout.context():
+        loss, grads = layout.value_and_grad(api.loss_fn)(shards, batch)
+        loss = coll.all_reduce(loss, layout.mesh.axis_names)
+    return float(loss), grads
+
+
+def mesh25_exact(mesh, torch) -> dict:
+    """(a) At smoke width in f32: the expert-parallel layer against the
+    local one, the sharded step's loss and each leaf's grad against the
+    single-rank step on the card (computed here, on this rank)."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import act_sharding
+    from repro_torch.train.train_loop import ShardedLayout, value_and_grad
+
+    cfg = _smoke_moe_cfg()
+    dev = mesh.device
+    api = build_model(cfg, device=dev)
+    params = api.init(SEED)
+    layout = ShardedLayout.for_model(mesh, cfg)
+    shards = layout.shard_tree(params)
+    rows = MESH25_SMOKE_BATCH // mesh.world
+    r = mesh.axis_index(mesh.axis_names)
+    # the layer alone
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x = torch.randn((MESH25_SMOKE_BATCH, MESH25_SMOKE_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    p0 = {k: v[0] for k, v in params["blocks"]["l0"]["moe"].items()}
+    y_local = moe.moe_apply(p0, x, cfg)
+    e = cfg.num_experts // mesh.axis_size("model")
+    m = mesh.axis_index("model")
+    mine = {k: (v if k == "router" else v[m * e:(m + 1) * e]) for k, v in p0.items()}
+    with layout.context():
+        check(moe._ep_eligible(None, cfg, act_sharding.current_mesh()),
+              "phase 25(a): the expert-parallel layer is not eligible on the mesh")
+        y_ep = moe.moe_apply(mine, x[r * rows:(r + 1) * rows], cfg)
+    moe_err = float((y_ep - y_local[r * rows:(r + 1) * rows]).abs().max())
+    # the step's loss and grads
+    data = SyntheticLMData(cfg.vocab_size, MESH25_SMOKE_SEQ, MESH25_SMOKE_BATCH, seed=SEED)
+    loss_ref, g_ref = value_and_grad(api.loss_fn)(params, data.torch_batch_at(0, dev))
+    loss_sh, g_sh = _sharded_grads(layout, api, shards,
+                                   data.sharded_batch_at(0, mesh, layout.batch_pspec))
+    grad_err = {}
+    for (path, g), (_, w) in zip(leaves_with_paths(g_sh), leaves_with_paths(g_ref)):
+        want = layout.sharding(layout.plan(path).param).shard(w)
+        grad_err["/".join(path)] = float((g - want).abs().max())
+    out = {"moe_max_abs_err": moe_err, "loss_ref": float(loss_ref), "loss_sharded": loss_sh,
+           "grad_max_abs_err": max(grad_err.values()), "grad_worst_leaf":
+           max(grad_err, key=grad_err.get), "leaves": len(grad_err)}
+    check(moe_err <= MESH25_EXACT["moe"], f"phase 25(a): EP layer {moe_err} from the local one")
+    check(abs(out["loss_ref"] - loss_sh) <= MESH25_EXACT["loss"],
+          f"phase 25(a): sharded loss {loss_sh} vs single rank {out['loss_ref']}")
+    check(out["grad_max_abs_err"] <= MESH25_EXACT["grad"],
+          f"phase 25(a): grad of {out['grad_worst_leaf']} parts by {out['grad_max_abs_err']}")
+    return out
+
+
+def _smoke_trainer(mesh, cfg, ckpt_dir, every):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.train_loop import ShardedLayout, Trainer, make_train_step
+
+    api = build_model(cfg, device=mesh.device)
+    layout = ShardedLayout.for_model(mesh, cfg)
+    opt = AdamW(learning_rate=TRAIN_LR)
+    state = layout.init_state(api.init(SEED, place=layout.place), opt)
+    trainer = Trainer(make_train_step(api.loss_fn, opt, layout=layout),
+                      SyntheticLMData(cfg.vocab_size, MESH25_SMOKE_SEQ, MESH25_SMOKE_BATCH,
+                                      seed=SEED),
+                      checkpoint_manager=CheckpointManager(ckpt_dir), checkpoint_every=every)
+    return layout, state, trainer
+
+
+def mesh25_restart_first(mesh, ckpt_dir) -> dict:
+    """(c), the uninterrupted run: 2 sharded steps of (a)'s cell on the
+    (2, 2) mesh, a checkpoint after each."""
+    _, state, trainer = _smoke_trainer(mesh, _smoke_moe_cfg(), ckpt_dir, 1)
+    state, hist = trainer.run(state, 2)
+    return {"losses": [h["loss"] for h in hist]}
+
+
+def mesh25_restart_rank(mesh, job) -> dict:
+    """(c), the restart: this world is the (2, 2) one after losing two
+    ranks; the shrunk mesh restores step 1 with its own shardings and
+    takes step 2."""
+    from repro_torch import tune
+    from repro_torch.train import elastic
+
+    tune.use_cache(None)
+    spec = elastic.shrink_data_axis(elastic.MeshSpec(MESH25_SHAPE, MESH25_AXES), 2)
+    new = elastic.make_mesh(spec, device=mesh.device)
+    _, template, trainer = _smoke_trainer(new, _smoke_moe_cfg(), job["ckpt_dir"], 10 ** 6)
+    state = trainer.checkpoint_manager.restore(1, template, trainer.layout.state_shardings(template))
+    state, hist = trainer.run(state, 1)
+    return {"mesh": new.mesh_shape, "step": int(state.step), "loss": hist[0]["loss"]}
+
+
+def mesh25_pipeline(mesh, torch) -> dict:
+    """(d) ``pipeline_apply`` over 4 stages of qwen3-4b's super-block at
+    full width, one layer a stage, bf16, ``PIPE_MICRO`` microbatches of
+    1 x ``PIPE_SEQ``, on a ``("pipe",)`` mesh over this world's ranks;
+    the forward and every grad against the sequential run on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scopes import Scope, scope
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.pipeline import pipeline_apply, split_layers_into_stages
+
+    dev = mesh.device
+    pipe = Mesh((mesh.world,), ("pipe",), device=dev)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=pipe.world)
+    api = build_model(cfg, device=dev)
+    drawn = api.init(SEED, place=lambda path, leaf: leaf if path[0] == "blocks" else None)
+    blocks = _requiring_grad(drawn["blocks"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    mb = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                     device=dev).to(torch.bfloat16)
+
+    def stage_fn(sp, h):  # the super-blocks of a stack, one after another
+        for sb in tf._unstack(sp, _leaves(sp)[0].shape[0]):
+            h = tf._super_apply(sb, h, cfg)
+        return h
+
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage_fn, split_layers_into_stages(blocks, pipe.world), mb, pipe)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    got = {"/".join(p): g.grad.clone() for p, g in leaves_with_paths(blocks)}
+    for _, g in leaves_with_paths(blocks):
+        g.grad = None
+    with scope(Scope.DEVICE):
+        seq = torch.stack([stage_fn(blocks, mb[i]) for i in range(PIPE_MICRO)])
+    seq.float().square().sum().backward()
+    s = pipe.axis_index("pipe")
+    out, seq = out.detach().float(), seq.detach().float()
+    fwd_err = float((out - seq).abs().max())
+    fwd_ok = bool(torch.allclose(out, seq, **LOGIT_TOL))
+    rel = {}
+    for p, g in leaves_with_paths(blocks):
+        key = "/".join(p)
+        rel[key] = rel_err(got[key][s], g.grad[s])
+        check(not bool(got[key][:s].any()) and not bool(got[key][s + 1:].any()),
+              f"phase 25(d): stage {s} holds a grad of another stage's {key}")
+    check(fwd_ok, f"phase 25(d): pipelined forward parts from the sequential run by {fwd_err}")
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= GRAD_REL_BOUND,
+          f"phase 25(d): stage {s}'s grad of {worst} at relative error {rel[worst]}")
+    return {"stage": s, "fwd_max_abs_err": fwd_err, "grad_rel_err_max": rel[worst],
+            "grad_worst_leaf": worst, "pipeline_fwd_bwd_s": pipe_s}
+
+
+def _requiring_grad(tree):
+    return {k: _requiring_grad(v) if isinstance(v, dict) else v.requires_grad_()
+            for k, v in tree.items()}
+
+
+def mesh25_full(mesh, torch) -> dict:
+    """(b) qwen3-moe-235b-a22b at full width, ``MOE_TRAIN_LAYERS`` of 94
+    layers, bf16, phase 18's cell (its seed, data and schedule), sharded
+    over the (2, 2) mesh: each rank draws only its shards; 2 sharded
+    steps through ``Trainer.run``, the launch and collective counters
+    zeroed just before and read just after."""
+    from repro_torch.core import collective as coll
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import ShardedLayout, Trainer, make_train_step
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    dev = mesh.device
+    api = build_model(cfg, device=dev)
+    layout = ShardedLayout.for_model(mesh, cfg)
+    t0 = time.perf_counter()
+    params = api.init(SEED, place=layout.place)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
+    state = layout.init_state(params, opt)
+    del params
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in _leaves(tree))
+    held = {"params_gib": nbytes(state.params) / 2 ** 30,
+            "moments_gib": (nbytes(state.opt_state.mu) + nbytes(state.opt_state.nu)) / 2 ** 30}
+    trainer = Trainer(make_train_step(api.loss_fn, opt, layout=layout),
+                      SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    programs.reset_launch_counts()
+    coll.reset_collective_counts()
+    moe.reset_ep_counts()
+    state, hist = trainer.run(state, MESH25_STEPS)
+    counts, colls, ep = programs.launch_counts(), coll.collective_counts(), moe.ep_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = 12 * cfg.num_layers
+    check(counts["moe_gemm/expert_gemm"] == per_step * MESH25_STEPS,
+          f"phase 25(b): B5 {counts['moe_gemm/expert_gemm']} launches in {MESH25_STEPS} steps "
+          f"on rank {mesh.rank}, {per_step} a step expected")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"phase 25(b): losses {hist}")
+    return {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+            "step_walls_s": [h["sec"] for h in hist], "peak_gib": peak, "draw_s": draw_s,
+            "launches": counts, "collectives": colls, "ep": ep, **held,
+            "rows_a_rank": TRAIN_BATCH // mesh.world}
+
+
+def _leaves(tree):
+    from repro_torch.core.tree import leaves
+
+    return leaves(tree)
+
+
+def mesh25_rank(mesh, job) -> dict:
+    """What every rank of phase 25's (2, 2) world runs: (a), the first
+    half of (c), (d), then (b)."""
+    import torch
+
+    from repro_torch import tune
+
+    tune.use_cache(None)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    t0 = time.perf_counter()
+    out["exact"] = mesh25_exact(mesh, torch)
+    out["restart"] = mesh25_restart_first(mesh, job["ckpt_dir"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["pipeline"] = mesh25_pipeline(mesh, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full"] = mesh25_full(mesh, torch)
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_train(torch, device, release, moe_losses) -> dict:
+    """Phase 25: training across ranks, 4 ranks sharing the card over
+    gloo on the mesh (2, 2) ("data", "model") (``launch.mesh.spawn``);
+    every check fails the run. (a) exactness at smoke width, (b)
+    qwen3-moe at full width against phase 18's single-card losses
+    (``moe_losses``), (c) a restart into a shrunk (1, 2) world of 2
+    ranks, (d) the GPipe pipeline over the same 4 ranks."""
+    import tempfile
+
+    from repro_torch.launch import mesh as meshmod
+
+    release()
+    # four ranks' allocators share the card: segments that grow in place
+    # leave less of it reserved and unused (the ranks inherit this; this
+    # process's allocator is set up already)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(prefix="phase25_") as tmp:
+            job = {"ckpt_dir": os.path.join(tmp, "ckpt")}
+            t0 = time.perf_counter()
+            ranks = meshmod.spawn(mesh25_rank, MESH25_SHAPE, MESH25_AXES, device="cuda",
+                                  timeout_s=900, args=(job,))
+            world_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shrunk = meshmod.spawn(mesh25_restart_rank, (1, 2), MESH25_AXES, device="cuda",
+                                   timeout_s=300, args=(job,))
+            restart_s = time.perf_counter() - t0
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    check(len(ranks) == 4 and all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+                                  for r in ranks),
+          f"phase 25 ranks: {[(r['backend'], r['device']) for r in ranks]}")
+    log(f"  4 ranks on one card ({', '.join(r['device'] for r in ranks)}), backend gloo, world "
+        f"{world_s:.1f} s (rank 0's body {ranks[0]['rank_s']:.1f} s); the 2-rank restart world "
+        f"{restart_s:.1f} s")
+    ex = [r["exact"] for r in ranks]
+    log(f"  (a) smoke {MOE_ARCH} (f32, {MESH25_SMOKE['num_experts']} experts, capacity factor "
+        f"{MESH25_SMOKE['capacity_factor']}, {MESH25_SMOKE['num_layers']} layers, "
+        f"{MESH25_SMOKE_BATCH}x{MESH25_SMOKE_SEQ} tokens) against the single-rank step on the "
+        f"card: EP layer max |diff| {max(e['moe_max_abs_err'] for e in ex):.3g} (bound "
+        f"{MESH25_EXACT['moe']}), loss {ex[0]['loss_sharded']:.7f} vs {ex[0]['loss_ref']:.7f} "
+        f"(bound {MESH25_EXACT['loss']}), grads max |diff| "
+        f"{max(e['grad_max_abs_err'] for e in ex):.3g} over {ex[0]['leaves']} leaves (bound "
+        f"{MESH25_EXACT['grad']}; worst {ex[0]['grad_worst_leaf']})")
+    full = [r["full"] for r in ranks]
+    want = moe_losses[:MESH25_STEPS]
+    for f in full:
+        check(f["losses"] == full[0]["losses"], "phase 25(b): the ranks report other losses")
+    got = full[0]["losses"]
+    for g, w in zip(got, want):
+        check(abs(g - w) <= LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * abs(w),
+              f"phase 25(b): sharded losses {got} part from phase 18's single card {want}")
+    log(f"  (b) {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of 94 layers, bf16, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens ({full[0]['rows_a_rank']} row a rank), "
+        f"{MESH25_STEPS} sharded steps: losses {[round(x, 5) for x in got]} against phase 18's "
+        f"single card {[round(x, 5) for x in want]} (rtol {LOGIT_TOL['rtol']} / atol "
+        f"{LOGIT_TOL['atol']}); grad norms {[round(x, 4) for x in full[0]['grad_norms']]}")
+    log("      per rank [comm staged through the host (gloo, one card), time-sliced card]: "
+        f"step walls {[[round(w, 2) for w in f['step_walls_s']] for f in full]} s; peak "
+        f"{[round(f['peak_gib'], 2) for f in full]} GiB; held params "
+        f"{[round(f['params_gib'], 3) for f in full]} GiB, moments "
+        f"{[round(f['moments_gib'], 3) for f in full]} GiB; drawn in "
+        f"{[round(f['draw_s'], 1) for f in full]} s")
+    log(f"      launches a rank in {MESH25_STEPS} steps {[f['launches'] for f in full]} (B5 "
+        f"{12 * MOE_TRAIN_LAYERS} a MoE layer a step on every rank)")
+    log(f"      collective_counts {[f['collectives'] for f in full]}")
+    log(f"      the all-to-all: {[f['ep'] for f in full]} (calls: the layer's forwards, "
+        f"recompute included; rows_sent: capacity-buffer rows sent to the other model rank "
+        f"each way; routed_sent: routed (token, expert) pairs among them)")
+    first = ranks[0]["restart"]["losses"]
+    for r in shrunk:
+        check(r["mesh"] == {"data": 1, "model": 2} and r["step"] == 2,
+              f"phase 25(c): the shrunk world ran on {r['mesh']} to step {r['step']}")
+        check(abs(r["loss"] - first[1]) <= MESH25_RESTART_TOL,
+              f"phase 25(c): resumed step 2 loss {r['loss']} vs uninterrupted {first[1]}")
+    log(f"  (c) restart: the (2, 2) world saved after step 1, shrink_data_axis by 2 ranks -> "
+        f"{shrunk[0]['mesh']}, restored with its shardings in a 2-rank world: step 2 loss "
+        f"{shrunk[0]['loss']:.7f} against the uninterrupted {first[1]:.7f} (|diff| "
+        f"{abs(shrunk[0]['loss'] - first[1]):.3g}, bound {MESH25_RESTART_TOL})")
+    pp = [r["pipeline"] for r in ranks]
+    log(f"  (d) pipeline_apply, 4 stages of {ARCH}'s super-block (one layer a stage), bf16, "
+        f"{PIPE_MICRO} microbatches of 1x{PIPE_SEQ}: forward max |diff| "
+        f"{max(p['fwd_max_abs_err'] for p in pp):.4g} against the sequential run (rtol "
+        f"{LOGIT_TOL['rtol']} / atol {LOGIT_TOL['atol']}), grad relative error per stage "
+        f"{[round(p['grad_rel_err_max'], 5) for p in sorted(pp, key=lambda p: p['stage'])]} "
+        f"(bound {GRAD_REL_BOUND}); pipelined forward + backward "
+        f"{[round(p['pipeline_fwd_bwd_s'], 2) for p in pp]} s")
+    return {"world_s": world_s, "restart_world_s": restart_s, "exact": ex[0],
+            "full": {k: v for k, v in full[0].items()} | {
+                "step_walls_by_rank": [f["step_walls_s"] for f in full],
+                "peak_gib_by_rank": [f["peak_gib"] for f in full],
+                "collectives_by_rank": [f["collectives"] for f in full]},
+            "phase18_losses": want, "restart": {"uninterrupted": first,
+                                                 "resumed": shrunk[0]["loss"]},
+            "pipeline": pp}
+
+
 def main() -> int:
     import torch
 
@@ -3928,11 +4330,12 @@ def main() -> int:
     release()
     add_rows(rows, cfg, counts)
 
-    # the SSM family, mamba2-2.7b at full width and depth (~5.4 GB)
+    # the SSM family, mamba2-2.7b at full width (~5.4 GB at its 64 layers)
     cfg = get_config(SSM_ARCH)
     log(f"[10/{STEPS}] kernels at the main path's shapes ({cfg.name}):")
     rows = phase_kernels(cfg, torch, F, device)
     depth2(11, cfg, init_on="cpu")
+    cfg = dataclasses.replace(cfg, num_layers=SSM_LAYERS)
     log(f"[12/{STEPS}] main path ({cfg.name}), {cfg.num_layers} layers: legacy, compiled and "
         f"fused compiled ticks, then the ContinuousBatcher:")
     counts, stats[cfg.name], run = phase_ssm_full(cfg, torch, device)
@@ -4013,6 +4416,11 @@ def main() -> int:
         f"sharing the card over gloo — plan steps and collective_matmul on CUDA tensors, "
         f"{cfg.name} at full width and depth, {MOE_ARCH} at {MESH24_MOE_LAYERS} layers:")
     stats["mesh"] = phase_mesh(torch, device, release)
+    log(f"[25/{STEPS}] training across ranks: the mesh {MESH25_SHAPE} (\"data\", \"model\") as "
+        f"4 ranks sharing the card over gloo — exactness at smoke width, {MOE_ARCH} at full "
+        f"width, a restart into a shrunk world, the GPipe pipeline:")
+    stats["mesh-train"] = phase_mesh_train(torch, device, release,
+                                           stats["train-moe"]["train_losses"])
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

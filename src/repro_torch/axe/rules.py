@@ -166,7 +166,8 @@ _CTX_ALIASES = {
 }
 
 
-def rule_for(path_string: str) -> Optional[Tuple[Tuple, ...]]:
+def rule_key(path_string: str) -> Optional[str]:
+    """The :data:`PARAM_RULES` key a leaf path takes, or None."""
     segs = path_string.split(".")
     name = segs[-1]
     ctx = None
@@ -174,10 +175,22 @@ def rule_for(path_string: str) -> Optional[Tuple[Tuple, ...]]:
         if s in _CTX_ALIASES:
             ctx = _CTX_ALIASES[s]
     if ctx and f"{ctx}.{name}" in PARAM_RULES:
-        return PARAM_RULES[f"{ctx}.{name}"]
+        return f"{ctx}.{name}"
     if name == "wo":  # wo is always context-qualified
         return None
-    return PARAM_RULES.get(name)
+    return name if name in PARAM_RULES else None
+
+
+def rule_for(path_string: str) -> Optional[Tuple[Tuple, ...]]:
+    key = rule_key(path_string)
+    return None if key is None else PARAM_RULES[key]
+
+
+#: the attention projections whose heads the port's own leaves keep
+#: flattened into one dim (``wq [d, H·hd]``, ``wo [H·hd, d]``; the
+#: reference's are ``[d, H, hd]`` and ``[H, hd, d]``): the rule key and
+#: that dim, counted from the end
+FLAT_HEADS = {"wq": -1, "wk": -1, "wv": -1, "attn.wo": -2}
 
 
 def fsdp_extend(
@@ -216,40 +229,68 @@ def param_specs(
     fsdp: bool = False,
     fsdp_axes: Sequence[str] = ("data",),
     plan: Optional["PlanRules"] = None,
+    head_dim: Optional[int] = None,
 ) -> Any:
     """Pytree of AxeSpecs for a model param tree.
 
     ``plan`` (a :func:`from_plan` resolver) overrides the preference
     tables with solved placements: leaves whose path maps to a tensor
     the layout solver assigned take the solved placement, everything
-    else falls back to the rules."""
+    else falls back to the rules.
+
+    ``head_dim``: the tree is the port's own, whose attention
+    projections keep their heads flattened (:data:`FLAT_HEADS`). Such a
+    leaf takes the spec the rules give its reference-shaped view
+    (``[.., H, hd]``), its heads' axes carried onto the flattened dim
+    (head-major): the same logical dim sharded, the same bytes a rank."""
     if plan is not None and not isinstance(plan, PlanRules):
         plan = from_plan(plan)
+    return map_with_path(
+        lambda path, leaf: param_spec(path_str(path), tuple(leaf.shape), _dtype_str(leaf), space,
+                                      fsdp=fsdp, fsdp_axes=fsdp_axes, plan=plan,
+                                      head_dim=head_dim),
+        params)
 
-    def assign(path, leaf):
-        ps = path_str(path)
-        dtype = _dtype_str(leaf)
-        if plan is not None:
-            solved = plan.spec_for(ps, leaf.shape, space, dtype)
-            if solved is not None:
-                return fsdp_extend(solved, axes=fsdp_axes) if fsdp else solved
-        rule = rule_for(ps)
-        if rule is None or leaf.ndim == 0:
-            spec = AxeSpec.replicated(leaf.shape, space, dtype)
-        else:
-            prefs = []
-            for pref in rule:
-                pref = tuple(pref) if isinstance(pref, tuple) else (pref,)
-                pad = leaf.ndim - len(pref)
-                if pad < 0:
-                    continue
-                prefs.append(((None,) * pad) + pref)
-            spec = pick_spec(leaf.shape, prefs, space, dtype)
-        if fsdp:
-            spec = fsdp_extend(spec, axes=fsdp_axes)
-        return spec
 
-    return map_with_path(assign, params)
+def param_spec(
+    ps: str,
+    shape: Tuple[int, ...],
+    dtype: str,
+    space: PhysicalSpace,
+    *,
+    fsdp: bool = False,
+    fsdp_axes: Sequence[str] = ("data",),
+    plan: Optional["PlanRules"] = None,
+    head_dim: Optional[int] = None,
+) -> AxeSpec:
+    """:func:`param_specs`' spec of one leaf at dotted path ``ps``."""
+    flat = FLAT_HEADS.get(rule_key(ps)) if head_dim else None
+    if flat is not None and len(shape) >= 2 and shape[flat] % head_dim == 0:
+        i = len(shape) + flat
+        view = shape[:i] + (shape[i] // head_dim, head_dim) + shape[i + 1:]
+        pl = param_spec(ps, view, dtype, space, fsdp=fsdp, fsdp_axes=fsdp_axes,
+                        plan=plan).placement()
+        merged = pl[:i] + (pl[i] + pl[i + 1],) + pl[i + 2:]
+        return AxeSpec.sharded(shape, space, {j: a for j, a in enumerate(merged) if a}, dtype)
+    if plan is not None:
+        solved = plan.spec_for(ps, shape, space, dtype)
+        if solved is not None:
+            return fsdp_extend(solved, axes=fsdp_axes) if fsdp else solved
+    rule = rule_for(ps)
+    if rule is None or len(shape) == 0:
+        spec = AxeSpec.replicated(shape, space, dtype)
+    else:
+        prefs = []
+        for pref in rule:
+            pref = tuple(pref) if isinstance(pref, tuple) else (pref,)
+            pad = len(shape) - len(pref)
+            if pad < 0:
+                continue
+            prefs.append(((None,) * pad) + pref)
+        spec = pick_spec(shape, prefs, space, dtype)
+    if fsdp:
+        spec = fsdp_extend(spec, axes=fsdp_axes)
+    return spec
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,13 @@ partial save is invisible (its ``.tmp`` directory is never renamed);
 ``keep`` bounds the committed steps kept; ``async_save`` copies the state
 to the host and writes it on a thread.
 
-Restore puts each leaf on its template leaf's device. Restoring onto a
-device mesh (the reference's ``shardings``) waits for the multi-GPU
-slice (``ROADMAP.md`` A14).
+Restore puts each leaf on its template leaf's device. On a device mesh
+both take ``shardings``, a tree of ``core.dtensor.NamedSharding`` (None
+for a leaf every rank holds whole) beside a state of the rank's shards:
+``save`` gathers leaf by leaf and one rank writes the full leaves, the
+same files and manifest; ``restore`` gives each rank its shard of each
+leaf, read from the file's mapped pages (the reference's ``device_put``
+with ``shardings``), so a world of another mesh resumes from it.
 """
 from __future__ import annotations
 
@@ -84,12 +88,21 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # ------------------------------------------------------------------
-    def save(self, state: Any, step: int) -> None:
+    def save(self, state: Any, step: int, shardings: Any = None) -> None:
         """Commit ``state`` as ``step``. A synchronous save copies one
         leaf at a time to the host as it writes it; an asynchronous one
         copies the whole state first, so the train step may go on
-        updating it in place."""
-        if self.async_save:
+        updating it in place. With ``shardings`` every rank of the mesh
+        calls it: each leaf is gathered, the mesh's rank 0 writes, and
+        every rank returns once the step is committed."""
+        shs = [] if shardings is None else _sharding_leaves(shardings, state)
+        mesh = next((sh.mesh for sh in shs if sh is not None), None)
+        if mesh is not None:
+            # leaf by leaf: no rank holds more than one whole leaf at a time
+            self.wait()
+            self._save_sync(state, step, shs, mesh)
+            _barrier()
+        elif self.async_save:
             self.wait()
             self._thread = threading.Thread(target=self._save_sync,
                                             args=(_to_host(state), step))
@@ -102,14 +115,24 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def _save_sync(self, state: Any, step: int) -> None:
+    def _save_sync(self, state: Any, step: int, shardings: Optional[List[Any]] = None,
+                   mesh=None) -> None:
+        """Write ``state`` as ``step``; on a mesh (``shardings`` the leaves'
+        NamedShardings) every rank gathers each leaf and rank 0 writes."""
+        writer = mesh is None or mesh.rank == 0
         final = self._step_dir(step)
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
         manifest: Dict[str, Any] = {"step": step, "leaves": []}
-        for path, leaf in _named_leaves(state):
+        named = _named_leaves(state)
+        for (path, leaf), sh in zip(named, shardings or [None] * len(named)):
+            if sh is not None:
+                leaf = sh.unshard(leaf)
+            if not writer:
+                continue
             fname = path.replace("/", "__") + ".npy"
             arr = _as_numpy(leaf)
             bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
@@ -118,6 +141,8 @@ class CheckpointManager:
                 {"path": path, "file": fname, "dtype": "bfloat16" if bf16 else str(arr.dtype),
                  "shape": list(arr.shape)}
             )
+        if not writer:
+            return
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -131,31 +156,72 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, step: int, template: Any) -> Any:
+    def restore(self, step: int, template: Any, shardings: Any = None) -> Any:
         """The state of ``step`` shaped as ``template``: each leaf on its
-        template leaf's device, bf16 leaves from their bits."""
+        template leaf's device, bf16 leaves from their bits. With
+        ``shardings`` (a tree of ``NamedSharding`` or None beside
+        ``template``'s leaves) a leaf is this rank's shard of the stored
+        one, and ``template`` holds shards."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        named = _named_leaves(template)
+        shs = _sharding_leaves(shardings, template) if shardings is not None else [None] * len(named)
         out = []
-        for path, tleaf in _named_leaves(template):
+        for (path, tleaf), sh in zip(named, shs):
             entry = by_path[path]
-            arr = np.load(os.path.join(d, entry["file"]))
+            arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")
+            want = tuple(tleaf.shape)
+            if sh is not None:
+                if sh.shard_shape(arr.shape) != want:
+                    raise ValueError(
+                        f"checkpoint leaf {path} shape {tuple(arr.shape)} does not shard into "
+                        f"template {want} under {sh.spec}")
+                arr = arr[sh.shard_slices(arr.shape)]
+            elif tuple(arr.shape) != want:
+                raise ValueError(
+                    f"checkpoint leaf {path} shape {tuple(arr.shape)} != template {want}"
+                )
+            arr = np.array(arr)
             if entry["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            if tuple(t.shape) != tuple(tleaf.shape):
-                raise ValueError(
-                    f"checkpoint leaf {path} shape {tuple(t.shape)} != template "
-                    f"{tuple(tleaf.shape)}"
-                )
             out.append(t.to(tleaf.device) if isinstance(tleaf, torch.Tensor) else t)
         return unflatten(template, out)
 
-    def restore_latest(self, template: Any) -> Optional[Any]:
+    def restore_latest(self, template: Any, shardings: Any = None) -> Optional[Any]:
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(step, template)
+        return self.restore(step, template, shardings)
+
+
+# ---------------------------------------------------------------------------
+# a state on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _sharding_leaves(shardings: Any, like: Any) -> List[Any]:
+    """``shardings``' leaves in ``like``'s leaf order: a NamedSharding, or
+    None where the tree has None (a leaf every rank holds whole)."""
+    from repro_torch.core.dtensor import NamedSharding
+
+    def walk(sh, tree):
+        if tree is None:
+            return []
+        if not isinstance(tree, (dict, list, tuple)):
+            return [sh if isinstance(sh, NamedSharding) else None]
+        kids = lambda t: ([t[k] for k in sorted(t)] if isinstance(t, dict)  # noqa: E731
+                          else list(t))
+        shk = kids(sh) if sh is not None else [None] * len(kids(tree))
+        return [x for s, t in zip(shk, kids(tree)) for x in walk(s, t)]
+
+    return walk(shardings, like)
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()

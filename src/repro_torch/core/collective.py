@@ -29,13 +29,27 @@ in bf16, the ranks' partial MoE outputs part from the single rank's by
 (``reduce_scatter_single``, ``reduce_scatter_tensor`` before torch
 2.13): each rank gets back only its chunk, the f32 bytes the planner
 prices for ``collective_matmul``. No step changes its transport on a
-failure: a tensor on another device than the mesh's raises.
+failure: a tensor on another device than the mesh's raises. A
+collective runs over one mesh axis or over a tuple of axes together
+(the first major); reductions take a maximum too (``pmax``), and an
+integer sum stays in its type on the wire.
+
+The collectives are differentiable, with JAX's transposes (the
+all-gather's is the reduce-scatter, a sum's a sum, an all-to-all's the
+all-to-all with split and concat swapped, :func:`ppermute`'s the inverse
+permutation) under the reference's ``shard_map`` convention: a
+cotangent is this rank's part of a sum over ranks. :func:`sum_grads`
+marks a value every rank holds and uses on its own rows (its gradient is
+summed); :func:`gather_leaf` gathers a param shard where it is used
+with both transposes fused, which is how the train step on a mesh gets
+each leaf's gradient onto the rank's shard.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -254,14 +268,15 @@ def _mesh():
     return mesh
 
 
-def axis_size(axis: str) -> int:
-    """Ranks along mesh axis ``axis`` of the current mesh (the
-    reference's ``compat.axis_size``)."""
+def axis_size(axis) -> int:
+    """Ranks along mesh axis ``axis`` of the current mesh, or along a
+    tuple of axes together (the reference's ``compat.axis_size``)."""
     return _mesh().axis_size(axis)
 
 
-def axis_index(axis: str) -> int:
-    """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+def axis_index(axis) -> int:
+    """This rank's coordinate along ``axis`` (``lax.axis_index``); for a
+    tuple of axes, the first of them major."""
     return _mesh().axis_index(axis)
 
 
@@ -269,46 +284,70 @@ def axis_index(axis: str) -> int:
 # the transport: the one place that holds the backend rule
 # ---------------------------------------------------------------------------
 
-_COUNTS: Dict[str, Any] = {"ops": {}, "bytes": 0, "staged": 0}
+_COUNTS: Dict[str, Any] = {"ops": {}, "bytes": 0, "staged": 0, "stage_s": 0.0, "wire_s": 0.0}
 
 
 def collective_counts() -> Dict[str, Any]:
     """Since the last reset: collectives issued per kind (``ops``), the
-    bytes this rank handed to the transport, and how many of the
-    collectives were staged through the host (CUDA tensors under gloo)."""
+    bytes this rank handed to the transport, how many of the collectives
+    were staged through the host (CUDA tensors under gloo), and the host
+    clock's seconds in the casts, copies and host transfers around the
+    collectives (``stage_s``) and in the collectives themselves, waits
+    for slower ranks included (``wire_s``)."""
     return {"ops": dict(_COUNTS["ops"]), "bytes": _COUNTS["bytes"],
-            "staged": _COUNTS["staged"]}
+            "staged": _COUNTS["staged"], "stage_s": _COUNTS["stage_s"],
+            "wire_s": _COUNTS["wire_s"]}
 
 
 def reset_collective_counts() -> None:
-    _COUNTS.update(ops={}, bytes=0, staged=0)
+    _COUNTS.update(ops={}, bytes=0, staged=0, stage_s=0.0, wire_s=0.0)
 
 
-def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue):
+def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue, *,
+               wire: Optional[torch.dtype] = None, fresh: bool = False,
+               assemble=None):
     """Hand ``tensors`` to ``issue`` (which runs the ``torch.distributed``
     calls on them and returns its result tensors) under the mesh's
     backend: as they are under NCCL and for CPU tensors, through host
     copies for CUDA tensors under gloo — the staging happens here and
-    nowhere else. Returns ``issue``'s tensors on the operands' device,
-    and a waiter when ``issue`` returned one (``(tensors, wait)``)."""
+    nowhere else. Operands may be views; ``wire``: the dtype the
+    collective carries; ``fresh``: ``issue`` writes into its operands, so
+    they are never the caller's; ``assemble``: turns ``issue``'s tensors
+    into the results. Casts, copies and assembly run on the operands'
+    device (the host only carries the wire's bytes: on the host, fresh
+    pages and one thread a rank made them the larger half of a staged
+    collective's time). Returns a function that waits when ``issue``
+    returned a waiter (``(tensors, wait)``) and gives the results on the
+    operands' device."""
     dev = tensors[0].device
     if dev.type != mesh.device.type:
         raise RuntimeError(
             f"{kind}: a tensor on {dev} under a mesh of {mesh.device} ranks "
             f"(no step changes its device or transport)")
-    ops = _COUNTS["ops"]
-    ops[kind] = ops.get(kind, 0) + 1
-    _COUNTS["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
     staged = dev.type == "cuda" and mesh.backend == "gloo"
+    t0 = time.perf_counter()
+    tensors = [t.to(wire or t.dtype, copy=fresh and not staged).contiguous() for t in tensors]
     if staged:
         _COUNTS["staged"] += 1
         tensors = [t.to("cpu") for t in tensors]
+    ops = _COUNTS["ops"]
+    ops[kind] = ops.get(kind, 0) + 1
+    _COUNTS["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    t1 = time.perf_counter()
     out, wait = issue(tensors)
+    _COUNTS["stage_s"] += t1 - t0
+    _COUNTS["wire_s"] += time.perf_counter() - t1
 
     def finish():
+        t1 = time.perf_counter()
         if wait is not None:
             wait()
-        return [o.to(dev) for o in out] if staged else list(out)
+        t2 = time.perf_counter()
+        res = [o.to(dev) for o in out] if staged else list(out)
+        res = assemble(res) if assemble is not None else res
+        _COUNTS["wire_s"] += t2 - t1
+        _COUNTS["stage_s"] += time.perf_counter() - t2
+        return res
 
     return finish
 
@@ -322,8 +361,18 @@ def _from_bytes(b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
     return b.view(like.dtype).reshape(shape)
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """Tiled all-gather along ``dim`` over ``axis`` (rank order)."""
+def _wire_dtype(dtype: torch.dtype, op: str) -> torch.dtype:
+    """What a reduction carries on the wire: integers as they are (an
+    int32 sum stays int32), floating sums in f32 (rounded once to the
+    operand's type at the end), floating maxes in f32 (exact)."""
+    if dtype.is_floating_point:
+        return torch.float32
+    if dtype in (torch.int32, torch.int64, torch.int8, torch.uint8):
+        return dtype
+    raise TypeError(f"no {op} reduction for {dtype}")
+
+
+def _all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
     mesh = _mesh()
@@ -337,39 +386,53 @@ def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         dist.all_gather(parts, ts[0], group=group)
         return parts, None
 
-    parts = _transport("AllGather", mesh, [_bytes(x)], issue)()
-    return torch.cat([_from_bytes(b, x, x.shape) for b in parts], dim=dim)
+    order = mesh.chunk_order(axis)
+
+    def assemble(parts):
+        by_chunk = [None] * p
+        for part, idx in zip(parts, order):
+            by_chunk[idx] = part
+        return [torch.cat([_from_bytes(b, x, x.shape) for b in by_chunk], dim=dim)]
+
+    return _transport("AllGather", mesh, [_bytes(x)], issue, assemble=assemble)()[0]
 
 
-def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """Sum over ``axis`` (``psum``), in f32, rounded once."""
+def _all_reduce(x: torch.Tensor, axis, op: str = "sum", out_dtype=None) -> torch.Tensor:
     import torch.distributed as dist
 
     mesh = _mesh()
-    acc = x.to(torch.float32, copy=True).contiguous()
+    wire = _wire_dtype(x.dtype, op)
+    out_dtype = out_dtype or x.dtype
     if mesh.axis_size(axis) == 1:
-        return acc.to(x.dtype)
+        return x.to(wire).to(out_dtype, copy=True)
     group = mesh.group(axis)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
     def issue(ts):
-        dist.all_reduce(ts[0], op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(ts[0], op=red, group=group)
         return ts, None
 
-    return _transport("AllReduce", mesh, [acc], issue)()[0].to(x.dtype)
+    kind = "AllReduce" if op == "sum" else "AllReduceMax"
+    got = _transport(kind, mesh, [x.contiguous()], issue, wire=wire, fresh=True)()[0]
+    return got.to(out_dtype)
 
 
-def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """Tiled reduce-scatter (``psum_scatter``): the sum over ``axis``,
-    this rank's chunk of ``dim``, in f32, rounded once."""
+def _reduce_scatter(x: torch.Tensor, axis, dim: int, out_dtype=None) -> torch.Tensor:
     import torch.distributed as dist
 
     mesh = _mesh()
     p = mesh.axis_size(axis)
+    out_dtype = out_dtype or x.dtype
     if p == 1:
-        return x.clone(memory_format=torch.contiguous_format)
+        return x.to(out_dtype).clone(memory_format=torch.contiguous_format)
     group = mesh.group(axis)
-    # chunk j of ``dim`` goes to rank j: lay the chunks out contiguously
-    send = x.movedim(dim, 0).to(torch.float32).contiguous()
+    # the group's k-th rank gets the chunk it holds of ``dim``: lay the
+    # chunks out contiguously, in the group's order
+    order = mesh.chunk_order(axis)
+    send = x.movedim(dim, 0)
+    if order != sorted(order):
+        chunks = send.chunk(p)
+        send = torch.cat([chunks[i] for i in order])
     scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
     def issue(ts):
@@ -377,14 +440,12 @@ def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         scatter(out, ts[0], op=dist.ReduceOp.SUM, group=group)
         return [out], None
 
-    got = _transport("ReduceScatter", mesh, [send], issue)()[0]
-    return got.movedim(0, dim).to(x.dtype).contiguous()
+    got = _transport("ReduceScatter", mesh, [send], issue, wire=_wire_dtype(x.dtype, "sum"),
+                     assemble=lambda outs: [outs[0].movedim(0, dim).contiguous()])()[0]
+    return got.to(out_dtype)
 
 
-def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
-    """Tiled all-to-all (``lax.all_to_all(tiled=True)``): ``x`` split into
-    P chunks along ``split_dim``, chunk j to rank j; the received chunks
-    concatenated along ``concat_dim`` in rank order."""
+def _all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
     mesh = _mesh()
@@ -405,8 +466,220 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> t
     return torch.cat([_from_bytes(got[j], x, shape) for j in range(p)], dim=concat_dim)
 
 
-def dynamic_slice(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """This rank's chunk of ``dim`` along ``axis`` (a local chop)."""
+def _ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    import torch.distributed as dist
+
+    mesh = _mesh()
+    me = mesh.axis_index(axis)
+    ranks = mesh.group_ranks(axis)
+    group = mesh.group(axis)
+    tag = mesh.next_tag()
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+
+    def issue(ts):
+        recv = torch.zeros_like(ts[0])
+        ops = [dist.P2POp(dist.isend, ts[0], ranks[d], group, tag) for d in dst]
+        ops += [dist.P2POp(dist.irecv, recv, ranks[s], group, tag) for s in src]
+        if not ops:
+            return [recv], None
+        reqs = dist.batch_isend_irecv(ops)
+
+        def wait():
+            for r in reqs:
+                r.wait()
+
+        return [recv], wait
+
+    got = _transport("Permute", mesh, [_bytes(x)], issue)()[0]
+    return _from_bytes(got, x, x.shape)
+
+
+# ---------------------------------------------------------------------------
+# the collectives, differentiable: their backwards are JAX's transposes
+# ---------------------------------------------------------------------------
+#
+# As in the reference's ``shard_map`` (``check_vma=False``), a cotangent
+# is taken to be this rank's part of a sum over ranks: the all-gather's
+# transpose is the reduce-scatter (and back), a sum's is a sum, an
+# all-to-all's swaps its split and concat dims, a permutation's is its
+# inverse. A value every rank holds and uses on its own rows gets its
+# cotangents summed by :func:`sum_grads`. A backward runs on the mesh of
+# its forward, wherever autograd calls it.
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = _mesh(), axis, dim
+        return _all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = _mesh(), axis, dim
+        return _reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _all_gather(g, ctx.axis, ctx.dim), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.mesh, ctx.axis = _mesh(), axis
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _all_reduce(g, ctx.axis), None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.mesh, ctx.axis = _mesh(), axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _all_reduce(g, ctx.axis), None
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gathers, sum_axes):
+        ctx.mesh, ctx.gathers, ctx.sum_axes, ctx.dtype = _mesh(), gathers, sum_axes, x.dtype
+        for dim, axes in gathers:
+            x = _all_gather(x, axes, dim)
+        return x if gathers else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            for dim, axes in reversed(ctx.gathers):
+                g = _reduce_scatter(g, axes, dim, out_dtype=torch.float32)
+            if ctx.sum_axes:
+                g = _all_reduce(g, ctx.sum_axes, out_dtype=torch.float32)
+        return g.to(ctx.dtype), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.args = _mesh(), (axis, concat_dim, split_dim)
+        return _all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _all_to_all(g, *ctx.args), None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.mesh, ctx.axis, ctx.inverse = _mesh(), axis, tuple((d, s) for s, d in perm)
+        return _ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _ppermute(g.contiguous(), ctx.axis, ctx.inverse), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """Tiled all-gather along ``dim`` over ``axis`` (one axis or a tuple,
+    the first major), in rank order. Its gradient is the reduce-scatter."""
+    if _tracked(x):
+        return _AllGather.apply(x, axis, dim)
+    return _all_gather(x, axis, dim)
+
+
+def all_reduce(x: torch.Tensor, axis, *, op: str = "sum") -> torch.Tensor:
+    """The sum (``psum``) or the maximum (``pmax``, ``op="max"``) over
+    ``axis`` (one axis or a tuple). Floating sums run in f32 and round
+    once to ``x``'s type; integer sums stay in their type on the wire.
+    A sum's gradient is the sum of the cotangents; a maximum has none."""
+    if op == "sum" and _tracked(x):
+        return _AllReduce.apply(x, axis)
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce op {op!r} not in ('sum', 'max')")
+    return _all_reduce(x.detach() if op == "max" else x, axis, op)
+
+
+def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """Tiled reduce-scatter (``psum_scatter``): the sum over ``axis`` (one
+    axis or a tuple), this rank's chunk of ``dim``, in f32, rounded once.
+    Its gradient is the all-gather."""
+    if _tracked(x):
+        return _ReduceScatter.apply(x, axis, dim)
+    return _reduce_scatter(x, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all (``lax.all_to_all(tiled=True)``): ``x`` split into
+    P chunks along ``split_dim``, chunk j to rank j; the received chunks
+    concatenated along ``concat_dim`` in rank order. Its gradient is the
+    all-to-all with the two dims swapped."""
+    if _tracked(x):
+        return _AllToAll.apply(x, axis, split_dim, concat_dim)
+    return _all_to_all(x, axis, split_dim, concat_dim)
+
+
+def ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: for each ``(src, dst)`` of ``perm`` (coordinates
+    along ``axis``), rank ``src``'s ``x`` arrives at rank ``dst``; a rank
+    that nothing arrives at gets zeros. Issued with ``batch_isend_irecv``.
+    Its gradient is the inverse permutation."""
+    if _tracked(x):
+        return _Permute.apply(x, axis, tuple(perm))
+    return _ppermute(x, axis, perm)
+
+
+def sum_grads(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``axis`` (one axis or a
+    tuple). For a value that every rank of ``axis`` holds and uses on
+    its own part of the work: the transpose the reference's ``shard_map``
+    gives an input that its ``in_specs`` leave unsharded over ``axis``."""
+    if _tracked(x) and _mesh().axis_size(axis) > 1:
+        return _SumGrads.apply(x, axis)
+    return x
+
+
+def gather_leaf(x: torch.Tensor, gathers: Sequence[Tuple[int, Any]], sum_axes) -> torch.Tensor:
+    """A param leaf's shard -> the whole leaf: :func:`all_gather` along
+    each ``(dim, axes)`` of ``gathers`` in turn, then :func:`sum_grads`
+    over ``sum_axes`` (the axes the leaf is replicated on), fused so that
+    the gradient (the reduce-scatters back onto the shard, then the sum)
+    accumulates in f32 and is rounded once to ``x``'s type."""
+    if not _tracked(x):
+        for dim, axes in gathers:
+            x = _all_gather(x, axes, dim)
+        return x
+    if not gathers and not sum_axes:
+        return x
+    return _GatherLeaf.apply(x, tuple(gathers), tuple(sum_axes))
+
+
+def dynamic_slice(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``dim`` along ``axis`` (a local chop). Its
+    gradient is JAX's transpose: the cotangent in the chunk's place,
+    zeros elsewhere (what ``narrow``'s backward gives)."""
     p = axis_size(axis)
     chunk = x.shape[dim] // p
     return x.narrow(dim, axis_index(axis) * chunk, chunk)

@@ -143,16 +143,23 @@ class NamedSharding:
             out.append(s // n)
         return tuple(out)
 
+    def shard_slices(self, shape) -> Tuple[slice, ...]:
+        """This rank's block of a global ``shape``, one slice per dim."""
+        local = self.shard_shape(tuple(shape))
+        out = []
+        for dim, axes in enumerate(self._dims(len(shape))):
+            idx = 0
+            for a in axes:
+                idx = idx * self.mesh.axis_size(a) + self.mesh.axis_index(a)
+            out.append(slice(idx * local[dim], (idx + 1) * local[dim]))
+        return tuple(out)
+
     def shard(self, t):
         """This rank's shard of the global tensor ``t`` (a copy of its
         own: no view keeps the global tensor alive)."""
-        local = self.shard_shape(tuple(t.shape))
-        for dim, axes in enumerate(self._dims(t.dim())):
-            if axes:
-                idx = 0
-                for a in axes:
-                    idx = idx * self.mesh.axis_size(a) + self.mesh.axis_index(a)
-                t = t.narrow(dim, idx * local[dim], local[dim])
+        for dim, sl in enumerate(self.shard_slices(tuple(t.shape))):
+            if sl.stop - sl.start != t.shape[dim]:
+                t = t.narrow(dim, sl.start, sl.stop - sl.start)
         return t.contiguous().clone() if t._base is not None or not t.is_contiguous() else t
 
     def unshard(self, local):

@@ -3,7 +3,9 @@
 Step-addressable (``batch_at(step)``) so restarts resume mid-epoch with
 no duplicated or skipped batches: the data-side half of fault tolerance.
 The numpy stream is the JAX package's, so ``batch_at`` is bit-equal to
-it; :meth:`SyntheticLMData.torch_batch_at` puts a batch on a device.
+it; :meth:`SyntheticLMData.torch_batch_at` puts a batch on a device, and
+:meth:`SyntheticLMData.sharded_batch_at` puts this rank's block of it on
+a rank of a mesh.
 """
 from __future__ import annotations
 
@@ -61,8 +63,18 @@ class SyntheticLMData:
             out[k] = t if k in ("tokens", "labels") else t.to(_TORCH[self.dtype])
         return out
 
-    def sharded_batch_at(self, step: int, mesh, pspec):
-        raise NotImplementedError(
-            "sharded_batch_at places the batch across a device mesh: the multi-GPU "
-            "slice, ROADMAP.md A14"
-        )
+    def sharded_batch_at(self, step: int, mesh, pspec) -> Dict[str, torch.Tensor]:
+        """This rank's block, under ``pspec`` (one entry per leading dim)
+        on ``mesh`` (a ``launch.mesh.Mesh``), of every tensor of the batch
+        of ``step``, on the mesh's device: what the reference's
+        ``device_put`` with ``NamedSharding(mesh, pspec)`` leaves on the
+        device at this rank's mesh coordinates."""
+        from repro_torch.core.dtensor import NamedSharding
+
+        sharding = NamedSharding(mesh, tuple(pspec))
+        out = {}
+        for k, v in self.batch_at(step).items():
+            local = sharding.shard(torch.from_numpy(np.ascontiguousarray(v)))
+            local = local.to(mesh.device)
+            out[k] = local if k in ("tokens", "labels") else local.to(_TORCH[self.dtype])
+        return out

@@ -5,8 +5,8 @@ port prices its layouts for.
 A :class:`Mesh` is built inside an initialised ``torch.distributed``
 world of ``prod(shape)`` ranks. Rank ``r`` sits at the row-major
 coordinates of ``r`` in ``shape``, as a JAX mesh orders its devices,
-and holds one process group per axis: the ranks that differ from it
-only along that axis. Every rank creates every group, in the same
+and holds one process group per set of axes: the ranks that differ from
+it only along those axes. Every rank creates every group, in the same
 order (a ``new_group`` that one rank misses hangs the world). The
 mesh is also the context its collectives run in (``with mesh:``,
 ``core.collective.use_mesh``).
@@ -109,35 +109,77 @@ class Mesh:
         self.devices = np.arange(self.world).reshape(self.shape)
         self.coords = dict(zip(self.axis_names,
                                (int(c) for c in np.unravel_index(self.rank, self.shape))))
-        self._groups: Dict[str, Any] = {}
-        self._group_ranks: Dict[str, Tuple[int, ...]] = {}
-        for i, axis in enumerate(self.axis_names):
-            # every rank creates every group of every axis, in one order
-            lines = np.moveaxis(self.devices, i, -1).reshape(-1, self.shape[i])
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        self._group_ranks: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+        n = len(self.axis_names)
+        subsets = [tuple(i for i in range(n) if mask >> i & 1) for mask in range(1, 1 << n)]
+        for dims in sorted(subsets, key=lambda d: (len(d), d)):
+            # every rank creates every group of every set of axes, in one
+            # order; a group's ranks run in mesh order
+            size = math.prod(self.shape[i] for i in dims)
+            lines = np.moveaxis(self.devices, dims, list(range(n - len(dims), n))).reshape(-1, size)
+            key = tuple(self.axis_names[i] for i in dims)
             for line in lines:
                 ranks = tuple(int(r) for r in line)
                 g = dist.new_group(list(ranks))
                 if self.rank in ranks:
-                    self._groups[axis], self._group_ranks[axis] = g, ranks
+                    self._groups[key], self._group_ranks[key] = g, ranks
         self._tag = 0
+        self._chunk_orders: Dict[Tuple[str, ...], List[int]] = {}
 
     @property
     def mesh_shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.shape))
 
-    def axis_size(self, axis: str) -> int:
-        return self.mesh_shape[axis]
+    def axes_of(self, axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+        """``axes`` (one axis name or several) as a tuple, checked."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} on a mesh of {self.axis_names}")
+        return axes
 
-    def axis_index(self, axis: str) -> int:
-        return self.coords[axis]
+    def axis_size(self, axes: Union[str, Sequence[str]]) -> int:
+        """Ranks along one axis, or along several together."""
+        return math.prod(self.mesh_shape[a] for a in self.axes_of(axes))
 
-    def group(self, axis: str):
-        """This rank's process group along ``axis``."""
-        return self._groups[axis]
+    def axis_index(self, axes: Union[str, Sequence[str]]) -> int:
+        """This rank's coordinate along one axis, or along several taken
+        together, the first of them major."""
+        idx = 0
+        for a in self.axes_of(axes):
+            idx = idx * self.mesh_shape[a] + self.coords[a]
+        return idx
 
-    def group_ranks(self, axis: str) -> Tuple[int, ...]:
-        """The global ranks of :meth:`group`, in axis order."""
-        return self._group_ranks[axis]
+    def _key(self, axes) -> Tuple[str, ...]:
+        axes = set(self.axes_of(axes))
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def group(self, axes: Union[str, Sequence[str]]):
+        """This rank's process group along one axis, or along several
+        (the ranks that differ from it only along those axes)."""
+        return self._groups[self._key(axes)]
+
+    def group_ranks(self, axes: Union[str, Sequence[str]]) -> Tuple[int, ...]:
+        """The global ranks of :meth:`group`, in mesh order (for one axis:
+        in axis order)."""
+        return self._group_ranks[self._key(axes)]
+
+    def chunk_order(self, axes: Union[str, Sequence[str]]) -> List[int]:
+        """For each rank of :meth:`group`, in its order, the index of the
+        chunk it holds of a dim that ``axes`` shard (``axes[0]`` major):
+        the identity when ``axes`` run in mesh order."""
+        axes = self.axes_of(axes)
+        if axes in self._chunk_orders:
+            return self._chunk_orders[axes]
+        out = self._chunk_orders[axes] = []
+        for r in self.group_ranks(axes):
+            coords = np.unravel_index(r, self.shape)
+            idx = 0
+            for a in axes:
+                idx = idx * self.mesh_shape[a] + int(coords[self.axis_names.index(a)])
+            out.append(idx)
+        return out
 
     def next_tag(self) -> int:
         """A point-to-point tag: every rank draws them in one order."""
@@ -314,8 +356,6 @@ class World:
         """The ranks' values in rank order; the first rank that fails
         stops every rank and its traceback is raised (:class:`RankError`),
         as is a world that outlives its time limit."""
-        import shutil
-
         out: Dict[int, Any] = {}
         try:
             while len(out) < self.size:
@@ -335,14 +375,21 @@ class World:
                     raise RankError(f"rank {rank} of {self.size} failed:\n{value}")
                 out[rank] = value
         finally:
-            for p in self._procs:
-                p.join(timeout=10 if len(out) == self.size else 0.1)
-            for p in self._procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-            shutil.rmtree(self._tmp, ignore_errors=True)
+            self.stop(grace_s=10 if len(out) == self.size else 0.1)
         return [out[r] for r in range(self.size)]
+
+    def stop(self, grace_s: float = 0.1) -> None:
+        """End every rank (each gets ``grace_s`` to exit by itself) and
+        remove the world's files."""
+        import shutil
+
+        for p in self._procs:
+            p.join(timeout=grace_s)
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self._tmp, ignore_errors=True)
 
 
 def start(fn: Callable, shape: Sequence[int], axes: Sequence[str], **kw) -> World:

@@ -1,10 +1,12 @@
 """Training launcher of the port (``repro/launch/train.py``): random
 weights from a seed, synthetic data, AdamW with warmup + cosine, on one
-card.
+card or on the ranks of a device mesh.
 
     python -m repro_torch.launch.train --arch qwen3-4b --steps 100 \
         --global-batch 4 --seq 512
     python -m repro_torch.launch.train --arch qwen3-4b --smoke --device cpu --steps 3
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch qwen3-moe-235b-a22b --smoke --device cpu --mesh-data 2 --mesh-model 4 --steps 3
 
 ``--solve`` solves the layout of the model graph (the port's ``"gpu"``
 backend), compiles it and runs the forward through the executable
@@ -14,21 +16,32 @@ only the families ``axe.compile`` binds a model of (``SUPPORTED_FAMILIES``)
 compile: for the others (enc-dec, VLM), and for any family under
 ``--no-compiled-forward``, ``--solve`` solves a 2-layer layout study,
 warns ``DeprecationWarning`` and trains through the model's
-``loss_fn``. A mesh degree above 1 and ``--offload-opt`` need several
-cards: they raise, naming ROADMAP A14.
+``loss_fn``.
+
+In a world of several ranks (``torch.distributed.run``; the backend by
+``launch.mesh.backend_rule``: gloo on the CPU and for ranks sharing a
+card) the launcher builds the ``(data, model)`` mesh (``--mesh-data 0``:
+the ranks over ``--mesh-model``) and runs the sharded step
+(``train_loop.ShardedLayout``): each rank draws only its shards of the
+weights and holds only its shards of the state; the batch's rows split
+over the whole mesh. Rank 0 prints. Compiled training on a mesh
+(``--solve``) and the host tier (``--offload-opt``) raise, naming
+ROADMAP A14.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import warnings
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
+from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.train.train_loop import Trainer, init_state, make_train_step
+from repro_torch.train.train_loop import ShardedLayout, Trainer, init_state, make_train_step
 
 
 def _solve(args, cfg):
@@ -91,8 +104,11 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
-    ap.add_argument("--mesh-data", type=int, default=0, help="several cards: ROADMAP A14")
-    ap.add_argument("--mesh-model", type=int, default=1, help="several cards: ROADMAP A14")
+    ap.add_argument("--mesh-data", type=int, default=0,
+                    help="data-parallel degree of the mesh (0: the world's ranks over "
+                         "--mesh-model)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model (expert-parallel) degree of the mesh")
     ap.add_argument("--compress-pod-grads", action="store_true")
     ap.add_argument("--solve", action="store_true",
                     help="solve the layout (axe.solve) and run the forward through the "
@@ -106,23 +122,48 @@ def main(argv=None):
     ap.add_argument("--no-compiled-forward", action="store_true",
                     help="with --solve: keep the model's forward and only solve the "
                          "layout study (deprecated path)")
-    ap.add_argument("--offload-opt", action="store_true", help="several cards: ROADMAP A14")
+    ap.add_argument("--offload-opt", action="store_true",
+                    help="park the optimizer moments on a host-class mesh axis: the host "
+                         "tier, ROADMAP A14")
+    ap.add_argument("--host-degree", type=int, default=None,
+                    help="with --offload-opt: size of the carved host mesh axis")
     ap.add_argument("--device", default="cuda", help="default: cuda (raises without a card)")
     args = ap.parse_args(argv)
-    if args.mesh_data > 1 or args.mesh_model > 1 or args.offload_opt:
-        raise SystemExit("a device mesh (--mesh-data/--mesh-model above 1) and --offload-opt "
-                         "need several cards: the multi-GPU slice, ROADMAP.md A14")
+    if args.host_degree is not None and not args.offload_opt:
+        raise SystemExit("--host-degree sizes the host mesh axis of --offload-opt")
+    if args.offload_opt:
+        raise SystemExit("--offload-opt parks the moments on the host tier, which the port "
+                         "does not have yet: ROADMAP.md A14")
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = _mesh(args, world) if world > 1 or args.mesh_data > 1 or args.mesh_model > 1 else None
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    if mesh is not None and args.solve:
+        raise SystemExit("--solve on a mesh (compiled training across ranks) is not ported "
+                         "yet: ROADMAP.md A14")
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    print(f"arch={cfg.name} params={cfg.param_count()/1e9:.2f}B "
-          f"(active {cfg.active_param_count()/1e9:.2f}B)")
+    say(f"arch={cfg.name} params={cfg.param_count()/1e9:.2f}B "
+        f"(active {cfg.active_param_count()/1e9:.2f}B)")
 
-    api = build_model(cfg, device=args.device)
-    params = api.init(0)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 20, args.steps))
-    state = init_state(params, opt)
+    layout = None
+    if mesh is None:
+        api = build_model(cfg, device=args.device)
+        state = init_state(api.init(0), opt)
+    else:
+        api = build_model(cfg, device=mesh.device)
+        layout = ShardedLayout.for_model(mesh, cfg)
+        if cfg.family == "encdec":
+            params = layout.shard_tree(api.init(0))
+        else:  # each rank keeps only its shard of each leaf as it is drawn
+            params = api.init(0, place=layout.place)
+        state = layout.init_state(params, opt)
+        say(f"mesh {mesh.mesh_shape} ({mesh.backend}): a rank holds "
+            f"{_bytes(state.params) / 2**20:.1f} MiB of params, "
+            f"{_bytes(state.opt_state) / 2**20:.1f} MiB of moments")
     data = SyntheticLMData(
         cfg.vocab_size, args.seq, args.global_batch,
         frontend=cfg.frontend, num_patches=cfg.num_patches,
@@ -135,7 +176,7 @@ def main(argv=None):
 
         step_fn = make_compiled_train_step(exe, cfg, opt, **kw)
     else:
-        step_fn = make_train_step(api.loss_fn, opt, **kw)
+        step_fn = make_train_step(api.loss_fn, opt, layout=layout, **kw)
     trainer = Trainer(
         train_step=step_fn,
         data=data,
@@ -146,7 +187,31 @@ def main(argv=None):
     )
     state = trainer.restore_or_init(state)
     state, hist = trainer.run(state, args.steps)
-    print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    say(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _mesh(args, world: int):
+    """The ``(data, model)`` mesh over the world the environment
+    describes (``torch.distributed.run``)."""
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    if world % args.mesh_model:
+        raise SystemExit(f"{world} ranks do not split into --mesh-model {args.mesh_model}")
+    data = args.mesh_data or world // args.mesh_model
+    if data * args.mesh_model != world:
+        raise SystemExit(f"a ({data}, {args.mesh_model}) mesh needs {data * args.mesh_model} "
+                         f"ranks; the world has {world} (torch.distributed.run "
+                         f"--nproc-per-node)")
+    init_world(args.device)
+    return make_mesh((data, args.mesh_model), ("data", "model"), device=args.device)
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 if __name__ == "__main__":

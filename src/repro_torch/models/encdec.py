@@ -56,7 +56,14 @@ from repro_torch.models.common import (
     mlp_init,
     rmsnorm,
 )
-from repro_torch.models.transformer import _index, _unstack, slot_positions
+from repro_torch.models.transformer import (
+    Gather,
+    _index,
+    _unstack,
+    gathered,
+    no_gather,
+    slot_positions,
+)
 
 
 def encdec_init(cfg, *, seed: int = 0,
@@ -109,34 +116,44 @@ def _run_layers(layer, stacked: Params, n: int, x: torch.Tensor, *args,
     return x
 
 
-def encode(params: Params, frames: torch.Tensor, cfg, *, remat: bool = True) -> torch.Tensor:
+def _top(params: Params, gather: Gather, *names: str) -> Params:
+    """The named top-level leaves, through ``gather``."""
+    return gather((), {k: params[k] for k in names}, False)
+
+
+def encode(params: Params, frames: torch.Tensor, cfg, *, remat: bool = True,
+           gather: Gather = no_gather) -> torch.Tensor:
     """``frames [B, S_enc, d]`` through the encoder stack (non-causal
     self-attention, rope at ``0..S_enc-1``) and ``enc_norm``; with
-    ``remat`` each layer is recomputed in the backward."""
+    ``remat`` each layer is recomputed in the backward. ``gather``: as
+    ``transformer.lm_forward``'s."""
     with scope(Scope.DEVICE):
-        x = _run_layers(functools.partial(_enc_layer, cfg=cfg), params["enc_blocks"],
-                        cfg.encoder_layers, frames, remat=remat)
-        return rmsnorm(x, params["enc_norm"])
+        layer = gathered(functools.partial(_enc_layer, cfg=cfg), gather, ("enc_blocks",))
+        x = _run_layers(layer, params["enc_blocks"], cfg.encoder_layers, frames, remat=remat)
+        return rmsnorm(x, _top(params, gather, "enc_norm")["enc_norm"])
 
 
 def decode_train(params: Params, tokens: torch.Tensor, enc: torch.Tensor, cfg, *,
-                 remat: bool = True) -> torch.Tensor:
+                 remat: bool = True, gather: Gather = no_gather) -> torch.Tensor:
     """The decoder over the whole of ``tokens [B, S]`` (causal
     self-attention, cross-attention to ``enc [B, S_enc, d]``) -> logits
     ``[B, S, V]``; with ``remat`` each layer is recomputed in the
     backward. ``enc`` feeds every layer, so its grad sums theirs."""
-    x = params["embed"][tokens]
+    top = _top(params, gather, "embed", "final_norm", "lm_head")
+    x = top["embed"][tokens]
     with scope(Scope.DEVICE):
-        x = _run_layers(functools.partial(_dec_layer, cfg=cfg), params["dec_blocks"],
-                        cfg.num_layers, x, enc, remat=remat)
-        return linear(rmsnorm(x, params["final_norm"]), params["lm_head"])
+        layer = gathered(functools.partial(_dec_layer, cfg=cfg), gather, ("dec_blocks",))
+        x = _run_layers(layer, params["dec_blocks"], cfg.num_layers, x, enc, remat=remat)
+        return linear(rmsnorm(x, top["final_norm"]), top["lm_head"])
 
 
-def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+def encdec_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
+                gather: Gather = no_gather) -> torch.Tensor:
     """The cross entropy of :func:`decode_train` over :func:`encode` of
     ``batch["frames"]``, against ``batch["labels"]``."""
-    enc = encode(params, batch["frames"], cfg)
-    return cross_entropy_loss(decode_train(params, batch["tokens"], enc, cfg), batch["labels"])
+    enc = encode(params, batch["frames"], cfg, gather=gather)
+    logits = decode_train(params, batch["tokens"], enc, cfg, gather=gather)
+    return cross_entropy_loss(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ class ModelAPI:
     cache_init: Callable[[int, int], Any]      # (batch, max_seq) -> cache
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
-    loss_fn: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]  # (params, batch) -> loss
+    loss_fn: Callable[..., torch.Tensor]  # (params, batch, gather=...) -> loss
 
     def make_train_batch(self, seed: int, batch: int, seq: int) -> Dict[str, torch.Tensor]:
         """A synthetic batch on the model's device: ``tokens`` and
@@ -97,7 +97,7 @@ def build_model(cfg: ModelConfig, *,
                                                                     device=dev),
             prefill=lambda p, batch, c: encdec_mod.prefill(p, batch, c, cfg),
             decode_step=lambda p, t, c, pos: encdec_mod.decode_step(p, t, c, pos, cfg),
-            loss_fn=lambda p, batch: encdec_mod.encdec_loss(p, batch, cfg),
+            loss_fn=lambda p, batch, **kw: encdec_mod.encdec_loss(p, batch, cfg, **kw),
         )
     tf_mod.check_family(cfg)
     return ModelAPI(
@@ -107,5 +107,5 @@ def build_model(cfg: ModelConfig, *,
         cache_init=lambda batch, max_seq: tf_mod.cache_init(cfg, batch, max_seq, device=dev),
         prefill=lambda p, batch, c: tf_mod.prefill(p, batch, c, cfg),
         decode_step=lambda p, t, c, pos: tf_mod.decode_step(p, t, c, pos, cfg),
-        loss_fn=lambda p, batch: tf_mod.lm_loss(p, batch, cfg),
+        loss_fn=lambda p, batch, **kw: tf_mod.lm_loss(p, batch, cfg, **kw),
     )

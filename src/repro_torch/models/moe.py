@@ -14,9 +14,16 @@ deterministic: the dispatch copies each kept assignment to its own row
 (the dropped ones all land in a drop row that is sliced off), and the
 combine gathers each token's k rows and adds them one after another in
 the order of their experts, in the activation dtype, as the
-reference's scatter-add does. Expert parallelism (the reference's
-``moe_apply_expert_parallel``) comes with the multi-GPU slice
-(``ROADMAP.md`` A14).
+reference's scatter-add does.
+
+Under a mesh context (``train.act_sharding.mesh_context``) with a
+``model`` axis whose size divides the experts, :func:`moe_apply` takes
+the expert-parallel layer (:func:`moe_apply_expert_parallel`, the
+reference's): each rank routes its own tokens, one all-to-all over
+``model`` brings every expert's buffer to the rank that holds it, B5
+runs the rank's ``E / ep`` experts, and one all-to-all takes the outputs
+back. The capacity comes from the rank's own token count, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -25,9 +32,11 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective as coll
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.kernels import programs
 from repro_torch.models.common import Params, dense_init, keep_as_is
+from repro_torch.train.act_sharding import constrain, current_mesh
 
 #: experts drawn per f32 temporary in :func:`moe_init` (16 experts of
 #: qwen3-moe-235b-a22b: 0.4 GB, against 25.8 GB for a whole stacked leaf)
@@ -142,17 +151,97 @@ def local_combine(out: torch.Tensor, meta: Dict[str, Any], t: int, d: int) -> to
     return y
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]; the capacity is taken over all B·S
-    tokens of the call."""
+def _expert_ffn(buf: torch.Tensor, wg, wu, wo) -> torch.Tensor:
+    """The SwiGLU expert FFN over ``buf [E, C, d]``: three B5 products."""
+    with scope(Scope.DEVICE):
+        hg = programs.moe_gemm(buf, wg)
+        hu = programs.moe_gemm(buf, wu)
+        h = constrain(F.silu(hg) * hu, "experts", None, None)
+        return constrain(programs.moe_gemm(h, wo), "experts", None, None)
+
+
+#: what this rank's expert-parallel layers sent through the all-to-all
+#: since :func:`reset_ep_counts`: the layer's forward calls (a
+#: rematerialised layer runs twice a step), the capacity-buffer rows sent
+#: to other ranks (each way), and the routed (token, expert) assignments
+#: among them (a device tensor, read by :func:`ep_counts`)
+_EP_COUNTS: Dict[str, Any] = {"calls": 0, "rows_sent": 0, "routed_sent": None}
+
+
+def ep_counts() -> Dict[str, int]:
+    routed = _EP_COUNTS["routed_sent"]
+    return {"calls": _EP_COUNTS["calls"], "rows_sent": _EP_COUNTS["rows_sent"],
+            "routed_sent": 0 if routed is None else int(routed)}
+
+
+def reset_ep_counts() -> None:
+    _EP_COUNTS.update(calls=0, rows_sent=0, routed_sent=None)
+
+
+def _count_sent(meta, e: int, ep: int, m: int) -> None:
+    """Count one layer call's traffic (no host sync: the routed count
+    stays on the device until :func:`ep_counts`)."""
+    c = meta["c"]
+    owner = torch.div(meta["dst"], c * (e // ep), rounding_mode="floor")
+    routed = (meta["keep"] & (owner != m)).sum()
+    _EP_COUNTS["calls"] += 1
+    _EP_COUNTS["rows_sent"] += e * c * (ep - 1) // ep
+    prev = _EP_COUNTS["routed_sent"]
+    _EP_COUNTS["routed_sent"] = routed if prev is None else prev + routed
+
+
+def moe_apply_expert_parallel(p: Params, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """This rank's tokens ``x [b, s, d]`` through the experts: the rank
+    routes and sorts its own tokens (capacity from its ``b·s``), one
+    all-to-all over ``model`` moves the ``[E, C, d]`` buffer's expert
+    chunks to their owners (``[E / ep, C·ep, d]`` arrives), B5 runs the
+    experts this rank holds (``p``'s expert leaves ``[E / ep, ...]``, the
+    chunk at its ``model`` coordinate; the router whole), and one
+    all-to-all takes the outputs back for the combine. Differentiable:
+    the all-to-alls' gradients are all-to-alls, and an expert's gradient
+    gathers every ``model`` rank's tokens on its owner."""
+    ep = mesh.axis_size("model")
+    e = cfg.num_experts
+    if p["wg"].shape[0] * ep != e:
+        raise ValueError(f"expert parallelism over model={ep}: a rank holds {e // ep} of "
+                         f"{e} experts, got expert leaves of {p['wg'].shape[0]}")
     b, s, d = x.shape
     t = b * s
-    xf = x.reshape(t, d)
-    buf, meta = local_dispatch(xf, p["router"], num_experts=cfg.num_experts,
+    with coll.use_mesh(mesh):
+        buf, meta = local_dispatch(x.reshape(t, d), p["router"], num_experts=e,
+                                   experts_per_tok=cfg.experts_per_tok,
+                                   capacity=capacity(t, cfg))
+        _count_sent(meta, e, ep, mesh.axis_index("model"))
+        bufx = coll.all_to_all(buf, "model", 0, 1)              # [E/ep, C*ep, d]
+        out = _expert_ffn(bufx, p["wg"], p["wu"], p["wo"])
+        back = coll.all_to_all(out, "model", 1, 0)              # [E, C, d]
+    return local_combine(back, meta, t, d).view(b, s, d).to(x.dtype)
+
+
+def _ep_eligible(x, cfg, mesh) -> bool:
+    """Whether :func:`moe_apply` takes the expert-parallel layer on
+    ``mesh``: it has a ``model`` axis whose size divides the experts.
+    The reference also asks its global batch and sequence to split over
+    the mesh (its ``shard_map`` cuts the sequence over ``model``); a rank
+    of the port holds whole rows of its own, so ``x`` is not asked."""
+    if mesh is None:
+        return False
+    ms = mesh.mesh_shape
+    return "model" in ms and cfg.num_experts % ms["model"] == 0
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]; the capacity is taken over all B·S
+    tokens of the call. Under a mesh context the expert-parallel layer
+    where it is eligible (:func:`_ep_eligible`)."""
+    mesh = current_mesh()
+    if _ep_eligible(x, cfg, mesh):
+        return moe_apply_expert_parallel(p, x, cfg, mesh)
+    b, s, d = x.shape
+    t = b * s
+    buf, meta = local_dispatch(x.reshape(t, d), p["router"], num_experts=cfg.num_experts,
                                experts_per_tok=cfg.experts_per_tok,
                                capacity=capacity(t, cfg))
-    with scope(Scope.DEVICE):
-        hg = programs.moe_gemm(buf, p["wg"])
-        hu = programs.moe_gemm(buf, p["wu"])
-        out = programs.moe_gemm(F.silu(hg) * hu, p["wo"])
-    return local_combine(out, meta, t, d).view(b, s, d).to(x.dtype)
+    out = _expert_ffn(constrain(buf, "experts", None, None), p["wg"], p["wu"], p["wo"])
+    y = local_combine(out, meta, t, d).view(b, s, d).to(x.dtype)
+    return constrain(y, "batch", "seq_res", None)

@@ -254,25 +254,52 @@ def _super_apply(sp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     return x
 
 
+#: ``gather(prefix, tree, stacked)``: the full leaves of a subtree of
+#: params at path ``prefix`` (``stacked``: one layer's slice of stacked
+#: leaves, their first dim gone) — how a train step on a mesh hands the
+#: model its shards (``train.train_loop.ShardedLayout.gather``)
+Gather = Callable[[Tuple[str, ...], Params, bool], Params]
+
+
+def no_gather(_prefix, tree: Params, _stacked: bool) -> Params:
+    return tree
+
+
+def gathered(body: Callable, gather: Gather, prefix: Tuple[str, ...]) -> Callable:
+    """``body(params, *args)`` that first gathers its layer's params
+    (inside a rematerialised body: the full leaves live for its forward
+    and are gathered again for the recompute)."""
+    if gather is no_gather:
+        return body
+    return lambda p, *args: body(gather(prefix, p, True), *args)
+
+
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
-               remat: bool = True) -> torch.Tensor:
+               remat: bool = True, gather: Gather = no_gather) -> torch.Tensor:
     """tokens ``[B, S]`` (+ patches) -> logits ``[B, S, V]``: one Python
     loop over the super-blocks (the JAX package's ``lax.scan``), each
     rematerialised in the backward under :data:`REMAT_POLICY` when
-    ``remat``."""
+    ``remat``. ``gather`` (:data:`Gather`) takes the embedding before
+    the loop, each super-block's leaves inside its body and the head's
+    after it."""
     check_family(cfg)
     n_super, _ = _superblock_shape(cfg)
-    body = functools.partial(_super_apply, cfg=cfg)
+    body = gathered(functools.partial(_super_apply, cfg=cfg), gather, ("blocks",))
     with scope(Scope.DEVICE):
-        x = _embed_inputs(params, batch, cfg)
+        # the input leaves, then the head's: each gathered where it is used
+        x = _embed_inputs(gather((), {k: params[k] for k in ("embed", "mm_proj")
+                                      if k in params}, False), batch, cfg)
         for sp in _unstack(params["blocks"], n_super):
             x = _remat(body, sp, x) if remat else body(sp, x)
-        x = rmsnorm(x, params["final_norm"])
-        return linear(x, _head(params, cfg))
+        top = gather((), {k: params[k] for k in ("embed", "final_norm", "lm_head")
+                          if k in params and (k != "embed" or cfg.tie_embeddings)}, False)
+        x = rmsnorm(x, top["final_norm"])
+        return linear(x, _head(top, cfg))
 
 
-def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
-    return cross_entropy_loss(lm_forward(params, batch, cfg), batch["labels"])
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
+            gather: Gather = no_gather) -> torch.Tensor:
+    return cross_entropy_loss(lm_forward(params, batch, cfg, gather=gather), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -2,22 +2,27 @@
 (``repro/optim/grad_compress.py``): int8 with a per-tensor scale, and
 error feedback so the quantization bias does not accumulate.
 
-On one card the train step's ``compress_pod_grads`` runs
-:func:`quantize_dequantize` on every grad, the reference's stand-in for
-the int8 all-reduce; :func:`compressed_psum`, the all-reduce itself,
-needs a collective and waits for the multi-GPU slice.
+The train step's ``compress_pod_grads`` runs :func:`quantize_dequantize`
+on every grad, the reference's stand-in for the int8 all-reduce (on a
+mesh with the scale of the whole leaf: ``train.train_loop``);
+:func:`compressed_psum` is the all-reduce itself, over a mesh axis:
+int8 values summed as int32 on the wire, dequantized with the largest
+scale of the ranks.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.core.tree import tree_map
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = x.abs().max() / 127.0 + 1e-12
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 values and the per-tensor scale ``max|x| / 127``; ``amax``
+    stands for ``max|x|`` where ``x`` is a shard of the tensor."""
+    scale = (x.abs().max() if amax is None else amax) / 127.0 + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -39,16 +44,21 @@ def decompress_tree(tree: Any) -> Any:
     return dequantize_int8(*tree)
 
 
-def quantize_dequantize(x: torch.Tensor) -> torch.Tensor:
-    q, s = quantize_int8(x.float())
+def quantize_dequantize(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    q, s = quantize_int8(x.float(), amax)
     return dequantize_int8(q, s).to(x.dtype)
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    raise NotImplementedError(
-        "compressed_psum is an int8 all-reduce across cards: the multi-GPU slice, "
-        "ROADMAP.md A14"
-    )
+def compressed_psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """int8 all-reduce over ``axis_name`` of the current mesh (one axis or
+    a tuple): quantize, sum in int32, dequantize with the max scale
+    (conservative), as the reference's does inside ``shard_map``."""
+    from repro_torch.core import collective as coll
+
+    q, s = quantize_int8(x.float())
+    total = coll.all_reduce(q.to(torch.int32), axis_name)
+    smax = coll.all_reduce(s, axis_name, op="max")
+    return total.float() * smax
 
 
 def error_feedback_update(grad: torch.Tensor, residual: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

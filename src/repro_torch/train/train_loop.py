@@ -8,17 +8,36 @@ package's launcher jits it with the state donated, this one updates the
 state's tensors in place (``AdamW.step_``, leaf by leaf: one 80 GB card
 holds qwen3-4b's params, f32 moments and grads, not a second copy of
 them) and returns it. A state handed to the step is consumed.
+
+On a device mesh (:class:`ShardedLayout`, ``make_train_step(layout=)``)
+the step computes what the reference's sharded step computes — the
+single device's loss and gradients — with each rank holding only its
+shards: params by ``rules.param_specs(fsdp=True)``, the AdamW moments by
+``rules.opt_specs(zero1=True)``. The batch's rows are split over every
+axis of the mesh. Each leaf is gathered where the model uses it (a
+super-block's inside its rematerialised body: freed after the forward,
+gathered again for the recompute) by a differentiable all-gather whose
+gradient is the reduce-scatter onto the rank's shard, summed over the
+axes the leaf is replicated on; an expert leaf under expert parallelism
+stays the rank's ``E / ep`` experts. The global norm counts each element
+once, AdamW updates the rank's moment slice, and the updated param
+slice is gathered back to the param layout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.tree import leaves, unflatten
-from repro_torch.optim.adamw import AdamW, AdamWState, clip_scale, global_norm
+from repro_torch.axe import rules
+from repro_torch.axe.spec import AxeSpec, PhysicalSpace
+from repro_torch.core import collective as coll
+from repro_torch.core.dtensor import NamedSharding
+from repro_torch.core.tree import leaves, leaves_with_paths, unflatten
+from repro_torch.optim.adamw import CHUNK, AdamW, AdamWState, clip_scale, global_norm
 from repro_torch.optim.grad_compress import quantize_dequantize
 
 
@@ -51,12 +70,13 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 
 def make_train_step(
-    loss_fn: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor],
+    loss_fn: Callable[..., torch.Tensor],
     optimizer: AdamW,
     *,
     microbatches: int = 1,
     max_grad_norm: float = 1.0,
     compress_pod_grads: bool = False,
+    layout: Optional["ShardedLayout"] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], tuple]:
     """The train step ``(state, batch) -> (state, metrics)``.
 
@@ -64,38 +84,281 @@ def make_train_step(
     accumulated in f32 (memory ↓, same math); with one the grads keep
     the params' dtype, as the reference's. compress_pod_grads: int8
     quantize-dequantize of every grad before the optimizer, the
-    reference's stand-in for the cross-pod int8 all-reduce."""
-    grads_of = value_and_grad(loss_fn)
+    reference's stand-in for the cross-pod int8 all-reduce.
+
+    ``layout``: the step of one rank of a mesh (module docstring): the
+    state holds the rank's shards (:meth:`ShardedLayout.init_state`),
+    the batch the rank's rows (``data.sharded_batch_at``), and
+    ``loss_fn(params, batch, gather=)`` takes the layout's gather."""
+    if layout is not None:
+        grads_of = layout.value_and_grad(loss_fn)
+        enter, norm_of, compress = layout.context, layout.global_norm, layout.quantize_dequantize
+        update_ = layout.adamw_step_
+    else:
+        grads_of = value_and_grad(loss_fn)
+        enter, norm_of = contextlib.nullcontext, global_norm
+        compress = lambda g: unflatten(g, [quantize_dequantize(x) for x in leaves(g)])  # noqa: E731
+        update_ = lambda opt, *a, **kw: opt.step_(*a, **kw)  # noqa: E731
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
-        if microbatches > 1:
-            split = {k: v.chunk(microbatches) if v.shape[0] % microbatches == 0 else None
-                     for k, v in batch.items()}
-            bad = [k for k, v in split.items() if v is None]
-            if bad:
-                raise ValueError(f"batch leading dims of {bad} do not split into "
-                                 f"{microbatches} microbatches")
-            loss, acc = None, None
-            for i in range(microbatches):
-                l, g = grads_of(params, {k: v[i] for k, v in split.items()})
-                g = [x.float() / microbatches for x in leaves(g)]
-                acc = g if acc is None else [a + b for a, b in zip(acc, g)]
-                loss = l / microbatches if loss is None else loss + l / microbatches
-            grads = unflatten(params, acc)
-        else:
-            loss, grads = grads_of(params, batch)
+        with enter():
+            if microbatches > 1:
+                split = {k: v.chunk(microbatches) if v.shape[0] % microbatches == 0 else None
+                         for k, v in batch.items()}
+                bad = [k for k, v in split.items() if v is None]
+                if bad:
+                    raise ValueError(f"batch leading dims of {bad} do not split into "
+                                     f"{microbatches} microbatches")
+                loss, acc = None, None
+                for i in range(microbatches):
+                    l, g = grads_of(params, {k: v[i] for k, v in split.items()})
+                    g = [x.float() / microbatches for x in leaves(g)]
+                    acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+                    loss = l / microbatches if loss is None else loss + l / microbatches
+                grads = unflatten(params, acc)
+            else:
+                loss, grads = grads_of(params, batch)
+            if layout is not None:
+                loss = coll.all_reduce(loss, layout.mesh.axis_names)
 
-        if compress_pod_grads:
-            grads = unflatten(grads, [quantize_dequantize(g) for g in leaves(grads)])
+            if compress_pod_grads:
+                grads = compress(grads)
 
-        grad_norm = global_norm(grads)
-        opt_state = optimizer.step_(params, grads, state.opt_state,
-                                    clip_scale=clip_scale(grad_norm, max_grad_norm))
+            grad_norm = norm_of(grads)
+            opt_state = update_(optimizer, params, grads, state.opt_state,
+                                clip_scale=clip_scale(grad_norm, max_grad_norm))
         metrics = {"loss": loss, "grad_norm": grad_norm}
         return TrainState(params, opt_state, state.step + 1), metrics
 
+    train_step.layout = layout
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the state on a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _LeafPlan:
+    param: AxeSpec                      # the leaf's placement
+    moment: AxeSpec                     # its AdamW moments' (ZeRO-1)
+    gathers: Tuple[Tuple[int, Tuple[str, ...]], ...]   # (dim, axes) gathered at use
+    sum_axes: Tuple[str, ...]           # axes its gradient is summed over
+    shard_axes: Tuple[str, ...]         # axes its shards are spread over
+    zero: Optional[Tuple[int, Tuple[str, ...]]]  # (dim, axes) the moments add
+
+
+class ShardedLayout:
+    """Where a train state lives on ``mesh`` (a ``launch.mesh.Mesh``), for
+    :func:`make_train_step`'s step on one of its ranks.
+
+    A leaf at a dotted path takes ``rules.param_spec(fsdp=True)`` (the port's
+    flattened heads unflattened for the rules, ``head_dim``) and its
+    moments ``rules.zero1_extend`` of that (``opt_specs(zero1=)``). The
+    batch's rows split over every axis of the mesh (:attr:`batch_pspec`):
+    each rank then routes its own rows in an MoE layer before the
+    all-to-all over ``model``, with the reference's local token count,
+    and runs no dense layer twice. ``ep``: the expert leaves (``moe.wg``,
+    ``wu``, ``wo``) keep their ``model`` shard, the rank's experts, for
+    ``models.moe.moe_apply_expert_parallel``.
+
+    Specs are worked out per leaf as the leaves come (:meth:`place`,
+    :meth:`shard_tree`), from their global shapes."""
+
+    def __init__(self, mesh, *, head_dim: Optional[int] = None, ep: bool = False,
+                 zero1: bool = True):
+        self.mesh, self.head_dim, self.ep, self.zero1 = mesh, head_dim, ep, zero1
+        self.space = PhysicalSpace.from_mesh_shape(mesh.mesh_shape)
+        #: the batch's rows over every axis of the mesh
+        self.batch_pspec = (tuple(mesh.axis_names),)
+        self._plans: Dict[str, _LeafPlan] = {}
+
+    @classmethod
+    def for_model(cls, mesh, cfg, **kw) -> "ShardedLayout":
+        """The layout of ``cfg``'s params on ``mesh``: its head dim, and
+        expert parallelism where ``moe_apply`` takes it."""
+        from repro_torch.models import moe
+
+        return cls(mesh, head_dim=cfg.head_dim or None,
+                   ep=bool(cfg.is_moe) and moe._ep_eligible(None, cfg, mesh), **kw)
+
+    # -- specs ------------------------------------------------------------
+    def plan(self, path, shape=None, dtype: Optional[str] = None) -> _LeafPlan:
+        """The plan of the leaf at ``path`` (a key tuple or a dotted
+        string), worked out from its global ``shape`` the first time."""
+        ps = path if isinstance(path, str) else ".".join(str(k) for k in path)
+        if ps not in self._plans:
+            if shape is None:
+                raise KeyError(f"no layout for param leaf {ps!r} yet")
+            p = rules.param_spec(ps, tuple(shape), dtype or "float32", self.space,
+                                 fsdp=True, head_dim=self.head_dim)
+            o = rules.zero1_extend(p) if self.zero1 else p
+            pl, ol = p.placement(), o.placement()
+            kept = set()
+            if self.ep and rules.rule_key(ps) in ("moe.wg", "moe.wu", "moe.wo"):
+                e_dim = len(pl) - 3
+                if pl[e_dim] == ("model",):
+                    kept.add(e_dim)
+            used = {a for axes in pl for a in axes}
+            ms = self.mesh.mesh_shape
+            zero = next(((d, ol[d]) for d in range(len(pl)) if ol[d] != pl[d]), None)
+            if zero is not None and pl[zero[0]]:
+                raise ValueError(f"{ps}: ZeRO-1 spec {ol} re-shards a sharded dim of {pl}")
+            self._plans[ps] = _LeafPlan(
+                param=p, moment=o,
+                gathers=tuple((d, axes) for d, axes in enumerate(pl) if axes and d not in kept),
+                sum_axes=tuple(a for a in self.mesh.axis_names if a not in used and ms[a] > 1),
+                shard_axes=tuple(a for a in self.mesh.axis_names if a in used),
+                zero=zero)
+        return self._plans[ps]
+
+    def sharding(self, spec: AxeSpec) -> NamedSharding:
+        from repro_torch.axe import lower
+
+        return lower.to_named_sharding(spec, self.mesh)
+
+    # -- placing a state ----------------------------------------------------
+    def place(self, path, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole param ``leaf`` at ``path``, on
+        the mesh's device (``lm_init(place=)``: a rank keeps only its
+        shard of each leaf as it is drawn)."""
+        plan = self.plan(path, leaf.shape, rules._dtype_str(leaf))
+        return self.sharding(plan.param).shard(leaf).to(self.mesh.device)
+
+    def shard_tree(self, params: Any) -> Any:
+        """This rank's shards of a whole param tree."""
+        return unflatten(params, [self.place(path, leaf)
+                                  for path, leaf in leaves_with_paths(params)])
+
+    def init_state(self, params: Any, optimizer: AdamW) -> TrainState:
+        """:func:`init_state` on the rank's param shards: the moments are
+        zeros of their ZeRO-1 shards."""
+        zeros = lambda path, p: torch.zeros(  # noqa: E731
+            self.sharding(self.plan(path).moment).shard_shape(self.plan(path).param.shape),
+            dtype=torch.float32, device=p.device)
+        paths = leaves_with_paths(params)
+        mu = unflatten(params, [zeros(path, p) for path, p in paths])
+        nu = unflatten(params, [zeros(path, p) for path, p in paths])
+        return TrainState(params, AdamWState(mu, nu, torch.zeros((), dtype=torch.int32,
+                                                                 device=self.mesh.device)),
+                          torch.zeros((), dtype=torch.int32, device=self.mesh.device))
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """A state whose leaves every rank holds whole -> the rank's
+        shards (params by their spec, moments by theirs)."""
+        params = self.shard_tree(state.params)
+        moments = [unflatten(m, [self.sharding(self.plan(path).moment).shard(t).to(
+            self.mesh.device) for path, t in leaves_with_paths(m)])
+                   for m in (state.opt_state.mu, state.opt_state.nu)]
+        dev = self.mesh.device
+        return TrainState(params, AdamWState(*moments, state.opt_state.count.to(dev)),
+                          state.step.to(dev))
+
+    def state_shardings(self, state: TrainState) -> TrainState:
+        """A :class:`TrainState` of ``NamedSharding`` trees (None for the
+        scalars, which every rank holds): what ``CheckpointManager``'s
+        ``save`` / ``restore`` take as ``shardings``."""
+        by = lambda which: lambda tree: unflatten(tree, [  # noqa: E731
+            self.sharding(getattr(self.plan(path), which)) for path, _ in leaves_with_paths(tree)])
+        return TrainState(by("param")(state.params),
+                          AdamWState(by("moment")(state.opt_state.mu),
+                                     by("moment")(state.opt_state.nu), None), None)
+
+    # -- the step -----------------------------------------------------------
+    @contextlib.contextmanager
+    def context(self):
+        """The mesh of the collectives and of the model code
+        (``act_sharding``), around a step's forward and backward."""
+        from repro_torch.train import act_sharding
+
+        with coll.use_mesh(self.mesh), act_sharding.mesh_context(self.mesh):
+            yield
+
+    def gather(self, prefix: Tuple[str, ...], tree: Any, stacked: bool) -> Any:
+        """The full leaves of a subtree of shards at ``prefix`` (the
+        model's ``gather``): differentiable, each gradient landing on its
+        shard. ``stacked``: one layer's slice of stacked leaves."""
+        def one(path, leaf):
+            plan = self.plan(tuple(prefix) + tuple(path))
+            gathers = plan.gathers
+            if stacked:
+                if plan.param.placement()[0]:
+                    raise ValueError(f"{prefix + tuple(path)}: the stacked dim is sharded")
+                gathers = tuple((d - 1, axes) for d, axes in gathers)
+            return coll.gather_leaf(leaf, gathers, plan.sum_axes)
+
+        return rules.map_with_path(one, tree)
+
+    def value_and_grad(self, loss_fn: Callable) -> Callable:
+        """:func:`value_and_grad` on this rank, inside :meth:`context`:
+        ``loss_fn(params, batch, gather=)`` of the rank's shards and rows
+        over the world's size, so that the gradients the gathers'
+        transposes sum are the global mean loss's, each on the rank's
+        shard; the loss is the rank's part (all-reduce it for the whole)."""
+        n = self.mesh.world
+        return value_and_grad(lambda p, b: loss_fn(p, b, gather=self.gather) / n)
+
+    def _grouped(self, grads: Any, value) -> List[Tuple[Tuple[str, ...], List[torch.Tensor]]]:
+        """``value(grad)`` per leaf, grouped by the axes the leaf's shards
+        are spread over, groups in one order on every rank."""
+        groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for path, g in leaves_with_paths(grads):
+            groups.setdefault(self.plan(path).shard_axes, []).append(value(path, g))
+        return sorted(groups.items())
+
+    def global_norm(self, grads: Any) -> torch.Tensor:
+        """The f32 norm of the whole gradient: each rank's sum of squares
+        of its shards, summed over the axes that shard each leaf (and not
+        over those it is replicated on)."""
+        def sumsq(_path, g):
+            return sum(c.float().square().sum() for c in g.reshape(-1).split(CHUNK))
+
+        total = None
+        for axes, parts in self._grouped(grads, sumsq):
+            s = torch.stack(parts).sum()
+            s = coll.all_reduce(s, axes) if axes else s
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+
+    def quantize_dequantize(self, grads: Any) -> Any:
+        """``compress_pod_grads`` on shards: each leaf's int8 scale from
+        its largest magnitude over the whole leaf (the max over the ranks
+        that shard it), so every element comes out as on one device."""
+        amax: Dict[str, torch.Tensor] = {}
+        for axes, parts in self._grouped(grads, lambda path, g: (path, g.float().abs().max())):
+            local = torch.stack([m for _, m in parts])
+            every = coll.all_reduce(local, axes, op="max") if axes else local
+            for (path, _), m in zip(parts, every):
+                amax[".".join(path)] = m
+        return unflatten(grads, [quantize_dequantize(g, amax[".".join(path)])
+                                 for path, g in leaves_with_paths(grads)])
+
+    def adamw_step_(self, optimizer: AdamW, params: Any, grads: Any, state: AdamWState, *,
+                    clip_scale: Optional[torch.Tensor] = None) -> AdamWState:
+        """``optimizer.step_`` on the rank's moment slices: a leaf whose
+        moments ZeRO-1 splits further updates its slice of the param
+        shard, which is then gathered back over those axes."""
+        ps, gs, sliced = [], [], []
+        for (path, p), g in zip(leaves_with_paths(params), leaves(grads)):
+            zero = self.plan(path).zero
+            if zero is None:
+                ps.append(p)
+                gs.append(g)
+                continue
+            dim, axes = zero
+            c = p.shape[dim] // self.mesh.axis_size(axes)
+            start = self.mesh.axis_index(axes) * c
+            ps.append(p.narrow(dim, start, c).contiguous())
+            gs.append(g.narrow(dim, start, c).contiguous())
+            sliced.append((p, len(ps) - 1, dim, axes))
+        new = optimizer.step_(ps, gs, AdamWState(leaves(state.mu), leaves(state.nu), state.count),
+                              clip_scale=clip_scale)
+        with coll.use_mesh(self.mesh):
+            for p, i, dim, axes in sliced:
+                p.copy_(coll.all_gather(ps[i], axes, dim))
+        return AdamWState(state.mu, state.nu, new.count)
 
 
 def make_compiled_train_step(executable, cfg, optimizer: AdamW, **kwargs) -> Callable:
@@ -140,10 +403,22 @@ class Trainer:
 
             tune.use_cache(self.tune_cache_path)
 
+    @property
+    def layout(self) -> Optional[ShardedLayout]:
+        """On a mesh: the step's :class:`ShardedLayout`
+        (``make_train_step(layout=)``); batches then come from
+        ``data.sharded_batch_at`` and checkpoints save and restore shards."""
+        return getattr(self.train_step, "layout", None)
+
+    def _shardings(self, state: TrainState):
+        return None if self.layout is None else self.layout.state_shardings(state)
+
     def restore_or_init(self, state: TrainState) -> TrainState:
+        """The latest checkpoint (on a mesh: each rank's shards of it), or
+        ``state`` where there is none."""
         if self.checkpoint_manager is None:
             return state
-        restored = self.checkpoint_manager.restore_latest(state)
+        restored = self.checkpoint_manager.restore_latest(state, self._shardings(state))
         return restored if restored is not None else state
 
     def run(self, state: TrainState, num_steps: int, *, batch_fn=None) -> tuple:
@@ -154,7 +429,12 @@ class Trainer:
         start_step = int(state.step)
         device = state.step.device
         for step in range(start_step, start_step + num_steps):
-            batch = batch_fn(step) if batch_fn else self.data.torch_batch_at(step, device)
+            if batch_fn:
+                batch = batch_fn(step)
+            elif self.layout is not None:
+                batch = self.data.sharded_batch_at(step, self.layout.mesh, self.layout.batch_pspec)
+            else:
+                batch = self.data.torch_batch_at(step, device)
             t0 = time.monotonic()
             state, metrics = self.train_step(state, batch)
             values = {k: float(v) for k, v in metrics.items()}
@@ -168,7 +448,7 @@ class Trainer:
                 self.checkpoint_manager is not None
                 and (step + 1) % self.checkpoint_every == 0
             ):
-                self.checkpoint_manager.save(state, step + 1)
+                self.checkpoint_manager.save(state, step + 1, shardings=self._shardings(state))
                 if self.tune_cache_path is not None:
                     from repro_torch import tune
 

@@ -1197,3 +1197,23 @@ def test_mesh_of_two_ranks_on_one_card(cuda):
             want = (a @ b)[cm["rank"] * rows:(cm["rank"] + 1) * rows]
             np.testing.assert_allclose(got, want.numpy(), **tol(dtype))
             assert cm["launches"][key] == (p if impl == "ring" else 1), key
+
+
+def test_sharded_train_step_of_four_ranks_on_one_card(cuda):
+    """Four ranks share the card over gloo on a ``(2, 2)`` ``("data",
+    "model")`` mesh: the sharded step of smoke qwen3-moe (f32, 8 experts,
+    drop-free; expert parallelism over ``model``) holds the single-rank
+    step's loss within 1e-3 and every leaf's grad within 1e-2 on the
+    card (``tests/test_distributed_equiv.py``'s bounds), B5 launching 12
+    times a MoE layer (forward, recompute, dX and dW) on every rank, the
+    transfers staged through the host."""
+    import torch_mesh_ranks
+    from repro_torch.launch.mesh import spawn
+
+    ranks = spawn(torch_mesh_ranks.gpu_train_checks, (2, 2), ("data", "model"), device="cuda",
+                  timeout_s=300, verbose=False)
+    for r in ranks:
+        assert abs(r["loss"] - r["loss_ref"]) <= 1e-3, r
+        assert r["grad_max_abs_err"] <= 1e-2, r
+        assert r["b5"] == 12 * r["layers"], r
+        assert r["counts"]["staged"] > 0 and r["counts"]["staged"] == sum(r["counts"]["ops"].values())

@@ -32,5 +32,6 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"repro_torch.serve.engine", "repro_torch.serve.batcher", "repro_torch.axe.passes",
             "repro_torch.models.ssm", "repro_torch.launch.hlo_cost", "repro_torch.launch.dryrun",
             "repro_torch.launch.report", "repro_torch.launch.mesh", "repro_torch.core.ops",
-            "repro_torch.kernels.collective_matmul"} <= set(result["imported"])
+            "repro_torch.kernels.collective_matmul", "repro_torch.train.act_sharding",
+            "repro_torch.train.elastic", "repro_torch.train.pipeline"} <= set(result["imported"])
     assert result["bad"] == []

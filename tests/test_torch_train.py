@@ -173,10 +173,16 @@ def test_error_feedback_matches_jax_and_reduces_bias():
 
 
 def test_the_collective_halves_raise_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
+    """``compressed_psum`` and ``sharded_batch_at`` run on a mesh now
+    (``tests/test_torch_train_mesh.py``); off a mesh the collective says
+    where it runs. What A14 still holds of the training side, the host
+    tier, raises naming it."""
+    from repro_torch.launch import train as launch_train
+
+    with pytest.raises(RuntimeError, match="with mesh"):
         grad_compress.compressed_psum(torch.ones(4), "pod")
-    with pytest.raises(NotImplementedError, match="A14"):
-        SyntheticLMData(64, 8, 2).sharded_batch_at(0, None, None)
+    with pytest.raises(SystemExit, match="A14"):
+        launch_train.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--offload-opt"])
 
 
 @pytest.mark.parametrize("frontend", ["", "vision_stub", "audio_stub"])
@@ -449,6 +455,9 @@ def test_launch_train_cli_runs_on_the_cpu(capsys):
 def test_launch_train_refuses_the_multi_gpu_options():
     from repro_torch.launch import train as launch_train
 
-    for argv in (["--mesh-model", "2"], ["--mesh-data", "2"], ["--offload-opt"]):
-        with pytest.raises(SystemExit, match="A14"):
+    # mesh degrees run in a world of as many ranks (tests/test_torch_train_mesh.py);
+    # this process is a world of one
+    for argv, why in ((["--mesh-model", "2"], "ranks"), (["--mesh-data", "2"], "ranks"),
+                      (["--offload-opt"], "A14"), (["--host-degree", "2"], "--offload-opt")):
+        with pytest.raises(SystemExit, match=why):
             launch_train.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", *argv])

@@ -1,6 +1,7 @@
 """Rank bodies of the port's mesh tests: what each rank of a
-``launch.mesh.spawn`` world runs in ``tests/test_torch_collective.py``
-and ``tests/test_torch_mesh.py`` (and, on the card, in
+``launch.mesh.spawn`` world runs in ``tests/test_torch_collective.py``,
+``tests/test_torch_mesh.py``, ``tests/test_torch_train_mesh.py`` and
+``tests/test_torch_pipeline.py`` (and, on the card, in
 ``tests/test_torch_gpu.py``). A spawned rank imports this module by
 name, so it imports nothing of JAX: the parent hands every input over
 as numpy arrays or port tensors and compares what comes back."""
@@ -265,6 +266,290 @@ def gpu_checks(mesh):
     return {"steps": got, "cm": cm, "a": a, "b": b, "cases": [c[:6] for c in cases]}
 
 
-__all__ = ["collective_matmuls", "collective_world", "engine_generate", "executables",
-           "failing_rank", "gpu_checks", "ops_checks", "plan_steps", "serve_world"]
+# ---------------------------------------------------------------------------
+# training across ranks (tests/test_torch_train_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _rows(mesh, x: np.ndarray) -> np.ndarray:
+    """This rank's rows of ``x`` under the rows-over-every-axis split."""
+    n, i = mesh.world, mesh.axis_index(mesh.axis_names)
+    k = x.shape[0] // n
+    return x[i * k:(i + 1) * k]
+
+
+def ep_moe(mesh, cfg, x, p):
+    """``moe_apply`` under a mesh context: this rank's rows of ``x``, the
+    router whole and its ``E / ep`` experts; ``sum(y**2)`` over the rank's
+    rows differentiated, the router's gradient summed over every axis and
+    the experts' over ``data`` (the ranks that hold the same experts).
+    Returns the rank's rows of ``y`` and its gradients."""
+    from repro_torch.models import moe
+    from repro_torch.train import act_sharding
+
+    ep, m = mesh.axis_size("model"), mesh.axis_index("model")
+    e = cfg.num_experts // ep
+    leaves = {"router": torch.from_numpy(p["router"]).requires_grad_()}
+    for k in ("wg", "wu", "wo"):
+        leaves[k] = torch.from_numpy(p[k][m * e:(m + 1) * e].copy()).requires_grad_()
+    with mesh, act_sharding.mesh_context(mesh):
+        eligible = moe._ep_eligible(None, cfg, mesh)
+        used = {"router": coll.sum_grads(leaves["router"], mesh.axis_names)}
+        used |= {k: coll.sum_grads(leaves[k], "data") for k in ("wg", "wu", "wo")}
+        y = moe.moe_apply(used, torch.from_numpy(_rows(mesh, x).copy()), cfg)
+        (y.square().sum()).backward()
+    return {"eligible": eligible, "y": _np(y), "grads": {k: _np(v.grad) for k, v in leaves.items()},
+            "expert_slice": (m * e, (m + 1) * e)}
+
+
+def compressed(mesh, x):
+    """``compressed_psum`` of this rank's rows of ``x`` over ``data``, over
+    ``model`` and over both."""
+    from repro_torch.optim.grad_compress import compressed_psum
+
+    local = torch.from_numpy(_rows(mesh, x).copy())
+    with mesh:
+        return {name: compressed_psum(local, axes).numpy()
+                for name, axes in (("data", "data"), ("model", "model"),
+                                   ("both", ("data", "model")))}
+
+
+def sharded_batches(mesh, data_kw, step, pspecs):
+    from repro_torch.data.pipeline import SyntheticLMData
+
+    data = SyntheticLMData(**data_kw)
+    return {name: {k: v.numpy() for k, v in data.sharded_batch_at(step, mesh, ps).items()}
+            for name, ps in pspecs.items()}
+
+
+def _layout_and_state(mesh, cfg, params, lr):
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import ShardedLayout
+
+    layout = ShardedLayout.for_model(mesh, cfg)
+    shards = layout.shard_tree(_torch_tree(params))
+    opt = AdamW(learning_rate=lr)
+    return layout, layout.init_state(shards, opt), opt
+
+
+def drawn_shards_equal(mesh, cfg, params) -> bool:
+    """Whether the shards a rank keeps as ``lm_init(place=)`` draws each
+    leaf are the blocks of the one-process init (the parent's, seed 0)."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import ShardedLayout
+
+    layout = ShardedLayout.for_model(mesh, cfg)
+    drawn = build_model(cfg, device=mesh.device).init(0, place=layout.place)
+    return all(torch.equal(a, b) for a, b in zip(leaves(drawn),
+                                                  leaves(layout.shard_tree(_torch_tree(params)))))
+
+
+def first_step_grads(mesh, cfg, params, data_kw):
+    """The sharded step's gradients of its first step, before AdamW
+    (``ShardedLayout.value_and_grad``, what ``make_train_step`` runs):
+    the global loss, and this rank's shard of each leaf's gradient with
+    the leaf's placement."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import ShardedLayout
+
+    layout = ShardedLayout.for_model(mesh, cfg)
+    shards = layout.shard_tree(_torch_tree(params))
+    batch = SyntheticLMData(**data_kw).sharded_batch_at(0, mesh, layout.batch_pspec)
+    with layout.context():
+        loss, grads = layout.value_and_grad(build_model(cfg, device=mesh.device).loss_fn)(
+            shards, batch)
+        loss = coll.all_reduce(loss, mesh.axis_names)
+    return {"loss": float(loss),
+            "grads": {".".join(path): (_np(g), layout.plan(path).param.placement())
+                      for path, g in leaves_with_paths(grads)}}
+
+
+def _bytes_of(tree) -> int:
+    from repro_torch.core.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree) if t.dim())
+
+
+def _whole(layout, state):
+    """The state's params unsharded (every rank takes part)."""
+    from repro_torch.core.tree import leaves_with_paths
+
+    return {".".join(path): _np(layout.sharding(layout.plan(path).param).unshard(t))
+            for path, t in leaves_with_paths(state.params)}
+
+
+def _train(mesh, cfg, params, data_kw, lr, steps, *, compress=False, ckpt_dir=None,
+           restore=None):
+    """``steps`` sharded steps through ``Trainer.run`` (checkpoints each
+    step into ``ckpt_dir``); ``restore``: ``(dir, step)`` to resume from."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import Trainer, make_train_step
+
+    layout, state, opt = _layout_and_state(mesh, cfg, params, lr)
+    sizes = {"params": _bytes_of(state.params), "moments": _bytes_of(state.opt_state.mu)
+             + _bytes_of(state.opt_state.nu)}
+    if restore is not None:
+        state = CheckpointManager(restore[0]).restore(restore[1], state,
+                                                      layout.state_shardings(state))
+    step = make_train_step(build_model(cfg, device=mesh.device).loss_fn, opt, layout=layout,
+                           compress_pod_grads=compress)
+    trainer = Trainer(step, SyntheticLMData(**data_kw), checkpoint_every=1,
+                      checkpoint_manager=CheckpointManager(ckpt_dir, keep=steps)
+                      if ckpt_dir else None)
+    state, hist = trainer.run(state, steps)
+    return layout, state, hist, sizes
+
+
+def train_world(mesh, job):
+    """What ``tests/test_torch_train_mesh.py``'s ``(2, 4)`` world runs."""
+    cfg = job["cfg"]
+    out = {"coords": mesh.coords, "rank": mesh.rank}
+    out["ep"] = ep_moe(mesh, cfg, job["moe_x"], job["moe_p"])
+    out["compressed"] = compressed(mesh, job["cp_x"])
+    out["batches"] = sharded_batches(mesh, job["data"], 3, job["pspecs"])
+    out["drawn_shards_equal"] = drawn_shards_equal(mesh, cfg, job["params"])
+    out["first_step"] = first_step_grads(mesh, cfg, job["params"], job["data"])
+    for compress in (False, True):
+        layout, state, hist, sizes = _train(
+            mesh, cfg, job["params"], job["data"], job["lr"], job["steps"], compress=compress,
+            ckpt_dir=None if compress else job["ckpt_dir"])
+        key = "compress" if compress else "plain"
+        whole = _whole(layout, state)  # every rank takes part in the gathers
+        out[key] = {"losses": [h["loss"] for h in hist],
+                    "grad_norms": [h["grad_norm"] for h in hist],
+                    "params": whole if mesh.rank == 0 else None,
+                    "sizes": sizes}
+        if not compress:
+            out["expert_gathers"] = layout.plan("blocks.l0.moe.wg").gathers
+    return out
+
+
+def restart_world(mesh, job):
+    """The ``(1, 4)`` world after losing four ranks of the ``(2, 4)`` one:
+    the port's checkpoint of step ``job["resume"]`` restored and stepped
+    to ``job["steps"]``; a whole state resharded onto it; then, once the
+    JAX package has rewritten the port's checkpoint (``job["jax_dir"]``,
+    committed by its atomic rename), that restored onto it, each rank its
+    shards, with their placements."""
+    import os
+    import time
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train import elastic
+
+    cfg = job["cfg"]
+    spec = elastic.shrink_data_axis(elastic.MeshSpec((2, 4), ("data", "model")), 4)
+    new = elastic.make_mesh(spec, device=mesh.device)
+    layout, template, _ = _layout_and_state(new, cfg, job["params"], job["lr"])
+    # a state every rank holds whole, resharded onto the new mesh
+    from repro_torch.core.tree import leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import init_state
+
+    full = _torch_tree(job["params"])
+    resharded = elastic.reshard_state(init_state(full, AdamW()), full, new,
+                                      head_dim=cfg.head_dim)
+    placed = layout.shard_state(init_state(full, AdamW()))
+    reshard_equal = all(torch.equal(a, b) for a, b in zip(leaves(resharded), leaves(placed)))
+    reshard_equal &= [tuple(t.shape) for t in leaves(resharded)] == [
+        tuple(t.shape) for t in leaves(template)]
+    _, state, hist, _ = _train(new, cfg, job["params"], job["data"], job["lr"],
+                               job["steps"] - job["resume"],
+                               restore=(job["ckpt_dir"], job["resume"]))
+    whole = _whole(layout, state)
+    deadline = time.monotonic() + 300
+    while not os.path.isdir(os.path.join(job["jax_dir"], "step_%08d" % job["steps"])):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no checkpoint from the JAX package")
+        time.sleep(0.2)
+    back = CheckpointManager(job["jax_dir"]).restore(job["steps"], template,
+                                                     layout.state_shardings(template))
+    shards = {}
+    for name, tree, which in (("params", back.params, "param"),
+                              ("opt_state/mu", back.opt_state.mu, "moment"),
+                              ("opt_state/nu", back.opt_state.nu, "moment")):
+        for path, t in leaves_with_paths(tree):
+            spec_ = getattr(layout.plan(path), which)
+            shards[name + "/" + "/".join(path)] = (_np(t), spec_.placement())
+    return {"mesh": new.mesh_shape, "coords": new.coords, "shards": shards,
+            "resumed_step": int(state.step), "losses": [h["loss"] for h in hist],
+            "params": whole if new.rank == 0 else None, "reshard_equal": reshard_equal}
+
+
+# ---------------------------------------------------------------------------
+# the pipeline (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+
+def _tanh_stage(w, h):
+    """``tests/test_pipeline.py``'s stage: ``tanh(h @ w_i)`` over the
+    stage's layers."""
+    for wi in w.unbind(0):
+        h = torch.tanh(h @ wi)
+    return h
+
+
+def pipeline_world(mesh, w, x):
+    """``pipeline_apply`` of 4 stages over the ``("pipe",)`` world: the
+    outputs and the gradient of ``sum(out**2)`` for the stage weights
+    (this rank's stage), and the microbatches'."""
+    from repro_torch.train.pipeline import bubble_fraction, pipeline_apply, split_layers_into_stages
+
+    wt = torch.from_numpy(w).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    staged = split_layers_into_stages(wt, mesh.axis_size("pipe"))
+    out = pipeline_apply(_tanh_stage, staged, xt, mesh)
+    out.square().sum().backward()
+    s = mesh.axis_index("pipe")
+    per = w.shape[0] // mesh.axis_size("pipe")
+    return {"stage": s, "out": _np(out), "grad": _np(wt.grad), "x_grad": _np(xt.grad),
+            "own": (s * per, (s + 1) * per),
+            "bubble": bubble_fraction(x.shape[0], mesh.axis_size("pipe")),
+            "counts": coll.collective_counts()}
+
+
+def gpu_train_checks(mesh):
+    """The card test's training world: smoke qwen3-moe (f32, 8 experts,
+    drop-free) on a ``(2, 2)`` mesh of CUDA ranks: the sharded step's loss
+    and every leaf's grad against the single-rank step on the card, and
+    B5's launches in the sharded one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import ShardedLayout, value_and_grad
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-moe-235b-a22b")), num_experts=8,
+                              capacity_factor=8.0, dtype="float32")
+    dev = mesh.device
+    api = build_model(cfg, device=dev)
+    params = api.init(0)
+    layout = ShardedLayout.for_model(mesh, cfg)
+    shards = layout.shard_tree(params)
+    data = SyntheticLMData(cfg.vocab_size, 16, 8)
+    loss_ref, g_ref = value_and_grad(api.loss_fn)(params, data.torch_batch_at(0, dev))
+    programs.reset_launch_counts()
+    coll.reset_collective_counts()
+    with layout.context():
+        loss, grads = layout.value_and_grad(api.loss_fn)(
+            shards, data.sharded_batch_at(0, mesh, layout.batch_pspec))
+        loss = coll.all_reduce(loss, mesh.axis_names)
+    err = max(float((g - layout.sharding(layout.plan(path).param).shard(w)).abs().max())
+              for (path, g), (_, w) in zip(leaves_with_paths(grads), leaves_with_paths(g_ref)))
+    return {"loss": float(loss), "loss_ref": float(loss_ref), "grad_max_abs_err": err,
+            "b5": programs.launch_counts()["moe_gemm/expert_gemm"], "layers": cfg.num_layers,
+            "counts": coll.collective_counts()}
+
+
+__all__ = ["collective_matmuls", "collective_world", "compressed", "engine_generate", "ep_moe",
+           "executables", "failing_rank", "first_step_grads", "gpu_checks", "gpu_train_checks", "ops_checks", "pipeline_world",
+           "plan_steps", "restart_world", "serve_world", "sharded_batches", "train_world"]
 
