@@ -246,7 +246,8 @@ serving across ranks:
     [2432, 2560]`` a rank), ``ring`` and ``psum_scatter`` within ``TOL``
     of ``torch.matmul``, their partials on B1 (4 and 1 launches a rank,
     wgmma), CUDA-event ms of each, the partial alone and its bound;
-    (c) qwen3-4b at full width and depth on ``ServeEngine(mesh)``
+    (c) qwen3-4b at full width, 12 of its 36 layers (cut to make room
+    for phase 26), on ``ServeEngine(mesh)``
     (weights drawn leaf by leaf, each rank keeping its shard): ``score``
     of 4 x 128 tokens within ``LOGIT_TOL`` of the single rank's,
     ``generate`` of 4 x 32-token prompts (fed tick by tick) + 16 tokens
@@ -281,6 +282,27 @@ training across ranks:
     same ranks: the forward within ``LOGIT_TOL`` and each stage's grads
     within ``GRAD_REL_BOUND`` of the sequential run.
 
+compiled training across ranks and the host tier:
+
+26. compiled — the mesh (2, 2) ("data", "model") as 4 ranks sharing the
+    card over gloo, the compiled executable (``axe.compile`` on the
+    mesh) under autograd, each leaf stored in its solved placement with
+    FSDP (``train_loop.CompiledLayout``). (a) smoke qwen3-4b and
+    qwen3-moe in f32 (drop-free): the compiled sharded loss within 1e-5
+    and every rank's gradient shard within ``TOL`` of the single-rank
+    compiled step on the card, the overlap schedule's bit-equal;
+    (b) qwen3-4b at full width, 4 of 36 layers, bf16, phase 17's cell
+    (4 x 512 tokens): 2 compiled sharded steps whose losses hold the
+    single card's compiled steps at that depth within ``LOGIT_TOL``, B1
+    3 launches a product node a step (forward, dA, dB), B2 and B3 one a
+    node, per rank the step walls, peak memory, bytes held and
+    ``collective_counts()``; (c) the host-parked executable
+    (``classes={"host": "host"}, offload=("embed",)``) on a (1, 2, 2)
+    ("data", "model", "host") mesh over the same ranks within 1e-5 of
+    the single rank's forward, a ``Transfer`` issued as planned; then
+    ``launch/train.py --solve --offload-opt --host-degree 2
+    --mesh-model 2`` at smoke width on 4 ranks (``torch.distributed.run``).
+
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
 ``nvidia-smi`` name and power limit, and, last, the ``ok`` JSON line.
@@ -311,7 +333,7 @@ SSM_ARCH, SSM_LAYERS = "mamba2-2.7b", 32
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 8, 8
 # phases of the run
-STEPS = 25
+STEPS = 26
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
@@ -3399,6 +3421,8 @@ MESH25_EXACT = {"moe": 1e-4, "loss": 1e-3, "grad": 1e-2}
 MESH25_RESTART_TOL = 1e-5
 PIPE_MICRO, PIPE_SEQ = 4, 256
 MESH24_PROMPT, MESH24_NEW, MESH24_SCORE = 32, 16, 128
+#: phase 24(c)'s depth of qwen3-4b's 36 layers: cut to make room for phase 26
+MESH24_LAYERS = 12
 MESH24_MOE_LAYERS, MESH24_MOE_TICKS = 2, 4
 CM_M = 2048
 #: the plan steps phase 24 runs on CUDA tensors: (name, step, fields,
@@ -3571,7 +3595,7 @@ def _placements(exe) -> dict:
 
 
 def mesh_dense(mesh, torch, job) -> dict:
-    """(c) qwen3-4b at full width and depth on ``ServeEngine(mesh)``:
+    """(c) qwen3-4b at full width, ``MESH24_LAYERS`` layers, on ``ServeEngine(mesh)``:
     ``score`` and ``generate`` of the parent's inputs, one launch per
     kernel-bound node per call or tick, issued == planned."""
     from repro_torch.axe.rules import map_with_path
@@ -3581,7 +3605,7 @@ def mesh_dense(mesh, torch, job) -> dict:
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve.engine import ServeEngine
 
-    cfg, dev = get_config(ARCH), mesh.device
+    cfg, dev = dataclasses.replace(get_config(ARCH), num_layers=MESH24_LAYERS), mesh.device
     eng = ServeEngine(build_model(cfg, device=dev), batch_size=BATCH, max_seq=job["max_seq"],
                       device=dev, mesh=mesh)
     t0 = time.perf_counter()
@@ -3743,7 +3767,7 @@ def phase_mesh(torch, device, release) -> dict:
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH24_LAYERS)
     rng = np.random.default_rng(SEED + 24)
     max_seq = MESH24_PROMPT + MESH24_NEW
     job = {"score_tokens": rng.integers(0, cfg.vocab_size, (BATCH, MESH24_SCORE)),
@@ -3813,7 +3837,8 @@ def phase_mesh(torch, device, release) -> dict:
         diverged.append((b, j, gap))
         check(gap <= bound, f"mesh generate request {b} parts from the single rank at token {j} "
                             f"by a logit gap {gap} > {bound}")
-    log(f"  (c) {cfg.name} at full width and depth on ServeEngine(mesh): plan placements "
+    log(f"  (c) {cfg.name} at full width, {MESH24_LAYERS} of 36 layers, on ServeEngine(mesh): "
+        f"plan placements "
         f"{d0['placements']}; B4 at {d0['b4_heads']} query heads a rank, lm_head "
         f"{d0['lm_head_columns']} columns a rank; load {d0['load_s']:.1f} s, solve + compile "
         f"{d0['solve_compile_s']:.1f} s")
@@ -4214,6 +4239,327 @@ def phase_mesh_train(torch, device, release, moe_losses) -> dict:
             "pipeline": pp}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: compiled training across ranks and the host tier
+# ---------------------------------------------------------------------------
+
+#: phase 26: the mesh; the exact cells' batch (smoke qwen3-4b and qwen3-moe
+#: in f32, drop-free); the full-width cell's depth of qwen3-4b's 36 and its
+#: steps; the host mesh of the parked executable and of the launcher
+MESH26_SHAPE, MESH26_AXES = (2, 2), ("data", "model")
+MESH26_SMOKE_BATCH, MESH26_SMOKE_SEQ = 4, 32
+MESH26_LAYERS, MESH26_STEPS = 4, 2
+MESH26_HOST = ((1, 2, 2), ("data", "model", "host"))
+MESH26_LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+MESH26_PARKED_TOL = 1e-5
+
+
+def _smoke_f32(arch):
+    """Smoke ``arch`` in f32; an MoE drop-free (capacity factor = experts)."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype="float32")
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    return cfg
+
+
+def mesh26_exact(mesh, torch, arch) -> dict:
+    """(a) Smoke ``arch`` in f32 on the (2, 2) mesh: the compiled sharded
+    loss and each rank's gradient shard of every leaf
+    (``CompiledLayout``) against the single-rank compiled step on the card
+    (computed here, on this rank), and the overlap schedule's bit-equal."""
+    from repro_torch.axe.compile import compile as axe_compile
+    from repro_torch.axe.compile import compiled_loss_fn, model_executable
+    from repro_torch.core.tree import leaves, leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_loop import CompiledLayout, value_and_grad
+
+    cfg, dev = _smoke_f32(arch), mesh.device
+    params = build_model(cfg, device=dev).init(SEED)
+    batch = SyntheticLMData(cfg.vocab_size, MESH26_SMOKE_SEQ, MESH26_SMOKE_BATCH,
+                            seed=SEED).torch_batch_at(0, dev)
+    b, s = MESH26_SMOKE_BATCH, MESH26_SMOKE_SEQ
+    one = model_executable(cfg, None, b, s)
+    loss_ref, g_ref = value_and_grad(compiled_loss_fn(one, cfg))(params, batch)
+    exe = model_executable(cfg, mesh, b, s)
+    exe_ov = axe_compile(exe.graph, mesh, exe.solve_result, overlap=True)
+    layout = CompiledLayout(exe, cfg)
+    shards = layout.shard_tree(params)
+    runs = [value_and_grad(compiled_loss_fn(e, cfg, bind=layout.bind))(shards, batch)
+            for e in (exe, exe_ov)]
+    (loss, grads), (loss_ov, grads_ov) = runs
+    pairs = [(".".join(path), g, layout.sharding(layout.plan(path).param).shard(w))
+             for (path, g), (_, w) in zip(leaves_with_paths(grads), leaves_with_paths(g_ref))]
+    errs = {path: float((g - w).abs().max()) for path, g, w in pairs}
+    close = all(bool(torch.allclose(g, w, **TOL["float32"])) for _, g, w in pairs)
+    check(close, f"phase 26(a) {arch}: a grad shard parts from the single rank's (max |diff| "
+                 f"{max(errs.values())})")
+    check(abs(float(loss) - float(loss_ref)) <= MESH26_LOSS_TOL["atol"]
+          + MESH26_LOSS_TOL["rtol"] * abs(float(loss_ref)),
+          f"phase 26(a) {arch}: loss {float(loss)} vs the single rank's {float(loss_ref)}")
+    bit = bool(torch.equal(loss, loss_ov)) and all(
+        torch.equal(x, y) for x, y in zip(leaves(grads), leaves(grads_ov)))
+    check(bit, f"phase 26(a) {arch}: the overlap schedule's grads differ from the sync ones")
+    check(exe.observed_collectives == exe.collective_sequence()
+          and exe_ov.observed_collectives == exe_ov.collective_sequence(),
+          f"phase 26(a) {arch}: issued collectives differ from the plan")
+    worst = max(errs, key=errs.get)
+    return {"loss": float(loss), "loss_ref": float(loss_ref), "grad_max_abs_err": errs[worst],
+            "worst_leaf": worst, "leaves": len(errs), "collectives": len(exe.collective_sequence()),
+            "prefetched": sum(len(r.prefetched) for r in exe_ov.lowering_trace)}
+
+
+def mesh26_full(mesh, torch) -> dict:
+    """(b) qwen3-4b at full width, ``MESH26_LAYERS`` layers, bf16, phase
+    17's cell (4 x 512 tokens, its seed, data and schedule) through the
+    compiled executable on the (2, 2) mesh: each rank draws only its
+    shards in the solved placements; ``MESH26_STEPS`` compiled sharded
+    steps through ``Trainer.run``, the launch and collective counters
+    zeroed just before and read just after."""
+    from repro_torch.axe.compile import model_executable
+    from repro_torch.configs import get_config
+    from repro_torch.core import collective as coll
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import CompiledLayout, Trainer, make_compiled_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH26_LAYERS)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    exe = model_executable(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ)
+    solve_s = time.perf_counter() - t0
+    layout = CompiledLayout(exe, cfg)
+    t0 = time.perf_counter()
+    params = build_model(cfg, device=dev).init(SEED, place=layout.place)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
+    state = layout.init_state(params, opt)
+    del params
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in _leaves(tree))
+    held = {"params_gib": nbytes(state.params) / 2 ** 30,
+            "moments_gib": (nbytes(state.opt_state.mu) + nbytes(state.opt_state.nu)) / 2 ** 30}
+    trainer = Trainer(make_compiled_train_step(exe, cfg, opt, layout=layout),
+                      SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    programs.reset_launch_counts()
+    coll.reset_collective_counts()
+    state, hist = trainer.run(state, MESH26_STEPS)
+    counts, colls = programs.launch_counts(), coll.collective_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # no remat in the compiled forward: B1 forward, dA and dB of every
+    # product node; B2 and B3 their forwards (B2's VJP in torch, B3's
+    # backward the oracle recompute)
+    nodes = exe.op_counts()
+    per_step = {"matmul/tile": 3 * nodes["matmul/tile"], "rmsnorm/rows": nodes["rmsnorm/rows"],
+                "flash_attention/attend": nodes["flash_attention/attend"]}
+    for op, n in per_step.items():
+        check(counts[op] == n * MESH26_STEPS,
+              f"phase 26(b): {op} {counts[op]} launches in {MESH26_STEPS} steps on rank "
+              f"{mesh.rank}, {n} a step expected (graph nodes {nodes})")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"phase 26(b): losses {hist}")
+    return {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+            "step_walls_s": [h["sec"] for h in hist], "peak_gib": peak, "draw_s": draw_s,
+            "solve_compile_s": solve_s, "launches": {k: counts[k] for k in per_step},
+            "per_step": per_step, "collectives": colls, **held,
+            "redistributions": len(exe.collective_sequence()),
+            "placements": _placements(exe)}
+
+
+def mesh26_parked(mesh, torch) -> dict:
+    """(c) The host-parked executable (``classes={"host": "host"},
+    offload=("embed",)``) at ``MESH26_HOST`` over the same ranks, smoke
+    qwen3-4b in f32, against the single-rank compiled forward on the
+    card: max |diff| within ``MESH26_PARKED_TOL``, at least one
+    ``Transfer`` planned, issued == planned."""
+    from repro_torch.axe import lower
+    from repro_torch.axe.compile import model_executable, model_inputs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model_zoo import build_model
+
+    cfg, dev = _smoke_f32(ARCH), mesh.device
+    host = Mesh(*MESH26_HOST, device=dev)
+    params = build_model(cfg, device=dev).init(SEED)
+    b, s = MESH26_SMOKE_BATCH, MESH26_SMOKE_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    tokens = torch.randint(0, cfg.vocab_size, (b * s,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    one = model_executable(cfg, None, b, s)
+    exe = model_executable(cfg, host, b, s, classes={"host": "host"}, offload=("embed",))
+    with torch.no_grad():
+        ref = one(model_inputs(one.graph, cfg, params), tokens)
+        got = exe(model_inputs(exe.graph, cfg, params), tokens)
+        got = lower.to_named_sharding(exe.output_spec("logits"), host).unshard(got)
+    planned = list(exe.collective_sequence())
+    transfers = sum(1 for (_o, _t, steps) in planned if "Transfer" in steps)
+    err = float((got - ref).abs().max())
+    check(err < MESH26_PARKED_TOL, f"phase 26(c): the parked executable parts from the single "
+                                   f"rank by {err}")
+    check(transfers >= 1, "phase 26(c): the parked plan holds no Transfer")
+    check(list(exe.observed_collectives) == planned,
+          "phase 26(c): the parked executable issued other collectives than its plan")
+    return {"max_abs_err": err, "transfers": transfers, "collectives": len(planned),
+            "embed": str(exe.input_spec("embed").placement())}
+
+
+def mesh26_rank(mesh, job) -> dict:
+    """What every rank of phase 26's (2, 2) world runs: (a), (c), then (b)."""
+    import torch
+
+    from repro_torch import tune
+
+    tune.use_cache(None)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)}
+    t0 = time.perf_counter()
+    out["exact"] = {arch: mesh26_exact(mesh, torch, arch) for arch in (ARCH, MOE_ARCH)}
+    out["parked"] = mesh26_parked(mesh, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full"] = mesh26_full(mesh, torch)
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh26_single(torch, device) -> list:
+    """(b)'s reference: the same cell's compiled steps on the card as one
+    rank (``make_compiled_train_step`` of the ``mesh=None`` executable)."""
+    from repro_torch.axe.compile import model_executable
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.train_loop import Trainer, init_state, make_compiled_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH26_LAYERS)
+    exe = model_executable(cfg, None, TRAIN_BATCH, TRAIN_SEQ)
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 2, TRAIN_STEPS))
+    state = init_state(build_model(cfg, device=device).init(SEED), opt)
+    trainer = Trainer(make_compiled_train_step(exe, cfg, opt),
+                      SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    _, hist = trainer.run(state, MESH26_STEPS)
+    return [h["loss"] for h in hist]
+
+
+def mesh26_launcher(nproc: int) -> dict:
+    """(c) ``python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.train --arch qwen3-4b --smoke --solve --offload-opt
+    --host-degree 2 --mesh-model 2`` on the card: its lines, its wall."""
+    import socket
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    env["OMP_NUM_THREADS"] = "1"
+    with socket.socket() as sock:  # a free port on the loopback interface
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+         "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke", "--device", "cuda",
+         "--solve", "--offload-opt", "--host-degree", "2", "--mesh-model", "2",
+         "--steps", "2", "--global-batch", "8", "--seq", "64"],
+        capture_output=True, text=True, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"phase 26(c): the launcher exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith(("mesh ", "offload-opt:", "compiled forward:", "layout solver:",
+                               "done:"))]
+    for want in ("mesh {'data': 1, 'model': 2, 'host': 2}", "offload-opt: parked ",
+                 "compiled forward: ", "done: loss"):
+        check(any(ln.startswith(want) for ln in lines),
+              f"phase 26(c): the launcher printed no {want!r} line: {r.stdout[-2000:]}")
+    return {"wall_s": wall, "lines": lines}
+
+
+def phase_mesh_compiled(torch, device, release) -> dict:
+    """Phase 26: compiled training across ranks and the host tier, 4 ranks
+    sharing the card over gloo on the mesh (2, 2) ("data", "model")
+    (``launch.mesh.spawn``); every check fails the run. The parent first
+    runs (b)'s single-card compiled steps and frees the card."""
+    from repro_torch.launch import mesh as meshmod
+
+    release()
+    t0 = time.perf_counter()
+    single = mesh26_single(torch, device)
+    release()
+    ref_s = time.perf_counter() - t0
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = meshmod.spawn(mesh26_rank, MESH26_SHAPE, MESH26_AXES, device="cuda",
+                              timeout_s=600, args=({},))
+        world_s = time.perf_counter() - t0
+        launcher = mesh26_launcher(4)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    check(len(ranks) == 4 and all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+                                  for r in ranks),
+          f"phase 26 ranks: {[(r['backend'], r['device']) for r in ranks]}")
+    log(f"  the single card's compiled steps {ref_s:.1f} s; 4 ranks on one card, backend gloo, "
+        f"world {world_s:.1f} s (rank 0's body {ranks[0]['rank_s']:.1f} s)")
+    for arch in (ARCH, MOE_ARCH):
+        ex = [r["exact"][arch] for r in ranks]
+        log(f"  (a) smoke {arch} (f32{', drop-free' if arch == MOE_ARCH else ''}, "
+            f"{MESH26_SMOKE_BATCH}x{MESH26_SMOKE_SEQ} tokens), the compiled sharded step "
+            f"against the single-rank compiled step on the card: loss {ex[0]['loss']:.7f} vs "
+            f"{ex[0]['loss_ref']:.7f} (bound {MESH26_LOSS_TOL}), grad shards max |diff| "
+            f"{max(e['grad_max_abs_err'] for e in ex):.3g} over {ex[0]['leaves']} leaves (TOL "
+            f"f32; worst {ex[0]['worst_leaf']}), {ex[0]['collectives']} redistributions, the "
+            f"overlap schedule ({ex[0]['prefetched']} prefetched) bit-equal on every rank")
+    full = [r["full"] for r in ranks]
+    for f in full:
+        check(f["losses"] == full[0]["losses"], "phase 26(b): the ranks report other losses")
+    got = full[0]["losses"]
+    for g, w in zip(got, single):
+        check(abs(g - w) <= LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * abs(w),
+              f"phase 26(b): compiled sharded losses {got} part from the single card's {single}")
+    f0 = full[0]
+    log(f"  (b) {ARCH} at full width, {MESH26_LAYERS} of 36 layers, bf16, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens, {MESH26_STEPS} compiled sharded steps: losses "
+        f"{[round(x, 5) for x in got]} against the single card's compiled "
+        f"{[round(x, 5) for x in single]} (rtol {LOGIT_TOL['rtol']} / atol {LOGIT_TOL['atol']});"
+        f" grad norms {[round(x, 4) for x in f0['grad_norms']]}; plan: "
+        f"{f0['redistributions']} redistributions, placements {f0['placements']}; solve + "
+        f"compile {f0['solve_compile_s']:.1f} s")
+    log("      per rank [comm staged through the host (gloo, one card), time-sliced card]: "
+        f"step walls {[[round(w, 2) for w in f['step_walls_s']] for f in full]} s; peak "
+        f"{[round(f['peak_gib'], 2) for f in full]} GiB; held params "
+        f"{[round(f['params_gib'], 3) for f in full]} GiB, moments "
+        f"{[round(f['moments_gib'], 3) for f in full]} GiB; drawn in "
+        f"{[round(f['draw_s'], 1) for f in full]} s")
+    log(f"      launches a rank in {MESH26_STEPS} steps {[f['launches'] for f in full]} (a step: "
+        f"{f0['per_step']}: B1 forward, dA and dB of every product node, B2 and B3 forwards)")
+    log(f"      collective_counts {[f['collectives'] for f in full]}")
+    pk = [r["parked"] for r in ranks]
+    log(f"  (c) the host-parked executable at {MESH26_HOST[0]} {MESH26_HOST[1]} (smoke {ARCH}, "
+        f"f32, embed parked {pk[0]['embed']}): max |diff| "
+        f"{max(p['max_abs_err'] for p in pk):.3g} against the single rank (bound "
+        f"{MESH26_PARKED_TOL}), {pk[0]['transfers']} Transfer of {pk[0]['collectives']} "
+        f"redistributions, issued == planned on every rank")
+    log(f"      launch/train.py --solve --offload-opt on 4 ranks ({launcher['wall_s']:.1f} s): "
+        + " | ".join(launcher["lines"]))
+    return {"world_s": world_s, "single_s": ref_s, "single_losses": single,
+            "exact": {arch: ranks[0]["exact"][arch] for arch in (ARCH, MOE_ARCH)},
+            "full": dict(f0) | {"step_walls_by_rank": [f["step_walls_s"] for f in full],
+                                "peak_gib_by_rank": [f["peak_gib"] for f in full],
+                                "collectives_by_rank": [f["collectives"] for f in full],
+                                "launches_by_rank": [f["launches"] for f in full]},
+            "parked": pk[0], "launcher": launcher}
+
+
 def main() -> int:
     import torch
 
@@ -4414,13 +4760,19 @@ def main() -> int:
     release()
     log(f"[24/{STEPS}] serving across ranks: the mesh (1, 4) (\"data\", \"model\") as 4 ranks "
         f"sharing the card over gloo — plan steps and collective_matmul on CUDA tensors, "
-        f"{cfg.name} at full width and depth, {MOE_ARCH} at {MESH24_MOE_LAYERS} layers:")
+        f"{cfg.name} at full width and {MESH24_LAYERS} layers, {MOE_ARCH} at {MESH24_MOE_LAYERS} "
+        f"layers:")
     stats["mesh"] = phase_mesh(torch, device, release)
     log(f"[25/{STEPS}] training across ranks: the mesh {MESH25_SHAPE} (\"data\", \"model\") as "
         f"4 ranks sharing the card over gloo — exactness at smoke width, {MOE_ARCH} at full "
         f"width, a restart into a shrunk world, the GPipe pipeline:")
     stats["mesh-train"] = phase_mesh_train(torch, device, release,
                                            stats["train-moe"]["train_losses"])
+    log(f"[26/{STEPS}] compiled training across ranks and the host tier: the mesh "
+        f"{MESH26_SHAPE} (\"data\", \"model\") as 4 ranks sharing the card over gloo — the "
+        f"compiled sharded step at smoke width and {cfg.name} at {MESH26_LAYERS} layers, the "
+        f"host-parked executable, launch/train.py --solve --offload-opt:")
+    stats["mesh-compiled"] = phase_mesh_compiled(torch, device, release)
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

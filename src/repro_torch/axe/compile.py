@@ -109,10 +109,6 @@ class CompileError(ValueError):
     pass
 
 
-def _not_ported(what: str, item: str) -> CompileError:
-    return CompileError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 # ---------------------------------------------------------------------------
 # the op-backend registry (mirrors propagate._RULES)
 # ---------------------------------------------------------------------------
@@ -921,19 +917,25 @@ class Executable:
     def as_input(self, name: str, local, pspec: Sequence) -> Any:
         """``local`` (this rank's shard, placed per ``pspec``) in the
         placement input ``name`` wants: as it is, or through the
-        redistribution between the two (on the executable's mesh)."""
+        redistribution between the two (on the executable's mesh).
+        Differentiable: the steps run their transposes backward, and the
+        gradient of ``local`` is summed over the axes ``pspec`` leaves it
+        replicated on (each rank's cotangent is its part of that sum)."""
         from repro_torch.core.dtensor import DTensorSpec, entry_axes
 
         want = self.input_pspec(name)
         pad = lambda p: tuple(p) + (None,) * (local.dim() - len(p))  # noqa: E731
-        if pad(pspec) == pad(want):
-            return local
-        shape = tuple(s * math.prod(self.mesh.axis_size(a) for a in entry_axes(e))
-                      for s, e in zip(local.shape, pad(pspec)))
-        ms = self.graph.space.mesh_shape
-        steps = coll.infer_redistribution(DTensorSpec.from_pspec(shape, pspec, ms, "float32"),
-                                          DTensorSpec.from_pspec(shape, want, ms, "float32"), ms)
+        used = {a for e in pad(pspec) for a in entry_axes(e)}
         with coll.use_mesh(self.mesh):
+            local = coll.sum_grads(local, tuple(a for a in self.mesh.axis_names if a not in used))
+            if pad(pspec) == pad(want):
+                return local
+            shape = tuple(s * math.prod(self.mesh.axis_size(a) for a in entry_axes(e))
+                          for s, e in zip(local.shape, pad(pspec)))
+            ms = self.graph.space.mesh_shape
+            steps = coll.infer_redistribution(DTensorSpec.from_pspec(shape, pspec, ms, "float32"),
+                                              DTensorSpec.from_pspec(shape, want, ms, "float32"),
+                                              ms)
             return coll.apply_plan(local, steps).contiguous()
 
     def carried(self, outs: Sequence[Any]) -> Tuple[Any, ...]:
@@ -1017,13 +1019,18 @@ class Executable:
         from repro_torch.axe import lower
 
         if tuple(arr.shape) == want and self.mesh is not None:
+            # every rank's cotangent of its block is its part of the global
+            # input's gradient: summed over the whole mesh, each rank gets
+            # that gradient whole (shard_map's transpose of a global input)
+            arr = coll.sum_grads(arr, self.mesh.axis_names)
             return lower.to_named_sharding(self.plan.env[name], self.mesh).shard(arr)
         raise CompileError(
             f"input {name!r}: expected shape {want}"
             + (f" or its local shard {local}" if local != want else "")
             + f", got {tuple(arr.shape)}")
 
-    def _ordered_inputs(self, params: Mapping[str, Any], acts: Sequence[Any]):
+    def _ordered_inputs(self, params: Mapping[str, Any], acts: Sequence[Any],
+                        local_params: bool = False):
         if len(acts) != len(self.activation_names):
             raise CompileError(
                 f"expected {len(self.activation_names)} activation inputs "
@@ -1046,6 +1053,12 @@ class Executable:
         for i, (name, want, local) in enumerate(self._input_shapes):
             if tuple(arrays[i].shape) != local:
                 arrays[i] = self._local(name, arrays[i], want, local)
+            elif want == local and self.mesh is not None and not local_params:
+                # a global tensor the plan replicates: its cotangents sum
+                arrays[i] = coll.sum_grads(arrays[i], self.mesh.axis_names)
+        if self.mesh is not None and not local_params:  # the auxiliaries: whole on every rank
+            for i in range(len(self._input_shapes), len(arrays)):
+                arrays[i] = coll.sum_grads(arrays[i], self.mesh.axis_names)
         return arrays
 
     def _check_runnable(self) -> None:
@@ -1152,15 +1165,19 @@ class Executable:
         return programs.matmul(vals[chain.a], vals[chain.b], arg_specs=chain.specs,
                                out_dtype=chain.out_dtype, epilogue=epi, resolved=resolved)
 
-    def apply(self, params: Mapping[str, Any], *activations):
+    def apply(self, params: Mapping[str, Any], *activations, local_params: bool = False):
         """Run the graph eagerly on the tensors' device (on this rank's
-        shards of a mesh, every rank calling)."""
+        shards of a mesh, every rank calling). Under autograd on a mesh a
+        cotangent is this rank's part of a sum over the ranks, as in the
+        reference's ``shard_map``: a global input's gradient comes back
+        whole on every rank, a local shard's is the rank's part.
+        ``local_params``: every param is this rank's shard in its input's
+        placement (:meth:`as_input`), a replicated one included."""
         self._check_runnable()
-        arrays = self._ordered_inputs(params, activations)
         if self.mesh is None:
-            return self._body(*arrays)
+            return self._body(*self._ordered_inputs(params, activations))
         with coll.use_mesh(self.mesh):
-            return self._body(*arrays)
+            return self._body(*self._ordered_inputs(params, activations, local_params))
 
     def __call__(self, params: Mapping[str, Any], *activations):
         return self.apply(params, *activations)
@@ -1332,24 +1349,35 @@ _PARAM_INPUTS = {where: name for name, where in _LAYER_PARAMS.items()}
 _TOP_PARAMS = ("embed", "final_norm", "lm_head")
 
 
-def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
+def model_inputs(graph: GraphSpec, cfg, params, *, bind: Optional[Callable] = None
+                 ) -> Dict[str, Any]:
     """Map the port's model params (``models.transformer`` layout:
     stacked super-blocks, attention projections already 2-D with
     head-major columns) onto the graph's input tensors and auxiliary
     names — the same names and shapes the JAX package's
     ``model_inputs`` produces from its own params. Every entry is a view
     of a param leaf (:func:`first_input` names the input that places
-    it): nothing is copied."""
+    it): nothing is copied.
+
+    ``bind(name, path, view, stacked, transposed)``, where given, makes
+    each entry from its view: ``path`` is the leaf's key path, ``stacked``
+    whether the view dropped the leaf's leading (super-block) dim and
+    ``transposed`` whether it is the leaf transposed (a tied
+    ``lm_head``). A sharded train state binds its shards through it
+    (``train_loop.CompiledLayout``)."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise CompileError(
             f"family {cfg.family!r} has no model binding "
             f"(supported: {SUPPORTED_FAMILIES})"
         )
+    bind = bind or (lambda _n, _p, view, _s, _t: view)
     per = _period(cfg)
+    head = ("embed", True) if cfg.tie_embeddings else ("lm_head", False)
     out: Dict[str, Any] = {
-        "embed": params["embed"],
-        "final_norm": params["final_norm"],
-        "lm_head": params["embed"].t() if cfg.tie_embeddings else params["lm_head"],
+        "embed": bind("embed", ("embed",), params["embed"], False, False),
+        "final_norm": bind("final_norm", ("final_norm",), params["final_norm"], False, False),
+        "lm_head": bind("lm_head", (head[0],),
+                        params["embed"].t() if head[1] else params["lm_head"], False, head[1]),
     }
     for i in _graph_layers(graph):
         sup, slot = i // per, i % per
@@ -1357,7 +1385,8 @@ def model_inputs(graph: GraphSpec, cfg, params) -> Dict[str, Any]:
         for name, (sub, key) in _LAYER_PARAMS.items():
             tree = lp if sub is None else lp.get(sub)
             if tree is not None and key in tree:
-                out[f"L{i}.{name}"] = tree[key][sup]
+                path = ("blocks", f"l{slot}") + ((sub,) if sub else ()) + (key,)
+                out[f"L{i}.{name}"] = bind(f"L{i}.{name}", path, tree[key][sup], True, False)
     return out
 
 
@@ -1389,14 +1418,14 @@ def first_input(cfg, name: str) -> Tuple[str, bool]:
     return f"L{int(layer) % _period(cfg)}.{base}", False
 
 
-def _check_model(offload=()) -> None:
-    if offload:
-        raise _not_ported(f"offload={tuple(offload)!r}", "A14")
-
-
-def _space(mesh) -> PhysicalSpace:
-    return PhysicalSpace.from_mesh_shape(_mesh_shape(mesh)) if mesh is not None \
-        else PhysicalSpace(())
+def _space(mesh, classes=None) -> PhysicalSpace:
+    """The graph space of ``mesh`` (the mesh-free space for None), its
+    axes annotated with device ``classes`` (``{"host": "host"}``,
+    ``axe.hetero``)."""
+    if mesh is None:
+        return PhysicalSpace(())
+    return PhysicalSpace.from_mesh_shape(_mesh_shape(mesh),
+                                         classes=dict(classes) if classes else ())
 
 
 def model_executable(
@@ -1411,6 +1440,7 @@ def model_executable(
     beam: int = 4,
     dtype: Optional[str] = None,
     fuse: bool = False,
+    classes=None,
     offload: Sequence[str] = (),
     overlap: bool = False,
     cotune: bool = False,
@@ -1427,6 +1457,12 @@ def model_executable(
     fusion passes before solving (:func:`compile`); a plan solved on the
     unfused graph does not cover the fused one.
 
+    ``classes`` annotates mesh axes with device classes (``{"host":
+    "host"}``, ``axe.hetero``) and ``offload`` names graph inputs the
+    solver must park on the non-default class: the plan then carries the
+    class-crossing ``Transfer`` steps, run as their homogeneous twins
+    (``core.collective.lower_step``). A degree-1 class axis parks nothing.
+
     ``cotune=True`` runs the solve ↔ tune fixed-point loop
     (``repro_torch.axe.cotune``) instead of a one-shot solve: measured
     schedule timings from the ambient cache (or an explicit
@@ -1440,9 +1476,8 @@ def model_executable(
 
     from repro_torch.axe.graphs import model_graph
 
-    _check_model(offload)
     gs = model_graph(
-        cfg, batch, seq, _space(mesh),
+        cfg, batch, seq, _space(mesh, classes),
         dtype=dtype or cfg.dtype,
         layers=cfg.num_layers if layers is None else layers,
     )
@@ -1461,9 +1496,15 @@ def model_executable(
         from repro_torch.axe.cotune import cotune as _cotune
 
         cotune_report = _cotune(gs, beam=beam, max_iters=cotune_iters, cost_model=cost_model,
-                                measure=cotune_measure, overlap=overlap)
+                                measure=cotune_measure, overlap=overlap, offload=offload,
+                                compare_seeded=not offload)
         plan = ({n: cotune_report.assignment[n] for n in _fused_view(gs, fuse).inputs}
                 if fuse else cotune_report.result)
+    elif plan is None and offload:
+        # the offload targets pinned to parked placements; no seeded
+        # budget (the rules never park)
+        res = solve(gs, beam=beam, compare_seeded=False, offload=offload, overlap=overlap)
+        plan = {n: res.assignment[n] for n in _fused_view(gs, fuse).inputs} if fuse else res
     exe = compile(gs, mesh, plan, schedule_cache=schedule_cache, beam=beam, fuse=fuse,
                   overlap=overlap)
     exe.cotune_report = cotune_report
@@ -1612,20 +1653,55 @@ __all__ = [
 ]
 
 
-def compiled_loss_fn(exe: Executable, cfg) -> Callable:
+def compiled_loss_fn(exe: Executable, cfg, *, bind: Optional[Callable] = None) -> Callable:
     """Cross-entropy LM loss over the compiled forward — the function
     ``launch/train.py --solve`` hands to ``make_train_step`` instead of
     the model's module wiring, for every family with a model binding
     (:data:`SUPPORTED_FAMILIES`). Under autograd each bound kernel
     program takes its differentiable route (B1's backward products on
     B1, an expert GEMM's on B5; a fused node's chain run functionally
-    after B1's product), so the executable differentiates."""
+    after B1's product), so the executable differentiates.
+
+    On a mesh every rank calls it with the whole batch and gets the
+    global mean loss; the plan's collectives run forward and backward.
+    The logits stay this rank's rows: gathered over the axes that shard
+    the vocabulary only, scored against the rank's labels, and summed
+    over the ranks. The loss's gradient on each rank is the rank's part
+    of the whole (the reference's ``shard_map`` convention), so a global
+    param comes back with its whole gradient on every rank, and a shard
+    bound through ``bind`` (:func:`model_inputs`) with its own."""
     from repro_torch.models.common import cross_entropy_loss
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         b, s = tokens.shape
-        logits = exe.apply(model_inputs(exe.graph, cfg, params), tokens.reshape(-1))
-        return cross_entropy_loss(logits.reshape(b, s, logits.shape[-1]), batch["labels"])
+        logits = exe.apply(model_inputs(exe.graph, cfg, params, bind=bind), tokens.reshape(-1),
+                           local_params=bind is not None)
+        if exe.mesh is None:
+            return cross_entropy_loss(logits.reshape(b, s, logits.shape[-1]), batch["labels"])
+        return _sharded_loss(exe, logits, batch["labels"].reshape(-1))
 
     return loss_fn
+
+
+def _sharded_loss(exe: Executable, logits, labels):
+    """:func:`compiled_loss_fn`'s loss from this rank's shard of the
+    logits (``exe.output_spec``): the mean token NLL over all ``labels``
+    on every rank, with the rank's part as its gradient."""
+    from repro_torch.axe import lower
+    from repro_torch.core.dtensor import NamedSharding, entry_axes
+
+    mesh = exe.mesh
+    rows, vocab = (tuple(lower.to_pspec(exe.output_spec(exe.outputs[0]))) + (None, None))[:2]
+    with coll.use_mesh(mesh):
+        for a in reversed(entry_axes(vocab)):
+            logits = coll.all_gather(logits, a, 1)
+        gold = NamedSharding(mesh, (rows,)).shard(labels)
+        logits = logits.float()
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, gold[:, None].long())[:, 0]
+        # the ranks that hold the same rows each score them: take a share
+        held = math.prod(mesh.axis_size(a) for a in mesh.axis_names
+                         if a not in entry_axes(rows))
+        part = nll.sum() / (labels.numel() * held)
+        whole = coll.all_reduce(part.detach(), mesh.axis_names)
+    return part + (whole - part).detach()

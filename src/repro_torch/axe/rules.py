@@ -353,20 +353,49 @@ def offload_extend(spec: AxeSpec, *, axes: Sequence[str] = ("host",)) -> AxeSpec
     return spec
 
 
+def _opt_extend(spec: AxeSpec, zero1: bool, offload_axes: Sequence[str]) -> AxeSpec:
+    if zero1:
+        spec = zero1_extend(spec)
+    if offload_axes:
+        spec = offload_extend(spec, axes=tuple(offload_axes))
+    return spec
+
+
 def opt_specs(
     p_specs: Any, *, zero1: bool = True, offload_axes: Sequence[str] = ()
 ) -> Any:
-    def extend(spec):
-        if zero1:
-            spec = zero1_extend(spec)
-        if offload_axes:
-            spec = offload_extend(spec, axes=tuple(offload_axes))
-        return spec
-
     if not zero1 and not offload_axes:
         return p_specs
-    return map_with_path(lambda _, spec: extend(spec), p_specs,
+    return map_with_path(lambda _, spec: _opt_extend(spec, zero1, offload_axes), p_specs,
                          is_leaf=lambda x: isinstance(x, AxeSpec))
+
+
+def moment_spec(
+    ps: str,
+    shape: Tuple[int, ...],
+    dtype: str,
+    space: PhysicalSpace,
+    *,
+    zero1: bool = True,
+    offload_axes: Sequence[str] = (),
+    head_dim: Optional[int] = None,
+    **param_kw,
+) -> AxeSpec:
+    """:func:`opt_specs`' spec of the moments of one leaf at dotted path
+    ``ps``, from :func:`param_spec` (``param_kw``). A leaf whose heads
+    the port keeps flattened (``head_dim``) takes the spec of its
+    reference-shaped view, the heads' axes carried onto the flattened
+    dim, as :func:`param_spec` does: the reference's moment spec, the
+    same bytes a rank."""
+    flat = FLAT_HEADS.get(rule_key(ps)) if head_dim else None
+    if flat is not None and len(shape) >= 2 and shape[flat] % head_dim == 0:
+        i = len(shape) + flat
+        view = shape[:i] + (shape[i] // head_dim, head_dim) + shape[i + 1:]
+        pl = moment_spec(ps, view, dtype, space, zero1=zero1, offload_axes=offload_axes,
+                         **param_kw).placement()
+        merged = pl[:i] + (pl[i] + pl[i + 1],) + pl[i + 2:]
+        return AxeSpec.sharded(shape, space, {j: a for j, a in enumerate(merged) if a}, dtype)
+    return _opt_extend(param_spec(ps, shape, dtype, space, **param_kw), zero1, offload_axes)
 
 
 # ---------------------------------------------------------------------------

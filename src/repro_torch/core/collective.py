@@ -183,7 +183,41 @@ def infer_redistribution(
         for ax in axes:
             if ax not in src_loc:
                 plan.append(DynamicSlice(ax, j))
+    if _lands(sp, plan, _placement(dst, mesh_shape)):
+        return plan
+    # Where axes composed on one dim must leave it out of their order (a
+    # gathered or moved axis with an axis minor to it left behind), the
+    # tiled collectives above interleave chunks out of mesh order: the
+    # reference plans them all the same, and its result is not the
+    # destination's block. Gather every axis (minor-first) and slice the
+    # destination's (major-first) instead.
+    plan = [AllReduce(ax) for ax in partial_axes]
+    for i, axes in enumerate(sp):
+        plan += [AllGather(ax, i) for ax in reversed(axes)]
+    for j, axes in enumerate(_placement(dst, mesh_shape)):
+        plan += [DynamicSlice(ax, j) for ax in axes]
     return plan
+
+
+def _lands(src, plan: Sequence[Step], dst) -> bool:
+    """Whether ``plan`` takes placement ``src`` (a tuple of axes per dim,
+    major first) to exactly ``dst``: each tiled collective acts on the
+    minor-most axis of its dim (a gather or an all-to-all takes it off,
+    a slice, a reduce-scatter or an all-to-all puts it on)."""
+    cur = [list(axes) for axes in src]
+    for step in plan:
+        if isinstance(step, AllGather):
+            if not cur[step.dim] or cur[step.dim][-1] != step.axis:
+                return False
+            cur[step.dim].pop()
+        elif isinstance(step, AllToAll):
+            if not cur[step.src_dim] or cur[step.src_dim][-1] != step.axis:
+                return False
+            cur[step.src_dim].pop()
+            cur[step.dst_dim].append(step.axis)
+        elif isinstance(step, (DynamicSlice, ReduceScatter)):
+            cur[step.dim].append(step.axis)
+    return [tuple(axes) for axes in cur] == [tuple(axes) for axes in dst]
 
 
 def plan_comm_bytes(
@@ -725,19 +759,23 @@ class _RingGather:
     """:func:`ring_all_gather` in two halves: the constructor lands the
     own chunk and issues the first rotation, :meth:`finish` waits for it
     and runs the rest (what an overlapped prefetch issues early and
-    completes at its consumer)."""
+    completes at its consumer). The rotations move detached data; under
+    autograd :meth:`finish` returns the gathered value through
+    :class:`_RingGrad`, whose backward is the tiled gather's transpose."""
 
     def __init__(self, x: torch.Tensor, axis: str, dim: int):
         self.p, self.idx = axis_size(axis), axis_index(axis)
         self.x, self.axis, self.dim = x, axis, dim
+        self.mesh = _mesh()
         self.chunk = x.shape[dim]
         shape = list(x.shape)
         shape[dim] = self.chunk * self.p
+        x = x.detach()
         self.out = x.new_empty(shape)
         self.out.narrow(dim, self.idx * self.chunk, self.chunk).copy_(x)
         self.inflight = Rotation(x, axis) if self.p > 1 else None
 
-    def finish(self) -> torch.Tensor:
+    def _rotate(self) -> torch.Tensor:
         for t in range(1, self.p):
             buf = self.inflight.wait()
             if t < self.p - 1:
@@ -746,12 +784,34 @@ class _RingGather:
             self.out.narrow(self.dim, src * self.chunk, self.chunk).copy_(buf)
         return self.out
 
+    def finish(self) -> torch.Tensor:
+        if _tracked(self.x):
+            return _RingGrad.apply(self.x, self)
+        return self._rotate()
+
+
+class _RingGrad(torch.autograd.Function):
+    """The ring's result with the gather's transpose: the cotangent
+    reduce-scattered back onto the rank's chunk, as :class:`_AllGather`'s
+    backward (bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.mesh, ctx.axis, ctx.dim = ring.mesh, ring.axis, ring.dim
+        return ring._rotate()
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_mesh(ctx.mesh):
+            return _reduce_scatter(g, ctx.axis, ctx.dim), None
+
 
 def ring_all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     """Ring all-gather: P−1 ``batch_isend_irecv`` neighbour rotations,
     each chunk landed into the output as it arrives. Bit-equal to the
     tiled :func:`all_gather` (pure data movement), issued as neighbour
-    exchanges that compute issued after the first can overlap."""
+    exchanges that compute issued after the first can overlap. Its
+    gradient is the tiled gather's, the reduce-scatter."""
     if axis_size(axis) == 1:
         return x
     return _RingGather(x, axis, dim).finish()

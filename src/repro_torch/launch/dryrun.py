@@ -18,11 +18,12 @@ mesh of every rank when started under ``python -m torch.distributed.run
 --nproc-per-node N`` (a ``(N/4, 4)`` ``("data", "model")`` mesh, gloo on
 the CPU or when the ranks share a card). On a mesh the record carries
 the reference's cross-check of issued vs planned collectives vs the
-solver's decisions; ``--overlap`` compiles the overlap schedule. The
-paths that need a host tier (``--classes``, ``--offload`` with
-``--execute``) and the lowering onto the 256- and 512-chip production
-meshes (the default cell, ``lower_cell``, with FSDP, ZeRO-1 and
-activation sharding) raise, naming ``ROADMAP.md`` A14. The solver
+solver's decisions; ``--overlap`` compiles the overlap schedule.
+``--classes`` (and ``--offload``) with ``--execute`` carve a host-class
+axis out of the ranks, a ``(data, model, host)`` mesh, and count the
+plan's ``Transfer`` steps. The lowering onto the 256- and 512-chip
+production meshes (the default cell, ``lower_cell``, with FSDP, ZeRO-1
+and activation sharding) raises, naming ``ROADMAP.md`` A14. The solver
 prices the default device class, the H100 (``axe.hetero``), for backend
 ``"gpu"``.
 
@@ -269,8 +270,15 @@ def execute_cell(
     ``overlap=True`` solves under the ``max(comm, compute)`` objective and
     compiles the overlap schedule; the record then carries the hidden /
     exposed comm-second split, and issued == planned runs against the
-    interleaved issue order. ``classes`` and ``offload`` need a host tier:
-    they raise, naming ``ROADMAP.md`` A14."""
+    interleaved issue order. ``classes`` carves a host-class axis out of
+    the ranks, ``(data, model, host)`` (``host_degree``, 1 where it does
+    not divide them; one card solves on the ``(1, 1, 1)`` space) and
+    solves under the per-class cost table; ``offload`` names the inputs
+    the solver must park there. The record then carries the per-class
+    placement and the ``Transfer`` steps the plan issued."""
+    import contextlib
+
+    from repro_torch.axe import hetero
     from repro_torch.axe import lower
     from repro_torch.axe.compile import SUPPORTED_FAMILIES, compile as axe_compile, model_inputs
     from repro_torch.axe.graphs import model_graph
@@ -282,8 +290,6 @@ def execute_cell(
     from repro_torch.models import transformer as tf_mod
     from repro_torch.models.model_zoo import build_model
 
-    if classes or offload:
-        raise _not_ported("--classes / --offload (a host tier) with --execute")
     cfg = smoke_variant(get_config(arch))
     record = {"arch": arch, "mode": "execute", "batch": batch, "seq": seq}
     if cfg.family not in SUPPORTED_FAMILIES:
@@ -300,9 +306,20 @@ def execute_cell(
             from repro_torch.launch.mesh import make_local_mesh
 
             n = dist.get_world_size()
-            mesh = make_local_mesh(4 if n % 4 == 0 else n, device=device)
+            mesh = (_host_mesh(n, host_degree, device) if classes
+                    else make_local_mesh(4 if n % 4 == 0 else n, device=device))
     dev = mesh.device if mesh is not None else resolve_device(device)
-    space = PhysicalSpace.from_mesh_shape(mesh_shape_of(mesh) if mesh is not None else {})
+    table = None
+    if classes:
+        shape = mesh_shape_of(mesh) if mesh is not None else {"data": 1, "model": 1, "host": 1}
+        if "host" not in shape:
+            raise ValueError(f"--classes needs a mesh with a host axis, got {shape}")
+        table = hetero.parse_classes(classes)
+        space = PhysicalSpace.from_mesh_shape(shape, classes={"host": hetero.HOST_CLASS})
+        record["classes"] = classes
+        record["offload"] = list(offload)
+    else:
+        space = PhysicalSpace.from_mesh_shape(mesh_shape_of(mesh) if mesh is not None else {})
     record["mesh_shape"] = space.mesh_shape
     record["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     try:
@@ -318,7 +335,12 @@ def execute_cell(
             record["fusion"] = rep.to_dict()
             if verbose and fusion_trace:
                 print(rep.describe())
-        res = solve(graph, beam=beam, backend=BACKEND, overlap=overlap)
+        ctx = hetero.use_class_table(table) if table else contextlib.nullcontext()
+        with ctx:
+            res = solve(graph, beam=beam, backend=BACKEND, compare_seeded=not classes,
+                        offload=offload, overlap=overlap)
+        if table is not None:
+            record["hetero"] = _hetero_record(res, table)
         exe = axe_compile(graph, mesh, plan=res, overlap=overlap)
 
         api = build_model(cfg, device=dev)
@@ -363,6 +385,15 @@ def execute_cell(
                                f"{mismatches[:4]}")
         if mesh is None and (planned or exe.plan.total_comm_bytes):
             raise RuntimeError(f"a mesh=None plan holds collectives: {planned[:4]}")
+        # the class-crossing Transfer steps: every one the plan holds was
+        # issued (observed == planned above); an offload that moved nothing
+        # where the host axis could park is a failure
+        transfers = sum(1 for (_op, _operand, steps) in planned if "Transfer" in steps)
+        record["transfers"] = transfers
+        parkable = any(space.mesh_shape[a] > 1 for a in space.class_axes())
+        if offload and parkable and transfers == 0:
+            raise RuntimeError(f"offload={list(offload)} was requested but the compiled "
+                               f"plan issued no Transfer collective")
         record.update(
             status="ok", fused=fuse, overlap=overlap, collectives=len(planned),
             collective_check=("issued == planned == decisions" if mesh is not None
@@ -384,14 +415,31 @@ def execute_cell(
                 tago = (f" hidden={res.hidden_comm_s * 1e6:.1f}us/"
                         f"exposed={res.exposed_comm_s * 1e6:.1f}us "
                         f"({record['hidden_ops']} ops overlap)")
+            tagx = (f" transfers={transfers} "
+                    f"xfer={exe.plan.total_transfer_bytes / 2**10:.1f} KiB/dev"
+                    if classes else "")
             print(f"EXEC {arch}{' fused' if fuse else ''} mesh={space.signature()} "
                   f"device={record['device']} max|Δ|={record['max_abs_diff']:.2e} "
                   f"collectives={len(planned)} ({record['collective_check']}) "
-                  f"comm={exe.plan.total_comm_bytes / 2**10:.1f} KiB/dev{tago} OK")
+                  f"comm={exe.plan.total_comm_bytes / 2**10:.1f} KiB/dev{tagx}{tago} OK")
+            if "hetero" in record:
+                _print_hetero(record)
     except Exception as e:  # record an error row; never abort a sweep
         record.update(status="error", error=f"{type(e).__name__}: {e}")
         record["traceback"] = traceback.format_exc()[-2000:]
     return record
+
+
+def _host_mesh(n: int, host_degree: int, device):
+    """The reference's ``--classes`` mesh over ``n`` ranks: a host axis of
+    ``host_degree`` (1 where it does not divide them), a model axis of 2
+    where the rest is even, the data axis the rest."""
+    from repro_torch.launch.mesh import make_mesh
+
+    hd = host_degree if n % host_degree == 0 else 1
+    rest = n // hd
+    model = 2 if rest % 2 == 0 else rest
+    return make_mesh((rest // model, model, hd), ("data", "model", "host"), device=device)
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool):
@@ -486,7 +534,8 @@ def main(argv=None):
         from repro_torch.launch.mesh import make_local_mesh
 
         n = int(os.environ["WORLD_SIZE"])
-        world_mesh = make_local_mesh(4 if n % 4 == 0 else n, device=args.device)
+        world_mesh = (_host_mesh(n, args.host_degree, args.device) if args.classes
+                      else make_local_mesh(4 if n % 4 == 0 else n, device=args.device))
         rank = world_mesh.rank
     out_f = open(args.out, "a") if args.out and rank == 0 else None
     failures = 0

@@ -24,9 +24,18 @@ card) the launcher builds the ``(data, model)`` mesh (``--mesh-data 0``:
 the ranks over ``--mesh-model``) and runs the sharded step
 (``train_loop.ShardedLayout``): each rank draws only its shards of the
 weights and holds only its shards of the state; the batch's rows split
-over the whole mesh. Rank 0 prints. Compiled training on a mesh
-(``--solve``) and the host tier (``--offload-opt``) raise, naming
-ROADMAP A14.
+over the whole mesh. Under ``--solve`` the layout is solved on the
+mesh's space and the compiled executable runs on the mesh
+(``train_loop.CompiledLayout``): each leaf is stored in its solved
+placement with FSDP, bound to the plan's input placements at each call,
+and the plan's collectives run forward and backward. ``--offload-opt``
+carves a host-class axis out of the ranks (``(data, model, host)``,
+``--host-degree``, 1 where it does not divide the world) and parks the
+AdamW moments on it. Rank 0 prints.
+
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch qwen3-4b --smoke --device cpu --solve --mesh-model 2 \
+        --offload-opt --host-degree 2 --steps 3
 """
 from __future__ import annotations
 
@@ -41,46 +50,48 @@ from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.train.train_loop import ShardedLayout, Trainer, init_state, make_train_step
+from repro_torch.train.train_loop import (
+    CompiledLayout, ShardedLayout, Trainer, init_state, make_train_step)
 
 
-def _solve(args, cfg):
+def _solve(args, cfg, mesh, say=print):
     """The compiled forward's executable: the model graph at the
-    per-microbatch batch, full depth, solved (or cotuned) and compiled;
-    ``None`` where the forward is not compiled (a family ``axe.compile``
-    binds no model of, or ``--no-compiled-forward``), after solving the
-    2-layer layout study in its place."""
-    from repro_torch.axe.compile import SUPPORTED_FAMILIES
+    per-microbatch batch, full depth, over the mesh's space (its host
+    axis of the host class), solved (or cotuned) and compiled for the
+    mesh; ``None`` where the forward is not compiled (a family
+    ``axe.compile`` binds no model of, or ``--no-compiled-forward``),
+    after solving the 2-layer layout study in its place."""
+    from repro_torch.axe.compile import SUPPORTED_FAMILIES, _space
     from repro_torch.axe.compile import compile as axe_compile
     from repro_torch.axe.graphs import model_graph
     from repro_torch.axe.solve import solve
-    from repro_torch.axe.spec import PhysicalSpace
 
     if args.global_batch % max(args.microbatches, 1):
         raise SystemExit(f"--global-batch {args.global_batch} does not split into "
                          f"{args.microbatches} microbatches")
     compiled = not args.no_compiled_forward and cfg.family in SUPPORTED_FAMILIES
     mb_batch = args.global_batch // max(args.microbatches, 1)
-    gs = model_graph(cfg, mb_batch, args.seq, PhysicalSpace(()), dtype=cfg.dtype,
+    space = _space(mesh, {"host": "host"} if args.offload_opt else None)
+    gs = model_graph(cfg, mb_batch, args.seq, space, dtype=cfg.dtype,
                      layers=cfg.num_layers if compiled else 2)
     if args.fuse:
         from repro_torch.axe.passes import fuse_graph
 
         gs, rep = fuse_graph(gs)
-        print(f"fusion: {len(rep.patterns_fired)} patterns fired, "
-              f"{len(rep.eliminated)} intermediates eliminated")
+        say(f"fusion: {len(rep.patterns_fired)} patterns fired, "
+            f"{len(rep.eliminated)} intermediates eliminated")
     if args.cotune:
         from repro_torch.axe.cotune import cotune
 
         ct = cotune(gs, beam=args.solve_beam, backend="gpu", max_iters=args.cotune_iters)
         res = ct.result
-        print(ct.describe())
+        say(ct.describe())
     else:
         res = solve(gs, beam=args.solve_beam, backend="gpu")
-    print(f"layout solver: comm {(res.seeded_comm_bytes or 0) / 2**20:.1f} -> "
-          f"{res.comm_bytes / 2**20:.1f} MiB/dev "
-          f"({100 * (res.comm_improvement or 0):.1f}% saved, "
-          f"beam={res.beam}, {res.explored} states)")
+    say(f"layout solver: comm {(res.seeded_comm_bytes or 0) / 2**20:.1f} -> "
+        f"{res.comm_bytes / 2**20:.1f} MiB/dev "
+        f"({100 * (res.comm_improvement or 0):.1f}% saved, "
+        f"beam={res.beam}, {res.explored} states)")
     if not compiled:
         warnings.warn(
             "training on the module-wired forward under --solve is deprecated; the "
@@ -88,8 +99,11 @@ def _solve(args, cfg):
             DeprecationWarning, stacklevel=1,
         )
         return None
-    exe = axe_compile(gs, None, plan=res)
-    print(f"compiled forward: {len(exe.plan.entries)} ops")
+    # the forward from the compiled graph under the plan the params are
+    # placed with: on a mesh its collectives run forward and backward
+    exe = axe_compile(gs, mesh, plan=res)
+    say(f"compiled forward: {len(exe.plan.entries)} ops, "
+        f"{len(exe.collective_sequence())} redistributions")
     return exe
 
 
@@ -123,24 +137,19 @@ def main(argv=None):
                     help="with --solve: keep the model's forward and only solve the "
                          "layout study (deprecated path)")
     ap.add_argument("--offload-opt", action="store_true",
-                    help="park the optimizer moments on a host-class mesh axis: the host "
-                         "tier, ROADMAP A14")
+                    help="park the optimizer moments on a host-class mesh axis (axe.hetero): "
+                         "the ranks carve a host tier and shard mu / nu over it")
     ap.add_argument("--host-degree", type=int, default=None,
-                    help="with --offload-opt: size of the carved host mesh axis")
+                    help="with --offload-opt: size of the carved host mesh axis (default 2; "
+                         "1, a no-op, where it does not divide the world's ranks)")
     ap.add_argument("--device", default="cuda", help="default: cuda (raises without a card)")
     args = ap.parse_args(argv)
     if args.host_degree is not None and not args.offload_opt:
         raise SystemExit("--host-degree sizes the host mesh axis of --offload-opt")
-    if args.offload_opt:
-        raise SystemExit("--offload-opt parks the moments on the host tier, which the port "
-                         "does not have yet: ROADMAP.md A14")
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh = _mesh(args, world) if world > 1 or args.mesh_data > 1 or args.mesh_model > 1 else None
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
-    if mesh is not None and args.solve:
-        raise SystemExit("--solve on a mesh (compiled training across ranks) is not ported "
-                         "yet: ROADMAP.md A14")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -149,13 +158,18 @@ def main(argv=None):
         f"(active {cfg.active_param_count()/1e9:.2f}B)")
 
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 20, args.steps))
+    exe = _solve(args, cfg, mesh, say) if args.solve else None
     layout = None
+    offload = ("host",) if args.offload_opt else ()
     if mesh is None:
         api = build_model(cfg, device=args.device)
         state = init_state(api.init(0), opt)
     else:
         api = build_model(cfg, device=mesh.device)
-        layout = ShardedLayout.for_model(mesh, cfg)
+        if exe is not None:
+            layout = CompiledLayout(exe, cfg, offload_axes=offload)
+        else:
+            layout = ShardedLayout.for_model(mesh, cfg, offload_axes=offload)
         if cfg.family == "encdec":
             params = layout.shard_tree(api.init(0))
         else:  # each rank keeps only its shard of each leaf as it is drawn
@@ -164,17 +178,21 @@ def main(argv=None):
         say(f"mesh {mesh.mesh_shape} ({mesh.backend}): a rank holds "
             f"{_bytes(state.params) / 2**20:.1f} MiB of params, "
             f"{_bytes(state.opt_state) / 2**20:.1f} MiB of moments")
+        if args.offload_opt:
+            n, total, host_b = layout.parked(state.params)
+            # mu and nu share the spec tree: each parked leaf is held twice
+            say(f"offload-opt: parked {n}/{total} moment leaves on the host class "
+                f"({2 * host_b / 2**20:.1f} MiB/host-device)")
     data = SyntheticLMData(
         cfg.vocab_size, args.seq, args.global_batch,
         frontend=cfg.frontend, num_patches=cfg.num_patches,
         encoder_seq=cfg.encoder_seq, d_model=cfg.d_model, dtype=cfg.dtype,
     )
     kw = dict(microbatches=args.microbatches, compress_pod_grads=args.compress_pod_grads)
-    exe = _solve(args, cfg) if args.solve else None
     if exe is not None:
         from repro_torch.train.train_loop import make_compiled_train_step
 
-        step_fn = make_compiled_train_step(exe, cfg, opt, **kw)
+        step_fn = make_compiled_train_step(exe, cfg, opt, layout=layout, **kw)
     else:
         step_fn = make_train_step(api.loss_fn, opt, layout=layout, **kw)
     trainer = Trainer(
@@ -196,17 +214,26 @@ def main(argv=None):
 
 def _mesh(args, world: int):
     """The ``(data, model)`` mesh over the world the environment
-    describes (``torch.distributed.run``)."""
+    describes (``torch.distributed.run``); under ``--offload-opt`` the
+    ``(data, model, host)`` mesh, whose host degree falls back to 1
+    where it does not divide the world, as the reference's launcher."""
     from repro_torch.launch.mesh import init_world, make_mesh
 
-    if world % args.mesh_model:
+    host = 1
+    if args.offload_opt:
+        want = 2 if args.host_degree is None else args.host_degree
+        host = want if world % (args.mesh_model * want) == 0 else 1
+    if world % (args.mesh_model * host):
         raise SystemExit(f"{world} ranks do not split into --mesh-model {args.mesh_model}")
-    data = args.mesh_data or world // args.mesh_model
-    if data * args.mesh_model != world:
+    data = args.mesh_data or world // (args.mesh_model * host)
+    if data * args.mesh_model * host != world:
         raise SystemExit(f"a ({data}, {args.mesh_model}) mesh needs {data * args.mesh_model} "
                          f"ranks; the world has {world} (torch.distributed.run "
                          f"--nproc-per-node)")
     init_world(args.device)
+    if args.offload_opt:
+        return make_mesh((data, args.mesh_model, host), ("data", "model", "host"),
+                         device=args.device)
     return make_mesh((data, args.mesh_model), ("data", "model"), device=args.device)
 
 

@@ -22,6 +22,12 @@ axes the leaf is replicated on; an expert leaf under expert parallelism
 stays the rank's ``E / ep`` experts. The global norm counts each element
 once, AdamW updates the rank's moment slice, and the updated param
 slice is gathered back to the param layout.
+
+The compiled step on a mesh (:class:`CompiledLayout`,
+``make_compiled_train_step(layout=)``) keeps each leaf in the solved
+plan's placement with FSDP and binds it to the executable's input
+placements at each call; the plan's collectives run forward and
+backward.
 """
 from __future__ import annotations
 
@@ -120,7 +126,7 @@ def make_train_step(
             else:
                 loss, grads = grads_of(params, batch)
             if layout is not None:
-                loss = coll.all_reduce(loss, layout.mesh.axis_names)
+                loss = layout.total_loss(loss)
 
             if compress_pod_grads:
                 grads = compress(grads)
@@ -147,7 +153,7 @@ class _LeafPlan:
     gathers: Tuple[Tuple[int, Tuple[str, ...]], ...]   # (dim, axes) gathered at use
     sum_axes: Tuple[str, ...]           # axes its gradient is summed over
     shard_axes: Tuple[str, ...]         # axes its shards are spread over
-    zero: Optional[Tuple[int, Tuple[str, ...]]]  # (dim, axes) the moments add
+    zero: Tuple[Tuple[int, Tuple[str, ...]], ...]  # (dim, axes) the moments add
 
 
 class ShardedLayout:
@@ -162,15 +168,22 @@ class ShardedLayout:
     all-to-all over ``model``, with the reference's local token count,
     and runs no dense layer twice. ``ep``: the expert leaves (``moe.wg``,
     ``wu``, ``wo``) keep their ``model`` shard, the rank's experts, for
-    ``models.moe.moe_apply_expert_parallel``.
+    ``models.moe.moe_apply_expert_parallel``. ``offload_axes``: the moments
+    are also parked on those host-class axes (``rules.opt_specs(
+    offload_axes=)``, ``launch/train.py --offload-opt``).
 
     Specs are worked out per leaf as the leaves come (:meth:`place`,
     :meth:`shard_tree`), from their global shapes."""
 
     def __init__(self, mesh, *, head_dim: Optional[int] = None, ep: bool = False,
-                 zero1: bool = True):
+                 zero1: bool = True, offload_axes: Tuple[str, ...] = ()):
         self.mesh, self.head_dim, self.ep, self.zero1 = mesh, head_dim, ep, zero1
-        self.space = PhysicalSpace.from_mesh_shape(mesh.mesh_shape)
+        self.offload_axes = tuple(offload_axes)
+        #: a solved plan's param placements (``rules.PlanRules``), or None
+        self.solved: Optional[rules.PlanRules] = None
+        # the host tier's axes carry the host class (``axe.hetero``)
+        self.space = PhysicalSpace.from_mesh_shape(
+            mesh.mesh_shape, classes={a: "host" for a in self.offload_axes})
         #: the batch's rows over every axis of the mesh
         self.batch_pspec = (tuple(mesh.axis_names),)
         self._plans: Dict[str, _LeafPlan] = {}
@@ -192,9 +205,7 @@ class ShardedLayout:
         if ps not in self._plans:
             if shape is None:
                 raise KeyError(f"no layout for param leaf {ps!r} yet")
-            p = rules.param_spec(ps, tuple(shape), dtype or "float32", self.space,
-                                 fsdp=True, head_dim=self.head_dim)
-            o = rules.zero1_extend(p) if self.zero1 else p
+            p, o = self._specs(ps, tuple(shape), dtype or "float32")
             pl, ol = p.placement(), o.placement()
             kept = set()
             if self.ep and rules.rule_key(ps) in ("moe.wg", "moe.wu", "moe.wo"):
@@ -203,9 +214,9 @@ class ShardedLayout:
                     kept.add(e_dim)
             used = {a for axes in pl for a in axes}
             ms = self.mesh.mesh_shape
-            zero = next(((d, ol[d]) for d in range(len(pl)) if ol[d] != pl[d]), None)
-            if zero is not None and pl[zero[0]]:
-                raise ValueError(f"{ps}: ZeRO-1 spec {ol} re-shards a sharded dim of {pl}")
+            if any(ol[d][:len(pl[d])] != pl[d] for d in range(len(pl))):
+                raise ValueError(f"{ps}: moment spec {ol} re-shards a sharded dim of {pl}")
+            zero = tuple((d, ol[d][len(pl[d]):]) for d in range(len(pl)) if ol[d] != pl[d])
             self._plans[ps] = _LeafPlan(
                 param=p, moment=o,
                 gathers=tuple((d, axes) for d, axes in enumerate(pl) if axes and d not in kept),
@@ -213,6 +224,15 @@ class ShardedLayout:
                 shard_axes=tuple(a for a in self.mesh.axis_names if a in used),
                 zero=zero)
         return self._plans[ps]
+
+    def _specs(self, ps: str, shape: Tuple[int, ...], dtype: str) -> Tuple[AxeSpec, AxeSpec]:
+        """The leaf's param spec (the solved placement of :attr:`solved`
+        where there is one) and its moments' (parked on the host tier's
+        axes, ``offload_axes``, where there are some)."""
+        kw = dict(fsdp=True, plan=self.solved, head_dim=self.head_dim)
+        return (rules.param_spec(ps, shape, dtype, self.space, **kw),
+                rules.moment_spec(ps, shape, dtype, self.space, zero1=self.zero1,
+                                  offload_axes=self.offload_axes, **kw))
 
     def sharding(self, spec: AxeSpec) -> NamedSharding:
         from repro_torch.axe import lower
@@ -300,6 +320,23 @@ class ShardedLayout:
         n = self.mesh.world
         return value_and_grad(lambda p, b: loss_fn(p, b, gather=self.gather) / n)
 
+    def total_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global loss from :meth:`value_and_grad`'s (the rank's part)."""
+        return coll.all_reduce(loss, self.mesh.axis_names)
+
+    def parked(self, tree: Any) -> Tuple[int, int, int]:
+        """``(parked, leaves, bytes)`` of the moment specs of ``tree``'s
+        leaves: those the host tier holds (``axe.hetero.is_parked``) and
+        a host device's bytes of one moment of them (the reference
+        launcher's ``--offload-opt`` line counts mu and nu)."""
+        from repro_torch.axe import hetero
+
+        specs = [self.plan(path, t.shape, rules._dtype_str(t)).moment
+                 for path, t in leaves_with_paths(tree)]
+        parked = [s for s in specs if hetero.is_parked(s)]
+        return (len(parked), len(specs),
+                sum(s.bytes_per_device(hetero.itemsize_of(s.dtype)) for s in parked))
+
     def _grouped(self, grads: Any, value) -> List[Tuple[Tuple[str, ...], List[torch.Tensor]]]:
         """``value(grad)`` per leaf, grouped by the axes the leaf's shards
         are spread over, groups in one order on every rank."""
@@ -338,38 +375,108 @@ class ShardedLayout:
     def adamw_step_(self, optimizer: AdamW, params: Any, grads: Any, state: AdamWState, *,
                     clip_scale: Optional[torch.Tensor] = None) -> AdamWState:
         """``optimizer.step_`` on the rank's moment slices: a leaf whose
-        moments ZeRO-1 splits further updates its slice of the param
-        shard, which is then gathered back over those axes."""
+        moments ZeRO-1 (or the host tier) splits further updates its
+        slice of the param shard, which is then gathered back over those
+        axes."""
         ps, gs, sliced = [], [], []
         for (path, p), g in zip(leaves_with_paths(params), leaves(grads)):
             zero = self.plan(path).zero
-            if zero is None:
+            if not zero:
                 ps.append(p)
                 gs.append(g)
                 continue
-            dim, axes = zero
-            c = p.shape[dim] // self.mesh.axis_size(axes)
-            start = self.mesh.axis_index(axes) * c
-            ps.append(p.narrow(dim, start, c).contiguous())
-            gs.append(g.narrow(dim, start, c).contiguous())
-            sliced.append((p, len(ps) - 1, dim, axes))
+            pz, gz = p, g
+            for dim, axes in zero:
+                c = p.shape[dim] // self.mesh.axis_size(axes)
+                start = self.mesh.axis_index(axes) * c
+                pz, gz = pz.narrow(dim, start, c), gz.narrow(dim, start, c)
+            ps.append(pz.contiguous())
+            gs.append(gz.contiguous())
+            sliced.append((p, len(ps) - 1, zero))
         new = optimizer.step_(ps, gs, AdamWState(leaves(state.mu), leaves(state.nu), state.count),
                               clip_scale=clip_scale)
         with coll.use_mesh(self.mesh):
-            for p, i, dim, axes in sliced:
-                p.copy_(coll.all_gather(ps[i], axes, dim))
+            for p, i, zero in sliced:
+                x = ps[i]
+                for dim, axes in reversed(zero):
+                    x = coll.all_gather(x, axes, dim)
+                p.copy_(x)
         return AdamWState(state.mu, state.nu, new.count)
 
 
-def make_compiled_train_step(executable, cfg, optimizer: AdamW, **kwargs) -> Callable:
+class CompiledLayout(ShardedLayout):
+    """Where the compiled step's train state lives on ``exe``'s mesh
+    (:func:`make_compiled_train_step` on one of its ranks): what the
+    reference's launcher places under ``--solve``.
+
+    A leaf takes ``rules.param_spec(fsdp=True, plan=from_plan(plan))``,
+    the solved placement of the graph input it feeds with FSDP over
+    ``data`` (the port's flattened heads through ``head_dim``), and its
+    moments ``rules.opt_specs(zero1=, offload_axes=)`` of that: with
+    ``offload_axes=("host",)`` they are parked on the host-class axis
+    (``launch/train.py --offload-opt``). Every rank takes the whole batch;
+    the executable shards it by its plan. At each call a leaf's shard is
+    bound to the placement of each graph input that views it
+    (:meth:`bind`, ``Executable.as_input``): gathered or sliced forward,
+    the transposes backward, and its gradient summed over the axes the
+    leaf is replicated on, so that it lands whole on the rank's shard.
+    The norm, the int8 compression and ZeRO-1 AdamW run on the shards as
+    in :class:`ShardedLayout`."""
+
+    def __init__(self, exe, cfg, *, zero1: bool = True, offload_axes: Tuple[str, ...] = ()):
+        if exe.mesh is None:
+            raise ValueError("CompiledLayout needs an executable compiled for a mesh")
+        super().__init__(exe.mesh, head_dim=cfg.head_dim or None, zero1=zero1,
+                         offload_axes=offload_axes)
+        self.exe, self.cfg = exe, cfg
+        #: the executable's space: its classes annotate the host axis
+        self.space = exe.graph.space
+        self.solved = rules.from_plan(exe.assignment)
+        #: every rank takes the whole batch
+        self.batch_pspec = ()
+
+    def bind(self, name: str, path, view: torch.Tensor, stacked: bool,
+             transposed: bool) -> torch.Tensor:
+        """``compile.model_inputs``' binding: the view of a leaf's shard
+        in input ``name``'s placement."""
+        from repro_torch.axe import lower
+
+        pspec = tuple(lower.to_pspec(self.plan(path).param))
+        pspec += (None,) * (view.dim() + stacked - len(pspec))
+        if stacked:
+            if pspec[0]:
+                raise ValueError(f"{path}: the stacked dim is sharded")
+            pspec = pspec[1:]
+        if transposed:
+            pspec = pspec[::-1]
+        return self.exe.as_input(name, view, pspec)
+
+    def value_and_grad(self, loss_fn: Callable) -> Callable:
+        """:func:`value_and_grad` of ``compiled_loss_fn(exe, cfg,
+        bind=self.bind)``: the global loss, each rank's gradients on its
+        shards."""
+        return value_and_grad(loss_fn)
+
+    def total_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss
+
+
+def make_compiled_train_step(executable, cfg, optimizer: AdamW, *,
+                             layout: Optional[CompiledLayout] = None, **kwargs) -> Callable:
     """A train step whose forward is an ``axe.compile``
     :class:`~repro_torch.axe.compile.Executable` over the model graph
     instead of the model's module wiring: the loss differentiates through
-    the executable's kernel programs. The step ``launch/train.py --solve``
-    builds."""
+    the executable's kernel programs, and on a mesh through the solved
+    plan's collectives. The step ``launch/train.py --solve`` builds.
+    ``layout``: on a mesh, the :class:`CompiledLayout` of the state (by
+    default the executable's own)."""
     from repro_torch.axe.compile import compiled_loss_fn
 
-    return make_train_step(compiled_loss_fn(executable, cfg), optimizer, **kwargs)
+    if executable.mesh is None:
+        return make_train_step(compiled_loss_fn(executable, cfg), optimizer, **kwargs)
+    layout = layout or CompiledLayout(executable, cfg)
+    return make_train_step(compiled_loss_fn(executable, cfg, bind=layout.bind), optimizer,
+                           layout=layout, **kwargs)
 
 
 # ---------------------------------------------------------------------------

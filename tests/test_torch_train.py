@@ -175,14 +175,16 @@ def test_error_feedback_matches_jax_and_reduces_bias():
 def test_the_collective_halves_raise_naming_a14():
     """``compressed_psum`` and ``sharded_batch_at`` run on a mesh now
     (``tests/test_torch_train_mesh.py``); off a mesh the collective says
-    where it runs. What A14 still holds of the training side, the host
-    tier, raises naming it."""
+    where it runs. The host tier trains on a mesh
+    (``tests/test_torch_train_compiled_mesh.py``); in a world of one its
+    host axis has degree 1, as the reference's on one device, and the
+    launcher trains on the one card."""
     from repro_torch.launch import train as launch_train
 
     with pytest.raises(RuntimeError, match="with mesh"):
         grad_compress.compressed_psum(torch.ones(4), "pod")
-    with pytest.raises(SystemExit, match="A14"):
-        launch_train.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--offload-opt"])
+    launch_train.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--offload-opt",
+                       "--steps", "1", "--global-batch", "2", "--seq", "16"])
 
 
 @pytest.mark.parametrize("frontend", ["", "vision_stub", "audio_stub"])
@@ -458,6 +460,7 @@ def test_launch_train_refuses_the_multi_gpu_options():
     # mesh degrees run in a world of as many ranks (tests/test_torch_train_mesh.py);
     # this process is a world of one
     for argv, why in ((["--mesh-model", "2"], "ranks"), (["--mesh-data", "2"], "ranks"),
-                      (["--offload-opt"], "A14"), (["--host-degree", "2"], "--offload-opt")):
+                      (["--offload-opt", "--mesh-model", "2"], "ranks"),
+                      (["--host-degree", "2"], "--offload-opt")):
         with pytest.raises(SystemExit, match=why):
             launch_train.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu", *argv])

@@ -2,10 +2,13 @@
 package, on the CPU: kernel B5's autograd route (the backward products
 through the ``moe_gemm`` program again), the capacity dispatch and
 combine under autograd (dropped assignments and empty experts), the
-model loss and its grads for the smoke qwen3-moe-235b-a22b, dbrx-132b
-and jamba-1.5-large-398b (remat "full" and "none") and B5's launches per
-train step; ``tests/test_torch_train_moe_steps.py`` holds the train
-steps, the compiled loss and the checkpoints. Inputs are drawn in numpy
+model loss's grads under remat "full" and "none" bit for bit, and B5's
+launches per train step; ``tests/test_torch_train_moe_grads.py`` holds
+the model loss and its grads for the smoke qwen3-moe-235b-a22b,
+dbrx-132b and jamba-1.5-large-398b against JAX's (a file of its own, so
+that each file stays small enough to run beside ``tests/test_overlap.py``
+under ``--dist loadfile``), ``tests/test_torch_train_moe_steps.py`` the
+train steps, the compiled loss and the checkpoints. Inputs are drawn in numpy
 or from ``PRNGKey(0)`` params converted through numpy.
 
 Tolerances: ``_tol`` on the kernel's grads; f32 loss 2e-4 and grads
@@ -36,7 +39,7 @@ from repro.models import transformer as jax_tf
 from repro.models.model_zoo import build_model as jax_build_model
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
-from repro_torch.core.tree import leaves, leaves_with_paths
+from repro_torch.core.tree import leaves
 from repro_torch.kernels import moe_gemm as moe_k
 from repro_torch.kernels import programs
 from repro_torch.models import moe
@@ -220,44 +223,6 @@ def _port_value_and_grad(arch, dtype, remat):
                                                                   _torch_batch(_batch(cfg)))
     finally:
         tf.set_remat_policy("full")
-
-
-@pytest.mark.parametrize("remat", ["full", "none"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_and_hybrid_loss_and_grads_match_jax(arch, remat):
-    """f32: the loss and every leaf's grad (the stacked expert weights,
-    the f32 router, jamba's SSD leaves) against ``jax.value_and_grad`` of
-    the JAX package's ``lm_loss``, which has no auxiliary loss."""
-    loss, grads = _port_value_and_grad(arch, "float32", remat)
-    want_loss, want, _ = _jax_value_and_grad(arch, "float32")
-    tcfg = _cfgs(arch, "float32")[1]
-    assert_close(loss, np.float32(want_loss), **F32_LOSS)
-    ref = dict(leaves_with_paths(params_from_jax(want, tcfg)))
-    got = dict(leaves_with_paths(grads))
-    assert set(got) == set(ref)
-    for path, g in got.items():
-        assert g.dtype == torch.float32 and g.shape == ref[path].shape, path
-        assert_close(g, ref[path], **F32_GRADS)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_and_hybrid_bf16_loss_and_grads_routed_as_jax(arch, monkeypatch):
-    """bf16, remat "full": the port routed as JAX's jitted step routed
-    (each layer's choices, the recompute's too): the loss within the bf16
-    tolerance and each leaf's grad within the relative bound of JAX's."""
-    remat = "full"
-    want_loss, want, routes = _jax_value_and_grad(arch, "bfloat16")
-    tcfg = _cfgs(arch, "bfloat16")[1]
-    forced = _routed_by_layer(monkeypatch, routes)
-    loss, grads = _port_value_and_grad(arch, "bfloat16", remat)
-    assert len(forced) == len(routes) == tcfg.num_layers  # a MoE FFN in every layer
-    assert_close(loss, np.float32(want_loss), **BF16_LOSS)
-    bound = BF16_GRAD_REL * (tcfg.num_layers / 2) ** 0.5
-    ref = dict(leaves_with_paths(params_from_jax(want, tcfg)))
-    for path, g in leaves_with_paths(grads):
-        assert g.dtype == ref[path].dtype, path
-        err = float((g.float() - ref[path].float()).norm() / ref[path].float().norm())
-        assert err <= bound, (path, err)
 
 
 def test_remat_full_grads_equal_remat_none():

@@ -549,7 +549,222 @@ def gpu_train_checks(mesh):
             "counts": coll.collective_counts()}
 
 
-__all__ = ["collective_matmuls", "collective_world", "compressed", "engine_generate", "ep_moe",
-           "executables", "failing_rank", "first_step_grads", "gpu_checks", "gpu_train_checks", "ops_checks", "pipeline_world",
-           "plan_steps", "restart_world", "serve_world", "sharded_batches", "train_world"]
+# ---------------------------------------------------------------------------
+# compiled training across ranks and the host tier
+# (tests/test_torch_train_compiled_mesh.py)
+# ---------------------------------------------------------------------------
 
+
+def ring_grads(mesh):
+    """``sum(gather(x) * w_r)`` differentiated through the tiled
+    all-gather, the ring and an issued ``Pending``, with ``w_r`` different
+    on each rank: the gradient each gives this rank's shard."""
+    out = {}
+    base = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    for kind in ("tiled", "ring", "pending"):
+        x = (torch.arange(2 * 3, dtype=torch.float32).reshape(2, 3) + mesh.rank).requires_grad_()
+        with mesh:
+            if kind == "tiled":
+                y = coll.all_gather(x, "model", 0)
+            elif kind == "ring":
+                y = coll.ring_all_gather(x, "model", 0)
+            else:
+                y = coll.Pending(x, [coll.AllGather("model", 0)]).wait()
+            (y * base * (mesh.rank + 1)).sum().backward()
+        out[kind] = _np(x.grad)
+    return out
+
+
+def _shard_grads(layout, grads):
+    from repro_torch.core.tree import leaves_with_paths
+
+    return {".".join(path): (_np(g), layout.plan(path).param.placement())
+            for path, g in leaves_with_paths(grads)}
+
+
+def compiled_grads(mesh, cfg, params, plan, data_kw, with_global=True):
+    """The compiled loss and gradients on this rank under ``plan`` (an
+    assignment): through ``CompiledLayout`` on the rank's shards (each
+    its shard), sync and overlapped, and ``with_global`` through
+    ``compiled_loss_fn`` on global params (each rank gets the whole
+    gradient)."""
+    from repro_torch.core.tree import leaves, leaves_with_paths
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.train_loop import CompiledLayout, value_and_grad
+
+    params = _torch_tree(params)
+    data = SyntheticLMData(**data_kw)
+    batch = data.torch_batch_at(0, mesh.device)
+    b, s = batch["tokens"].shape
+    gs = p_graphs.model_graph(cfg, b, s, p_compile._space(mesh), dtype=cfg.dtype,
+                              layers=cfg.num_layers)
+    exe = p_compile.compile(gs, mesh, plan)
+    exe_ov = p_compile.compile(gs, mesh, plan, overlap=True)
+    rec = {}
+    if with_global:
+        loss_g, grads_g = value_and_grad(p_compile.compiled_loss_fn(exe, cfg))(params, batch)
+        rec["global_loss"] = float(loss_g)
+        if mesh.rank == 0:
+            rec["global_grads"] = {".".join(p): _np(g) for p, g in leaves_with_paths(grads_g)}
+    layout = CompiledLayout(exe, cfg)
+    shards = layout.shard_tree(params)
+    runs = {}
+    for name, e in (("sync", exe), ("overlap", exe_ov)):
+        loss, grads = layout.value_and_grad(
+            p_compile.compiled_loss_fn(e, cfg, bind=layout.bind))(shards, batch)
+        runs[name] = (loss, leaves(grads))
+        if name == "sync":
+            rec["loss"], rec["grads"] = float(loss), _shard_grads(layout, grads)
+    rec["overlap_bit_equal"] = bool(torch.equal(runs["sync"][0], runs["overlap"][0]) and all(
+        torch.equal(a, c) for a, c in zip(runs["sync"][1], runs["overlap"][1])))
+    rec["prefetched"] = sum(len(r.prefetched) for r in exe_ov.lowering_trace)
+    rec["collectives"] = len(exe.collective_sequence())
+    rec["issued_eq_planned"] = (exe.observed_collectives == exe.collective_sequence()
+                                and exe_ov.observed_collectives == exe_ov.collective_sequence())
+    return rec
+
+
+def compiled_steps(mesh, cfg, params, plan, data_kw, lr, steps, ckpt_dir):
+    """``steps`` compiled sharded steps through ``Trainer.run`` (the
+    launcher's state: ``CompiledLayout``), the per-rank bytes, and the
+    last state saved and restored on the mesh."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import CompiledLayout, Trainer, make_compiled_train_step
+
+    data = SyntheticLMData(**data_kw)
+    b, s = data.global_batch, data.seq_len
+    gs = p_graphs.model_graph(cfg, b, s, p_compile._space(mesh), dtype=cfg.dtype,
+                              layers=cfg.num_layers)
+    exe = p_compile.compile(gs, mesh, plan)
+    layout = CompiledLayout(exe, cfg)
+    opt = AdamW(learning_rate=lr)
+    state = layout.init_state(layout.shard_tree(_torch_tree(params)), opt)
+    sizes = {"params": _bytes_of(state.params),
+             "moments": _bytes_of(state.opt_state.mu) + _bytes_of(state.opt_state.nu)}
+    man = CheckpointManager(ckpt_dir)
+    trainer = Trainer(make_compiled_train_step(exe, cfg, opt, layout=layout), data,
+                      checkpoint_manager=man, checkpoint_every=steps)
+    state, hist = trainer.run(state, steps)
+    template = layout.init_state(layout.shard_tree(_torch_tree(params)), opt)
+    back = man.restore(steps, template, layout.state_shardings(template))
+    return {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+            "sizes": sizes, "params": _whole(layout, state),
+            "restored_equal": all(torch.equal(a, c) for a, c in zip(leaves(back), leaves(state)))}
+
+
+def host_parked(mesh3, cfg, params, tokens):
+    """``model_executable(classes={"host": "host"}, offload=("embed",))``
+    on ``mesh3`` run on the global tokens: the logits unsharded, the
+    planned ``Transfer`` steps and issued == planned."""
+    params = _torch_tree(params)
+    b, s = tokens.shape
+    exe = p_compile.model_executable(cfg, mesh3, b, s, dtype=cfg.dtype, beam=1,
+                                     classes={"host": "host"}, offload=("embed",))
+    with torch.no_grad():
+        got = exe(p_compile.model_inputs(exe.graph, cfg, params), torch.from_numpy(tokens.reshape(-1)))
+        got = lower.to_named_sharding(exe.output_spec("logits"), mesh3).unshard(got)
+    planned = list(exe.collective_sequence())
+    return {"logits": _np(got).reshape(b, s, -1),
+            "transfers": sum(1 for (_o, _t, steps) in planned if "Transfer" in steps),
+            "issued_eq_planned": list(exe.observed_collectives) == planned}
+
+
+def offload_layout(mesh3, cfg, params, plan, data_kw):
+    """The launcher's ``--offload-opt`` state on ``mesh3`` under ``plan``:
+    the parked moment leaves, a host device's MiB of them, and this
+    rank's bytes of params and moments."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_loop import CompiledLayout
+
+    data = SyntheticLMData(**data_kw)
+    gs = p_graphs.model_graph(cfg, data.global_batch, data.seq_len,
+                              p_compile._space(mesh3, {"host": "host"}), dtype=cfg.dtype,
+                              layers=cfg.num_layers)
+    exe = p_compile.compile(gs, mesh3, plan)
+    layout = CompiledLayout(exe, cfg, offload_axes=("host",))
+    state = layout.init_state(layout.shard_tree(_torch_tree(params)), AdamW())
+    n, total, host_b = layout.parked(state.params)
+    return {"parked": n, "leaves": total, "mib": 2 * host_b / 2**20,
+            "sizes": {"params": _bytes_of(state.params),
+                      "moments": _bytes_of(state.opt_state.mu) + _bytes_of(state.opt_state.nu)}}
+
+
+def compiled_train_world(mesh, job):
+    """What ``tests/test_torch_train_compiled_mesh.py``'s one world runs:
+    on its ``(2, 4)`` mesh the ring's gradients, each arch's compiled
+    gradients and the compiled steps; on a ``(2, 2, 2)`` ``(data, model,
+    host)`` mesh and a ``(2, 4, 1)`` one over the same ranks the
+    host-parked executable, the ``--offload-opt`` state and
+    ``dryrun.execute_cell --classes --offload``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    out = {"coords": mesh.coords, "rank": mesh.rank, "ring": ring_grads(mesh)}
+    for arch, (cfg, params) in job["archs"].items():
+        out[arch] = compiled_grads(mesh, cfg, params, job["plans"][arch], job["data"],
+                                   with_global=arch == job["step_arch"])
+    cfg, params = job["archs"][job["step_arch"]]
+    out["steps"] = compiled_steps(mesh, cfg, params, job["plans"][job["step_arch"]],
+                                  job["data"], job["lr"], job["steps"], job["ckpt_dir"])
+    if mesh.rank:
+        out["steps"]["params"] = None
+    axes = ("data", "model", "host")
+    for shape in ((2, 2, 2), (2, 4, 1)):
+        mesh3 = Mesh(shape, axes, device=mesh.device)
+        rec = host_parked(mesh3, cfg, params, job["host_tokens"])
+        if mesh.rank:
+            rec["logits"] = None
+        out[f"host/{shape}"] = rec
+        if shape == (2, 2, 2):
+            out["coords3"] = mesh3.coords
+            out["offload"] = offload_layout(mesh3, cfg, params, job["plans"]["offload"],
+                                            job["data"])
+            cell = dryrun.execute_cell("qwen3-4b", batch=2, seq=16, beam=1, verbose=False,
+                                       device="cpu", mesh=mesh3, classes=job["classes"],
+                                       offload=("embed",))
+            out["execute_cell"] = {k: v for k, v in cell.items() if k != "schedules"}
+    return out
+
+
+
+def redistribution_pairs(mesh, pairs, shape, ref_plans=None):
+    """Every ``(src, dst)`` pspec pair of ``pairs``: this rank's block of
+    a global arange under ``src`` run through ``infer_redistribution``'s
+    plan (or, for ``ref_plans``, each pair's given steps, ``(step type
+    name, fields)``); the pairs whose result is not the rank's block
+    under ``dst``."""
+    from repro_torch.core.dtensor import DTensorSpec
+
+    ms = mesh.mesh_shape
+    x = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+    bad = []
+    with mesh:
+        for k, (src, dst) in enumerate(pairs):
+            if ref_plans is None:
+                plan = coll.infer_redistribution(DTensorSpec.from_pspec(shape, src, ms, "float32"),
+                                                 DTensorSpec.from_pspec(shape, dst, ms, "float32"),
+                                                 ms)
+            else:
+                plan = [getattr(coll, name)(*fields) for name, fields in ref_plans[k]]
+            got = coll.apply_plan(NamedSharding(mesh, src).shard(x), plan)
+            want = NamedSharding(mesh, dst).shard(x)
+            if got.shape != want.shape or not torch.equal(got, want):
+                bad.append((src, dst))
+    return bad
+
+
+def redistribution_world(mesh, pairs, shape, ref_plans):
+    """The port's plans and the JAX package's, run on this rank."""
+    return {"port": redistribution_pairs(mesh, pairs, shape),
+            "ref": redistribution_pairs(mesh, pairs, shape, ref_plans)}
+
+__all__ = ["collective_matmuls", "collective_world", "compiled_grads", "compiled_steps",
+           "compiled_train_world", "compressed", "engine_generate", "ep_moe", "executables",
+           "failing_rank", "first_step_grads", "gpu_checks", "gpu_train_checks", "host_parked",
+           "offload_layout", "ops_checks", "pipeline_world", "plan_steps", "redistribution_pairs",
+           "redistribution_world",
+           "restart_world", "ring_grads", "serve_world", "sharded_batches", "train_world"]
