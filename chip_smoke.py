@@ -96,14 +96,14 @@ the MoE path, qwen3-moe-235b-a22b at full width:
    choices compared (``phase_depth2`` says why); then compiled against
    legacy on the card as in phase 4, with the same matched-routing rule
    and the share of routings on which the two modes agree;
-9. depth 8 — 8 of the 94 layers (one card holds about 14; 8 leave room
+9. depth 4 — 4 of the 94 layers (one card holds about 14; 4 leave room
    for the run) through ``ServeEngine.generate`` with the same traffic
    as phase 5, launch, wgmma and bulk-copy counters read and checked
    around that one run as in phase 5, and every bf16 B5 launch counted
    by B5's expert-stream (capacity <= 8) or wgmma (larger) counter; then
    the compiled ticks and score as in phase 5;
 
-the SSM path, mamba2-2.7b at full width, 32 of its 64 layers in phase 12:
+the SSM path, mamba2-2.7b at full width, 16 of its 64 layers in phase 12:
 
 10. kernels — B1 and B2 at every shape its mixer gives them, as phase 3;
 11. depth 2 — card vs CPU as phase 4;
@@ -246,8 +246,8 @@ serving across ranks:
     [2432, 2560]`` a rank), ``ring`` and ``psum_scatter`` within ``TOL``
     of ``torch.matmul``, their partials on B1 (4 and 1 launches a rank,
     wgmma), CUDA-event ms of each, the partial alone and its bound;
-    (c) qwen3-4b at full width, 12 of its 36 layers (cut to make room
-    for phase 26), on ``ServeEngine(mesh)``
+    (c) qwen3-4b at full width, 8 of its 36 layers (cut to make room
+    for phases 26-28), on ``ServeEngine(mesh)``
     (weights drawn leaf by leaf, each rank keeping its shard): ``score``
     of 4 x 128 tokens within ``LOGIT_TOL`` of the single rank's,
     ``generate`` of 4 x 32-token prompts (fed tick by tick) + 16 tokens
@@ -269,8 +269,8 @@ training across ranks:
     the sharded step's loss within 1e-3 and each leaf's grad within 1e-2
     of the single-rank step on the card; (b) qwen3-moe-235b-a22b at full
     width, 1 of 94 layers, bf16, phase 18's cell (4 x 512 tokens, its
-    seed, data and schedule), each rank drawing only its shards: 2
-    sharded steps whose losses hold phase 18's single-card ones within
+    seed, data and schedule), each rank drawing only its shards: a
+    sharded step whose loss holds phase 18's single-card one within
     ``LOGIT_TOL``, B5 12 launches a MoE layer a step on every rank, per
     rank the step walls, peak memory, ``collective_counts()`` and what
     the all-to-alls moved; (c) a checkpoint saved by the (2, 2) world
@@ -292,7 +292,7 @@ compiled training across ranks and the host tier:
     and every rank's gradient shard within ``TOL`` of the single-rank
     compiled step on the card, the overlap schedule's bit-equal;
     (b) qwen3-4b at full width, 4 of 36 layers, bf16, phase 17's cell
-    (4 x 512 tokens): 2 compiled sharded steps whose losses hold the
+    (4 x 512 tokens): ``MESH26_STEPS`` compiled sharded steps whose losses hold the
     single card's compiled steps at that depth within ``LOGIT_TOL``, B1
     3 launches a product node a step (forward, dA, dB), B2 and B3 one a
     node, per rank the step walls, peak memory, bytes held and
@@ -302,6 +302,30 @@ compiled training across ranks and the host tier:
     the single rank's forward, a ``Transfer`` issued as planned; then
     ``launch/train.py --solve --offload-opt --host-degree 2
     --mesh-model 2`` at smoke width on 4 ranks (``torch.distributed.run``).
+
+the lowering onto the production meshes, and the batcher on a mesh:
+
+27. lowering — (a) ``dryrun.lower_cell`` of qwen3-4b train_4k on the
+    256-rank mesh and qwen3-moe-235b-a22b decode_32k on the 512-rank mesh,
+    deviceless, in a process started right after phase 1 at low priority
+    (it needs no card, only a host core: the MoE cell's 94-layer decode
+    solve takes minutes), its records printed here: memory, flops a rank,
+    comm bytes by kind, bottleneck; (b) qwen3-4b at full width, 4 of 36
+    layers, a train step of 4 x 512 tokens lowered on a deviceless (2, 2)
+    mesh for each of its ranks, then run for real on 4 ranks sharing the
+    card over gloo: every rank's counted flops, bytes, comm bytes and
+    counts, argument bytes and program calls equal its deviceless count,
+    its B1 / B2 / B3 launches equal the counted calls, and its peak
+    (``max_memory_allocated`` reset after the state is placed) is within
+    10% of the predicted ``peak_bytes``;
+28. mesh batcher — ``ContinuousBatcher`` on ``ServeEngine(mesh)``, the
+    mesh (1, 4) as 4 ranks sharing the card over gloo, qwen3-4b bf16 at
+    full width and 4 of 36 layers: 6 requests over 4 slots (prompts of
+    8-16 tokens, 4-8 new tokens, staggered arrivals), greedy, every
+    rank's tokens equal to the one-card batcher's under the near-tie rule,
+    and the same with ``offload=True`` and 4 device pages (requests park
+    on the host tier); per rank the batched tick's host-clock median, its
+    B1 / B2 / B4 launches and collectives, the bytes parked.
 
 It then prints the ``kernels`` JSON line (each entry also names the
 CUDA kernel that ran, ``cuda_kernel``), the card's
@@ -318,29 +342,31 @@ import json
 import math
 import os
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 ARCH = "qwen3-4b"
-MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
-# phase 12's depth: half of mamba2's 64 layers, to keep the run inside its limit
-SSM_ARCH, SSM_LAYERS = "mamba2-2.7b", 32
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+# phase 12's depth: a quarter of mamba2's 64 layers, to keep the run inside its limit
+SSM_ARCH, SSM_LAYERS = "mamba2-2.7b", 16
 # requests of the ContinuousBatcher's traces: qwen3-4b, mamba2
 BATCHER_REQUESTS, SSM_BATCHER_REQUESTS = 8, 8
 # phases of the run
-STEPS = 26
+STEPS = 28
 BATCH, PROMPT, NEW, MAX_SEQ = 4, 128, 32, 256
 #: the kernel stages with a schedule surface
 KERNEL_STAGES = ("matmul/tile", "rmsnorm/rows", "flash_attention/attend",
                  "moe_gemm/expert_gemm")
 DEPTH2_LAYERS, DEPTH2_DECODE = 2, 3
 # generate runs per decode mode, alternated, for the two modes' wall spread
-WALL_PAIRS = 3
+WALL_PAIRS = 2
 LONG_SEQ = 2048  # B3's extra case: one sequence long enough to be bound by operations
 SEED = 0
 #: phase 17, training qwen3-4b: global batch x sequence, Trainer steps and
@@ -402,11 +428,17 @@ def check(cond: bool, msg: str) -> None:
 
 #: the script's start: each phase header prints the seconds since
 T0 = time.perf_counter()
+#: the same instant on the wall clock, which a child process can read
+T0_WALL = time.time()
+#: each phase header's seconds since ``T0``, by phase number
+PHASE_STARTS = {}
 
 
 def log(msg: str) -> None:
     if msg.startswith("["):
-        msg += f" ({time.perf_counter() - T0:.0f} s in)"
+        at = time.perf_counter() - T0
+        PHASE_STARTS[int(msg[1:msg.index("/")])] = at
+        msg += f" ({at:.0f} s in)"
     print(msg, flush=True)
 
 
@@ -3204,7 +3236,7 @@ def phase_train_dots(cfg, torch, device, release, full):
 
 #: phase 22: qwen3-4b at 1 x LONG_SEQ_TRAIN tokens, above the 8192-token
 #: threshold of the blocked attention and a multiple of its 1024-key chunk
-LONG_SEQ_TRAIN, LONG_STEPS = 9216, 3
+LONG_SEQ_TRAIN, LONG_STEPS = 9216, 2
 
 
 def phase_long_context(cfg, torch, device, release):
@@ -3414,15 +3446,16 @@ MESH24_SHAPE, MESH24_AXES = (1, 4), ("data", "model")
 #: tests/test_distributed_equiv.py's bounds; the restart's loss bound; the
 #: pipeline's microbatches (1 x PIPE_SEQ each)
 MESH25_SHAPE, MESH25_AXES = (2, 2), ("data", "model")
-MESH25_STEPS = 2
+#: sharded steps of 25(b): one (a second took ~60 s, the room phases 27-28 need)
+MESH25_STEPS = 1
 MESH25_SMOKE = dict(num_experts=8, capacity_factor=8.0, dtype="float32", num_layers=2)
 MESH25_SMOKE_BATCH, MESH25_SMOKE_SEQ = 8, 32
 MESH25_EXACT = {"moe": 1e-4, "loss": 1e-3, "grad": 1e-2}
 MESH25_RESTART_TOL = 1e-5
 PIPE_MICRO, PIPE_SEQ = 4, 256
 MESH24_PROMPT, MESH24_NEW, MESH24_SCORE = 32, 16, 128
-#: phase 24(c)'s depth of qwen3-4b's 36 layers: cut to make room for phase 26
-MESH24_LAYERS = 12
+#: phase 24(c)'s depth of qwen3-4b's 36 layers: cut to make room for phases 26-28
+MESH24_LAYERS = 8
 MESH24_MOE_LAYERS, MESH24_MOE_TICKS = 2, 4
 CM_M = 2048
 #: the plan steps phase 24 runs on CUDA tensors: (name, step, fields,
@@ -4061,8 +4094,8 @@ def _requiring_grad(tree):
 def mesh25_full(mesh, torch) -> dict:
     """(b) qwen3-moe-235b-a22b at full width, ``MOE_TRAIN_LAYERS`` of 94
     layers, bf16, phase 18's cell (its seed, data and schedule), sharded
-    over the (2, 2) mesh: each rank draws only its shards; 2 sharded
-    steps through ``Trainer.run``, the launch and collective counters
+    over the (2, 2) mesh: each rank draws only its shards;
+    ``MESH25_STEPS`` sharded steps through ``Trainer.run``, the launch and collective counters
     zeroed just before and read just after."""
     from repro_torch.core import collective as coll
     from repro_torch.configs import get_config
@@ -4248,7 +4281,7 @@ def phase_mesh_train(torch, device, release, moe_losses) -> dict:
 #: steps; the host mesh of the parked executable and of the launcher
 MESH26_SHAPE, MESH26_AXES = (2, 2), ("data", "model")
 MESH26_SMOKE_BATCH, MESH26_SMOKE_SEQ = 4, 32
-MESH26_LAYERS, MESH26_STEPS = 4, 2
+MESH26_LAYERS, MESH26_STEPS = 4, 1
 MESH26_HOST = ((1, 2, 2), ("data", "model", "host"))
 MESH26_LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 MESH26_PARKED_TOL = 1e-5
@@ -4560,29 +4593,392 @@ def phase_mesh_compiled(torch, device, release) -> dict:
             "parked": pk[0], "launcher": launcher}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the lowering onto the production meshes, and its prediction on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the cells lowered deviceless, in a process started at the top of
+#: the run (they need no card, only a host core): (arch, shape, multi_pod)
+LOWER27_CELLS = (("qwen3-4b", "train_4k", False), ("qwen3-moe-235b-a22b", "decode_32k", True))
+#: (b) qwen3-4b at full width, 4 of 36 layers, 4 x 512 tokens, on a (2, 2) mesh
+LOWER27_SHAPE, LOWER27_AXES = (2, 2), ("data", "model")
+LOWER27_LAYERS, LOWER27_BATCH, LOWER27_SEQ = 4, 4, 512
+#: the card's peak against the deviceless prediction
+LOWER27_PEAK_TOL = 0.10
+#: the longest phase 27 waits for the lowering process at its turn
+LOWER27_WAIT_S = 600
+LOWER27_SCRIPT = """
+import json, os, sys, time
+os.nice(10)
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun
+out, started = [], time.time()
+for arch, shape, multi in json.loads(sys.argv[2]):
+    t0 = time.time()
+    rec = dryrun.lower_cell(arch, shape, multi)
+    rec.pop("layout_plan", None)
+    rec["wall_s"] = time.time() - t0
+    out.append(rec)
+with open(sys.argv[3], "w") as f:
+    json.dump({"records": out, "window": [started, time.time()]}, f)
+"""
+
+
+def start_lowering(tmp: Path):
+    """Phase 27 (a) in a process of its own, at low priority, started
+    before the card's phases: ``(process, record file)``."""
+    path = tmp / "lower27.json"
+    proc = subprocess.Popen([sys.executable, "-c", LOWER27_SCRIPT, str(ROOT / "src"),
+                             json.dumps(LOWER27_CELLS), str(path)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def lower27_count(got) -> dict:
+    """The fields of a ``dryrun.lower_step`` result the card must match."""
+    cost = got["cost"]
+    return {"flops": cost.flops, "bytes": cost.bytes, "comm_by_op": cost.comm_by_op,
+            "comm_counts": cost.comm_counts, "argument_bytes": got["memory"]["argument_bytes"],
+            "calls": {k: int(v[0]) for k, v in cost.by_op.items() if "/" in k},
+            "by_op": cost.by_op}
+
+
+def lower27_rank(mesh, cfg) -> dict:
+    """Phase 27 (b) on one rank: the lowered step run for real, the card's
+    peak reset after the state is placed and the launch counters zeroed
+    just before the counted run."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.kernels import programs
+    from repro_torch.launch import dryrun
+
+    tune.use_cache(None)
+
+    def before():
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        programs.reset_launch_counts()
+
+    with dryrun.lowering(mesh, cfg):
+        got = dryrun.lower_step(cfg, "train", LOWER27_BATCH, LOWER27_SEQ, mesh, before=before)
+    torch.cuda.synchronize(mesh.device)
+    return {"count": lower27_count(got), "launches": programs.launch_counts(),
+            "peak": torch.cuda.max_memory_allocated(mesh.device),
+            "layout": got["layout"], "step_s": got["compile_s"]}
+
+
+def phase_lowering(torch, proc, path, release) -> dict:
+    """Phase 27: (a) the records of ``LOWER27_CELLS`` (``lower_cell``,
+    deviceless, from the process started at the top of the run): memory,
+    flops a rank, comm bytes by kind, bottleneck; (b) qwen3-4b at full
+    width, ``LOWER27_LAYERS`` layers, a train step of ``LOWER27_BATCH`` x
+    ``LOWER27_SEQ`` tokens lowered on a deviceless (2, 2) mesh for each
+    rank, then run for real on 4 ranks sharing the card over gloo: every
+    rank's counted flops, bytes, comm bytes and counts, argument bytes
+    and program calls equal its deviceless count, its B1 / B2 / B3
+    launches equal the counted calls, and its peak
+    (``max_memory_allocated`` reset after the state is placed) is within
+    ``LOWER27_PEAK_TOL`` of the predicted ``peak_bytes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshmod
+
+    stats = {}
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=LOWER27_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"the lowering process failed:\n{(out or '')[-3000:]}")
+    got = json.loads(path.read_text())
+    records = got["records"]
+    stats["wait_s"] = time.perf_counter() - t0
+    # the phases whose host-clock walls shared the host with the lowering
+    start, end = (w - T0_WALL for w in got["window"])
+    beside = [p for p, at in sorted(PHASE_STARTS.items())
+              if at < end and PHASE_STARTS.get(p + 1, float("inf")) > start and p < 27]
+    stats["window_s"] = [start, end]
+    log(f"  the lowering process ran {start:.0f}-{end:.0f} s in, beside phases "
+        f"{beside[0]}-{beside[-1]}; phase 27 waited {stats['wait_s']:.2f} s for it")
+    for rec in records:
+        check(rec["status"] == "ok", f"lower_cell {rec['arch']} {rec['shape']}: {rec}")
+        mem, cost, roof = rec["memory"], rec["cost"], rec["roofline"]
+        log(f"  lower_cell {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['layout']}): "
+            f"built {rec['lower_s']} s, counted {rec['compile_s']} s; a rank holds "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB, peak {mem['peak_bytes'] / 2**30:.2f} GiB; "
+            f"flops a rank {cost['flops']:.4e}; comm bytes "
+            f"{ {k: int(v) for k, v in cost['comm_by_op'].items()} }; bottleneck "
+            f"{roof['bottleneck']} (useful ratio {roof['useful_ratio']:.3f})")
+        stats[f"{rec['arch']} {rec['shape']} {rec['mesh']}"] = {
+            "layout": rec["layout"], "memory": mem, "flops": cost["flops"],
+            "comm_by_op": cost["comm_by_op"], "bottleneck": roof["bottleneck"],
+            "wall_s": rec["wall_s"]}
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LOWER27_LAYERS)
+    t0 = time.perf_counter()
+    predicted = []
+    for r in range(math.prod(LOWER27_SHAPE)):
+        mesh = meshmod.Mesh.deviceless(LOWER27_SHAPE, LOWER27_AXES, rank=r)
+        with dryrun.lowering(mesh, cfg):
+            got = dryrun.lower_step(cfg, "train", LOWER27_BATCH, LOWER27_SEQ, mesh)
+        predicted.append({"count": lower27_count(got), "peak": got["memory"]["peak_bytes"],
+                          "layout": got["layout"]})
+    stats["predict_s"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    ranks = meshmod.spawn(lower27_rank, LOWER27_SHAPE, LOWER27_AXES, device="cuda",
+                          timeout_s=600, args=(cfg,))
+    stats["world_s"] = time.perf_counter() - t0
+    rows = []
+    for r, (got, want) in enumerate(zip(ranks, predicted)):
+        check(got["layout"] == want["layout"], f"rank {r} lowered {got['layout']}")
+        g_ops, w_ops = got["count"]["by_op"], want["count"]["by_op"]
+        odd = {k: (g_ops.get(k), w_ops.get(k)) for k in set(g_ops) | set(w_ops)
+               if g_ops.get(k) != w_ops.get(k)}
+        for key in ("flops", "bytes", "comm_by_op", "comm_counts", "argument_bytes", "calls"):
+            check(got["count"][key] == want["count"][key],
+                  f"rank {r}: the card counted {key} {got['count'][key]}, the deviceless "
+                  f"lowering {want['count'][key]}; ops that differ (card, deviceless): {odd}")
+        for stage in ("matmul/tile", "rmsnorm/rows", "flash_attention/attend"):
+            check(got["launches"][stage] == want["count"]["calls"].get(stage, 0),
+                  f"rank {r}: {got['launches'][stage]} {stage} launches, "
+                  f"{want['count']['calls'].get(stage, 0)} counted calls")
+        ratio = got["peak"] / want["peak"]
+        rows.append({"rank": r, "predicted_peak": want["peak"], "measured_peak": got["peak"],
+                     "ratio": ratio, "launches": got["launches"], "step_s": got["step_s"],
+                     "comm_counts": got["count"]["comm_counts"]})
+        log(f"  rank {r}: predicted peak {want['peak'] / 2**30:.3f} GiB, measured "
+            f"{got['peak'] / 2**30:.3f} GiB (x{ratio:.4f}); counts equal "
+            f"(flops {got['count']['flops']:.4e}, comm {got['count']['comm_counts']}); "
+            f"launches {got['launches']}; step {got['step_s']:.2f} s")
+        check(abs(ratio - 1) <= LOWER27_PEAK_TOL,
+              f"rank {r}: measured peak {got['peak']} is {ratio:.3f} x the predicted "
+              f"{want['peak']}")
+    stats["card"] = rows
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the ContinuousBatcher on a mesh
+# ---------------------------------------------------------------------------
+
+MESH28_SHAPE, MESH28_AXES = (1, 4), ("data", "model")
+#: qwen3-4b at full width, 4 of 36 layers (phases 26-27's depth), to stay
+#: inside the run's limit: at phase 24's 12 a batched tick took 210 ms a rank
+MESH28_LAYERS = 4
+MESH28_REQUESTS, MESH28_SLOTS, MESH28_MAX_SEQ, MESH28_PAGE = 6, 4, 32, 8
+MESH28_OFFLOAD_PAGES = 4
+
+
+def mesh28_trace(cfg) -> list:
+    """6 requests: prompts of 8-16 tokens, 4-8 new tokens, arrivals 0-2
+    ticks apart; as ``(uid, prompt, max_new_tokens, arrival)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 28)
+    out, t = [], 0
+    for uid in range(1, MESH28_REQUESTS + 1):
+        out.append((uid, rng.integers(0, cfg.vocab_size, int(rng.integers(8, 17))).tolist(),
+                    int(rng.integers(4, 9)), t))
+        t += int(rng.integers(0, 3))
+    return out
+
+
+def mesh28_requests(spec):
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    return [Request(uid=u, prompt=np.asarray(p, np.int32), max_new_tokens=n, arrival=a)
+            for u, p, n, a in spec]
+
+
+def mesh28_rank(mesh, spec) -> dict:
+    """Phase 28 on one rank: the mesh batcher greedy, its ticks timed and
+    counted, then with ``offload=True`` and ``MESH28_OFFLOAD_PAGES``
+    device pages."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.core import collective as coll
+    from repro_torch.kernels import programs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.engine import ServeEngine
+
+    tune.use_cache(None)
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH28_LAYERS)
+    eng = ServeEngine(build_model(cfg, device=dev), batch_size=MESH28_SLOTS,
+                      max_seq=MESH28_MAX_SEQ, device=dev, mesh=mesh)
+    eng.load(seed=SEED)
+    eng.compiled_decode()
+    eng.compiled_decode(batch=1)
+    ticks, step = [], eng.decode_step
+
+    def timed(tok, cache, pos):
+        if tok.shape[0] != MESH28_SLOTS:
+            return step(tok, cache, pos)
+        torch.cuda.synchronize(dev)
+        ops = coll.collective_counts()["ops"]
+        before = programs.launch_counts()
+        t0 = time.perf_counter()
+        out = step(tok, cache, pos)
+        torch.cuda.synchronize(dev)
+        after = programs.launch_counts()
+        ticks.append({"s": time.perf_counter() - t0,
+                      "launches": {k: after[k] - before[k] for k in after},
+                      "collectives": sum(coll.collective_counts()["ops"].values())
+                      - sum(ops.values())})
+        return out
+
+    eng.decode_step = timed
+    programs.reset_launch_counts()
+    coll.reset_collective_counts()
+    res = ContinuousBatcher(eng, page_size=MESH28_PAGE).run(mesh28_requests(spec))
+    launches = programs.launch_counts()
+    greedy = {u: [int(t) for t in r.tokens] for u, r in sorted(res.items())}
+    n_ticks = len(ticks)
+    two = ContinuousBatcher(eng, page_size=MESH28_PAGE, n_pages=MESH28_OFFLOAD_PAGES,
+                            offload=True)
+    parked = {u: [int(t) for t in r.tokens]
+              for u, r in sorted(two.run(mesh28_requests(spec)).items())}
+    del eng.decode_step
+    return {"rank": mesh.rank, "greedy": greedy, "offload": parked, "launches": launches,
+            "ticks": ticks[:n_ticks], "transfer_bytes": two.transfer_bytes,
+            "page_outs": sum(1 for e in two.transfer_log if e[0] == "page_out"),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def phase_mesh_batcher(torch, device, release) -> dict:
+    """Phase 28: ``ContinuousBatcher`` on ``ServeEngine(mesh)``, the mesh
+    (1, 4) as 4 ranks sharing the card over gloo, qwen3-4b bf16 at full
+    width and ``MESH28_LAYERS`` layers: ``mesh28_trace``'s 6 requests
+    over 4 slots, greedy. Every rank's tokens equal the one-card
+    batcher's on the same weights under the near-tie rule (a divergence
+    passes only where the one-card logits' gap between the two tokens is
+    within ``LOGIT_TOL``) and equal one another; with ``offload=True``
+    and too few device pages requests park, and the tokens are the
+    same. Per rank: the batched tick's host-clock median, its B1 / B2 /
+    B4 launches and collectives, the bytes parked."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH28_LAYERS)
+    spec = mesh28_trace(cfg)
+    log(f"  depth cut to {MESH28_LAYERS} of {get_config(ARCH).num_layers} layers; "
+        f"{len(spec)} requests, prompts {sorted(len(p) for _, p, _, _ in spec)} tokens, new "
+        f"{[n for *_, n, _ in spec]}, arrivals {[a for *_, a in spec]}")
+    eng = ServeEngine(build_model(cfg, device=device), batch_size=MESH28_SLOTS,
+                      max_seq=MESH28_MAX_SEQ, device=device)
+    eng.load(seed=SEED)
+    seen = {}
+    bat = ContinuousBatcher(eng, page_size=MESH28_PAGE)
+    one, many = bat._sample_one, bat._sample_batch
+
+    def rec_one(uid, pos, logits):
+        seen[(uid, pos)] = logits.float().cpu()
+        return one(uid, pos, logits)
+
+    def rec_batch(uids, pos, logits):
+        for u, p, lg, s in zip(uids, pos, logits, bat.slots):
+            if s.uid is not None:
+                seen[(u, p)] = lg.float().cpu()
+        return many(uids, pos, logits)
+
+    bat._sample_one, bat._sample_batch = rec_one, rec_batch
+    ref = {u: [int(t) for t in r.tokens]
+           for u, r in sorted(bat.run(mesh28_requests(spec)).items())}
+    del eng, bat
+    release()
+    t0 = time.perf_counter()
+    ranks = meshmod.spawn(mesh28_rank, MESH28_SHAPE, MESH28_AXES, device="cuda", timeout_s=900,
+                          args=(spec,))
+    stats = {"world_s": time.perf_counter() - t0, "layers": MESH28_LAYERS}
+    prompt_len = {u: len(p) for u, p, _, _ in spec}
+    diverged = []
+    for u, want in ref.items():
+        got = ranks[0]["greedy"][u]
+        if got == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        lg = seen[(u, prompt_len[u] - 1 + j)]
+        gap = float(lg[want[j]] - lg[got[j]])
+        bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * float(lg[want[j]].abs())
+        diverged.append((u, j, gap))
+        log(f"  request {u}: mesh and one-card batcher part at new token {j} ({got[j]} vs "
+            f"{want[j]}); logit gap {gap:.4g} (bound {bound:.4g})")
+        check(gap <= bound, f"request {u}: the mesh batcher diverges at token {j} by a logit "
+                            f"gap of {gap} > {bound}")
+    stats["divergences"] = diverged
+    per_rank = []
+    for r in ranks:
+        check(r["greedy"] == ranks[0]["greedy"], f"rank {r['rank']}'s tokens differ from rank 0's")
+        check(r["offload"] == r["greedy"], f"rank {r['rank']}: the offload run's tokens differ")
+        check(r["page_outs"] > 0, f"rank {r['rank']}: the offload run parked nothing")
+        walls = sorted(t["s"] for t in r["ticks"])
+        med = statistics.median(walls) * 1e3
+        per_tick = r["ticks"][-1]
+        check(per_tick["launches"]["matmul/tile"] > 0 and per_tick["launches"]["rmsnorm/rows"] > 0
+              and per_tick["launches"]["flash_attention/decode"] > 0,
+              f"rank {r['rank']}: a tick launched {per_tick['launches']}")
+        per_rank.append({"rank": r["rank"], "tick_ms_median": med, "ticks": len(walls),
+                         "tick_launches": per_tick["launches"],
+                         "tick_collectives": per_tick["collectives"],
+                         "run_launches": r["launches"], "transfer_bytes": r["transfer_bytes"],
+                         "page_outs": r["page_outs"], "peak_gib": r["peak_gib"]})
+        log(f"  rank {r['rank']}: {len(walls)} batched ticks, host-clock median {med:.1f} ms; a "
+            f"tick {per_tick['launches']} launches, {per_tick['collectives']} collectives; the "
+            f"run {r['launches']}; offload {r['page_outs']} page-outs, {r['transfer_bytes']} "
+            f"bytes this rank; peak {r['peak_gib']:.2f} GiB")
+    log(f"  tokens {'equal to the one-card batcher' if not diverged else 'within the near-tie rule'}"
+        f" on every rank, and unchanged with offload=True")
+    stats["ranks"] = per_rank
+    return stats
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeError("no CUDA device: chip_smoke.py runs on an NVIDIA card")
     sys.path.insert(0, str(ROOT / "src"))
-    import torch.nn.functional as F
-
     from repro_torch import tune
 
     tune.use_cache(None)  # memory-only: phases 1-15 and 17 read no schedule file
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-
-    device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[1/{STEPS}] device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # phase 27 (a) needs no card: its lowering runs beside the card's phases
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    lowering = start_lowering(tmp)
+    try:
+        return run_phases(torch, name, smi, lowering)
+    finally:
+        if lowering[0].poll() is None:
+            lowering[0].kill()
+            lowering[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
+
+def run_phases(torch, name, smi, lowering) -> int:
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    device = torch.device("cuda")
     secs = _build.build_all()
     log(f"[2/{STEPS}] build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s")
     for src, text in _build.BUILD_LOG.items():
@@ -4661,7 +5057,7 @@ def main() -> int:
     add_rows(epi_rows, cfg, counts, launches=fused["fused_epilogue_launches"])
 
     # the MoE path, qwen3-moe-235b-a22b at full width: its 94 layers hold
-    # ~470 GB of bf16 weights; one 80 GB card holds ~14, and 8 (~42 GB)
+    # ~470 GB of bf16 weights; one 80 GB card holds ~14, and 4 (~21 GB)
     # leave room for the run. The depth-2 weights (~10 GB) are drawn on
     # the card, where it is quick.
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
@@ -4773,6 +5169,17 @@ def main() -> int:
         f"compiled sharded step at smoke width and {cfg.name} at {MESH26_LAYERS} layers, the "
         f"host-parked executable, launch/train.py --solve --offload-opt:")
     stats["mesh-compiled"] = phase_mesh_compiled(torch, device, release)
+    release()
+    log(f"[27/{STEPS}] lower_cell onto the production meshes, deviceless "
+        f"({', '.join(f'{a} {s} {512 if m else 256} ranks' for a, s, m in LOWER27_CELLS)}), "
+        f"then {cfg.name} at full width and {LOWER27_LAYERS} layers ({LOWER27_BATCH}x"
+        f"{LOWER27_SEQ} tokens) lowered on a deviceless {LOWER27_SHAPE} mesh and run on 4 "
+        f"ranks sharing the card:")
+    stats["lowering"] = phase_lowering(torch, *lowering, release)
+    log(f"[28/{STEPS}] the ContinuousBatcher on the mesh {MESH28_SHAPE} (\"data\", \"model\") "
+        f"as 4 ranks sharing the card over gloo, {cfg.name} at full width:")
+    stats["mesh-batcher"] = phase_mesh_batcher(torch, device, release)
+    log(f"all {STEPS} phases passed in {time.perf_counter() - T0:.1f} s")
 
     log(f"main path: {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

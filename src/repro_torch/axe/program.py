@@ -184,7 +184,7 @@ def _run_body(st: Stage, ctx: "StageContext", args, kw):
 
 
 #: the cost counter's hook around every stage call,
-#: ``COST_HOOK(program, stage, args, kw, run)``: ``launch/hlo_cost.py``
+#: ``COST_HOOK(program, stage, ctx, args, kw, run)``: ``launch/hlo_cost.py``
 #: installs it while it counts one call of a function; None otherwise
 COST_HOOK: Optional[Callable] = None
 
@@ -524,6 +524,7 @@ class Program:
         variants: Sequence[str] = (),
         key: Optional[Callable] = None,
         flops: Optional[Callable] = None,
+        workspace: Optional[Callable] = None,
         entry: bool = False,
         dispatch: Sequence[Union[Scope, str]] = (),
     ) -> Callable:
@@ -534,13 +535,15 @@ class Program:
         the tune layer under ``program_name/stage_name``; ``key``
         overrides the schedule-key extraction (``Stage.key_fn``);
         ``flops(args, kw)`` sizes one call (``Stage.flops_fn``: the cost
-        counter, ``launch/hlo_cost.py``, reads it)."""
+        counter, ``launch/hlo_cost.py``, reads it); ``workspace(ctx, args, kw)``
+        the bytes its card route holds only while it runs
+        (``Stage.workspace_fn``)."""
         scope_ = Scope(scope) if isinstance(scope, str) else scope
         blocks_ = normalize_blocks(blocks)
         variants_ = tuple(variants)
 
         def deco(fn: Callable) -> Callable:
-            st = Stage(name, scope_, fn, blocks_, variants_, key, flops)
+            st = Stage(name, scope_, fn, blocks_, variants_, key, flops, workspace)
             self.stages[name] = st
             if entry or self._entry is None:
                 self._entry = name
@@ -639,7 +642,7 @@ class Program:
         st.validate_entry(current_scope(), self.name)
         ctx = StageContext(self, st, args, kw, opts)
         if COST_HOOK is not None:
-            return COST_HOOK(self, st, args, kw, lambda: _run_body(st, ctx, args, kw))
+            return COST_HOOK(self, st, ctx, args, kw, lambda: _run_body(st, ctx, args, kw))
         with scope(st.scope):
             return st.body(ctx, *args, **kw)
 

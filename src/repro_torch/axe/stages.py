@@ -58,7 +58,9 @@ class Stage:
     extraction (shapes / dtypes / tag) when the default — every array
     argument — is wrong for the op (e.g. collective_matmul appends the
     sharded-axis size). ``flops_fn(args, kw)`` sizes the op for the
-    autotuner's interpret-mode measurability cutoff.
+    autotuner's interpret-mode measurability cutoff. ``workspace_fn(ctx,
+    args, kw)``: the bytes the card's route holds only while the call runs
+    (the live-bytes tracker of ``launch/hlo_cost.py`` reads it).
     """
 
     name: str
@@ -68,6 +70,7 @@ class Stage:
     variants: Tuple[str, ...] = ()
     key_fn: Optional[Callable] = None
     flops_fn: Optional[Callable] = None
+    workspace_fn: Optional[Callable] = None
 
     @property
     def tunable(self) -> bool:

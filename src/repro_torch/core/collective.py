@@ -32,7 +32,17 @@ prices for ``collective_matmul``. No step changes its transport on a
 failure: a tensor on another device than the mesh's raises. A
 collective runs over one mesh axis or over a tuple of axes together
 (the first major); reductions take a maximum too (``pmax``), and an
-integer sum stays in its type on the wire.
+integer sum stays in its type on the wire. On a deviceless mesh
+(``launch.mesh.Mesh.deviceless``: ``meta`` tensors, no world) the
+transport gives each collective's outputs their shapes and moves
+nothing; everything else runs as on a real mesh.
+
+Every collective is counted where the transport issues it, on a real
+mesh and on a deviceless one alike: :data:`COMM_HOOK` (the cost counter
+of ``launch/hlo_cost.py``, while it counts) gets its HLO kind and the
+bytes on the wire by the reference's ring formula
+(``repro/launch/hlo_cost.py``'s ``_collective_bytes``) over the group's
+size, of the bytes the port hands the wire: a floating sum's in f32.
 
 The collectives are differentiable, with JAX's transposes (the
 all-gather's is the reduce-scatter, a sum's a sum, an all-to-all's the
@@ -320,6 +330,61 @@ def axis_index(axis) -> int:
 
 _COUNTS: Dict[str, Any] = {"ops": {}, "bytes": 0, "staged": 0, "stage_s": 0.0, "wire_s": 0.0}
 
+#: the HLO collective each of the transport's kinds is
+HLO_KIND = {"AllGather": "all-gather", "AllReduce": "all-reduce", "AllReduceMax": "all-reduce",
+            "ReduceScatter": "reduce-scatter", "AllToAll": "all-to-all",
+            "Permute": "collective-permute", "Rotation": "collective-permute"}
+
+#: the cost counter's hook, ``COMM_HOOK.collective(kind, nbytes)`` for
+#: every collective issued and ``COMM_HOOK.quiet()`` around the
+#: transport's own casts and copies; ``launch/hlo_cost.py`` installs it
+#: while it counts, None otherwise
+COMM_HOOK: Optional[Any] = None
+
+
+def wire_bytes(kind: str, p: int, nbytes: int) -> float:
+    """The bytes one rank puts on the wire for a collective of HLO
+    ``kind`` over ``p`` ranks whose operand (as handed to the wire) is
+    ``nbytes``: the reference's ring formula, ``out·(p−1)/p`` for an
+    all-gather, ``in·(p−1)/p`` for a reduce-scatter and an all-to-all,
+    ``2·in·(p−1)/p`` for an all-reduce, ``out`` for a permute."""
+    if kind == "all-gather":
+        return float(nbytes * p) * (p - 1) / p
+    if kind in ("reduce-scatter", "all-to-all"):
+        return float(nbytes) * (p - 1) / p
+    if kind == "all-reduce":
+        return 2.0 * nbytes * (p - 1) / p
+    if kind == "collective-permute":
+        return float(nbytes)
+    raise ValueError(f"no collective kind {kind!r}")
+
+
+class _NoWire:
+    """The ``torch.distributed`` calls of a deviceless mesh: the outputs
+    their callers allocated keep their shapes, nothing moves, and no
+    request is pending."""
+
+    def __getattr__(self, name):
+        import torch.distributed as dist
+
+        if name in ("ReduceOp", "isend", "irecv"):
+            return getattr(dist, name)
+        if name == "batch_isend_irecv":
+            return lambda ops: []
+        return lambda *args, **kwargs: None
+
+
+_NO_WIRE = _NoWire()
+
+
+def _dist(mesh):
+    """``torch.distributed``, or the no-op wire of a deviceless mesh."""
+    if mesh.is_deviceless:
+        return _NO_WIRE
+    import torch.distributed as dist
+
+    return dist
+
 
 def collective_counts() -> Dict[str, Any]:
     """Since the last reset: collectives issued per kind (``ops``), the
@@ -337,7 +402,7 @@ def reset_collective_counts() -> None:
     _COUNTS.update(ops={}, bytes=0, staged=0, stage_s=0.0, wire_s=0.0)
 
 
-def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue, *,
+def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue, *, p: int,
                wire: Optional[torch.dtype] = None, fresh: bool = False,
                assemble=None):
     """Hand ``tensors`` to ``issue`` (which runs the ``torch.distributed``
@@ -350,25 +415,34 @@ def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue, *,
     into the results. Casts, copies and assembly run on the operands'
     device (the host only carries the wire's bytes: on the host, fresh
     pages and one thread a rank made them the larger half of a staged
-    collective's time). Returns a function that waits when ``issue``
-    returned a waiter (``(tensors, wait)``) and gives the results on the
-    operands' device."""
+    collective's time). ``p``: the ranks of the collective's group, which
+    size its wire bytes (:func:`wire_bytes`). Returns a function that
+    waits when ``issue`` returned a waiter (``(tensors, wait)``) and gives
+    the results on the operands' device."""
     dev = tensors[0].device
     if dev.type != mesh.device.type:
         raise RuntimeError(
             f"{kind}: a tensor on {dev} under a mesh of {mesh.device} ranks "
             f"(no step changes its device or transport)")
     staged = dev.type == "cuda" and mesh.backend == "gloo"
+    hook = COMM_HOOK
+    quiet = hook.quiet if hook is not None else contextlib.nullcontext
     t0 = time.perf_counter()
-    tensors = [t.to(wire or t.dtype, copy=fresh and not staged).contiguous() for t in tensors]
-    if staged:
-        _COUNTS["staged"] += 1
-        tensors = [t.to("cpu") for t in tensors]
+    with quiet():
+        tensors = [t.to(wire or t.dtype, copy=fresh and not staged).contiguous()
+                   for t in tensors]
+        if staged:
+            _COUNTS["staged"] += 1
+            tensors = [t.to("cpu") for t in tensors]
     ops = _COUNTS["ops"]
     ops[kind] = ops.get(kind, 0) + 1
-    _COUNTS["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    _COUNTS["bytes"] += nbytes
+    if hook is not None:
+        hook.collective(HLO_KIND[kind], wire_bytes(HLO_KIND[kind], p, nbytes))
     t1 = time.perf_counter()
-    out, wait = issue(tensors)
+    with quiet():
+        out, wait = issue(tensors)
     _COUNTS["stage_s"] += t1 - t0
     _COUNTS["wire_s"] += time.perf_counter() - t1
 
@@ -377,8 +451,9 @@ def _transport(kind: str, mesh, tensors: Sequence[torch.Tensor], issue, *,
         if wait is not None:
             wait()
         t2 = time.perf_counter()
-        res = [o.to(dev) for o in out] if staged else list(out)
-        res = assemble(res) if assemble is not None else res
+        with quiet():
+            res = [o.to(dev) for o in out] if staged else list(out)
+            res = assemble(res) if assemble is not None else res
         _COUNTS["wire_s"] += t2 - t1
         _COUNTS["stage_s"] += time.perf_counter() - t2
         return res
@@ -407,9 +482,8 @@ def _wire_dtype(dtype: torch.dtype, op: str) -> torch.dtype:
 
 
 def _all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
-    import torch.distributed as dist
-
     mesh = _mesh()
+    dist = _dist(mesh)
     p = mesh.axis_size(axis)
     if p == 1:
         return x
@@ -428,33 +502,32 @@ def _all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
             by_chunk[idx] = part
         return [torch.cat([_from_bytes(b, x, x.shape) for b in by_chunk], dim=dim)]
 
-    return _transport("AllGather", mesh, [_bytes(x)], issue, assemble=assemble)()[0]
+    return _transport("AllGather", mesh, [_bytes(x)], issue, p=p, assemble=assemble)()[0]
 
 
 def _all_reduce(x: torch.Tensor, axis, op: str = "sum", out_dtype=None) -> torch.Tensor:
-    import torch.distributed as dist
-
     mesh = _mesh()
+    dist = _dist(mesh)
     wire = _wire_dtype(x.dtype, op)
     out_dtype = out_dtype or x.dtype
     if mesh.axis_size(axis) == 1:
         return x.to(wire).to(out_dtype, copy=True)
     group = mesh.group(axis)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    p = mesh.axis_size(axis)
 
     def issue(ts):
         dist.all_reduce(ts[0], op=red, group=group)
         return ts, None
 
     kind = "AllReduce" if op == "sum" else "AllReduceMax"
-    got = _transport(kind, mesh, [x.contiguous()], issue, wire=wire, fresh=True)()[0]
+    got = _transport(kind, mesh, [x.contiguous()], issue, p=p, wire=wire, fresh=True)()[0]
     return got.to(out_dtype)
 
 
 def _reduce_scatter(x: torch.Tensor, axis, dim: int, out_dtype=None) -> torch.Tensor:
-    import torch.distributed as dist
-
     mesh = _mesh()
+    dist = _dist(mesh)
     p = mesh.axis_size(axis)
     out_dtype = out_dtype or x.dtype
     if p == 1:
@@ -474,15 +547,14 @@ def _reduce_scatter(x: torch.Tensor, axis, dim: int, out_dtype=None) -> torch.Te
         scatter(out, ts[0], op=dist.ReduceOp.SUM, group=group)
         return [out], None
 
-    got = _transport("ReduceScatter", mesh, [send], issue, wire=_wire_dtype(x.dtype, "sum"),
+    got = _transport("ReduceScatter", mesh, [send], issue, p=p, wire=_wire_dtype(x.dtype, "sum"),
                      assemble=lambda outs: [outs[0].movedim(0, dim).contiguous()])()[0]
     return got.to(out_dtype)
 
 
 def _all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
-    import torch.distributed as dist
-
     mesh = _mesh()
+    dist = _dist(mesh)
     p = mesh.axis_size(axis)
     if p == 1:
         return x
@@ -496,14 +568,13 @@ def _all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> 
         dist.all_to_all_single(out, ts[0], group=group)
         return [out], None
 
-    got = _transport("AllToAll", mesh, [send], issue)()[0]
+    got = _transport("AllToAll", mesh, [send], issue, p=p)()[0]
     return torch.cat([_from_bytes(got[j], x, shape) for j in range(p)], dim=concat_dim)
 
 
 def _ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    import torch.distributed as dist
-
     mesh = _mesh()
+    dist = _dist(mesh)
     me = mesh.axis_index(axis)
     ranks = mesh.group_ranks(axis)
     group = mesh.group(axis)
@@ -525,7 +596,7 @@ def _ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> to
 
         return [recv], wait
 
-    got = _transport("Permute", mesh, [_bytes(x)], issue)()[0]
+    got = _transport("Permute", mesh, [_bytes(x)], issue, p=mesh.axis_size(axis))()[0]
     return _from_bytes(got, x, x.shape)
 
 
@@ -726,9 +797,8 @@ class Rotation:
     under a tag every rank draws in the same order."""
 
     def __init__(self, buf: torch.Tensor, axis: str):
-        import torch.distributed as dist
-
         mesh = _mesh()
+        dist = _dist(mesh)
         p = mesh.axis_size(axis)
         me = mesh.axis_index(axis)
         ranks = mesh.group_ranks(axis)
@@ -749,7 +819,7 @@ class Rotation:
 
             return [recv], wait
 
-        self._finish = _transport("Rotation", mesh, [_bytes(buf)], issue)
+        self._finish = _transport("Rotation", mesh, [_bytes(buf)], issue, p=p)
 
     def wait(self) -> torch.Tensor:
         return _from_bytes(self._finish()[0], self._like, self._shape)

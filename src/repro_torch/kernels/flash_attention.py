@@ -212,8 +212,11 @@ def _attend(ctx, q, k, v, *, causal: bool = False, window: Optional[int] = None,
     launch."""
     global attend_launches, attend_wgmma_launches
     if not ctx.on_card(q, k, v):
-        return ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale,
-                       chunk=chunk)
+        out = ctx.run("softmax_mac", q, k, v, causal=causal, window=window, scale=scale,
+                      chunk=chunk)
+        # the kernel's layout: [B, Sq, H, D] memory, viewed [B, H, Sq, D], so
+        # what follows (a reshape to [B, Sq, H·D] is a view) copies as on the card
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
     check_attend(q, k, v, window, {name: ctx.block(name) for name in ATTEND_BLOCKS})
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]

@@ -310,17 +310,45 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> None:
         raise DeviceError("matmul/tile: operands past 2^31 elements")
 
 
+def _rows_are_unit(t: torch.Tensor) -> bool:
+    """The rows of the 2-D ``t`` are unit-strided and do not overlap: the
+    kernel reads them by their leading stride as they are."""
+    return t.stride(1) == 1 and t.stride(0) >= t.shape[1]
+
+
 def _rows_unit(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when its rows are unit-strided and do not overlap,
-    else a contiguous copy."""
-    if t.stride(1) == 1 and t.stride(0) >= t.shape[1]:
-        return t
-    return t.contiguous()
+    """``t`` itself when :func:`_rows_are_unit`, else a contiguous copy."""
+    return t if _rows_are_unit(t) else t.contiguous()
 
 
 def _aligned(t: torch.Tensor, elems: int) -> bool:
-    """16-byte rows: base pointer and leading stride both aligned."""
+    """16-byte rows: base pointer and leading stride both aligned. For a
+    ``t`` that :func:`_rows_unit` copies, of its copy (a fresh base, rows
+    of the row width)."""
+    if not _rows_are_unit(t):
+        return t.shape[1] % elems == 0
     return t.data_ptr() % 16 == 0 and t.stride(0) % elems == 0
+
+
+def tile_workspace(ctx, args, kw) -> int:
+    """The bytes a B1 launch holds only while it runs, from shapes,
+    strides and offsets alone (a ``meta`` call forecasts the card's): the
+    contiguous copies :func:`_rows_unit` makes of the operands and the
+    inline chain's extras, and the f32 split-K buffer of the wgmma route
+    (:func:`tile_route`, :func:`tile_plan`). 0 where the call takes the
+    plain stage."""
+    a, b = args[0], args[1]
+    if a.ndim != 2 or b.ndim != 2 or ctx.impl != "kernel":
+        return 0
+    epi = ctx.epilogue
+    extras = epi.args if epi is not None and epilogue_fits(epi, a.shape[0], b.shape[1]) else ()
+    out = sum(t.numel() * t.element_size() for t in (a, b, *extras) if not _rows_are_unit(t))
+    if tile_route(a, b) == "wgmma":
+        (m, k), n = a.shape, b.shape[1]
+        splits, _ = tile_plan(m, k, n, sm_count(a.device))
+        if splits > 1:
+            out += splits * m * n * 4
+    return out
 
 
 @matmul_program.stage(
@@ -329,6 +357,7 @@ def _aligned(t: torch.Tensor, elems: int) -> bool:
     blocks=tuple(TILE_BLOCKS.items()),
     variants=("kernel", "xla"),
     flops=product_flops,
+    workspace=tile_workspace,
 )
 def _tile(ctx, a, b, *, out_dtype=None):
     global launches, wgmma_launches, skinny_launches, epilogue_launches

@@ -1,5 +1,20 @@
-"""Dry runs of the port — ``repro/launch/dryrun.py``: the layout story of
-a model with no device at all, then the compiled model run on one card.
+"""Dry runs of the port — ``repro/launch/dryrun.py``: the lowering of a
+full-size step onto the production meshes and the layout story of a
+model, both with no device at all, then the compiled model run on one
+card or a mesh.
+
+The default cell (``lower_cell``, and ``--all``) lowers a train, prefill
+or decode step of the full-size model onto the 256- or 512-rank
+production mesh (FSDP, ZeRO-1, activation sharding, the remat policy;
+``--no-fsdp``, ``--no-zero1``, ``--no-remat``, ``--remat-policy``,
+``--microbatches``, ``--compress-pod-grads``) and records its per-rank
+memory, cost and three-term roofline, as the reference does with
+``jit(...).lower().compile()`` on ``ShapeDtypeStruct`` s. The port has no
+partitioner and no HLO: rank 0 of a deviceless mesh
+(``launch.mesh.Mesh.deviceless``) runs the step the port itself runs on
+such a mesh, on ``meta`` tensors, under the cost counter and the
+live-bytes tracker (``launch/hlo_cost.py``); ``--dump-hlo`` writes the
+counted trace.
 
 ``--layout-plan`` propagates one decoder layer's AxeSpec layout plan in
 a planning-only space of the production geometry (per-op output specs,
@@ -8,8 +23,7 @@ solve the whole model's layout there (beam search over the spec
 algebra, against the rule-seeded plan), optionally fused (``--fuse``)
 or through the solve <-> tune loop (``--cotune``), under a device-class
 table with a host tier (``--classes``, ``--offload``) or the overlap
-objective (``--overlap``). None of them needs a device: the planning
-spaces carry the production mesh's axes without any card behind them.
+objective (``--overlap``).
 
 ``--execute`` compiles the solved plan of the smoke-reduced config with
 ``axe.compile`` and runs it, holding its logits against the model
@@ -21,13 +35,12 @@ the reference's cross-check of issued vs planned collectives vs the
 solver's decisions; ``--overlap`` compiles the overlap schedule.
 ``--classes`` (and ``--offload``) with ``--execute`` carve a host-class
 axis out of the ranks, a ``(data, model, host)`` mesh, and count the
-plan's ``Transfer`` steps. The lowering onto the 256- and 512-chip
-production meshes (the default cell, ``lower_cell``, with FSDP, ZeRO-1
-and activation sharding) raises, naming ``ROADMAP.md`` A14. The solver
-prices the default device class, the H100 (``axe.hetero``), for backend
-``"gpu"``.
+plan's ``Transfer`` steps. The solver prices the default device class,
+the H100 (``axe.hetero``), for backend ``"gpu"``.
 
 Usage:
+    python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --all --out results.jsonl
     python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --layout-plan
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --solve
     python -m repro_torch.launch.dryrun --solve-compare
@@ -46,6 +59,7 @@ import os
 import sys
 import time
 import traceback
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -57,13 +71,12 @@ from repro_torch.models.model_zoo import SHAPES
 BACKEND = "gpu"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"dryrun: {what} is not ported yet (ROADMAP.md A14)")
-
-
 def _mesh_shape(multi_pod: bool):
     # the production mesh geometry, as a dict — no devices needed
-    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    from repro_torch.launch.mesh import production_geometry
+
+    shape, axes = production_geometry(multi_pod)
+    return dict(zip(axes, shape))
 
 
 def _hetero_space(mesh_shape, classes_text: str, host_degree: int):
@@ -442,13 +455,254 @@ def _host_mesh(n: int, host_degree: int, device):
     return make_mesh((rest // model, model, hd), ("data", "model", "host"), device=device)
 
 
-def lower_cell(arch: str, shape_name: str, multi_pod: bool):
-    """The reference lowers and compiles a train / prefill / decode step
-    onto the 256- or 512-chip production mesh (FSDP, ZeRO-1,
-    activation sharding) and records its memory and roofline analyses.
-    That needs the device mesh: ``ROADMAP.md`` A14."""
-    raise _not_ported(f"lowering {arch} {shape_name} onto the "
-                      f"{'512' if multi_pod else '256'}-chip production mesh")
+def _row_axes(mesh, rows: int) -> Tuple[str, ...]:
+    """The mesh axes, in order, that the batch's rows split over: each
+    while the ranks so far still divide the rows."""
+    axes, n = [], 1
+    for a in mesh.axis_names:
+        if rows % (n * mesh.axis_size(a)):
+            break
+        axes.append(a)
+        n *= mesh.axis_size(a)
+    return tuple(axes)
+
+
+def _whole_batch(api, batch: int, seq: int, *, labels: bool = True) -> Dict[str, torch.Tensor]:
+    """The whole batch on the model's device (``meta`` on a deviceless
+    mesh): ``tokens`` (and ``labels``) ``[batch, seq]`` int32 zeros and
+    the frontend stubs' inputs. A count does not depend on the values."""
+    out = {"tokens": torch.zeros((batch, seq), dtype=torch.int32, device=api.device)}
+    if labels:
+        out["labels"] = torch.zeros((batch, seq), dtype=torch.int32, device=api.device)
+    out.update(api.frontend_inputs(batch))
+    return out
+
+
+def _solved_executable(cfg, mesh, batch: int, seq: int):
+    """The full-depth model graph at ``(batch, seq)`` on ``mesh``'s space,
+    solved (beam 4) and compiled: what ``launch/train.py --solve`` builds."""
+    from repro_torch.axe.compile import _space, compile as axe_compile
+    from repro_torch.axe.graphs import model_graph
+    from repro_torch.axe.solve import solve
+
+    gs = model_graph(cfg, batch, seq, _space(mesh), dtype=cfg.dtype, layers=cfg.num_layers)
+    return axe_compile(gs, mesh, plan=solve(gs, beam=4, backend=BACKEND))
+
+
+def _train_call(cfg, api, mesh, batch: int, seq: int, *, fsdp: bool, zero1: bool,
+                microbatches: int, compress_pod_grads: bool):
+    """One rank's train step: ``(run, (state, batch), layout)``. The step of
+    ``make_train_step(layout=ShardedLayout)`` where a microbatch's rows
+    split over every axis of the mesh (or the family has no compiled
+    binding: its rows then split over the axes that divide them, and the
+    other axes repeat the work); else ``make_compiled_train_step`` on the
+    plan ``launch/train.py --solve`` compiles, every rank taking the
+    whole batch."""
+    from repro_torch.axe.compile import SUPPORTED_FAMILIES
+    from repro_torch.core.dtensor import NamedSharding
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_loop as tl
+
+    opt = AdamW(learning_rate=1e-4)
+    whole = _whole_batch(api, batch, seq)
+    rows = batch // microbatches
+    kw = dict(microbatches=microbatches, compress_pod_grads=compress_pod_grads)
+    if rows % mesh.world == 0 or cfg.family not in SUPPORTED_FAMILIES:
+        layout = tl.ShardedLayout.for_model(mesh, cfg, zero1=zero1, fsdp=fsdp)
+        layout.batch_pspec = (_row_axes(mesh, rows),)
+        params = (layout.shard_tree(api.init(0)) if cfg.family == "encdec"
+                  else api.init(0, place=layout.place))
+        step = tl.make_train_step(api.loss_fn, opt, layout=layout, **kw)
+        local = {k: NamedSharding(mesh, layout.batch_pspec).shard(v) for k, v in whole.items()}
+        how = f"ShardedLayout: rows over {layout.batch_pspec[0]}"
+    else:
+        exe = _solved_executable(cfg, mesh, rows, seq)
+        layout = tl.CompiledLayout(exe, cfg, zero1=zero1, fsdp=fsdp)
+        params = api.init(0, place=layout.place)
+        step = tl.make_compiled_train_step(exe, cfg, opt, layout=layout, **kw)
+        local = whole
+        how = (f"CompiledLayout: the solved plan at ({rows}, {seq}), every rank the whole "
+               f"batch, no remat")
+    state = layout.init_state(params, opt)
+    return (lambda: step(state, local)), (state, local), how
+
+
+def _serve_call(cfg, api, mesh, kind: str, batch: int, seq: int):
+    """One rank's prefill or decode: ``(run, (state, inputs), layout)``. A
+    prefill is the compiled forward ``ServeEngine(mesh)`` runs
+    (``compiled_forward``) at ``(batch, seq)``, with the cache placed by
+    ``rules.cache_specs`` among its arguments and outputs (the reference
+    donates it; the forward does not write it); a decode is one compiled
+    mesh tick (``ServeEngine.decode_step``) over the cache placed as the
+    engine places it. A family with no compiled binding runs the model
+    API with every leaf whole on every rank."""
+    from repro_torch.axe import lower, rules
+    from repro_torch.axe.compile import SUPPORTED_FAMILIES, _space
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.serve.engine import ServeEngine
+
+    if cfg.family not in SUPPORTED_FAMILIES:
+        params = api.init(0)
+        cache = api.cache_init(batch, seq)
+        if kind == "prefill":
+            inputs = _whole_batch(api, batch, seq, labels=False)
+            return ((lambda: api.prefill(params, inputs, cache)), ((params, cache), inputs),
+                    "model API, every leaf whole on every rank (no compiled binding)")
+        tok = torch.zeros((batch, 1), dtype=torch.int32, device=api.device)
+        pos = torch.zeros((batch,), dtype=torch.int32, device=api.device)
+        return ((lambda: api.decode_step(params, tok, cache, pos)), ((params, cache), (tok, pos)),
+                "model API, every leaf whole on every rank (no compiled binding)")
+    engine = ServeEngine(api, batch_size=batch, max_seq=seq, device=api.device, mesh=mesh)
+    engine.load(seed=0)
+    if kind == "prefill":
+        exe = engine.compiled_forward(seq, batch=batch)
+        bound = engine._inputs((batch, seq, None, engine.fuse), exe)
+        cache = api.cache_init(batch, seq)
+        specs = leaves(rules.cache_specs(cache, _space(mesh)))
+        cache = unflatten(cache, [lower.to_named_sharding(spec, mesh).shard(leaf)
+                                  for spec, leaf in zip(specs, leaves(cache))])
+        tokens = torch.zeros((batch * seq,), dtype=torch.int32, device=api.device)
+        return ((lambda: (exe(bound, tokens), cache)), ((engine.params, bound, cache), tokens),
+                "compiled forward (ServeEngine.compiled_forward)")
+    cache = engine._place_cache(api.cache_init(batch, seq))
+    engine._inputs(("decode", batch, None, engine.fuse), engine.compiled_decode(batch=batch))
+    tok = torch.zeros((batch,), dtype=torch.int32, device=api.device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=api.device)
+    return ((lambda: engine.decode_step(tok, cache, pos)),
+            ((engine.params, engine._bound, cache), (tok, pos)),
+            "one compiled mesh decode tick (ServeEngine.decode_step)")
+
+
+def lower_step(cfg, kind: str, batch: int, seq: int, mesh, *, fsdp: bool = True,
+               zero1: bool = True, microbatches: int = 1, compress_pod_grads: bool = False,
+               trace: bool = False, before: Optional[Any] = None) -> Dict[str, Any]:
+    """One rank's step of ``kind`` (train / prefill / decode) of ``cfg``
+    at ``(batch, seq)`` on ``mesh`` (deviceless: ``meta`` tensors; or a
+    real one), counted (``hlo_cost.counting``) with its live bytes
+    tracked in the same pass. Returns ``layout`` (which step ran),
+    ``lower_s`` (building it: solve, compile, placing the state),
+    ``compile_s`` (the counted run), ``memory`` (the reference's keys, and
+    ``state_bytes`` / ``input_bytes``: the arguments' two parts, the
+    state, params or cache the rank holds and the batch it takes),
+    ``cost`` (the counter's ``HloCost``) and, with ``trace``, the counted
+    trace's lines. The argument bytes are measured before the step runs
+    (a train step updates its state in place); ``before()``, where given,
+    runs just before the counted run (a real run resets the card's peak
+    memory there)."""
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models.model_zoo import build_model
+
+    api = build_model(cfg, device=mesh.device)
+    t0 = time.time()
+    if kind == "train":
+        run, args, how = _train_call(cfg, api, mesh, batch, seq, fsdp=fsdp, zero1=zero1,
+                                     microbatches=microbatches,
+                                     compress_pod_grads=compress_pod_grads)
+    else:
+        run, args, how = _serve_call(cfg, api, mesh, kind, batch, seq)
+    lower_s = time.time() - t0
+    live = hlo_cost.LiveBytes(mesh.device.type, arguments=args)
+    parts = {"state_bytes": hlo_cost.storage_bytes(args[0]),
+             "input_bytes": hlo_cost.storage_bytes(args[1])}
+    if before is not None:
+        before()
+    t1 = time.time()
+    with hlo_cost.counting(live=live, trace=trace) as counter:
+        out = run()
+    return {"layout": how, "lower_s": lower_s, "compile_s": time.time() - t1,
+            "memory": {**live.finish(out), **parts}, "cost": counter.cost(),
+            "trace": counter.trace}
+
+
+@contextlib.contextmanager
+def lowering(mesh, cfg, *, remat: bool = True, remat_policy: str = "full"):
+    """The model code's setting while a step is lowered onto ``mesh``:
+    its mesh (``act_sharding``: expert parallelism), the remat policy
+    and the per-arch layout policy (a VLM keeps a replicated-seq residual
+    stream), restored after."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.train import act_sharding
+
+    policy = tf_mod.REMAT_POLICY
+    act_sharding.set_mesh(mesh)
+    tf_mod.set_remat_policy(remat_policy if remat else "none")
+    act_sharding.set_logical_overrides({"seq_res": (None,)} if cfg.family == "vlm" else None)
+    try:
+        yield
+    finally:
+        act_sharding.set_mesh(None)
+        act_sharding.set_logical_overrides(None)
+        tf_mod.set_remat_policy(policy)
+
+
+def lower_cell(
+    arch: str,
+    shape_name: str,
+    multi_pod: bool,
+    *,
+    fsdp: bool = True,
+    zero1: bool = True,
+    microbatches: int = 1,
+    compress_pod_grads: bool = False,
+    remat: bool = True,
+    remat_policy: str = "full",
+    dump_hlo: Optional[str] = None,
+):
+    """Lower a train, prefill or decode step of the full-size ``arch``
+    onto the 256- or 512-rank production mesh (FSDP, ZeRO-1, activation
+    sharding, the remat policy) and record its memory, cost and
+    three-term roofline: the reference's ``lower_cell``, with no card and
+    no ``torch.distributed`` world. The port has no partitioner and no
+    HLO, so the step is the one the port itself runs on such a mesh
+    (:func:`lower_step`; the record's ``layout`` says which), run by rank
+    0 of a deviceless production mesh on ``meta`` tensors under the cost
+    counter and the live-bytes tracker: it runs no kernel and allocates
+    nothing. ``compile_s`` is the counted run's wall. ``dump_hlo``
+    writes the counted trace (program calls, aten ops and collectives, in
+    order) there in place of HLO text."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import Mesh, production_geometry
+    from repro_torch.models.model_zoo import shape_applicable
+
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh_name = "multi" if multi_pod else "single"
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                "status": "skipped", "reason": why}
+    mesh = Mesh.deviceless(*production_geometry(multi_pod))
+    record = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_name, "rank": mesh.rank,
+        "kind": shape.kind, "batch": shape.batch, "seq": shape.seq,
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "options": {"fsdp": fsdp, "zero1": zero1, "microbatches": microbatches,
+                    "compress_pod_grads": compress_pod_grads, "remat": remat},
+    }
+    plan_rec = layout_plan_cell(arch, shape_name, multi_pod, verbose=False)
+    if plan_rec.get("status") == "ok":
+        record["layout_plan"] = plan_rec["layout_plan"]
+    with lowering(mesh, cfg, remat=remat, remat_policy=remat_policy):
+        got = lower_step(cfg, shape.kind, shape.batch, shape.seq, mesh, fsdp=fsdp, zero1=zero1,
+                         microbatches=microbatches, compress_pod_grads=compress_pod_grads,
+                         trace=bool(dump_hlo))
+    cost = got["cost"]
+    # the compiled step keeps every activation: it has no remat policy
+    ran = "none" if got["layout"].startswith("CompiledLayout") or not remat else remat_policy
+    record.update(layout=got["layout"], remat_policy=ran, lower_s=round(got["lower_s"], 2),
+                  compile_s=round(got["compile_s"], 2), memory=got["memory"])
+    record["cost"] = {"flops": cost.flops, "bytes accessed": cost.bytes,
+                      "comm_bytes": cost.comm_bytes, "comm_by_op": cost.comm_by_op,
+                      "comm_counts": cost.comm_counts}
+    if dump_hlo:
+        with open(dump_hlo, "w") as f:
+            f.write("\n".join(got["trace"]) + "\n")
+    terms = rl.derive_terms(cost=cost, n_chips=mesh.world, pod_axis=multi_pod,
+                            model_flops_total=rl.model_flops(cfg, shape.kind, shape.batch,
+                                                             shape.seq))
+    record["roofline"] = terms.to_dict()
+    record["status"] = "ok"
+    return record
 
 
 def main(argv=None):
@@ -458,6 +712,15 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["single", "multi"], default="single")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--no-zero1", action="store_true")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-pod-grads", action="store_true")
+    ap.add_argument("--dump-hlo", default=None,
+                    help="write the lowered step's counted trace here (program calls, aten "
+                         "ops and collectives, in order): the port has no HLO text")
+    ap.add_argument("--remat-policy", default="full", choices=["full", "dots", "none"])
     ap.add_argument("--layout-plan", action="store_true",
                     help="report the propagated AxeSpec layout plan only (no devices)")
     ap.add_argument("--solve", action="store_true",
@@ -608,13 +871,27 @@ def main(argv=None):
                           f"comm={lp['total_comm_bytes'] / 2**20:.1f} MiB/device")
             else:
                 try:
-                    rec = lower_cell(arch, shape, mesh == "multi")
-                except NotImplementedError as e:
+                    rec = lower_cell(
+                        arch, shape, mesh == "multi", fsdp=not args.no_fsdp,
+                        zero1=not args.no_zero1, microbatches=args.microbatches,
+                        compress_pod_grads=args.compress_pod_grads, remat=not args.no_remat,
+                        remat_policy=args.remat_policy, dump_hlo=args.dump_hlo)
+                except Exception as e:  # record an error row; never abort a sweep
                     rec = {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
-                           "error": f"{type(e).__name__}: {e}"}
-                failures += rec["status"] != "ok"
+                           "error": f"{type(e).__name__}: {e}",
+                           "traceback": traceback.format_exc()[-2000:]}
+                failures += rec["status"] == "error"
                 line = json.dumps(rec)
-                print(line)
+                print(line if rec["status"] != "ok" else
+                      f"OK {arch} {shape} {mesh} lower={rec['lower_s']}s "
+                      f"compile={rec['compile_s']}s "
+                      f"bottleneck={rec['roofline']['bottleneck']}")
+                if rec["status"] == "ok":
+                    mem, cost = rec["memory"], rec["cost"]
+                    print(f"   memory: peak={mem['peak_bytes'] / 2**30:.2f} GiB/device "
+                          f"args={mem['argument_bytes'] / 2**30:.2f} GiB")
+                    print(f"   cost: flops/dev={cost['flops']:.3e} "
+                          f"comm={cost['comm_bytes'] / 2**30:.2f} GiB/dev")
             if out_f:
                 out_f.write(line + "\n")
                 out_f.flush()

@@ -21,8 +21,18 @@ environment when none is initialised (``python -m torch.distributed.run
 --nproc-per-node N ...`` sets it); :func:`spawn` starts a world of its
 own: it runs ``fn(mesh)`` in ``prod(shape)`` processes over a
 ``FileStore``, stops every rank when one fails, and returns each rank's
-value. The production meshes of the reference (``make_production_mesh``)
-come with the lowering of the training cells (``ROADMAP.md`` A14).
+value.
+
+:func:`production_geometry` is the reference's production mesh
+(``make_production_mesh``), ``(16, 16)`` over ``("data", "model")`` or
+``(2, 16, 16)`` over ``("pod", "data", "model")``. No one world of 256 or
+512 ranks runs here: :meth:`Mesh.deviceless` (of that shape or any other)
+is one rank's view of such a world with no ``torch.distributed`` world
+and no card behind it. Its tensors live on ``meta``; it has the coordinates,
+group ranks and chunk orders of a real mesh of that shape and no process
+groups, and ``core.collective``'s transport gives each collective's
+outputs their shapes and counts it as a real world would, moving
+nothing (``launch/dryrun.py``'s ``lower_cell`` runs one rank's step so).
 
 The constants below are datasheet figures (NVIDIA's H100 data sheet,
 SXM part, dense rates without sparsity, at the full 700 W limit), not
@@ -81,16 +91,17 @@ def _rank_device(device, local_rank: int) -> torch.device:
 
 
 class Mesh:
-    """This rank's view of a device mesh over the initialised world."""
+    """This rank's view of a device mesh over the initialised world (or,
+    :meth:`deviceless`, over none)."""
+
+    #: True for a :meth:`deviceless` mesh: no world, no groups, ``meta`` tensors
+    is_deviceless = False
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  device: Optional[Union[str, torch.device]] = None):
         import torch.distributed as dist
 
-        self.shape = tuple(int(s) for s in shape)
-        self.axis_names = tuple(axis_names)
-        if len(self.shape) != len(self.axis_names):
-            raise ValueError(f"mesh shape {self.shape} vs axes {self.axis_names}")
+        self._axes(shape, axis_names)
         if not dist.is_initialized():
             raise RuntimeError("Mesh needs an initialised torch.distributed world "
                                "(make_mesh / make_local_mesh / spawn start one)")
@@ -105,12 +116,7 @@ class Mesh:
         if self.backend != want:
             raise RuntimeError(f"the world runs {self.backend}, the backend rule asks "
                                f"{want} for {self.world} ranks on {self.device.type}")
-        #: global ranks in mesh order, like a JAX mesh's ``devices`` array
-        self.devices = np.arange(self.world).reshape(self.shape)
-        self.coords = dict(zip(self.axis_names,
-                               (int(c) for c in np.unravel_index(self.rank, self.shape))))
-        self._groups: Dict[Tuple[str, ...], Any] = {}
-        self._group_ranks: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+        self._place(self.rank)
         n = len(self.axis_names)
         subsets = [tuple(i for i in range(n) if mask >> i & 1) for mask in range(1, 1 << n)]
         for dims in sorted(subsets, key=lambda d: (len(d), d)):
@@ -124,8 +130,40 @@ class Mesh:
                 g = dist.new_group(list(ranks))
                 if self.rank in ranks:
                     self._groups[key], self._group_ranks[key] = g, ranks
+
+    def _axes(self, shape, axis_names) -> None:
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} vs axes {self.axis_names}")
+
+    def _place(self, rank: int) -> None:
+        self.rank = rank
+        #: global ranks in mesh order, like a JAX mesh's ``devices`` array
+        self.devices = np.arange(math.prod(self.shape)).reshape(self.shape)
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(self.rank, self.shape))))
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        self._group_ranks: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
         self._tag = 0
         self._chunk_orders: Dict[Tuple[str, ...], List[int]] = {}
+
+    @classmethod
+    def deviceless(cls, shape: Sequence[int], axis_names: Sequence[str], *,
+                   rank: int = 0) -> "Mesh":
+        """Rank ``rank``'s view of a ``shape`` mesh with no world behind
+        it: no ``torch.distributed``, no process group, no card. Its
+        device is ``meta``; :meth:`group_ranks` and :meth:`chunk_order`
+        are a real mesh's; :meth:`group` is None and
+        :meth:`all_ranks_agree` checks nothing."""
+        self = cls.__new__(cls)
+        self._axes(shape, axis_names)
+        self.world = math.prod(self.shape)
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} of a {self.world}-rank mesh")
+        self.backend, self.device, self.is_deviceless = None, torch.device("meta"), True
+        self._place(rank)
+        return self
 
     @property
     def mesh_shape(self) -> Dict[str, int]:
@@ -157,13 +195,19 @@ class Mesh:
 
     def group(self, axes: Union[str, Sequence[str]]):
         """This rank's process group along one axis, or along several
-        (the ranks that differ from it only along those axes)."""
-        return self._groups[self._key(axes)]
+        (the ranks that differ from it only along those axes); None on a
+        deviceless mesh."""
+        return None if self.is_deviceless else self._groups[self._key(axes)]
 
     def group_ranks(self, axes: Union[str, Sequence[str]]) -> Tuple[int, ...]:
         """The global ranks of :meth:`group`, in mesh order (for one axis:
         in axis order)."""
-        return self._group_ranks[self._key(axes)]
+        key = self._key(axes)
+        if key not in self._group_ranks:
+            line = self.devices[tuple(slice(None) if a in key else self.coords[a]
+                                      for a in self.axis_names)]
+            self._group_ranks[key] = tuple(int(r) for r in line.reshape(-1))
+        return self._group_ranks[key]
 
     def chunk_order(self, axes: Union[str, Sequence[str]]) -> List[int]:
         """For each rank of :meth:`group`, in its order, the index of the
@@ -188,9 +232,12 @@ class Mesh:
 
     def all_ranks_agree(self, value: int, what: str) -> None:
         """Raise on every rank unless all ranks hold the same ``value``
-        (one all-gather over the world)."""
+        (one all-gather over the world). A deviceless mesh has no other
+        rank to ask."""
         import torch.distributed as dist
 
+        if self.is_deviceless:
+            return
         dev = self.device if self.backend == "nccl" else torch.device("cpu")
         mine = torch.tensor([value], dtype=torch.int64, device=dev)
         every = [torch.empty_like(mine) for _ in range(self.world)]
@@ -211,8 +258,18 @@ class Mesh:
         return self._ctx.__exit__(*exc)
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.mesh_shape}, rank {self.rank} at {self.coords}, "
-                f"{self.backend} on {self.device})")
+        how = "deviceless" if self.is_deviceless else self.backend
+        return f"Mesh({self.mesh_shape}, rank {self.rank} at {self.coords}, {how} on {self.device})"
+
+
+def production_geometry(multi_pod: bool = False) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The reference's production mesh, ``(shape, axis_names)``: ``(16,
+    16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over ``("pod",
+    "data", "model")``. ``Mesh.deviceless(*production_geometry(m))`` is
+    one rank's view of it."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def init_world(device=None, *, timeout_s: float = WORLD_TIMEOUT_S) -> Tuple[str, str]:

@@ -42,7 +42,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import generator
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
@@ -72,7 +72,7 @@ def encdec_init(cfg, *, seed: int = 0,
     (default: the card, :func:`~repro_torch.core.device.resolve_device`),
     each leaf drawn in its stacked ``[layers, ...]`` shape."""
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(device, seed)
     d, le, ld = cfg.d_model, (cfg.encoder_layers,), (cfg.num_layers,)
 
     def ones(lead):

@@ -36,7 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.axe.program import SavedProducts
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import generator
 from repro_torch.core.scopes import Scope, scope
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -120,7 +120,7 @@ def lm_init(cfg, *, seed: int = 0,
     the draws, and so the weights, do not depend on it."""
     check_family(cfg)
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(device, seed)
     n_super, per = _superblock_shape(cfg)
     lead = (n_super,)
     d = cfg.d_model

@@ -14,6 +14,19 @@ immediately — their pages return to the pool exactly once and the slot
 recycles to the next queued request — so the decode batch stays full
 without re-padding or re-compiling.
 
+On a mesh engine (``ServeEngine(mesh=)``) every rank runs the same
+batcher calls. The batched cache is placed as the engine places a cache
+(``engine._place_cache``, the decode plan's leaf placements), so where
+the plan shards the slots' dim a rank holds only some slots. Admission
+feeds the prompt through a batch-1 compiled mesh tick, one position at a
+time (the port has no partitioner to run the model API's prefill across
+ranks: the same tokens as ``ServeEngine(mesh).generate``). A slot's
+cache travels as its *slot slice*: this rank's block of the slot over
+the other dims, gathered over the axes that shard the slots. Writing a
+slot writes only on the ranks that hold it, at their local index; a
+parked slice holds each rank's own block, and ``transfer_bytes`` counts
+this rank's bytes.
+
 Determinism: the step counter is the only clock, and each sampled token
 draws from a ``torch.Generator`` seeded by a fixed function of
 ``(engine.rng_seed, uid, pos)`` (:func:`sample_seed`) — the twin of the
@@ -195,6 +208,13 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _at(tree, path):
+    """The leaf of ``tree`` at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -231,11 +251,8 @@ class ContinuousBatcher:
                  top_k: Optional[int] = None,
                  offload: bool = False,
                  host_pages: Optional[int] = None):
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the ContinuousBatcher drives an engine on one card; on a mesh it waits "
-                "for a later slice (ROADMAP.md A14)")
         self.engine = engine
+        self.mesh = getattr(engine, "mesh", None)
         self.n_slots = engine.batch_size
         per_slot = -(-engine.max_seq // page_size)
         if host_pages is None:
@@ -262,6 +279,11 @@ class ContinuousBatcher:
         self.results: Dict[int, RequestResult] = {}
         self._submit_step: Dict[int, int] = {}
         self.cache = engine.api.cache_init(self.n_slots, engine.max_seq)
+        if self.mesh is not None:
+            from repro_torch.core.tree import leaves_with_paths
+
+            self._shapes = {path: tuple(t.shape) for path, t in leaves_with_paths(self.cache)}
+            self.cache = engine._place_cache(self.cache)
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -283,10 +305,80 @@ class ContinuousBatcher:
         return None
 
     # -- slot lifecycle ---------------------------------------------------
+    def _held(self, path, index: int) -> Tuple[Tuple[str, ...], Optional[int], int]:
+        """For the batched leaf at ``path``: the axes that shard its
+        slots' dim, this rank's local index of slot ``index`` (None where
+        another rank holds it) and the chunk of the slots' dim that holds
+        it. On one card no axis shards it and every slot is local."""
+        from repro_torch.core.dtensor import entry_axes
+
+        if self.mesh is None:
+            return (), index, 0
+        sharding = self.engine.cache_sharding(path)
+        pspec = tuple(sharding.spec) + (None,) * 2
+        held = sharding.shard_slices(self._shapes[path])[1]
+        per = held.stop - held.start
+        local = index - held.start if held.start <= index < held.stop else None
+        return entry_axes(pspec[1]), local, index // per
+
     def _write_slot(self, index: int, one) -> None:
-        """Copy a batch-1 cache (leaves ``[n_super, 1, ...]``, on the card
-        or the host) into batch index ``index`` of the batched cache."""
-        _tree_map(lambda big, new: big[:, index].copy_(new[:, 0]), self.cache, one)
+        """Copy a slot slice (leaves ``[n_super, 1, ...]``, on the card
+        or the host) into batch index ``index`` of the batched cache; on a
+        mesh, on the ranks that hold the slot."""
+        from repro_torch.axe.rules import map_with_path
+
+        def write(path, big):
+            _, local, _ = self._held(path, index)
+            if local is not None:
+                big[:, local].copy_(_at(one, path)[:, 0])
+            return big
+
+        map_with_path(write, self.cache)
+
+    def _slot_slice(self, index: int):
+        """The slot slice of batch index ``index`` of the batched cache,
+        on the device (a view on one card; on a mesh each rank's block,
+        gathered over the axes that shard the slots)."""
+        from repro_torch.axe.rules import map_with_path
+        from repro_torch.core import collective as coll
+
+        def cut(path, big):
+            axes, local, chunk = self._held(path, index)
+            mine = big[:, (local or 0): (local or 0) + 1]
+            if not axes:
+                return mine
+            with coll.use_mesh(self.mesh):
+                every = coll.all_gather(mine, axes, 1)
+            return every[:, chunk: chunk + 1]
+
+        return map_with_path(cut, self.cache)
+
+    def _admit_on_mesh(self, prompt: np.ndarray):
+        """The batch-1 admission of a mesh engine: the prompt through a
+        batch-1 compiled mesh tick, one position at a time (as
+        ``ServeEngine(mesh).generate`` feeds one). Returns the last
+        position's logits and the prompt's slot slice."""
+        from repro_torch.axe.rules import map_with_path
+        from repro_torch.core.dtensor import NamedSharding
+
+        eng = self.engine
+        whole = eng.api.cache_init(1, eng.max_seq)
+        one = eng._place_cache(whole, batch=1)
+        for i, t in enumerate(prompt):
+            tok = torch.full((1,), int(t), dtype=torch.int32, device=eng.device)
+            pos = torch.full((1,), i, dtype=torch.int32, device=eng.device)
+            logits, one = eng.decode_step(tok, one, pos)
+
+        def to_slot(path, leaf):
+            # the batch-1 plan's placement -> whole -> the batched leaf's
+            # block over the other dims (its slots' dim left whole)
+            full = eng.cache_sharding(path, batch=1).unshard(leaf)
+            spec = eng.cache_sharding(path).spec
+            pspec = list(spec) + [None] * (full.dim() - len(spec))
+            pspec[1] = None
+            return NamedSharding(self.mesh, tuple(pspec)).shard(full)
+
+        return logits, map_with_path(to_slot, one)
 
     def _admit(self, req: Request, slot: _Slot) -> None:
         eng = self.engine
@@ -294,13 +386,17 @@ class ContinuousBatcher:
         cache_len = min(len(prompt) + req.max_new_tokens, eng.max_seq)
         self.pool.alloc(req.uid, self.pool.pages_for(cache_len))
 
-        # batch-1 prefill through the model API (disaggregated from the
-        # batched compiled decode)
-        one = eng.api.cache_init(1, eng.max_seq)
-        tokens = torch.as_tensor(prompt[None, :], device=eng.device).long()
-        with eng._scheduled():
-            logits, one = eng.api.prefill(eng.params, {"tokens": tokens}, one)
-        tok = self._sample_one(req.uid, len(prompt) - 1, logits[0, -1])
+        if self.mesh is not None:
+            logits, one = self._admit_on_mesh(prompt)
+            tok = self._sample_one(req.uid, len(prompt) - 1, logits[0])
+        else:
+            # batch-1 prefill through the model API (disaggregated from
+            # the batched compiled decode)
+            one = eng.api.cache_init(1, eng.max_seq)
+            tokens = torch.as_tensor(prompt[None, :], device=eng.device).long()
+            with eng._scheduled():
+                logits, one = eng.api.prefill(eng.params, {"tokens": tokens}, one)
+            tok = self._sample_one(req.uid, len(prompt) - 1, logits[0, -1])
         self._write_slot(slot.index, one)
         slot.uid = req.uid
         slot.pos = len(prompt)
@@ -318,10 +414,11 @@ class ContinuousBatcher:
 
     # -- host-tier preemption (two-tier PagePool) -------------------------
     def _cache_slice(self, index: int):
-        """The one-slot cache slice, copied to host memory (page-out of a
-        leased cache). The compiled tick writes the cache in place, so
-        the copy is taken before the slot is reused."""
-        return _tree_map(lambda big: big[:, index: index + 1].to("cpu", copy=True), self.cache)
+        """The slot slice, copied to host memory (page-out of a leased
+        cache; on a mesh each rank's own block). The compiled tick writes
+        the cache in place, so the copy is taken before the slot is
+        reused."""
+        return _tree_map(lambda t: t.to("cpu", copy=True), self._slot_slice(index))
 
     def _park(self, slot: _Slot) -> None:
         """Preempt a live slot: evict its pages to the host tier, copy

@@ -25,7 +25,8 @@ every prefill, tick and score of this engine. A compiled executable
 resolves each node at its first call and keeps it, as a JAX trace does,
 so the cache and the forced spec in force then are the ones its nodes
 run. :class:`~repro_torch.serve.batcher.ContinuousBatcher` drives the
-same engine with requests that join and leave mid-stream (on one card).
+same engine with requests that join and leave mid-stream (on one card or
+a mesh).
 
 ``mesh`` (a ``launch.mesh.Mesh``, every rank running the same calls)
 serves across the mesh's ranks through the mesh executables.
@@ -34,7 +35,8 @@ rank draws (``load(seed=...)``) or converts one leaf at a time and
 keeps only its shard, so no rank ever holds the whole model. A leaf
 takes the placement the decode plan gives the graph input it feeds
 first (``Executable.leaf_pspec``; a leaf no graph input shards stays
-whole), the cache likewise (``_place_cache``); a graph input whose plan
+whole), a cache as the decode plan of its batch places its leaves
+(``_place_cache``); a graph input whose plan
 wants another placement is converted when it is bound
 (``Executable.as_input``). ``score`` and every decode tick run the mesh
 executables, and the logits are gathered before sampling, so every
@@ -125,23 +127,31 @@ class ServeEngine:
             self.params = map_with_path(self._keep_shard, params)
 
     # -- placement on a mesh: the decode executable's rule -----------------
-    def _keep_shard(self, path, leaf: torch.Tensor) -> torch.Tensor:
+    def _keep_shard(self, path, leaf: torch.Tensor, *, batch: Optional[int] = None) -> torch.Tensor:
+        return self.cache_sharding(path, batch=batch).shard(leaf)
+
+    def cache_sharding(self, path, *, batch: Optional[int] = None):
+        """The ``NamedSharding`` a leaf at ``path`` takes on the mesh: a
+        param's by the decode plan of the engine's batch, a cache leaf's
+        by the decode plan of the cache's ``batch``."""
         from repro_torch.core.dtensor import NamedSharding
 
-        return NamedSharding(self.mesh, self.compiled_decode().leaf_pspec(path)).shard(leaf)
+        return NamedSharding(self.mesh, self.compiled_decode(batch=batch).leaf_pspec(path))
 
-    def _place_cache(self, cache):
-        """The cache tree with each leaf kept as this rank's shard."""
+    def _place_cache(self, cache, *, batch: Optional[int] = None):
+        """The cache tree (of ``batch`` slots, the engine's by default)
+        with each leaf kept as this rank's shard."""
         from repro_torch.axe.rules import map_with_path
 
-        return map_with_path(self._keep_shard, cache)
+        return map_with_path(lambda path, leaf: self._keep_shard(path, leaf, batch=batch), cache)
 
-    def _bind(self, exe, views: Mapping[str, Any]) -> Dict[str, Any]:
-        """``views`` (input name -> this rank's view of a loaded leaf) in
-        the placements ``exe``'s plan wants."""
+    def _bind(self, exe, views: Mapping[str, Any], placer=None) -> Dict[str, Any]:
+        """``views`` (input name -> this rank's view of a loaded leaf,
+        placed as ``placer``'s plan places it: the engine's decode plan by
+        default) in the placements ``exe``'s plan wants."""
         from repro_torch.axe.compile import first_input
 
-        placer, out = self.compiled_decode(), {}
+        placer, out = placer or self.compiled_decode(), {}
         for name, view in views.items():
             first, transposed = first_input(self.api.cfg, name)
             pspec = placer.input_pspec(first)
@@ -225,7 +235,8 @@ class ServeEngine:
         inputs = dict(self._inputs(("decode", b, None, self.fuse), exe))
         caches = cache_inputs(exe.graph, self.api.cfg, cache)
         if self.mesh is not None:
-            caches = self._bind(exe, caches)
+            # the cache is placed by the decode plan of its own batch
+            caches = self._bind(exe, caches, placer=exe)
         inputs.update(caches)
         with self._scheduled():
             outs = exe(inputs, tok.to(torch.int32), pos.to(torch.int32))

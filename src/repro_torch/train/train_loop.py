@@ -13,8 +13,10 @@ On a device mesh (:class:`ShardedLayout`, ``make_train_step(layout=)``)
 the step computes what the reference's sharded step computes — the
 single device's loss and gradients — with each rank holding only its
 shards: params by ``rules.param_specs(fsdp=True)``, the AdamW moments by
-``rules.opt_specs(zero1=True)``. The batch's rows are split over every
-axis of the mesh. Each leaf is gathered where the model uses it (a
+``rules.opt_specs(zero1=True)`` (both options of the layout). The batch's
+rows are split over every axis of the mesh; where they are split over
+fewer, the ranks along the others repeat one another's rows and the
+mean over ranks is still the batch's mean. Each leaf is gathered where the model uses it (a
 super-block's inside its rematerialised body: freed after the forward,
 gathered again for the recompute) by a differentiable all-gather whose
 gradient is the reduce-scatter onto the rank's shard, summed over the
@@ -160,8 +162,9 @@ class ShardedLayout:
     """Where a train state lives on ``mesh`` (a ``launch.mesh.Mesh``), for
     :func:`make_train_step`'s step on one of its ranks.
 
-    A leaf at a dotted path takes ``rules.param_spec(fsdp=True)`` (the port's
-    flattened heads unflattened for the rules, ``head_dim``) and its
+    A leaf at a dotted path takes ``rules.param_spec(fsdp=)`` (the port's
+    flattened heads unflattened for the rules, ``head_dim``; ``fsdp=False``
+    keeps a leaf whole over ``data``, ``launch/dryrun.py --no-fsdp``) and its
     moments ``rules.zero1_extend`` of that (``opt_specs(zero1=)``). The
     batch's rows split over every axis of the mesh (:attr:`batch_pspec`):
     each rank then routes its own rows in an MoE layer before the
@@ -176,8 +179,9 @@ class ShardedLayout:
     :meth:`shard_tree`), from their global shapes."""
 
     def __init__(self, mesh, *, head_dim: Optional[int] = None, ep: bool = False,
-                 zero1: bool = True, offload_axes: Tuple[str, ...] = ()):
+                 zero1: bool = True, fsdp: bool = True, offload_axes: Tuple[str, ...] = ()):
         self.mesh, self.head_dim, self.ep, self.zero1 = mesh, head_dim, ep, zero1
+        self.fsdp = fsdp
         self.offload_axes = tuple(offload_axes)
         #: a solved plan's param placements (``rules.PlanRules``), or None
         self.solved: Optional[rules.PlanRules] = None
@@ -229,7 +233,7 @@ class ShardedLayout:
         """The leaf's param spec (the solved placement of :attr:`solved`
         where there is one) and its moments' (parked on the host tier's
         axes, ``offload_axes``, where there are some)."""
-        kw = dict(fsdp=True, plan=self.solved, head_dim=self.head_dim)
+        kw = dict(fsdp=self.fsdp, plan=self.solved, head_dim=self.head_dim)
         return (rules.param_spec(ps, shape, dtype, self.space, **kw),
                 rules.moment_spec(ps, shape, dtype, self.space, zero1=self.zero1,
                                   offload_axes=self.offload_axes, **kw))
@@ -409,9 +413,10 @@ class CompiledLayout(ShardedLayout):
     (:func:`make_compiled_train_step` on one of its ranks): what the
     reference's launcher places under ``--solve``.
 
-    A leaf takes ``rules.param_spec(fsdp=True, plan=from_plan(plan))``,
+    A leaf takes ``rules.param_spec(fsdp=, plan=from_plan(plan))``,
     the solved placement of the graph input it feeds with FSDP over
-    ``data`` (the port's flattened heads through ``head_dim``), and its
+    ``data`` (unless ``fsdp=False``; the port's flattened heads through
+    ``head_dim``), and its
     moments ``rules.opt_specs(zero1=, offload_axes=)`` of that: with
     ``offload_axes=("host",)`` they are parked on the host-class axis
     (``launch/train.py --offload-opt``). Every rank takes the whole batch;
@@ -423,10 +428,11 @@ class CompiledLayout(ShardedLayout):
     The norm, the int8 compression and ZeRO-1 AdamW run on the shards as
     in :class:`ShardedLayout`."""
 
-    def __init__(self, exe, cfg, *, zero1: bool = True, offload_axes: Tuple[str, ...] = ()):
+    def __init__(self, exe, cfg, *, zero1: bool = True, fsdp: bool = True,
+                 offload_axes: Tuple[str, ...] = ()):
         if exe.mesh is None:
             raise ValueError("CompiledLayout needs an executable compiled for a mesh")
-        super().__init__(exe.mesh, head_dim=cfg.head_dim or None, zero1=zero1,
+        super().__init__(exe.mesh, head_dim=cfg.head_dim or None, zero1=zero1, fsdp=fsdp,
                          offload_axes=offload_axes)
         self.exe, self.cfg = exe, cfg
         #: the executable's space: its classes annotate the host axis

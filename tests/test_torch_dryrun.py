@@ -4,9 +4,13 @@ records of ``layout_plan_cell`` and ``solve_cell`` equal the JAX
 package's (the solver priced with its TPU v5e table, installed in the
 port through ``hetero.use_class_table``; the planner schedules of each
 op are the card's own and stay out), ``execute_cell`` on the CPU (its
-mesh runs: ``tests/test_torch_mesh.py``), the paths that need a host
-tier or the production meshes raising, naming ``ROADMAP.md`` A14, and
-the report's text equal to the reference's on the same JSONL."""
+mesh runs: ``tests/test_torch_mesh.py``), the paths that parked or
+overlapped only on a mesh on one card, ``main()`` lowering its default
+cell (``lower_cell``; its records against JAX's:
+``tests/test_torch_lower_cell.py``), and the report's text equal to the
+reference's on the rows it wrote."""
+import contextlib
+import io
 import json
 
 import pytest
@@ -99,11 +103,14 @@ def test_execute_paths_that_need_a_mesh_name_a14(kw):
     assert rec["offload"] == list(kw.get("offload", ()))
 
 
-def test_lower_cell_names_a14(capsys):
-    with pytest.raises(NotImplementedError, match="A14"):
-        dryrun.lower_cell("qwen3-4b", "train_4k", False)
-    assert dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k"]) == 1
-    assert "A14" in capsys.readouterr().out
+def test_main_lowers_the_default_cell(real_rows):
+    """``main()`` on a default cell: ``lower_cell``'s row, its ``OK ...
+    bottleneck=`` line and its memory and cost lines, exit 0; the skipped
+    cell exits 0 too."""
+    rows, out = real_rows
+    assert [r["status"] for r in rows] == ["ok", "skipped"]
+    assert "OK qwen3-4b train_4k single" in out and "bottleneck=memory" in out
+    assert "memory: peak=" in out and "cost: flops/dev=" in out
 
 
 def test_cli_writes_records(tmp_path, capsys):
@@ -117,14 +124,27 @@ def test_cli_writes_records(tmp_path, capsys):
     assert "PLAN qwen3-4b train_4k single" in capsys.readouterr().out
 
 
-def _records():
+@pytest.fixture(scope="module")
+def real_rows(tmp_path_factory):
+    """Rows ``main()`` writes for a lowered cell and a skipped one."""
+    out = tmp_path_factory.mktemp("rows") / "r.jsonl"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k", "--out", str(out)]) == 0
+        assert dryrun.main(["--arch", "qwen3-4b", "--shape", "long_500k", "--out",
+                            str(out)]) == 0
+    return [json.loads(line) for line in out.read_text().splitlines()], buf.getvalue()
+
+
+def _synthetic_rows():
     """Rows as ``lower_cell`` writes them (a roofline from the port's
-    ``derive_terms``), a skipped row, and rows of both meshes."""
+    ``derive_terms``) for cells the module does not lower: the other
+    mesh and more archs, so that both tables and ``pick_hillclimb``'s
+    min and max see several rows."""
     rows = []
-    for i, (arch, shape, mesh) in enumerate([("qwen3-4b", "train_4k", "single"),
-                                             ("qwen3-4b", "train_4k", "multi"),
+    for i, (arch, shape, mesh) in enumerate([("qwen3-4b", "train_4k", "multi"),
                                              ("dbrx-132b", "decode_32k", "single"),
-                                             ("gemma3-12b", "prefill_32k", "single")]):
+                                             ("gemma3-12b", "prefill_32k", "single")], 1):
         cost = HloCost(flops=1e15 * (i + 1), bytes=3e12 / (i + 1), comm_bytes=2e11 * i,
                        comm_by_op={"all-gather": 2e11 * i, "all-reduce": 1e10,
                                    "reduce-scatter": 0.0, "all-to-all": 0.0,
@@ -135,17 +155,20 @@ def _records():
         rows.append({"arch": arch, "shape": shape, "mesh": mesh, "status": "ok",
                      "compile_s": 1.5 * i, "memory": {"peak_bytes": 2 ** 33 * (i + 1)},
                      "roofline": terms.to_dict()})
-    rows.append({"arch": "qwen3-4b", "shape": "long_500k", "mesh": "single",
-                 "status": "skipped", "reason": "pure full-attention arch at 500k ctx"})
     return rows
 
 
-def test_report_text_equals_the_reference(tmp_path):
+def test_report_text_equals_the_reference(real_rows, tmp_path):
+    """The report over real ``lower_cell`` rows (a lowered cell and a
+    skipped one) beside rows of the other mesh and other archs equals
+    the reference's report over the same JSONL."""
     path = tmp_path / "r.jsonl"
-    path.write_text("".join(json.dumps(r) + "\n" for r in _records() + _records()[:1]))
-    rows, want_rows = report.load(str(path)), r_report.load(str(path))
-    assert rows == want_rows and len(rows) == 5
+    rows = real_rows[0] + _synthetic_rows()
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows + rows[:1]))
+    got, want_rows = report.load(str(path)), r_report.load(str(path))
+    assert got == want_rows and len(got) == 5
     for mesh in ("single", "multi"):
-        assert report.dryrun_table(rows, mesh) == r_report.dryrun_table(rows, mesh)
-    assert report.roofline_table(rows) == r_report.roofline_table(rows)
-    assert report.pick_hillclimb(rows) == r_report.pick_hillclimb(rows)
+        table = report.dryrun_table(got, mesh)
+        assert table == r_report.dryrun_table(got, mesh) and table.count("| ok |") >= 1
+    assert report.roofline_table(got) == r_report.roofline_table(got)
+    assert report.pick_hillclimb(got) == r_report.pick_hillclimb(got)

@@ -1217,3 +1217,63 @@ def test_sharded_train_step_of_four_ranks_on_one_card(cuda):
         assert r["grad_max_abs_err"] <= 1e-2, r
         assert r["b5"] == 12 * r["layers"], r
         assert r["counts"]["staged"] > 0 and r["counts"]["staged"] == sum(r["counts"]["ops"].values())
+
+
+#: one card's train step of smoke qwen3-4b in bf16 on a one-rank mesh, in a
+#: process of its own (a (1, 1) mesh issues no collective): its peak, flops
+#: and argument bytes as a JSON line
+_PEAK_STEP = """
+import dataclasses, json, torch
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+
+cuda = torch.device("cuda", 0)
+cfg = dataclasses.replace(smoke_variant(get_config("qwen3-4b")), dtype="bfloat16")
+real = Mesh.deviceless((1, 1), ("data", "model"))
+real.device = cuda
+
+
+def before():
+    torch.cuda.synchronize(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+
+
+with dryrun.lowering(real, cfg):
+    got = dryrun.lower_step(cfg, "train", 4, 256, real, before=before)
+torch.cuda.synchronize(cuda)
+print(json.dumps({"peak": torch.cuda.max_memory_allocated(cuda), "flops": got["cost"].flops,
+                  "argument_bytes": got["memory"]["argument_bytes"]}))
+"""
+
+
+def test_deviceless_peak_predicts_the_card(cuda):
+    """A one-card train step of smoke qwen3-4b in bf16 lowered on a
+    deviceless one-rank mesh predicts the card's ``max_memory_allocated``
+    (reset after the state is placed) within 10%, and counts what the
+    card counts. The card runs the step in a fresh process, as the
+    forecast assumes (cuBLAS's workspaces are the step's to allocate)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-4b")), dtype="bfloat16")
+    mesh = Mesh.deviceless((1, 1), ("data", "model"))
+    with dryrun.lowering(mesh, cfg):
+        want = dryrun.lower_step(cfg, "train", 4, 256, mesh)
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p)}
+    run = subprocess.run([sys.executable, "-c", _PEAK_STEP], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["flops"] == want["cost"].flops
+    assert got["argument_bytes"] == want["memory"]["argument_bytes"]
+    assert abs(got["peak"] / want["memory"]["peak_bytes"] - 1) <= 0.10, (got, want["memory"])

@@ -35,3 +35,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.kernels.collective_matmul", "repro_torch.train.act_sharding",
             "repro_torch.train.elastic", "repro_torch.train.pipeline"} <= set(result["imported"])
     assert result["bad"] == []
+
+
+def test_no_program_file_names_torch_testing():
+    """``torch.testing`` (its private ``fake_pg`` among it) is for tests:
+    no module of the port and not ``chip_smoke.py`` names it."""
+    root = SRC.parent
+    files = list((SRC / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    named = [str(f.relative_to(root)) for f in files if "torch.testing" in f.read_text()]
+    assert named == []

@@ -768,3 +768,64 @@ __all__ = ["collective_matmuls", "collective_world", "compiled_grads", "compiled
            "offload_layout", "ops_checks", "pipeline_world", "plan_steps", "redistribution_pairs",
            "redistribution_world",
            "restart_world", "ring_grads", "serve_world", "sharded_batches", "train_world"]
+
+
+def _requests(spec):
+    """``serve.Request`` s from ``(uid, prompt, max_new_tokens, arrival)``."""
+    from repro_torch.serve import Request
+
+    return [Request(uid=u, prompt=np.asarray(p, np.int32), max_new_tokens=n, arrival=a)
+            for u, p, n, a in spec]
+
+
+def batcher_tokens(engine, spec, **kw):
+    """``{uid: tokens}`` of a ``ContinuousBatcher`` over ``engine`` (on one
+    card or a mesh) driven through the requests of ``spec``, and the
+    batcher (its transfer bytes and parked log)."""
+    from repro_torch.serve import ContinuousBatcher
+
+    bat = ContinuousBatcher(engine, **kw)
+    res = bat.run(_requests(spec))
+    return {u: [int(t) for t in r.tokens] for u, r in sorted(res.items())}, bat
+
+
+def batcher_world(mesh, jobs, spec, slots, max_seq, temperature):
+    """For each ``(cfg, params)`` of ``jobs``: the mesh batcher's greedy
+    tokens, its tokens with ``offload=True`` and too few device pages
+    (with this rank's transfer bytes and page-outs), and its tokens at
+    ``temperature``."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for name, (cfg, params) in jobs.items():
+        eng = ServeEngine(build_model(cfg, device="cpu"), batch_size=slots, max_seq=max_seq,
+                          device="cpu", mesh=mesh)
+        eng.load(_torch_tree(params))
+        greedy, _ = batcher_tokens(eng, spec, page_size=4)
+        parked, bat = batcher_tokens(eng, spec, page_size=4, n_pages=4, offload=True)
+        sampled, _ = batcher_tokens(eng, spec, page_size=4, temperature=temperature)
+        out[name] = {"greedy": greedy, "offload": parked, "sampled": sampled,
+                     "transfer_bytes": bat.transfer_bytes,
+                     "page_outs": sum(1 for e in bat.transfer_log if e[0] == "page_out")}
+    return out
+
+
+def lowered_counts(mesh, cfg, kind, batch, seq):
+    """This rank's counted step of ``kind`` (``dryrun.lower_step``), run
+    for real on the world's mesh: flops, bytes, comm bytes and counts by
+    kind, argument bytes and program calls."""
+    from repro_torch.launch import dryrun
+
+    with dryrun.lowering(mesh, cfg):
+        return count_record(dryrun.lower_step(cfg, kind, batch, seq, mesh))
+
+
+def count_record(got):
+    """The comparable fields of a ``dryrun.lower_step`` result."""
+    cost = got["cost"]
+    return {"flops": cost.flops, "bytes": cost.bytes, "comm_by_op": cost.comm_by_op,
+            "comm_counts": cost.comm_counts,
+            "argument_bytes": got["memory"]["argument_bytes"],
+            "calls": {k: v[0] for k, v in cost.by_op.items() if "/" in k},
+            "layout": got["layout"]}
