@@ -1,0 +1,6 @@
+"""peak_mem_gib: ``torch.cuda.max_memory_allocated`` over the window, GiB."""
+
+
+def read(layer):
+    b = layer.get("peak_window_bytes")
+    return b / 2 ** 30 if b else None
